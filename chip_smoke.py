@@ -3,15 +3,19 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from csrc/ (nvcc, sm_90a), then runs four
-phases, printing one JSON object per phase:
+Builds the port's CUDA kernels from csrc/ (nvcc, sm_90a, one process per
+source, all started together), then runs five phases, printing one JSON
+object per phase:
 
 1. device         — nvidia-smi name/power limit, toolchain versions, build seconds.
-2. kernel parity  — every kernel against its plain PyTorch version on the card,
-                    at B in {1, 16, 64}, D = 384, N = 1024 * {1, 64, 1024},
+2. kernel parity  — every kernel against its plain PyTorch version on the card.
+                    block_topk: B in {1, 16, 64}, D = 384, N = 1024 * {1, 64, 1024},
                     k in {1, 10, 40, 1024}, f32 and bf16 corpora with exact ties,
                     invalid rows and fully invalid blocks; then random unit
-                    vectors at the main-path shape.
+                    vectors at the main-path shape. paged_attention: B in
+                    {1, 8, 64} x H in {1, 4, 32} x P in {8, 16} x Dp in {128, 256},
+                    256 pages per table (contexts up to 4096 tokens) drawn from a
+                    1025-page pool, ragged seq_lens with 0, P, P+1, full and < 0.
 3. main path      — the live-RAG retrieval path at full default width:
                     SentenceTransformerEmbedder (vocab 30522, dim 384, depth 6,
                     heads 6, max_len 512, bf16, seeded init) embeds 4096 seeded
@@ -19,9 +23,19 @@ phases, printing one JSON object per phase:
                     beside ~1M seeded unit vectors; 64 query texts are answered in
                     batches of 1 and 16 (k = 10) plus one filtered batch. The
                     results are checked against kernel="torch" on the same index.
-4. kernels        — per kernel: launches on the main path, ms at the main-path
-                    shape, its plain version's ms, the bound, and the ms of one
-                    library call computing the same function (the yardstick).
+4. generation     — ask -> retrieve -> generate: 24 asks are embedded and
+                    retrieved (k = 3) on the phase-3 index, each grounded prompt
+                    goes to one DecodeScheduler(GenerateConfig()) at the decoder's
+                    serving defaults (dim 128, 2 layers, 4 heads, head_dim 32,
+                    64 pages of 16, max_batch 8, 32 new tokens; half greedy, half
+                    temperature 0.7 / top_k 40), whose every step runs the
+                    paged-attention kernel. Checked: every answer, the page pool
+                    back to empty, launches == decode steps x layers, the same
+                    tokens from a kernel="ref" scheduler, and the logits of one
+                    recorded step, kernel against plain.
+5. kernels        — per kernel: launches on its path, ms at the path's shapes,
+                    its plain version's ms, the bound, and the ms of the library
+                    call(s) computing the same function (the yardstick).
 
 Then, on lines of their own, the kernels table, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failed check raises: the script exits
@@ -35,6 +49,7 @@ import json
 import subprocess
 import sys
 import time
+from dataclasses import replace
 from pathlib import Path
 
 import numpy as np
@@ -53,6 +68,19 @@ KEY_BASE = 10_000_000  # keys of the synthetic unit vectors, disjoint from docs
 # same f32 sum-order tolerance holds for bf16 corpora.
 F32_TOL = 1e-5
 BF16_TOL = 1e-5
+# paged attention, kernel vs plain, absolute: outputs are softmax-weighted
+# means of N(0, 1) values; the kernel sums scores and up to 4096 weighted
+# rows in another order (per-warp online softmax, merged at the end) than the
+# plain version's batched products, so the f32 rounding grows with context
+PA_TOL = 1e-5
+PA_POOL_PAGES = 1025
+PA_MAX_PAGES = 256
+# decode-step logits, kernel vs plain attention: the attention differences
+# above, carried through 2 layers and the tied-embedding head
+GEN_LOGIT_TOL = 1e-4
+N_ASKS = 24
+RETRIEVE_K = 3
+RECORD_STEP = 150  # the decode step whose inputs the phase records
 PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}  # dense, H100 SXM
 
 
@@ -91,6 +119,32 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_times(fn, reps: int = 20) -> dict[str, tuple[int, float]] | None:
+    """Run ``fn`` ``reps`` times under torch.profiler: {device kernel or
+    copy name: (launches, device ms in all)}, or None when the trace shows
+    no device time (the times are a measurement only)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {
+        e.key: (e.count, e.self_device_time_total / 1e3)
+        for e in prof.key_averages()
+        if e.device_type == DeviceType.CUDA
+    }
+    return out if sum(ms for _n, ms in out.values()) > 0 else None
+
+
+def kernel_device_ms(times: dict | None, name: str, reps: int) -> float | None:
+    """Device ms per call of the kernels whose name contains ``name``."""
+    if times is None:
+        return None
+    return sum(ms for key, (_n, ms) in times.items() if name in key) / reps
 
 
 # --- phase 2: kernel parity --------------------------------------------------
@@ -172,6 +226,57 @@ def kernel_parity(dev) -> dict:
         "random_max_abs_err": max_err,
         "random_tol": {"float32": F32_TOL, "bfloat16": BF16_TOL},
         "random_index_equal_fraction": exact / total,
+        "paged_attention": paged_parity(dev),
+    }
+
+
+def paged_parity(dev) -> dict:
+    """The paged-attention kernel against paged_attention_ref over the grid
+    B x H x P x Dp, 256-page tables over a 1025-page pool, random values
+    in every lane (pad lanes included) and ragged lengths with the edges."""
+    from pathway_tpu_torch.ops import paged_attention as pa
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    cases, max_err, zero_rows = 0, 0.0, 0
+    for dp in (128, 256):
+        for p in (8, 16):
+            for h in (1, 4, 32):
+                k = torch.randn(PA_POOL_PAGES, h, p, dp, generator=gen, device=dev)
+                v = torch.randn(PA_POOL_PAGES, h, p, dp, generator=gen, device=dev)
+                full = PA_MAX_PAGES * p
+                for b in (1, 8, 64):
+                    q = torch.randn(b, h, dp, generator=gen, device=dev)
+                    pt = torch.randint(
+                        1, PA_POOL_PAGES, (b, PA_MAX_PAGES), generator=gen, device=dev,
+                        dtype=torch.int32,
+                    )
+                    sl = torch.randint(
+                        0, full + 1, (b,), generator=gen, device=dev, dtype=torch.int32
+                    )
+                    edges = torch.tensor([0, p, p + 1, full, -3], dtype=torch.int32, device=dev)
+                    if b == 1:
+                        sl[0] = edges[cases % 4]
+                    else:
+                        sl[:5] = edges
+                    got = pa.paged_attention(q, k, v, pt, sl, sm_scale=32**-0.5)
+                    ref = pa.paged_attention_ref(q, k, v, pt, sl, sm_scale=32**-0.5)
+                    torch.cuda.synchronize()
+                    what = f"B={b} H={h} P={p} Dp={dp}"
+                    err = float((got - ref).abs().max())
+                    max_err = max(max_err, err)
+                    check(err <= PA_TOL, f"paged attention differs by {err} at {what}")
+                    empty = sl <= 0
+                    check(bool((got[empty] == 0).all()), f"an empty row is not exactly 0 at {what}")
+                    zero_rows += int(empty.sum())
+                    cases += 1
+                del k, v
+    return {
+        "cases": cases,
+        "pool_pages": PA_POOL_PAGES,
+        "max_pages": PA_MAX_PAGES,
+        "max_abs_err": max_err,
+        "tol": PA_TOL,
+        "empty_rows_exactly_zero": zero_rows,
     }
 
 
@@ -243,6 +348,7 @@ def main_path(dev) -> tuple[dict, dict]:
     filtered = [docs[i] for i in in_group3]
 
     bt.block_topk.launches = 0
+    torch.cuda.reset_peak_memory_stats()  # the parity phase's peak is not the path's
     t0 = time.perf_counter()
     emb = SentenceTransformerEmbedder(device=dev)  # seeded init, seed 0
     check(emb.get_embedding_dimension() == DIM, "embedding width")
@@ -343,7 +449,269 @@ def main_path(dev) -> tuple[dict, dict]:
     }
     prep, _c2, valid = index.corpus.prepared_arrays("cosine", bf16=False)
     shapes = {bs: torch.from_numpy(np.stack(qv[:bs])).to(dev) for bs in (1, 16)}
-    return phase, {"prep": prep, "valid": valid, "queries": shapes, "launches": launches}
+    return phase, {
+        "prep": prep, "valid": valid, "queries": shapes, "launches": launches,
+        "index": index, "emb": emb,
+    }
+
+
+# --- phase 4: generation ------------------------------------------------------
+
+
+class StepRecorder:
+    """Wraps decoder.decode_step for one scheduler run: passes every call
+    through, and keeps the inputs (and copies of the pools as they were
+    before the call) of the RECORD_STEP-th step."""
+
+    def __init__(self, dec):
+        self.dec, self.orig, self.calls, self.step = dec, dec.decode_step, 0, None
+
+    def __enter__(self):
+        self.dec.decode_step = self
+        return self
+
+    def __exit__(self, *exc):
+        self.dec.decode_step = self.orig
+
+    def __call__(self, params, tokens, positions, k_pool, v_pool, pt, sl, **kw):
+        self.calls += 1
+        if self.calls == RECORD_STEP:
+            self.step = {
+                "params": params, "tokens": tokens.clone(), "positions": positions.clone(),
+                "k_pool": k_pool.clone(), "v_pool": v_pool.clone(), "pt": pt.clone(),
+                "sl": sl.clone(), "cfg": kw["cfg"],
+            }
+        return self.orig(params, tokens, positions, k_pool, v_pool, pt, sl, **kw)
+
+
+def replay(step: dict, kernel: str):
+    """decode_step on the recorded inputs (fresh copies of the pools)."""
+    from pathway_tpu_torch.xpacks.llm import decoder as dec
+
+    logits, _k, _v = dec.decode_step(
+        step["params"], step["tokens"], step["positions"], step["k_pool"].clone(),
+        step["v_pool"].clone(), step["pt"], step["sl"], cfg=step["cfg"], kernel=kernel,
+    )
+    return logits
+
+
+def prefix_logits(params, dcfg, tokens: list[int], kernel: str, dev) -> np.ndarray:
+    """Logits after feeding ``tokens`` one by one to a lone sequence."""
+    from pathway_tpu_torch.xpacks.llm import decoder as dec
+
+    k, v = dec.empty_pools(dcfg, dcfg.max_pages + 1, device=dev)
+    pt = torch.arange(1, dcfg.max_pages + 1, dtype=torch.int32, device=dev)[None]
+
+    def one(x: int) -> torch.Tensor:
+        return torch.tensor([x], dtype=torch.int32, device=dev)
+
+    for i, t in enumerate(tokens):
+        logits, k, v = dec.decode_step(
+            params, one(t), one(i), k, v, pt, one(i + 1), cfg=dcfg, kernel=kernel
+        )
+    return logits[0].cpu().numpy()
+
+
+def run_requests(sched, prompts: list[list[int]]) -> tuple[list[dict], list[float], float]:
+    """Submit every prompt (even ones greedy, odd ones seeded top-k samples)
+    and wait: (results, time to first token per request, wall seconds)."""
+    from pathway_tpu_torch.generate import GenerationRequest
+
+    first: dict[int, float] = {}
+    reqs = []
+    t0 = time.perf_counter()
+    for i, prompt in enumerate(prompts):
+        def on_token(_tok, _done, i=i):
+            first.setdefault(i, time.monotonic())
+
+        sampled = dict(temperature=0.7, top_k=40, seed=SEED + i) if i % 2 else {}
+        req = GenerationRequest(
+            f"ask-{i}", prompt, deadline=time.monotonic() + 600.0,
+            max_new_tokens=sched.config.max_new_tokens, on_token=on_token, **sampled,
+        )
+        sched.submit(req)
+        reqs.append(req)
+    results = [r.wait(600.0) for r in reqs]
+    wall = time.perf_counter() - t0
+    check(all(r is not None for r in results), "a generation request never finished")
+    ttft = [first[i] - r.created_at for i, r in enumerate(reqs) if i in first]
+    return results, ttft, wall
+
+
+def layer_inputs(step: dict, li: int = 0) -> tuple:
+    """The paged-attention call of layer ``li`` in the recorded step: a
+    seeded q of its shape, and the step's pools, page table and lengths."""
+    k, v = step["k_pool"][li], step["v_pool"][li]
+    gen = torch.Generator(device=k.device).manual_seed(SEED + 4)
+    q = torch.randn(step["tokens"].shape[0], k.shape[1], k.shape[3], generator=gen, device=k.device)
+    return q, k, v, step["pt"], step["sl"]
+
+
+def step_anatomy(step: dict) -> dict:
+    """Where one decode step at the recorded shape goes: its host wall time
+    (inputs already on the card, logits back with .cpu()), the kernel's
+    CUDA-event time over back-to-back launches, and from a torch.profiler
+    trace the kernel's own device time per step and the card's busy time
+    per step (every device kernel and copy)."""
+    from pathway_tpu_torch.ops import paged_attention as pa
+    from pathway_tpu_torch.xpacks.llm import decoder as dec
+
+    k_pool, v_pool = step["k_pool"].clone(), step["v_pool"].clone()
+
+    def one_step():
+        logits, _k, _v = dec.decode_step(
+            step["params"], step["tokens"], step["positions"], k_pool, v_pool, step["pt"],
+            step["sl"], cfg=step["cfg"], kernel="cuda",
+        )
+        return logits.cpu()
+
+    for _ in range(5):
+        one_step()
+    reps = 50
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        one_step()
+    replay_ms = (time.perf_counter() - t0) / reps * 1e3
+    q, k, v, pt, sl = layer_inputs(step)
+    kernel_ms = cuda_ms(lambda: pa.paged_attention(q, k, v, pt, sl, sm_scale=1.0), iters=200)
+    times = device_times(one_step)
+    busy_ms = None if times is None else sum(ms for _n, ms in times.values()) / 20
+    return {
+        "replay_step_ms": replay_ms,
+        "kernel_event_ms": kernel_ms,
+        "kernel_device_ms_per_step": kernel_device_ms(times, "paged_decode_kernel", 20),
+        "device_busy_ms_per_step": busy_ms,
+        "device_busy_share_of_replay_step": None if busy_ms is None else busy_ms / replay_ms,
+        "device_ops_per_step": None if times is None else sum(n for n, _ms in times.values()) / 20,
+    }
+
+
+def generation(dev, main: dict) -> tuple[dict, dict]:
+    from pathway_tpu_torch.generate import DecodeScheduler, GenerateConfig, assemble_prompt
+    from pathway_tpu_torch.ops import block_topk as bt
+    from pathway_tpu_torch.ops import paged_attention as pa
+    from pathway_tpu_torch.xpacks.llm import decoder as dec
+
+    emb, index = main["emb"], main["index"]
+    rng = np.random.default_rng(SEED + 2)
+    words = [f"term{i}" for i in range(20000)]
+    asks = [f"what does {' '.join(rng.choice(words, size=4))} mean?" for _ in range(N_ASKS)]
+    cfg = GenerateConfig()
+
+    bt.block_topk.launches = 0
+    pa.paged_attention.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    vecs = emb.embed_batch(asks)
+    matches = index.search([(v, RETRIEVE_K, None) for v in vecs])
+    prompts = [dec.encode_text(assemble_prompt(a, m)) for a, m in zip(asks, matches)]
+    retrieve_s = time.perf_counter() - t0
+    sched = DecodeScheduler(cfg, device=dev)
+    try:
+        with StepRecorder(dec) as rec:
+            results, ttft, wall = run_requests(sched, prompts)
+        stats = sched.stats()
+        launches = pa.paged_attention.launches
+        topk_launches = bt.block_topk.launches
+        in_use = sched.pool.in_use
+        step_ms = np.array(sched.step_seconds) * 1e3
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    finally:
+        sched.stop()
+
+    check(all(len(m) == RETRIEVE_K for m in matches), "an ask retrieved fewer than k docs")
+    check(topk_launches > 0, "retrieval never launched the block_topk kernel")
+    check(stats["kernel"] == "cuda", f"the default scheduler chose kernel {stats['kernel']!r}")
+    for i, r in enumerate(results):
+        check(r["status"] == 200, f"ask {i} answered {r}")
+        n = r["token_count"]
+        check(
+            n == cfg.max_new_tokens or (0 < n < cfg.max_new_tokens and r["tokens"][-1] == dec.EOS),
+            f"ask {i} returned {n} tokens",
+        )
+    check(in_use == 0, f"{in_use} KV pages still in use after every request finished")
+    steps = stats["decode_steps"]
+    check(
+        launches == steps * cfg.n_layers,
+        f"paged_attention launched {launches} times over {steps} steps x {cfg.n_layers} layers",
+    )
+    check(rec.step is not None, "fewer decode steps than the recorded one")
+
+    # the same requests through a scheduler on the plain attention
+    ref_sched = DecodeScheduler(replace(cfg, kernel="ref"), device=dev)
+    try:
+        ref_results, _ttft, ref_wall = run_requests(ref_sched, prompts)
+    finally:
+        ref_sched.stop()
+    check(pa.paged_attention.launches == launches, 'kernel="ref" launched the kernel')
+    equal = sum(a["tokens"] == b["tokens"] for a, b in zip(results, ref_results))
+    diverged = []
+    for i, (a, b) in enumerate(zip(results, ref_results)):
+        if a["tokens"] == b["tokens"]:
+            continue
+        # tokens may part only where the two attentions' logits, equal
+        # within GEN_LOGIT_TOL, sit on a near-tie: replay that prefix alone
+        at = next(j for j, (x, y) in enumerate(zip(a["tokens"], b["tokens"])) if x != y)
+        prefix = prompts[i] + a["tokens"][:at]
+        zc = prefix_logits(sched.params, sched.dcfg, prefix, "cuda", dev)
+        zr = prefix_logits(sched.params, sched.dcfg, prefix, "ref", dev)
+        gap = float(np.abs(zc - zr).max())
+        check(gap <= GEN_LOGIT_TOL, f"ask {i}: logits differ by {gap} where tokens part")
+        if i % 2 == 0:  # greedy: both choices within the tolerance of the top
+            top = float(zr.max())
+            tie = max(top - zr[a["tokens"][at]], top - zr[b["tokens"][at]])
+            check(tie <= 2 * GEN_LOGIT_TOL, f"ask {i}: greedy tokens part {tie} below the top")
+        diverged.append({"ask": i, "at": at, "logit_gap": gap})
+
+    step = rec.step
+    lc, lr = replay(step, "cuda"), replay(step, "ref")
+    step_err = float((lc - lr).abs().max())
+    check(step_err <= GEN_LOGIT_TOL, f"recorded step: logits differ by {step_err}")
+    shape = (step["tokens"].shape[0], cfg.decoder_config().vocab_size)
+    check(bool(torch.isfinite(lc).all()) and lc.shape == shape, "recorded step: bad logits")
+    anatomy = step_anatomy(step)
+    pa.paged_attention.launches = launches  # the replays above are not the path's
+
+    generated = sum(r["token_count"] for r in results)
+    step_p50 = float(np.percentile(step_ms, 50))
+    phase = {
+        "phase": "generation",
+        "asks": N_ASKS,
+        "retrieve_k": RETRIEVE_K,
+        "retrieve_s": retrieve_s,
+        "prompt_tokens": [min(len(p) for p in prompts), max(len(p) for p in prompts)],
+        "config": {k: getattr(cfg, k) for k in (
+            "dim", "n_layers", "n_heads", "head_dim", "ffn_dim", "max_len", "page_size",
+            "n_pages", "max_batch", "max_new_tokens")},
+        "generated_tokens": generated,
+        "fed_tokens": sum(len(p) for p in prompts) + generated,
+        "wall_s": wall,
+        "tokens_per_s": generated / wall,
+        "ttft_p50_ms": float(np.percentile(ttft, 50)) * 1e3,
+        "ttft_max_ms": float(np.max(ttft)) * 1e3,
+        "decode_steps": steps,
+        "step_p50_ms": step_p50,
+        "step_p99_ms": float(np.percentile(step_ms, 99)),
+        "paged_attention_launches": launches,
+        "block_topk_launches": topk_launches,
+        "peak_device_gib": peak_gib,
+        "ref_wall_s": ref_wall,
+        "ref_tokens_equal": equal,
+        "ref_diverged_at_near_ties": diverged,
+        "recorded_step": {
+            "bucket": int(step["tokens"].shape[0]),
+            "seq_lens": step["sl"].tolist(),
+            "logits_max_abs_err": step_err,
+            "tol": GEN_LOGIT_TOL,
+        },
+        "step_anatomy": anatomy,
+        "kernel_share_of_step_p50": cfg.n_layers * anatomy["kernel_event_ms"] / step_p50,
+        "kernel_device_share_of_step_p50": None if anatomy["kernel_device_ms_per_step"] is None
+        else anatomy["kernel_device_ms_per_step"] / step_p50,
+        "device_busy_share_of_step_p50": None if anatomy["device_busy_ms_per_step"] is None
+        else anatomy["device_busy_ms_per_step"] / step_p50,
+    }
+    return phase, {"step": step, "launches": launches}
 
 
 # --- phase 4: kernel times ----------------------------------------------------
@@ -402,6 +770,84 @@ def kernel_times(main: dict, rate: float, rate_src: str) -> list[dict]:
     }]
 
 
+def paged_shape_times(label: str, q, k, v, pt, sl, sm_scale: float, rate: float) -> dict:
+    """The paged-attention kernel, its plain version and the library
+    yardstick on one set of inputs, with the bound from what they need."""
+    import torch.nn.functional as F
+
+    from pathway_tpu_torch.ops import paged_attention as pa
+
+    b, h, dp = q.shape
+    _n, _h, p, _dp = k.shape
+    ctx = pt.shape[1] * p
+    before = pa.paged_attention.launches
+    ms = cuda_ms(lambda: pa.paged_attention(q, k, v, pt, sl, sm_scale=sm_scale), iters=100)
+    plain_ms = cuda_ms(lambda: pa.paged_attention_ref(q, k, v, pt, sl, sm_scale=sm_scale), iters=10)
+    ptl = pt.long()
+    mask = (torch.arange(ctx, device=q.device)[None, :] < sl[:, None])[:, None, None, :]
+
+    def library():  # gather the pages, then one fused attention call
+        kk = k[ptl].permute(0, 2, 1, 3, 4).reshape(b, h, ctx, dp)
+        vv = v[ptl].permute(0, 2, 1, 3, 4).reshape(b, h, ctx, dp)
+        return F.scaled_dot_product_attention(q[:, :, None, :], kk, vv, attn_mask=mask, scale=sm_scale)
+
+    library_ms = cuda_ms(library, iters=10)
+    times = device_times(lambda: pa.paged_attention(q, k, v, pt, sl, sm_scale=sm_scale))
+    got = pa.paged_attention(q, k, v, pt, sl, sm_scale=sm_scale)
+    ref = pa.paged_attention_ref(q, k, v, pt, sl, sm_scale=sm_scale)
+    pa.paged_attention.launches = before  # timing launches are not the path's
+    n = sl.clamp(0, ctx).long()
+    live = int(n.sum())
+    # each live K and V row read once, q read and the output written once,
+    # the live page-table entries and seq_lens read once
+    nbytes = live * h * dp * 4 * 2 + 2 * b * h * dp * 4 + int(((n + p - 1) // p).sum()) * 4 + b * 4
+    ops = 4.0 * live * h * dp  # q.k and w.v, 2 operations per multiply-add
+    t_bytes = nbytes / rate * 1e3
+    t_ops = ops / PEAK_OPS_PER_S["float32"] * 1e3
+    return {
+        "shape": label, "B": b, "H": h, "P": p, "Dp": dp, "n_pages": k.shape[0],
+        "max_pages": pt.shape[1], "live_tokens": live,
+        "ms": ms, "device_ms": kernel_device_ms(times, "paged_decode_kernel", 20),
+        "plain_ms": plain_ms, "library_ms": library_ms,
+        "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bytes": nbytes, "ops": ops, "max_abs_err": float((got - ref).abs().max()),
+    }
+
+
+def paged_kernel_times(gen: dict, rate: float, rate_src: str) -> dict:
+    q, k, v, pt, sl = layer_inputs(gen["step"])
+    shapes = [paged_shape_times("main path (recorded step, layer 0)", q, k, v, pt, sl, 1.0, rate)]
+    # long context: 32 sequences of 2048 tokens over 4096 scattered pages
+    dev = q.device
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    b, h, p, dp, mp = 32, 8, 16, 128, 128
+    k = torch.randn(b * mp + 1, h, p, dp, generator=g, device=dev)
+    v = torch.randn(b * mp + 1, h, p, dp, generator=g, device=dev)
+    q = torch.randn(b, h, dp, generator=g, device=dev)
+    pt = (torch.randperm(b * mp, generator=g, device=dev) + 1).to(torch.int32).reshape(b, mp)
+    sl = torch.full((b,), mp * p, dtype=torch.int32, device=dev)
+    shapes.append(paged_shape_times("long context", q, k, v, pt, sl, 32**-0.5, rate))
+    check(all(s["max_abs_err"] <= PA_TOL for s in shapes), "paged attention timing inputs disagree")
+    head = shapes[0]
+    return {
+        "name": "paged_attention",
+        "route": "cuda",
+        "source": "pathway_tpu_torch/csrc/paged_attention.cu",
+        "replaces": "pathway_tpu/ops/paged_attention.py:118",
+        "launches": gen["launches"],
+        "max_abs_err": max(s["max_abs_err"] for s in shapes),
+        "ms": head["ms"],
+        "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"],
+        "bound_by": head["bound_by"],
+        "library_ms": head["library_ms"],
+        "library_call": "two calls: k_pool[page_tables] gather + "
+        "torch.nn.functional.scaled_dot_product_attention with a boolean mask",
+        "memory_rate": rate_src,
+        "per_shape": shapes,
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -432,9 +878,14 @@ def main() -> int:
     emit(kernel_parity(dev))
     phase, main_data = main_path(dev)
     emit(phase)
-    kernels = kernel_times(main_data, rate, rate_src)
+    phase, gen_data = generation(dev, main_data)
+    emit(phase)
+    kernels = kernel_times(main_data, rate, rate_src) + [
+        paged_kernel_times(gen_data, rate, rate_src)
+    ]
     emit({"phase": "kernels", "kernels": kernels})
-    emit({"kernels": [{k: v for k, v in kern.items() if k != "per_batch"} for kern in kernels]})
+    detail = ("per_batch", "per_shape")
+    emit({"kernels": [{k: v for k, v in kern.items() if k not in detail} for kern in kernels]})
     print(smi, flush=True)
     emit({
         "ok": True,

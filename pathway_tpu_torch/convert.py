@@ -1,4 +1,4 @@
-"""Carry flax parameters across to the port's modules.
+"""Carry parameters and state across from the JAX package to the port.
 
 ``flax_to_torch(params, module)`` loads a flax parameter tree (numpy arrays,
 or anything ``np.asarray`` accepts, with or without the top-level
@@ -16,6 +16,13 @@ Layout rules:
   as ``[heads, head_dim, dim]``: flatten the head axes, then transpose.
 * flax ``LayerNorm`` ``scale`` is ``weight``. Its default eps is 1e-6, which
   the port's modules already use (torch's default would be 1e-5).
+
+The generation decoder is a plain parameter tree, not a module:
+``decoder_params_to_torch(params, device)`` moves the numpy tree of
+``init_params`` (either package's: they are the same numpy code) onto a
+device with the same keys and layer list, and ``pools_to_torch(k_pool,
+v_pool, device)`` carries K/V pools ``[L, n_pages, H, P, Dp]`` held by a JAX
+scheduler across, so the port's ``decode_step`` continues the same sequences.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from pathway_tpu_torch._device import resolve_device
 from pathway_tpu_torch.xpacks.llm._bert import BertEncoder
 from pathway_tpu_torch.xpacks.llm._encoder import CrossEncoderHead, TransformerEncoder
 
@@ -112,3 +120,34 @@ def flax_to_torch(params: dict, module: nn.Module) -> nn.Module:
         state[k] = torch.tensor(v)
     module.load_state_dict(state, strict=True)
     return module
+
+
+def decoder_params_to_torch(params: dict, device: str | torch.device) -> dict:
+    """The decoder's numpy parameter tree as f32 tensors on ``device``: the
+    same keys, and ``"layers"`` the same list of per-layer dicts."""
+    dev = resolve_device(device)
+
+    def t(x: Any) -> torch.Tensor:
+        return torch.from_numpy(np.array(x, dtype=np.float32)).to(dev)
+
+    out = {k: t(v) for k, v in params.items() if k != "layers"}
+    out["layers"] = [{k: t(v) for k, v in layer.items()} for layer in params["layers"]]
+    return out
+
+
+def pools_to_torch(
+    k_pool: Any, v_pool: Any, device: str | torch.device
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K/V pools ``[L, n_pages, H, P, Dp]`` (numpy, or anything
+    ``np.asarray`` accepts) as contiguous f32 tensors on ``device``, byte
+    for byte."""
+    dev = resolve_device(device)
+    pools = []
+    for pool in (k_pool, v_pool):
+        a = np.asarray(pool)
+        if a.ndim != 5 or a.dtype != np.float32:
+            raise ValueError(f"pools must be [L, n_pages, H, P, Dp] float32, got {a.shape} {a.dtype}")
+        pools.append(torch.from_numpy(np.array(a, copy=True)).to(dev))
+    if pools[0].shape != pools[1].shape:
+        raise ValueError(f"k_pool {tuple(pools[0].shape)} and v_pool {tuple(pools[1].shape)} differ")
+    return pools[0], pools[1]

@@ -1,7 +1,9 @@
-"""pathway_tpu_torch.ops — dense KNN and the hand-written block top-k kernel
-(counterpart of ``pathway_tpu/ops/__init__.py``; only the retrieval ops are
-ported so far). The raw kernel wrapper is ``ops.block_topk.block_topk``; the
-name ``block_topk`` here stays the module."""
+"""pathway_tpu_torch.ops — dense KNN with the hand-written block top-k kernel,
+and ragged paged attention with the hand-written decode kernel (counterpart
+of ``pathway_tpu/ops/__init__.py``; the retrieval and generation ops are
+ported so far). The raw kernel wrappers are ``ops.block_topk.block_topk`` and
+``ops.paged_attention.paged_attention``; the names ``block_topk`` and
+``paged_attention`` here stay the modules."""
 
 from pathway_tpu_torch.ops.block_topk import block_topk_ref, dense_topk_kernel
 from pathway_tpu_torch.ops.knn import (
@@ -12,6 +14,7 @@ from pathway_tpu_torch.ops.knn import (
     dense_topk_prepared,
     prepare_corpus,
 )
+from pathway_tpu_torch.ops.paged_attention import lane_pad, paged_attention_ref
 
 __all__ = [
     "KnnParams",
@@ -22,4 +25,6 @@ __all__ = [
     "DeviceCorpus",
     "block_topk_ref",
     "dense_topk_kernel",
+    "lane_pad",
+    "paged_attention_ref",
 ]

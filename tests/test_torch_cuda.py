@@ -1,11 +1,17 @@
-"""The hand-written CUDA kernel on the card: ``block_topk`` against its plain
-version ``block_topk_ref`` and the index's default path through it.
+"""The hand-written CUDA kernels on the card: ``block_topk`` against its
+plain version ``block_topk_ref`` and the index's default path through it;
+``paged_attention`` against ``paged_attention_ref``, ``decode_step`` with
+``kernel="cuda"`` against ``"ref"``, and the decode scheduler's default path
+through the kernel.
 
 These tests need an NVIDIA card (marker ``cuda``) and skip without one. On
 the card they run without the JAX package, so this file imports no JAX and
 is run with ``python -m pytest --noconftest tests/test_torch_cuda.py``.
-Data are small integers, so every dot product is exact in f32 and the
-kernel must match the plain version bit for bit, ties included."""
+For block_topk the data are small integers, so every dot product is exact
+in f32 and the kernel must match the plain version bit for bit, ties
+included. Paged attention sums random floats in another order than the
+plain version: outputs within 1e-5, logits within 1e-4 (as in
+``chip_smoke.py``), and empty rows exactly 0."""
 
 import numpy as np
 import pytest
@@ -84,3 +90,88 @@ def test_index_default_path_launches_kernel(dev):
         assert [k for k, _s in a] == [k for k, _s in b]
         assert np.allclose([s for _k, s in a], [s for _k, s in b], atol=1e-5)
     assert [r[0][0] for r in got[:7]] == list(range(7))
+
+
+@pytest.mark.parametrize("dp", [128, 256, 384, 512])
+@pytest.mark.parametrize("b,h,p,max_pages", [(1, 1, 8, 3), (8, 4, 16, 16), (5, 3, 4, 40)])
+def test_paged_attention_kernel_matches_plain(dev, dp, b, h, p, max_pages):
+    from pathway_tpu_torch.ops import paged_attention as pa
+
+    g = torch.Generator(device=dev).manual_seed(dp + b)
+    n_pages = 50
+    q = torch.randn(b, h, dp, generator=g, device=dev)
+    k = torch.randn(n_pages, h, p, dp, generator=g, device=dev)
+    v = torch.randn(n_pages, h, p, dp, generator=g, device=dev)
+    pt = torch.randint(0, n_pages, (b, max_pages), generator=g, device=dev, dtype=torch.int32)
+    sl = torch.randint(0, max_pages * p + 1, (b,), generator=g, device=dev, dtype=torch.int32)
+    sl[0] = 0
+    before = pa.paged_attention.launches
+    got = pa.paged_attention(q, k, v, pt, sl, sm_scale=32**-0.5)
+    torch.cuda.synchronize()
+    assert pa.paged_attention.launches == before + 1
+    ref = pa.paged_attention_ref(q, k, v, pt, sl, sm_scale=32**-0.5)
+    assert float((got - ref).abs().max()) <= 1e-5
+    assert (got[0] == 0).all()
+
+
+def test_paged_attention_wrapper_raises_on_bad_cuda_inputs(dev):
+    from pathway_tpu_torch.ops import paged_attention as pa
+
+    q = torch.randn(2, 2, 128, device=dev)
+    k = torch.randn(4, 2, 8, 128, device=dev)
+    pt = torch.zeros(2, 3, dtype=torch.int32, device=dev)
+    sl = torch.ones(2, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):  # a lane width the kernel is not built for
+        pa.paged_attention(q[..., :96].contiguous(), k[..., :96].contiguous(),
+                           k[..., :96].contiguous(), pt, sl, sm_scale=1.0)
+    with pytest.raises(ValueError):
+        pa.paged_attention(q, k, k, pt.cpu(), sl, sm_scale=1.0)
+    with pytest.raises(TypeError):
+        pa.paged_attention(q.half(), k.half(), k.half(), pt, sl, sm_scale=1.0)
+
+
+def test_decode_step_kernel_matches_ref(dev):
+    from pathway_tpu_torch.convert import decoder_params_to_torch
+    from pathway_tpu_torch.xpacks.llm import decoder as dec
+
+    cfg = dec.DecoderConfig(max_len=64, page_size=8)
+    params = decoder_params_to_torch(dec.init_params(cfg, seed=3), dev)
+    pools = {kern: dec.empty_pools(cfg, 10, device=dev) for kern in ("ref", "cuda")}
+    pt = torch.zeros(4, cfg.max_pages, dtype=torch.int32, device=dev)
+    pt[0, :4] = torch.tensor([1, 2, 3, 4])
+    pt[1, :4] = torch.tensor([5, 6, 7, 8])
+    toks = [dec.encode_text("paged attention on the card"), dec.encode_text("second row, longer!")]
+    for i in range(min(len(t) for t in toks)):
+        tok = torch.tensor([toks[0][i], toks[1][i], 0, 0], dtype=torch.int32, device=dev)
+        pos = torch.tensor([i, i, 0, 0], dtype=torch.int32, device=dev)
+        sl = torch.tensor([i + 1, i + 1, 0, 0], dtype=torch.int32, device=dev)
+        out = {}
+        for kern, (k, v) in pools.items():
+            out[kern], *_ = dec.decode_step(params, tok, pos, k, v, pt, sl, cfg=cfg, kernel=kern)
+        assert float((out["cuda"] - out["ref"]).abs().max()) <= 1e-4
+    assert float((pools["cuda"][0] - pools["ref"][0]).abs().max()) <= 1e-4
+
+
+def test_scheduler_default_path_launches_kernel(dev):
+    import time
+
+    from pathway_tpu_torch.generate import DecodeScheduler, GenerateConfig, GenerationRequest
+    from pathway_tpu_torch.ops import paged_attention as pa
+    from pathway_tpu_torch.xpacks.llm import decoder as dec
+
+    s = DecodeScheduler(GenerateConfig())
+    try:
+        assert s.kernel == "cuda"
+        before = pa.paged_attention.launches
+        reqs = [
+            GenerationRequest(f"r{i}", dec.encode_text(f"ask {i}"), deadline=time.monotonic() + 60,
+                              max_new_tokens=8)
+            for i in range(3)
+        ]
+        for r in reqs:
+            s.submit(r)
+        assert all(r.wait(60)["status"] == 200 for r in reqs)
+        assert pa.paged_attention.launches - before == s.stats()["decode_steps"] * 2
+        assert s.pool.in_use == 0
+    finally:
+        s.stop()

@@ -262,7 +262,7 @@ def test_device_corpus_default_device_needs_cuda():
 def test_build_names_libraries_by_source_hash(tmp_path, monkeypatch):
     from pathway_tpu_torch import _build
 
-    assert _build.sources() == ["block_topk"]
+    assert _build.sources() == ["block_topk", "paged_attention"]
     monkeypatch.setattr(_build, "CSRC", tmp_path)
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "out")
     (tmp_path / "k.cu").write_text("// v1\n")
