@@ -12,7 +12,8 @@ object per phase:
                     block_topk: B in {1, 16, 64}, D = 384, N = 1024 * {1, 64, 1024},
                     k in {1, 10, 40, 1024}, f32 and bf16 corpora with exact ties,
                     invalid rows and fully invalid blocks; then random unit
-                    vectors at the main-path shape. paged_attention: B in
+                    vectors at the path shapes (B = 1 and 16 with k = 10, B = 32
+                    with k = 3). paged_attention: B in
                     {1, 8, 64} x H in {1, 4, 32} x P in {8, 16} x Dp in {128, 256},
                     256 pages per table (contexts up to 4096 tokens) drawn from a
                     1025-page pool, ragged seq_lens with 0, P, P+1, full and < 0.
@@ -33,9 +34,15 @@ object per phase:
                     back to empty, launches == decode steps x layers, the same
                     tokens from a kernel="ref" scheduler, and the logits of one
                     recorded step, kernel against plain.
-5. kernels        — per kernel: launches on its path, ms at the path's shapes,
-                    its plain version's ms, the bound, and the ms of the library
-                    call(s) computing the same function (the yardstick).
+5. kernels        — per kernel and per path shape: launches on its path, ms
+                    (CUDA events) and device ms (torch.profiler), its plain
+                    version's ms, the bound and what sets it, the bytes it must
+                    move, and the ms of the library call(s) computing the same
+                    function (the yardstick). block_topk: B = 1 and B = 16
+                    (k = 10, retrieval) and B = 32 (k = 3, the generation
+                    phase's 24 asks padded to 32); paged_attention: the
+                    recorded decode step and a long context, each with its
+                    split count S.
 
 Then, on lines of their own, the kernels table, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failed check raises: the script exits
@@ -46,6 +53,7 @@ without one.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -106,6 +114,21 @@ def memory_rate() -> tuple[float, str]:
     rate, 5120-bit bus (every H100 variant; 3.35e12 on an H100 SXM)."""
     mhz = float(nvidia_smi("clocks.max.memory").split()[0])
     return mhz * 1e6 * 2 * 5120 / 8, f"nvidia-smi clocks.max.memory {mhz:g} MHz x 5120-bit DDR"
+
+
+def ptxas_report(log: str) -> list[str]:
+    """One line per compiled kernel from nvcc -Xptxas -v: its name and
+    template arguments as mangled, registers, static shared memory, spills."""
+    lines, name, spills = [], None, ""
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '\w*?(block_topk_kernel|paged_decode_kernel)I(\w+?)E+v", ln)
+        if m:
+            name = f"{m.group(1)}<{m.group(2)}>"
+        elif "spill" in ln:
+            spills = ln.strip()
+        elif "registers" in ln and name:
+            lines.append(f"{name}: {ln.split('Used', 1)[1].strip()}; {spills}")
+    return lines
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -205,11 +228,11 @@ def kernel_parity(dev) -> dict:
         c = torch.randn(CORPUS_ROWS, DIM, generator=gen, device=dev)
         c = (c / c.norm(dim=-1, keepdim=True)).to(dtype)
         valid = torch.rand(CORPUS_ROWS, generator=gen, device=dev) > 0.01
-        for b in (1, 16):
+        for b, k in ((1, K), (16, K), (32, RETRIEVE_K)):
             q = torch.randn(b, DIM, generator=gen, device=dev)
             q = (q / q.norm(dim=-1, keepdim=True)).to(dtype)
-            sc, ix = bt.block_topk(q, c, valid, K)
-            sr, ir = bt.block_topk_ref(q, c, valid, K)
+            sc, ix = bt.block_topk(q, c, valid, k)
+            sr, ir = bt.block_topk_ref(q, c, valid, k)
             err = float((sc - sr).abs().max())
             max_err[name] = max(max_err[name], err)
             check(err <= tol, f"random scores differ by {err} ({name}, B={b})")
@@ -348,6 +371,7 @@ def main_path(dev) -> tuple[dict, dict]:
     filtered = [docs[i] for i in in_group3]
 
     bt.block_topk.launches = 0
+    bt.block_topk.shapes.clear()
     torch.cuda.reset_peak_memory_stats()  # the parity phase's peak is not the path's
     t0 = time.perf_counter()
     emb = SentenceTransformerEmbedder(device=dev)  # seeded init, seed 0
@@ -401,6 +425,7 @@ def main_path(dev) -> tuple[dict, dict]:
     fres = index.search([(v, K, "group == `3`") for v in fvecs])
     torch.cuda.synchronize()
     launches = bt.block_topk.launches
+    shapes = dict(bt.block_topk.shapes)
 
     check(launches > 0, "the main path never launched the block_topk kernel")
     for qi, doc in enumerate(copied):
@@ -443,15 +468,16 @@ def main_path(dev) -> tuple[dict, dict]:
         "setup_s": setup_s,
         "search": {f"B={bs}": latency[bs] for bs in (1, 16)},
         "block_topk_launches": launches,
+        "block_topk_launches_by_shape": {f"B={b},k={k}": n for (b, k), n in sorted(shapes.items())},
         "results_keys_equal_torch_path": exact,
         "results_compared": len(ref) + len(ref_f),
         "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30,
     }
     prep, _c2, valid = index.corpus.prepared_arrays("cosine", bf16=False)
-    shapes = {bs: torch.from_numpy(np.stack(qv[:bs])).to(dev) for bs in (1, 16)}
+    batches = {bs: torch.from_numpy(np.stack(qv[:bs])).to(dev) for bs in (1, 16)}
     return phase, {
-        "prep": prep, "valid": valid, "queries": shapes, "launches": launches,
-        "index": index, "emb": emb,
+        "prep": prep, "valid": valid, "queries": batches, "launches": launches,
+        "shapes": shapes, "index": index, "emb": emb,
     }
 
 
@@ -599,11 +625,13 @@ def generation(dev, main: dict) -> tuple[dict, dict]:
     cfg = GenerateConfig()
 
     bt.block_topk.launches = 0
+    bt.block_topk.shapes.clear()
     pa.paged_attention.launches = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     vecs = emb.embed_batch(asks)
     matches = index.search([(v, RETRIEVE_K, None) for v in vecs])
+    topk_shapes = dict(bt.block_topk.shapes)
     prompts = [dec.encode_text(assemble_prompt(a, m)) for a, m in zip(asks, matches)]
     retrieve_s = time.perf_counter() - t0
     sched = DecodeScheduler(cfg, device=dev)
@@ -694,6 +722,7 @@ def generation(dev, main: dict) -> tuple[dict, dict]:
         "step_p99_ms": float(np.percentile(step_ms, 99)),
         "paged_attention_launches": launches,
         "block_topk_launches": topk_launches,
+        "block_topk_launches_by_shape": {f"B={b},k={k}": n for (b, k), n in sorted(topk_shapes.items())},
         "peak_device_gib": peak_gib,
         "ref_wall_s": ref_wall,
         "ref_tokens_equal": equal,
@@ -711,45 +740,64 @@ def generation(dev, main: dict) -> tuple[dict, dict]:
         "device_busy_share_of_step_p50": None if anatomy["device_busy_ms_per_step"] is None
         else anatomy["device_busy_ms_per_step"] / step_p50,
     }
-    return phase, {"step": step, "launches": launches}
+    # the retrieval batch as the index hands it to the kernel: padded to 32
+    asks_q = np.zeros((1 << (N_ASKS - 1).bit_length(), DIM), dtype=np.float32)
+    asks_q[:N_ASKS] = np.stack(vecs)
+    return phase, {
+        "step": step, "launches": launches, "topk_shapes": topk_shapes,
+        "asks": torch.from_numpy(asks_q).to(dev),
+    }
 
 
 # --- phase 4: kernel times ----------------------------------------------------
 
 
-def kernel_times(main: dict, rate: float, rate_src: str) -> list[dict]:
+def kernel_times(main: dict, gen: dict, rate: float, rate_src: str) -> list[dict]:
     from pathway_tpu_torch.ops import block_topk as bt
     from pathway_tpu_torch.ops.knn import BLK, _normalize
 
     prep, valid = main["prep"], main["valid"]
     n, d = prep.shape
+    # (B, k, queries, launches of that shape on its path)
+    path_shapes = [
+        (1, K, main["queries"][1], main["shapes"].get((1, K), 0), "retrieval"),
+        (16, K, main["queries"][16], main["shapes"].get((16, K), 0), "retrieval"),
+        (32, RETRIEVE_K, gen["asks"], gen["topk_shapes"].get((32, RETRIEVE_K), 0), "generation"),
+    ]
     per_batch = []
-    for bs, q in main["queries"].items():
+    for bs, k, q, path_launches, path in path_shapes:
+        check(path_launches > 0, f"block_topk never ran at B={bs}, k={k} on the {path} path")
         qn = _normalize(q).to(prep.dtype).contiguous()
-        before = bt.block_topk.launches
-        ms = cuda_ms(lambda: bt.block_topk(qn, prep, valid, K))
-        bt.block_topk.launches = before  # timing launches are not main-path launches
-        plain_ms = cuda_ms(lambda: bt.block_topk_ref(qn, prep, valid, K), iters=5)
+        before = bt.block_topk.launches, bt.block_topk.shapes.copy()
+        ms = cuda_ms(lambda: bt.block_topk(qn, prep, valid, k))
+        times = device_times(lambda: bt.block_topk(qn, prep, valid, k))
+        plain_ms = cuda_ms(lambda: bt.block_topk_ref(qn, prep, valid, k), iters=5)
 
         def library():
             s = torch.matmul(qn, prep.T).masked_fill_(~valid[None, :], -float("inf"))
-            return torch.topk(s.view(bs, n // BLK, BLK), K, dim=-1)
+            return torch.topk(s.view(bs, n // BLK, BLK), k, dim=-1)
 
         library_ms = cuda_ms(library, iters=5)
-        sc, ix = bt.block_topk(qn, prep, valid, K)
-        sr, ir = bt.block_topk_ref(qn, prep, valid, K)
-        bt.block_topk.launches = before
+        sc, ix = bt.block_topk(qn, prep, valid, k)
+        sr, ir = bt.block_topk_ref(qn, prep, valid, k)
+        # timing launches are not the path's
+        bt.block_topk.launches, bt.block_topk.shapes = before
         err = float((sc - sr).abs().max())
+        check(err <= F32_TOL, f"block_topk timing inputs disagree by {err} at B={bs}")
         elem = prep.element_size()
-        nbytes = n * d * elem + bs * d * elem + n + bs * (n // BLK) * K * 8
+        bytes_read = n * d * elem + bs * d * elem + n  # corpus, queries, valid
+        nbytes = bytes_read + bs * (n // BLK) * k * 8  # + the candidates written
         ops = 2.0 * bs * n * d
         t_bytes = nbytes / rate * 1e3
         t_ops = ops / PEAK_OPS_PER_S[str(prep.dtype).split(".")[-1]] * 1e3
         per_batch.append({
-            "B": bs, "N": n, "D": d, "k": K, "dtype": str(prep.dtype).split(".")[-1],
-            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "B": bs, "N": n, "D": d, "k": k, "dtype": str(prep.dtype).split(".")[-1],
+            "path": path, "launches": path_launches, "query_tile": bt._query_tile(bs, d, k),
+            "dynamic_smem_bytes": bt._smem_bytes(bt._query_tile(bs, d, k), d, k),
+            "ms": ms, "device_ms": kernel_device_ms(times, "block_topk_kernel", 20),
+            "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": nbytes, "ops": ops, "max_abs_err": err,
+            "bytes_read": bytes_read, "bytes": nbytes, "ops": ops, "max_abs_err": err,
         })
     head = per_batch[0]  # B=1: the "KNN p50 @1M x 384" shape
     return [{
@@ -780,6 +828,8 @@ def paged_shape_times(label: str, q, k, v, pt, sl, sm_scale: float, rate: float)
     b, h, dp = q.shape
     _n, _h, p, _dp = k.shape
     ctx = pt.shape[1] * p
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    splits = pa.split_count(b * h, pt.shape[1], p, dp, sms)
     before = pa.paged_attention.launches
     ms = cuda_ms(lambda: pa.paged_attention(q, k, v, pt, sl, sm_scale=sm_scale), iters=100)
     plain_ms = cuda_ms(lambda: pa.paged_attention_ref(q, k, v, pt, sl, sm_scale=sm_scale), iters=10)
@@ -806,7 +856,8 @@ def paged_shape_times(label: str, q, k, v, pt, sl, sm_scale: float, rate: float)
     t_ops = ops / PEAK_OPS_PER_S["float32"] * 1e3
     return {
         "shape": label, "B": b, "H": h, "P": p, "Dp": dp, "n_pages": k.shape[0],
-        "max_pages": pt.shape[1], "live_tokens": live,
+        "max_pages": pt.shape[1], "splits": splits,
+        "dynamic_smem_bytes": -(-pt.shape[1] // splits) * 4, "live_tokens": live,
         "ms": ms, "device_ms": kernel_device_ms(times, "paged_decode_kernel", 20),
         "plain_ms": plain_ms, "library_ms": library_ms,
         "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -866,8 +917,7 @@ def main() -> int:
     t0 = time.perf_counter()
     built = _build.build_all()
     build_s = time.perf_counter() - t0
-    ptxas = [ln.strip() for name in built for ln in _build.build_log(name).splitlines()
-             if "registers" in ln or "spill" in ln]
+    ptxas = [ln for name in built for ln in ptxas_report(_build.build_log(name))]
     rate, rate_src = memory_rate()
     emit({
         "phase": "device", "nvidia_smi": smi, "kind": torch.cuda.get_device_name(0),
@@ -880,7 +930,7 @@ def main() -> int:
     emit(phase)
     phase, gen_data = generation(dev, main_data)
     emit(phase)
-    kernels = kernel_times(main_data, rate, rate_src) + [
+    kernels = kernel_times(main_data, gen_data, rate, rate_src) + [
         paged_kernel_times(gen_data, rate, rate_src)
     ]
     emit({"phase": "kernels", "kernels": kernels})

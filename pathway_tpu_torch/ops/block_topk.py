@@ -13,18 +13,22 @@ over.
 
 Bound on the card: memory — one search reads the whole [N, D] corpus once
 (1.61 GB at N = 1,048,576, D = 384, f32; about 0.48 ms at the H100 SXM
-data-sheet 3.35 TB/s, for B = 1 and B = 16 alike). The kernel keeps scores
-in shared memory and streams each corpus row once per query tile of up to
-16 queries; see the source note in ``csrc/block_topk.cu``.
+data-sheet 3.35 TB/s, for B = 1, 16 and 32 alike). Persistent thread
+blocks score up to 32 queries against the corpus from register
+micro-tiles while a producer warp streams it through a TMA ring, and
+select incrementally, so B <= 32 reads the corpus once; see the source note
+in ``csrc/block_topk.cu``.
 
 On a CUDA tensor ``block_topk`` launches the kernel or raises; it uses the
 plain version ``block_topk_ref`` only when it is handed CPU tensors (the CPU
-tests). ``block_topk.launches`` counts kernel launches.
+tests). ``block_topk.launches`` counts kernel launches, and
+``block_topk.shapes`` counts them per ``(B, k)``.
 """
 
 from __future__ import annotations
 
 import ctypes
+from collections import Counter
 
 import torch
 
@@ -32,7 +36,15 @@ from pathway_tpu_torch.ops.knn import BLK, _normalize, stable_topk
 
 # dynamic shared memory a block may use on Hopper (227 KB)
 _SMEM_LIMIT = 232448
-_QT_MAX = 16
+# the kernel's tile constants (csrc/block_topk.cu): a ring of 4 stages of
+# [256 rows x 128 bytes] (aligned to 1 KB for the TMA swizzle), a 16 KB
+# buffer for merging the per-warp lists and 8 mbarriers
+_STAGES, _ROWS, _CHUNK_BYTES = 4, 256, 128
+_RING_ALIGN, _MERGE_BYTES, _BAR_BYTES = 1024, 16384, 64
+# k up to SMALL_K selects from per-warp running lists in registers; a larger
+# k keeps all [QT, 1024] keys in shared memory
+_SMALL_K = 32
+_QT_MAX = 32
 
 _lib: ctypes.CDLL | None = None
 
@@ -55,16 +67,26 @@ def block_topk_ref(
     return sc, ix.to(torch.int32) + base[None, :, None]
 
 
-def _query_tile(b: int, d: int) -> int:
-    """Queries per thread block: the smallest power of two >= B, at most 16,
-    halved until the [QT, 1024] keys + [QT, D] f32 queries fit in shared
-    memory."""
+def _smem_bytes(qt: int, d: int, k: int, bf16: bool = False) -> int:
+    """Dynamic shared memory of one thread block: the corpus ring, the merge
+    buffer, the [QT, D] f32 query tile (D padded to a whole row chunk) and,
+    for k > 32, [QT, 1024] keys."""
+    ring = _STAGES * _ROWS * _CHUNK_BYTES
+    dk = _CHUNK_BYTES // (2 if bf16 else 4)
+    dpad = -(-d // dk) * dk
+    keys = qt * BLK * 4 if k > _SMALL_K else 0
+    return _RING_ALIGN + ring + _MERGE_BYTES + qt * dpad * 4 + keys + _BAR_BYTES
+
+
+def _query_tile(b: int, d: int, k: int = 10, bf16: bool = False) -> int:
+    """Queries per thread block: the smallest power of two >= B, at most 32,
+    halved until the block fits in shared memory."""
     qt = 1
     while qt < min(b, _QT_MAX):
         qt *= 2
-    while qt > 1 and qt * (BLK + d) * 4 > _SMEM_LIMIT:
+    while qt > 1 and _smem_bytes(qt, d, k, bf16) > _SMEM_LIMIT:
         qt //= 2
-    if qt * (BLK + d) * 4 > _SMEM_LIMIT:
+    if _smem_bytes(qt, d, k, bf16) > _SMEM_LIMIT:
         raise ValueError(f"D={d} is too wide for the block top-k kernel")
     return qt
 
@@ -137,17 +159,19 @@ def block_topk(
             d,
             k,
             int(prep.dtype == torch.bfloat16),
-            _query_tile(b, d),
+            _query_tile(b, d, k, prep.dtype == torch.bfloat16),
             stream,
         )
     if err != 0:
         msg = lib.pathway_cuda_error_string(err).decode()
         raise RuntimeError(f"block_topk launch failed: cudaError {err} ({msg})")
     block_topk.launches += 1
+    block_topk.shapes[(b, k)] += 1
     return out_sc, out_ix
 
 
 block_topk.launches = 0
+block_topk.shapes = Counter()
 
 
 def dense_topk_kernel(

@@ -17,10 +17,13 @@ so pools carry across the two packages byte for byte. The Mosaic layout gates
 (``validate_lowering``) are TPU rules and are not carried over.
 
 Bound on the card: memory. One step reads each live token's K and V row once,
-``sum_b seq_lens[b] * H * Dp * 8`` bytes; at the decoder's serving default
-(B = 8, H = 4, Dp = 128, ~200-token contexts) about 6.5 MB, ~2 us at the
-H100 SXM data-sheet 3.35 TB/s, so a decode step is bound by launches and host
-work rather than by this kernel. See the source note in
+``sum_b seq_lens[b] * H * Dp * 8`` bytes; at the generation phase's recorded
+step (B = 8 bucket, six 150-token sequences, H = 4, Dp = 128) about 3.7 MB,
+~1.1 us at the H100 SXM data-sheet 3.35 TB/s. The kernel splits each
+sequence's pages across ``S`` blocks (split-K over the token axis) and the
+last split of a (b, h) merges the partials in the same launch; ``S`` comes
+from :func:`split_count`, from static facts only, so choosing it never
+reads ``seq_lens`` back to the host. See the source note in
 ``csrc/paged_attention.cu`` for the design.
 
 On a CUDA tensor ``paged_attention`` launches the kernel or raises; it uses
@@ -41,7 +44,33 @@ _NEG = -0.7 * float(torch.finfo(torch.float32).max)
 # pool lane widths the kernel is built for (Dp = 128 * NC, NC = 1..4)
 KERNEL_DP = (128, 256, 384, 512)
 
+# warps per block of the kernel (csrc/paged_attention.cu)
+_WARPS = 8
+
 _lib: ctypes.CDLL | None = None
+# zeroed per-(b, h) arrival counters, one buffer per (device, stream); the
+# kernel's last split resets every count it used back to 0
+_counters: dict[tuple[int, int], torch.Tensor] = {}
+_sms: dict[int, int] = {}
+
+
+def _chunk_tokens(dp: int) -> int:
+    """Tokens per warp chunk in the kernel: 8 rows of 128 lanes per warp."""
+    return max(1, 8 // (dp // LANE))
+
+
+def split_count(bh: int, max_pages: int, page_size: int, dp: int, sms: int) -> int:
+    """Blocks per (b, h) sequence-head: enough for ``bh * S`` to reach the
+    card's ``sms`` streaming multiprocessors, while every block keeps at
+    least one chunk round (a chunk per warp) and every split owns at least
+    one page. 1 when ``bh`` alone fills the card. Static facts only:
+    ``seq_lens`` is never read."""
+    if bh >= sms:
+        return 1
+    min_tokens = _WARPS * _chunk_tokens(dp)
+    s = min(-(-sms // bh), max(1, max_pages * page_size // min_tokens), max_pages)
+    pps = -(-max_pages // s)  # pages per split
+    return -(-max_pages // pps)
 
 
 def lane_pad(d: int) -> int:
@@ -84,7 +113,7 @@ def _library() -> ctypes.CDLL:
         from pathway_tpu_torch._build import library
 
         lib = library("paged_attention")
-        lib.pathway_paged_attention.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
+        lib.pathway_paged_attention.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [
             ctypes.c_float,
             ctypes.c_void_p,
         ]
@@ -146,9 +175,16 @@ def paged_attention(
     out = torch.empty_like(q)
     if b == 0:
         return out
+    max_pages = page_tables.shape[1]
+    sms = _sm_count(q.device)
+    splits = split_count(b * h, max_pages, p, dp, sms)
     lib = _library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
+        part = counters = None
+        if splits > 1:
+            part = torch.empty((b, h, splits, dp + 2), dtype=torch.float32, device=q.device)
+            counters = _counter_buffer(q.device, stream, b * h)
         err = lib.pathway_paged_attention(
             q.data_ptr(),
             k_pool.data_ptr(),
@@ -156,12 +192,15 @@ def paged_attention(
             page_tables.data_ptr(),
             seq_lens.data_ptr(),
             out.data_ptr(),
+            None if part is None else part.data_ptr(),
+            None if counters is None else counters.data_ptr(),
             b,
             h,
             p,
             dp,
             n_pages,
-            page_tables.shape[1],
+            max_pages,
+            splits,
             float(sm_scale),
             stream,
         )
@@ -170,6 +209,23 @@ def paged_attention(
         raise RuntimeError(f"paged_attention launch failed: cudaError {err} ({msg})")
     paged_attention.launches += 1
     return out
+
+
+def _sm_count(device: torch.device) -> int:
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    if idx not in _sms:
+        _sms[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _sms[idx]
+
+
+def _counter_buffer(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    """At least ``n`` zeroed int32 counters for launches on ``stream``."""
+    key = (device.index if device.index is not None else torch.cuda.current_device(), stream)
+    buf = _counters.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _counters[key] = buf
+    return buf
 
 
 paged_attention.launches = 0

@@ -40,7 +40,7 @@ def _grid(n, d, b, dtype, dev, seed=0):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b", [1, 3, 16, 40])
+@pytest.mark.parametrize("b", [1, 3, 16, 32, 40, 64])
 @pytest.mark.parametrize("k", [1, 10, 1024])
 @pytest.mark.parametrize("d", [384, 37])
 def test_block_topk_kernel_matches_plain(dev, dtype, b, k, d):
@@ -112,6 +112,30 @@ def test_paged_attention_kernel_matches_plain(dev, dp, b, h, p, max_pages):
     ref = pa.paged_attention_ref(q, k, v, pt, sl, sm_scale=32**-0.5)
     assert float((got - ref).abs().max()) <= 1e-5
     assert (got[0] == 0).all()
+
+
+@pytest.mark.parametrize("p", [8, 16])
+def test_paged_attention_split_kernel_with_empty_splits(dev, p):
+    """S > 1 splits per (b, h) on a 16-page table, with lengths that leave
+    every split, all but the first, or none empty; run twice, so the
+    arrival counters must have been reset by the first launch."""
+    from pathway_tpu_torch.ops import paged_attention as pa
+
+    b, h, dp, max_pages, n_pages = 4, 2, 128, 16, 70
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert pa.split_count(b * h, max_pages, p, dp, sms) > 1
+    g = torch.Generator(device=dev).manual_seed(p)
+    q = torch.randn(b, h, dp, generator=g, device=dev)
+    k = torch.randn(n_pages, h, p, dp, generator=g, device=dev)
+    v = torch.randn(n_pages, h, p, dp, generator=g, device=dev)
+    pt = torch.randint(0, n_pages, (b, max_pages), generator=g, device=dev, dtype=torch.int32)
+    sl = torch.tensor([0, p, p + 1, max_pages * p], dtype=torch.int32, device=dev)
+    ref = pa.paged_attention_ref(q, k, v, pt, sl, sm_scale=32**-0.5)
+    for _ in range(2):
+        got = pa.paged_attention(q, k, v, pt, sl, sm_scale=32**-0.5)
+        torch.cuda.synchronize()
+        assert float((got - ref).abs().max()) <= 1e-5
+        assert (got[0] == 0).all()
 
 
 def test_paged_attention_wrapper_raises_on_bad_cuda_inputs(dev):

@@ -204,14 +204,30 @@ def test_block_topk_wrapper_rejects_bad_inputs():
     assert not tbt.supported(1000, 1)
 
 
-def test_query_tile_fits_shared_memory():
-    assert tbt._query_tile(1, 384) == 1
-    assert tbt._query_tile(3, 384) == 4
-    assert tbt._query_tile(16, 384) == 16
-    assert tbt._query_tile(64, 384) == 16
-    assert tbt._query_tile(64, 4096) == 8  # 16 * (1024 + 4096) * 4 > 227 KB
-    with pytest.raises(ValueError):
-        tbt._query_tile(1, 60000)
+@pytest.mark.parametrize(
+    "b,d,k,qt",
+    [
+        # one pass over the corpus for B <= 32
+        (1, 37, 10, 1), (3, 37, 10, 4), (16, 37, 10, 16), (32, 37, 10, 32), (64, 37, 10, 32),
+        (1, 384, 10, 1), (3, 384, 10, 4), (16, 384, 10, 16), (32, 384, 10, 32),
+        (64, 384, 10, 32),
+        # 145 KB of ring and merge buffer + QT x 4096 f32 queries fit 227 KB up to QT = 4
+        (1, 4096, 10, 1), (3, 4096, 10, 4), (16, 4096, 10, 4), (32, 4096, 10, 4),
+        (64, 4096, 10, 4),
+        # k > 32 keeps [QT, 1024] keys in shared memory as well
+        (16, 384, 40, 8), (32, 384, 1024, 8), (64, 4096, 40, 4),
+        (None, 60000, 10, None),  # too wide even for one query
+    ],
+)
+def test_query_tile_fits_shared_memory(b, d, k, qt):
+    if qt is None:
+        with pytest.raises(ValueError):
+            tbt._query_tile(1, d, k)
+        return
+    assert tbt._query_tile(b, d, k) == qt
+    assert tbt._smem_bytes(qt, d, k) <= tbt._SMEM_LIMIT
+    # the largest power of two that fits: doubling would overflow or exceed B or 32
+    assert 2 * qt > min(b, 32) or tbt._smem_bytes(2 * qt, d, k) > tbt._SMEM_LIMIT
 
 
 def test_block_topk_cpu_path_counts_no_launch():

@@ -1,4 +1,4 @@
-"""pathway_tpu_torch and chip_smoke.py stand alone: every module of the port
+"""pathway_tpu_torch, chip_smoke.py and tools/ stand alone: every module of the port
 imports with ``jax``, ``flax`` and ``pathway_tpu`` blocked, and no source
 file names them in an import. Without a card, an entry point left on its
 default device raises instead of falling back to the CPU."""
@@ -87,7 +87,7 @@ def _imported_roots(path: Path) -> set[str]:
 
 @pytest.mark.parametrize(
     "path",
-    sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+    sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("*.py")),
     ids=lambda p: str(p.relative_to(ROOT)),
 )
 def test_no_source_imports_jax_or_the_jax_package(path):

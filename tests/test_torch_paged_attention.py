@@ -5,7 +5,13 @@ kernel in interpret mode, on the same numpy inputs.
 
 Tolerance: 2e-6 absolute, the bound ``tests/test_paged_attention.py`` holds
 between interpret mode and the JAX reference (f32 sums in another order);
-rows with no live token must be exactly 0 in every version."""
+rows with no live token must be exactly 0 in every version.
+
+The CUDA kernel splits each sequence's pages across S blocks and merges the
+partial softmax states in the launch; a plain-torch emulation of exactly
+that arithmetic (8 warps of T-token chunks per split, the warp merge, the
+online merge of the splits) is held here against both references within
+1e-5, the tolerance the card holds the kernel to."""
 
 import numpy as np
 import pytest
@@ -111,3 +117,99 @@ def test_wrapper_rejects_bad_inputs():
         tpa.paged_attention(q, k[:, :1].contiguous(), v[:, :1].contiguous(), pt, sl, sm_scale=1.0)
     with pytest.raises(ValueError):
         tpa.paged_attention(q.transpose(0, 1).contiguous().transpose(0, 1), k, v, pt, sl, sm_scale=1.0)
+
+
+@pytest.mark.parametrize(
+    "bh,max_pages,page_size,dp,sms,splits",
+    [
+        (32, 16, 16, 128, 132, 4),  # the generation step: B = 8 bucket x 4 heads
+        (256, 128, 16, 128, 132, 1),  # long context: B x H alone fills the card
+        (132, 16, 16, 128, 132, 1),  # B x H >= SMs
+        (300, 4, 8, 256, 132, 1),
+        (8, 16, 8, 128, 132, 2),  # 128 tokens: two chunk rounds of 8 warps x 8
+        (1, 256, 16, 128, 132, 64),  # one sequence: 4 pages (one chunk round) per split
+        (4, 3, 8, 128, 132, 1),  # shorter than one chunk round
+        (16, 16, 16, 512, 132, 8),  # Dp = 512: one-token chunks; 9 wanted, 2 pages per split
+    ],
+)
+def test_split_count(bh, max_pages, page_size, dp, sms, splits):
+    got = tpa.split_count(bh, max_pages, page_size, dp, sms)
+    assert got == splits
+    pps = -(-max_pages // got)
+    assert -(-max_pages // pps) == got  # no split is left without a page
+    if got > 1:
+        assert bh * got <= bh * -(-sms // bh)  # no more blocks than filling the card needs
+        assert pps * page_size >= 8 * tpa._chunk_tokens(dp)  # a chunk round per split
+
+
+def _kernel_emulation(q, k, v, pt, sl, scale, splits):
+    """The kernel's arithmetic in plain torch: per split, 8 warps each run an
+    online softmax over their chunks (chunk c = warp, warp + 8, ...), the
+    warp states merge by exp(m_w - max); the split partials then merge one
+    by one with online rescaling, as the last split of a (b, h) does."""
+    neg = tpa._NEG
+    b, h, dp = q.shape
+    n_pages, _h, p, _dp = k.shape
+    mp = pt.shape[1]
+    chunk = tpa._chunk_tokens(dp)
+    pps = -(-mp // splits)
+    pages = pt.long().clamp(0, n_pages - 1)
+    kk = k[pages].permute(0, 2, 1, 3, 4).reshape(b, h, mp * p, dp)
+    vv = v[pages].permute(0, 2, 1, 3, 4).reshape(b, h, mp * p, dp)
+    s_all = torch.einsum("bhd,bhld->bhl", q, kk) * scale
+    n = sl.long().clamp(0, mp * p)
+    live = torch.arange(mp * p)[None, :] < n[:, None]  # [b, L]
+    parts = []
+    for sp in range(splits):
+        t0, t1 = sp * pps * p, min((sp + 1) * pps * p, mp * p)
+        states = []
+        for w in range(8):
+            m = torch.full((b, h), neg)
+            l = torch.zeros(b, h)
+            acc = torch.zeros(b, h, dp)
+            for c in range(w, -(-(t1 - t0) // chunk), 8):
+                idx = torch.arange(t0 + c * chunk, min(t0 + (c + 1) * chunk, t1))
+                sc, lv = s_all[:, :, idx], live[:, idx][:, None, :]
+                m_new = torch.maximum(m, torch.where(lv, sc, neg).amax(-1))
+                alpha = torch.exp(m - m_new)
+                wts = torch.where(lv, torch.exp(sc - m_new[..., None]), 0.0)
+                l = l * alpha + wts.sum(-1)
+                acc = acc * alpha[..., None] + torch.einsum("bhl,bhld->bhd", wts, vv[:, :, idx])
+                m = m_new
+            states.append((m, l, acc))
+        mx = torch.stack([m for m, _l, _a in states]).amax(0)
+        sw = [torch.exp(m - mx) for m, _l, _a in states]
+        parts.append((
+            mx,
+            sum(l * f for (_m, l, _a), f in zip(states, sw)),
+            sum(a * f[..., None] for (_m, _l, a), f in zip(states, sw)),
+        ))
+    big_m = torch.full((b, h), neg)
+    den = torch.zeros(b, h)
+    out = torch.zeros(b, h, dp)
+    for m_s, l_s, a_s in parts:
+        m_new = torch.maximum(big_m, m_s)
+        r, w = torch.exp(big_m - m_new), torch.exp(m_s - m_new)
+        den = den * r + l_s * w
+        out = out * r[..., None] + a_s * w[..., None]
+        big_m = m_new
+    return torch.where(den[..., None] > 0, out / den.clamp(min=1e-30)[..., None], 0.0)
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("p,dp", [(16, 128), (8, 256)])
+def test_split_merge_emulation_matches_refs(splits, p, dp):
+    """Splits with no live token (lengths 0, P, P + 1 on a 16-page table)
+    and whole rows with none (0 and a negative length) come out as the
+    references say; empty rows exactly 0."""
+    b, h, n_pages, max_pages = 6, 2, 40, 16
+    q, k, v, pt, sl = _rand_case(b, h, p, dp, n_pages, max_pages, 7 * splits + p)
+    sl[:] = [0, p, p + 1, max_pages * p, -4, 5 * p + 3]
+    scale = 32**-0.5
+    args = _torch(q, k, v, pt, sl)
+    got = _kernel_emulation(*args, scale, splits).numpy()
+    ref = tpa.paged_attention_ref(*args, sm_scale=scale).numpy()
+    jref = np.asarray(jpa.paged_attention_ref(q, k, v, pt, sl, sm_scale=scale))
+    for other in (ref, jref):
+        assert np.abs(got - other).max() <= 1e-5
+    assert (got[0] == 0.0).all() and (got[4] == 0.0).all()
