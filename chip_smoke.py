@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from csrc/ (nvcc, sm_90a, one process per
-source, all started together), then runs five phases, printing one JSON
+source, all started together), then runs six phases, printing one JSON
 object per phase:
 
 1. device         — nvidia-smi name/power limit, toolchain versions, build seconds.
@@ -34,12 +34,30 @@ object per phase:
                     back to empty, launches == decode steps x layers, the same
                     tokens from a kernel="ref" scheduler, and the logits of one
                     recorded step, kernel against plain.
-5. kernels        — per kernel and per path shape: launches on its path, ms
+5. durability     — the same 24 prompts at the same width, with snapshots.
+                    A child process (this script with --kill-child) runs them
+                    with PATHWAY_GENERATE_SNAPSHOT_EVERY=8, a store in a temp
+                    dir and PATHWAY_FAULTS="kill=decode:150"; it must exit 23
+                    after step 150 leaving a manifest. A scheduler restores
+                    the store (pages bit-equal to the ledger, every sequence
+                    completes with the generation phase's tokens, pool back to
+                    empty, launches == steps x layers); split_kv_store splits
+                    it across two stores whose schedulers resume every
+                    sequence exactly once; then one run with the hooks and no
+                    snapshots (step p50, tokens/s, the exposition, spans,
+                    memory ledger and roofline checked against the run's own
+                    counts) and one with a snapshot every 8 steps and one from
+                    this thread mid-run (mirror and snapshot ms, bytes and
+                    segments per snapshot). Tokens are compared exactly; a
+                    difference passes only at a near tie: the uninterrupted
+                    run's top-2 logit margin there below GEN_LOGIT_TOL.
+6. kernels        — per kernel and per path shape: launches on its path, ms
                     (CUDA events) and device ms (torch.profiler), its plain
                     version's ms, the bound and what sets it, the bytes it must
                     move, and the ms of the library call(s) computing the same
                     function (the yardstick). block_topk: B = 1 and B = 16
-                    (k = 10, retrieval) and B = 32 (k = 3, the generation
+                    (k = 10, retrieval), B = 16 with k = 40 (the filtered
+                    batch, oversampled x4) and B = 32 (k = 3, the generation
                     phase's 24 asks padded to 32); paged_attention: the
                     recorded decode step and a long context, each with its
                     split count S.
@@ -53,9 +71,13 @@ without one.
 from __future__ import annotations
 
 import json
+import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 from dataclasses import replace
 from pathlib import Path
@@ -89,6 +111,9 @@ GEN_LOGIT_TOL = 1e-4
 N_ASKS = 24
 RETRIEVE_K = 3
 RECORD_STEP = 150  # the decode step whose inputs the phase records
+KILL_STEP = 150  # the durability child dies after this decode step
+SNAPSHOT_EVERY = 8
+FAULT_EXIT = 23  # the fault plan's exit code
 PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}  # dense, H100 SXM
 
 
@@ -475,6 +500,7 @@ def main_path(dev) -> tuple[dict, dict]:
     }
     prep, _c2, valid = index.corpus.prepared_arrays("cosine", bf16=False)
     batches = {bs: torch.from_numpy(np.stack(qv[:bs])).to(dev) for bs in (1, 16)}
+    batches["filtered"] = torch.from_numpy(np.stack(fvecs)).to(dev)
     return phase, {
         "prep": prep, "valid": valid, "queries": batches, "launches": launches,
         "shapes": shapes, "index": index, "emb": emb,
@@ -538,6 +564,11 @@ def prefix_logits(params, dcfg, tokens: list[int], kernel: str, dev) -> np.ndarr
     return logits[0].cpu().numpy()
 
 
+def sampling(i: int) -> dict:
+    """Ask i's sampling: even asks greedy, odd ones seeded top-k samples."""
+    return dict(temperature=0.7, top_k=40, seed=SEED + i) if i % 2 else {}
+
+
 def run_requests(sched, prompts: list[list[int]]) -> tuple[list[dict], list[float], float]:
     """Submit every prompt (even ones greedy, odd ones seeded top-k samples)
     and wait: (results, time to first token per request, wall seconds)."""
@@ -550,10 +581,9 @@ def run_requests(sched, prompts: list[list[int]]) -> tuple[list[dict], list[floa
         def on_token(_tok, _done, i=i):
             first.setdefault(i, time.monotonic())
 
-        sampled = dict(temperature=0.7, top_k=40, seed=SEED + i) if i % 2 else {}
         req = GenerationRequest(
             f"ask-{i}", prompt, deadline=time.monotonic() + 600.0,
-            max_new_tokens=sched.config.max_new_tokens, on_token=on_token, **sampled,
+            max_new_tokens=sched.config.max_new_tokens, on_token=on_token, **sampling(i),
         )
         sched.submit(req)
         reqs.append(req)
@@ -745,11 +775,362 @@ def generation(dev, main: dict) -> tuple[dict, dict]:
     asks_q[:N_ASKS] = np.stack(vecs)
     return phase, {
         "step": step, "launches": launches, "topk_shapes": topk_shapes,
-        "asks": torch.from_numpy(asks_q).to(dev),
+        "asks": torch.from_numpy(asks_q).to(dev), "prompts": prompts, "results": results,
+        "params": sched.params, "dcfg": sched.dcfg,
     }
 
 
-# --- phase 4: kernel times ----------------------------------------------------
+# --- phase 5: durability ------------------------------------------------------
+
+
+def kill_child(prompts_path: str) -> int:
+    """The durability phase's child: the generation phase's prompts through
+    a DecodeScheduler configured from PATHWAY_GENERATE_* and armed with
+    PATHWAY_FAULTS, which ends this process after its decode step. Returns
+    (exit code 1) only if the fault never fired."""
+    from pathway_tpu_torch.generate import DecodeScheduler, GenerateConfig
+
+    prompts = json.loads(Path(prompts_path).read_text())
+    sched = DecodeScheduler(GenerateConfig.from_env(), replica_label="child")
+    run_requests(sched, prompts)
+    print(f"chip_smoke: the fault never fired ({sched.stats()})", file=sys.stderr)
+    return 1
+
+
+def top2_margin(params, dcfg, prefix: list[int], dev) -> float:
+    from pathway_tpu_torch.ops import paged_attention as pa
+
+    before = pa.paged_attention.launches
+    z = np.sort(prefix_logits(params, dcfg, prefix, "cuda", dev))
+    pa.paged_attention.launches = before  # this replay is not the path's
+    return float(z[-1] - z[-2])
+
+
+def compare_tokens(got: list[int], ask: int, gen: dict, dev, near_ties: list) -> None:
+    """Tokens of a resumed sequence against the generation phase's answer
+    to the same ask: equal, or parting only where the uninterrupted run's
+    top-2 logit margin is below GEN_LOGIT_TOL (a near tie another bucket's
+    sum order may decide); anything else fails."""
+    want = gen["results"][ask]["tokens"]
+    if got == want:
+        return
+    at = next((j for j, (x, y) in enumerate(zip(got, want)) if x != y), min(len(got), len(want)))
+    margin = top2_margin(gen["params"], gen["dcfg"], gen["prompts"][ask] + want[:at], dev)
+    check(margin < GEN_LOGIT_TOL, f"ask {ask}: tokens part at step {at} with top-2 margin {margin}")
+    near_ties.append({"ask": ask, "at": at, "top2_margin": margin})
+
+
+def asks_by_prompt(prompts: list[list[int]]) -> dict:
+    """(prompt tokens, seed, temperature) -> ask index, as run_requests
+    submits them (GenerationRequest defaults: seed 0, temperature 0)."""
+    out = {}
+    for i, p in enumerate(prompts):
+        s = sampling(i)
+        out.setdefault((tuple(p), s.get("seed", 0), s.get("temperature", 0.0)), i)
+    return out
+
+
+def ask_of(meta: dict, index: dict) -> int:
+    prompt = tuple(meta["tokens"][: meta["prompt_len"]])
+    return index[(prompt, meta["seed"], meta["temperature"])]
+
+
+class HeldRestore:
+    """While open, every new DecodeScheduler restores (timed) and its decode
+    loop idles, so the restored pools can be read before any step writes
+    them; closing lets the loops decode."""
+
+    def __init__(self):
+        from pathway_tpu_torch.generate import DecodeScheduler
+
+        self.cls, self.seconds = DecodeScheduler, []
+        self.step, self.restore = DecodeScheduler._step, DecodeScheduler._restore
+
+    def __enter__(self):
+        def timed(sched, root):
+            t0 = time.perf_counter()
+            self.restore(sched, root)
+            torch.cuda.synchronize()
+            self.seconds.append(time.perf_counter() - t0)
+
+        self.cls._step = lambda sched: time.sleep(0.002)
+        self.cls._restore = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.cls._step, self.cls._restore = self.step, self.restore
+
+
+def pages_bit_equal(sched, led) -> int:
+    """Every restored page in the scheduler's pools against the ledger's
+    bytes; returns the number of pages compared."""
+    by_seq = {s.seq_id: s for s in sched._active}
+    n = 0
+    for (seq_id, page_idx), (k, v, _ident) in led.live_pages().items():
+        pid = by_seq[seq_id].pages[page_idx]
+        check(sched.k_pool[:, pid].cpu().numpy().tobytes() == k.tobytes(), f"K page {seq_id}/{page_idx} differs")
+        check(sched.v_pool[:, pid].cpu().numpy().tobytes() == v.tobytes(), f"V page {seq_id}/{page_idx} differs")
+        n += 1
+    return n
+
+
+def wait_finished(scheds: list, n: int, timeout: float = 300.0) -> None:
+    deadline = time.monotonic() + timeout
+    while sum(len(s.finished) for s in scheds) < n and time.monotonic() < deadline:
+        time.sleep(0.01)
+    check(sum(len(s.finished) for s in scheds) == n, "a restored sequence never completed")
+
+
+def resumed_tokens(sched, metas: dict, index: dict, gen: dict, dev, near_ties: list) -> set:
+    """Check every restored sequence's answer; returns their seq ids."""
+    done = set()
+    for rid, res in sched.finished.items():
+        check(rid.startswith("restored-") and res["status"] == 200, f"restored answer {rid}: {res}")
+        seq_id = int(rid.split("-", 1)[1])
+        compare_tokens(res["tokens"], ask_of(metas[seq_id], index), gen, dev, near_ties)
+        done.add(seq_id)
+    return done
+
+
+def span_count(tracer, name: str, label: str) -> int:
+    return sum(1 for r in tracer.spans() if r.name == name and r.attributes.get("replica") == label)
+
+
+def series(text: str, name: str, **labels) -> float:
+    from pathway_tpu_torch.observability import parse_exposition
+
+    fams, errors = parse_exposition(text)
+    check(not errors, f"exposition parse errors: {errors[:3]}")
+    return sum(
+        smp.value for fam in fams.values() for smp in fam.samples
+        if smp.name == name and all(smp.labels.get(k) == v for k, v in labels.items())
+    )
+
+
+def durability(dev, gen: dict) -> dict:
+    from pathway_tpu_torch import _build
+    from pathway_tpu_torch.elastic.kv import split_kv_store
+    from pathway_tpu_torch.generate import DecodeScheduler, GenerateConfig, KvLedger
+    from pathway_tpu_torch.observability import (
+        REGISTRY,
+        get_tracer,
+        install_torch_metrics,
+        tickscope,
+        validate_exposition,
+    )
+    from pathway_tpu_torch.ops import paged_attention as pa
+
+    prompts, index = gen["prompts"], asks_by_prompt(gen["prompts"])
+    cfg = GenerateConfig()
+    tmp = Path(tempfile.mkdtemp(prefix="pw-durability-"))
+    near_ties: list = []
+    pa.paged_attention.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        # 1. the real kill: a child process dies by the fault plan
+        store = tmp / "store"
+        (tmp / "prompts.json").write_text(json.dumps(prompts))
+        built_before = sorted(os.listdir(_build.BUILD_DIR))
+        env = dict(
+            os.environ, PATHWAY_GENERATE_SNAPSHOT_EVERY=str(SNAPSHOT_EVERY),
+            PATHWAY_GENERATE_STORE=str(store), PATHWAY_FAULTS=f"kill=decode:{KILL_STEP}",
+        )
+        t0 = time.perf_counter()
+        child = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()), "--kill-child", str(tmp / "prompts.json")],
+            env=env, capture_output=True, text=True, timeout=300,
+        )
+        child_s = time.perf_counter() - t0
+        check(child.returncode == FAULT_EXIT, f"child exited {child.returncode}:\n{child.stderr[-3000:]}")
+        check(f"decode step {KILL_STEP}" in child.stderr, "the child did not die by kill=decode")
+        check((store / "manifest.json").exists(), "the killed child left no manifest")
+        check(sorted(os.listdir(_build.BUILD_DIR)) == built_before, "the child rebuilt a kernel")
+        led = KvLedger.restore(str(store))
+        metas = led.live_seqs()
+        check(len(metas) > 0, "the child's last snapshot holds no sequence")
+
+        # 2. restore on the card
+        with HeldRestore() as held:
+            restored = DecodeScheduler(replace(cfg, store_root=str(store)), replica_label="restored")
+            check(restored.restored_seqs == len(metas), f"restored {restored.restored_seqs} of {len(metas)}")
+            pages_checked = pages_bit_equal(restored, led)
+        try:
+            wait_finished([restored], len(metas))
+            check(resumed_tokens(restored, metas, index, gen, dev, near_ties) == set(metas), "restore lost a sequence")
+            restored_steps = restored.stats()["decode_steps"]
+            check(restored.pool.in_use == 0, "pages still in use after the restored sequences finished")
+            check(
+                pa.paged_attention.launches == restored_steps * cfg.n_layers,
+                f"{pa.paged_attention.launches} launches over {restored_steps} restored steps",
+            )
+        finally:
+            restored.stop()
+
+        # 3. resharding: two new owners resume every sequence exactly once
+        owners = [str(tmp / "owner0"), str(tmp / "owner1")]
+        split = split_kv_store(str(store), owners)
+        with HeldRestore():
+            scheds = [
+                DecodeScheduler(replace(cfg, store_root=o), replica_label=f"owner{i}")
+                for i, o in enumerate(owners)
+            ]
+        try:
+            wait_finished(scheds, len(metas))
+            parts = [resumed_tokens(s, metas, index, gen, dev, near_ties) for s in scheds]
+            check(not (parts[0] & parts[1]) and parts[0] | parts[1] == set(metas), "resharding lost or doubled a sequence")
+            owner_steps = sum(s.stats()["decode_steps"] for s in scheds)
+        finally:
+            for s in scheds:
+                s.stop()
+
+        # 4. the hooks without periodic snapshots, one snapshot from this
+        # thread mid-run, and what the hooks report
+        install_torch_metrics()
+        get_tracer().clear()
+        tickscope.reset()
+        oob_store = tmp / "out-of-thread"
+        hooks = DecodeScheduler(replace(cfg, store_root=str(oob_store)), replica_label="hooks")
+        box: dict = {}
+        runner = threading.Thread(target=lambda: box.update(out=run_requests(hooks, prompts)))
+        try:
+            runner.start()
+            while hooks.stats()["decode_steps"] < KILL_STEP and runner.is_alive():
+                time.sleep(0.001)
+            t0 = time.perf_counter()
+            oob = hooks.snapshot()  # from this thread: served at a step boundary
+            oob_ms = (time.perf_counter() - t0) * 1e3
+            oob_at = hooks.stats()["decode_steps"]
+            check(oob is not None and oob["bytes_written"] > 0, f"out-of-thread snapshot wrote {oob}")
+            runner.join(600)
+            results, ttft, wall = box["out"]
+            st = hooks.stats()
+            mem = tickscope.memory_snapshot()["owners"]["generate:hooks"]
+            check(mem["k_pool_device"] == hooks.k_pool.numel() * 4, "memory ledger: wrong K pool bytes")
+            check(mem["v_pool_device"] == hooks.v_pool.numel() * 4, "memory ledger: wrong V pool bytes")
+            text = REGISTRY.render()
+            hooks_ms = np.array(hooks.step_seconds) * 1e3
+        finally:
+            hooks.stop()
+        for i, r in enumerate(results):
+            check(r["status"] == 200, f"hooks run: ask {i} answered {r}")
+            compare_tokens(r["tokens"], i, gen, dev, near_ties)
+        errors = validate_exposition(text)
+        check(not errors, f"exposition invalid: {errors[:3]}")
+        steps = st["decode_steps"]
+        sampled = sum(r["token_count"] for r in results)
+        check(series(text, "pathway_generate_decode_steps_total", replica="hooks") == steps, "steps counter")
+        check(series(text, "pathway_generate_tokens_total", replica="hooks", kind="sampled") == sampled, "tokens counter")
+        check(span_count(get_tracer(), "generate.decode_step", "hooks") == steps, "one span per decode step")
+        check(tickscope.roofline().samples("paged_attention") == steps, "roofline samples")
+        peak = tickscope.peak_flops()
+        kind = torch.cuda.get_device_name(0).lower()
+        want = next((p for key, p in tickscope._PEAK_TABLE.items() if key in kind), None)
+        check(peak == want, f"peak_flops() {peak} is not the table's entry for {kind!r}")
+
+        # the ledger the out-of-thread snapshot left restores
+        oob_led = KvLedger.restore(str(oob_store))
+        oob_metas = oob_led.live_seqs()
+        check(len(oob_metas) > 0, "the out-of-thread snapshot holds no sequence")
+        with HeldRestore():
+            from_oob = DecodeScheduler(replace(cfg, store_root=str(oob_store)), replica_label="oob")
+            check(from_oob.restored_seqs == len(oob_metas), "the out-of-thread snapshot did not restore")
+            pages_bit_equal(from_oob, oob_led)
+        try:
+            wait_finished([from_oob], len(oob_metas))
+            resumed_tokens(from_oob, oob_metas, index, gen, dev, near_ties)
+            oob_steps = from_oob.stats()["decode_steps"]
+        finally:
+            from_oob.stop()
+
+        # 5. a snapshot every 8 steps: mirror and snapshot costs
+        snaps = DecodeScheduler(
+            replace(cfg, store_root=str(tmp / "snapshots"), snapshot_every=SNAPSHOT_EVERY),
+            replica_label="snapshots",
+        )
+        snap_ms, mirror_ms, written = [], [], []
+        inline, mirror = snaps._snapshot_inline, snaps._mirror
+
+        def timed_mirror():
+            t = time.perf_counter()
+            mirror()
+            mirror_ms.append((time.perf_counter() - t) * 1e3)
+
+        def timed_snapshot():
+            t = time.perf_counter()
+            out = inline()
+            snap_ms.append((time.perf_counter() - t) * 1e3)
+            written.append(out)
+            return out
+
+        snaps._mirror, snaps._snapshot_inline = timed_mirror, timed_snapshot
+        try:
+            snap_results, _ttft, snap_wall = run_requests(snaps, prompts)
+            snap_step_ms = np.array(snaps.step_seconds) * 1e3
+            snap_steps = snaps.stats()["decode_steps"]
+        finally:
+            snaps.stop()
+        for i, r in enumerate(snap_results):
+            check(r["status"] == 200, f"snapshot run: ask {i} answered {r}")
+            compare_tokens(r["tokens"], i, gen, dev, near_ties)
+        check(len(written) == snap_steps // SNAPSHOT_EVERY, f"{len(written)} snapshots over {snap_steps} steps")
+
+        launches = pa.paged_attention.launches
+        all_steps = restored_steps + owner_steps + steps + snap_steps + oob_steps
+        check(launches == all_steps * cfg.n_layers, f"{launches} launches over {all_steps} steps")
+        stats = torch.cuda.memory_stats()
+        return {
+            "phase": "durability",
+            "kill": {
+                "step": KILL_STEP, "snapshot_every": SNAPSHOT_EVERY, "exit_code": child.returncode,
+                "child_s": child_s, "manifest_seqs": len(metas),
+                "manifest_pages": len(led.live_pages()),
+            },
+            "restore": {
+                "restored_seqs": len(metas), "pages_bit_equal": pages_checked,
+                "restore_s": held.seconds[0], "decode_steps": restored_steps,
+            },
+            "reshard": {
+                "seqs_per_owner": [d["seqs"] for d in split["destinations"]],
+                "bytes_per_owner": [d["snapshot"]["bytes_written"] for d in split["destinations"]],
+                "decode_steps": owner_steps,
+            },
+            "hooks_no_snapshots": {
+                "decode_steps": steps, "step_p50_ms": float(np.percentile(hooks_ms, 50)),
+                "tokens_per_s": sampled / wall, "ttft_p50_ms": float(np.percentile(ttft, 50)) * 1e3,
+                "exposition_valid": True, "decode_step_spans": steps,
+                "out_of_thread_snapshot": {
+                    "at_step": oob_at, "ms": oob_ms, "seqs": len(oob_metas),
+                    "bytes": oob["bytes_written"], "segments": oob["segments_written"],
+                    "restored_decode_steps": oob_steps,
+                },
+                "roofline_paged_attention": tickscope.roofline().snapshot()["paged_attention"],
+                "peak_flops": peak, "memory_generate_hooks": mem,
+            },
+            "snapshots_every_8": {
+                "decode_steps": snap_steps, "step_p50_ms": float(np.percentile(snap_step_ms, 50)),
+                "tokens_per_s": sum(r["token_count"] for r in snap_results) / snap_wall,
+                "snapshots": len(written),
+                "mirror_ms_p50": float(np.percentile(mirror_ms, 50)),
+                "mirror_ms_max": float(np.max(mirror_ms)),
+                "snapshot_ms_p50": float(np.percentile(snap_ms, 50)),
+                "snapshot_ms_max": float(np.max(snap_ms)),
+                "bytes_per_snapshot_p50": float(np.percentile([w["bytes_written"] for w in written], 50)),
+                "bytes_per_snapshot_max": max(w["bytes_written"] for w in written),
+                "segments_per_snapshot_p50": float(np.percentile([w["segments_written"] for w in written], 50)),
+                "segments_per_snapshot_max": max(w["segments_written"] for w in written),
+            },
+            "paged_attention_launches": launches,
+            "tokens_compared": "exact; a difference passes only at a near tie",
+            "near_ties": near_ties,
+            "tol": GEN_LOGIT_TOL,
+            "peak_allocated_bytes": stats.get("allocated_bytes.all.peak"),
+            "peak_reserved_bytes": stats.get("reserved_bytes.all.peak"),
+        }
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# --- phase 6: kernel times ----------------------------------------------------
 
 
 def kernel_times(main: dict, gen: dict, rate: float, rate_src: str) -> list[dict]:
@@ -762,6 +1143,8 @@ def kernel_times(main: dict, gen: dict, rate: float, rate_src: str) -> list[dict
     path_shapes = [
         (1, K, main["queries"][1], main["shapes"].get((1, K), 0), "retrieval"),
         (16, K, main["queries"][16], main["shapes"].get((16, K), 0), "retrieval"),
+        (16, 4 * K, main["queries"]["filtered"], main["shapes"].get((16, 4 * K), 0),
+         "retrieval (filtered)"),
         (32, RETRIEVE_K, gen["asks"], gen["topk_shapes"].get((32, RETRIEVE_K), 0), "generation"),
     ]
     per_batch = []
@@ -911,6 +1294,8 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if sys.argv[1:2] == ["--kill-child"]:
+        return kill_child(sys.argv[2])
     dev = torch.device("cuda", 0)
     smi = nvidia_smi("name,power.limit")
 
@@ -930,6 +1315,7 @@ def main() -> int:
     emit(phase)
     phase, gen_data = generation(dev, main_data)
     emit(phase)
+    emit(durability(dev, gen_data))
     kernels = kernel_times(main_data, gen_data, rate, rate_src) + [
         paged_kernel_times(gen_data, rate, rate_src)
     ]

@@ -16,4 +16,6 @@ raise unless the caller passes ``device="cpu"`` explicitly.
 
 from pathway_tpu_torch._device import resolve_device
 
+__version__ = "0.1.0"  # the reference's version: the port tracks it
+
 __all__ = ["resolve_device"]

@@ -30,6 +30,9 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
+# nvcc runs finished in this process and their wall seconds in all (read by
+# observability/torch_metrics.py)
+stats = {"builds": 0, "seconds": 0.0}
 
 
 def sources() -> list[str]:
@@ -89,6 +92,8 @@ def build_all(names: list[str] | None = None) -> dict[str, float]:
         for name, (tmp, out, proc) in running.items():
             _finish(name, tmp, out, proc)
             seconds[name] = time.perf_counter() - t0
+            stats["builds"] += 1
+            stats["seconds"] += seconds[name]
     finally:  # a failed build stops the others
         for _tmp, _out, proc in running.values():
             if proc.poll() is None:

@@ -6,8 +6,9 @@ Same surface and results as the JAX class: ``upsert``/``remove``/``keys``/
 ``state_dict``/``load_state`` format (host-side numpy content, loadable by
 either package), the power-of-two query-batch ladder, the x4 oversample when
 a filter is set, f32 scoring, the cosine ``scores - 1.0`` shift and the same
-filter loop. The mesh path and the Tick Scope/occupancy metrics are not
-ported yet.
+filter loop, and the Tick Scope roofline (family ``topk``: analytic FLOPs
+2·B·N·D over the measured wall, host sync included). The mesh path and the
+batch-occupancy metric are not ported yet.
 
 Kernel selector — unlike the JAX index, whose default is ``"xla"``, the
 default here goes through the hand-written kernel on the card:
@@ -25,6 +26,7 @@ default here goes through the hand-written kernel on the card:
 from __future__ import annotations
 
 import os
+import time
 from typing import Any, Sequence
 
 import numpy as np
@@ -32,6 +34,7 @@ import torch
 
 from pathway_tpu_torch._device import resolve_device
 from pathway_tpu_torch.ops import block_topk as bt
+from pathway_tpu_torch.observability import tickscope
 from pathway_tpu_torch.ops.knn import DeviceCorpus, dense_topk_prepared
 from pathway_tpu_torch.stdlib.indexing._filters import compile_filter
 
@@ -175,6 +178,7 @@ class TpuDenseKnnIndex:
         has_filter = any(f is not None for _q, _k, f in queries)
         # oversample when filtering so post-filter still fills k
         eff_k = max(0, min(len(self.corpus), max_k * 4 if has_filter else max_k))
+        t0 = time.perf_counter()
         # f32 end to end, as the JAX index path scores
         prep, c2, valid = self.corpus.prepared_arrays(self.metric, bf16=False)
         q = torch.from_numpy(qmat).to(self.device)
@@ -186,6 +190,12 @@ class TpuDenseKnnIndex:
             )
         scores = scores[:n_q].double().cpu().numpy()
         idx = idx[:n_q].cpu().numpy()
+        n, d = len(self.corpus), qmat.shape[1]
+        key = f"topk_b{qmat.shape[0]}_n{n}_d{d}_k{eff_k}"
+        rl = tickscope.roofline()
+        if not rl.known("topk", key):
+            rl.register("topk", key, 2.0 * qmat.shape[0] * n * d, source="analytic")
+        rl.observe("topk", key, time.perf_counter() - t0)
         if self.metric == "cosine":
             # reference USearch COS scores are -(1 - cos): negative
             # distances, not raw similarities

@@ -5,8 +5,10 @@ Same constructor arguments (less the mesh), tokenizer priority (HF tokenizer
 when one is cached locally → WordPiece over a local vocab.txt → hashing) and
 checkpoint fallback as the JAX class. It is a plain class here: the JAX
 class is a pw ``UDF``, which needs the dataflow engine, not ported yet.
-``embed_batch`` is the batched function the engine calls; the embed metrics
-and spans of the JAX class are not ported yet.
+``embed_batch`` is the batched function the engine calls. Each device batch
+records the JAX class's ``pathway_embed_batch_seconds``/``_docs_total``/
+``_docs_per_sec_per_chip`` series and an ``embed.batch`` span; the batch
+occupancy histogram (``serving/metrics.py``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -14,11 +16,14 @@ from __future__ import annotations
 import json
 import logging
 import os
+import time
 from typing import Any, Sequence
 
 import numpy as np
 import torch
 
+from pathway_tpu_torch.observability import REGISTRY
+from pathway_tpu_torch.observability.tracing import get_tracer
 from pathway_tpu_torch.xpacks.llm._bert import _find_model_dir
 from pathway_tpu_torch.xpacks.llm._encoder import EncoderRuntime
 from pathway_tpu_torch.xpacks.llm._tokenizer import (
@@ -90,6 +95,23 @@ class SentenceTransformerEmbedder:
         self.model = model
         self.kwargs = call_kwargs or {}
         self.batch_size = batch_size
+        # embed batch latency + the docs/sec/chip figure, measured where the
+        # work happens (one card per embedder in the port)
+        self._m_batch_seconds = REGISTRY.histogram(
+            "pathway_embed_batch_seconds",
+            "embedder batch latency (tokenize + device forward)",
+            labelnames=("model",),
+        ).labels(model)
+        self._m_docs = REGISTRY.counter(
+            "pathway_embed_docs_total",
+            "documents embedded",
+            labelnames=("model",),
+        ).labels(model)
+        self._m_rate = REGISTRY.gauge(
+            "pathway_embed_docs_per_sec_per_chip",
+            "throughput of the most recent embed batch, per local device",
+            labelnames=("model",),
+        ).labels(model)
 
     def embed_batch(self, texts: Sequence[str]) -> list[np.ndarray]:
         """Embed ``texts`` in chunks of at most ``batch_size``; one f32
@@ -97,9 +119,16 @@ class SentenceTransformerEmbedder:
         out: list[np.ndarray] = []
         for i in range(0, len(texts), self.batch_size):
             chunk = [str(t) for t in texts[i : i + self.batch_size]]
-            # runtime.max_len is clamped to a checkpoint's position table
-            ids, mask = self.tokenizer.encode_batch(chunk, self.runtime.max_len)
-            vecs = self.runtime.forward_ids(ids, mask)
+            with get_tracer().span("embed.batch", model=self.model, docs=len(chunk)) as sp:
+                t0 = time.perf_counter()
+                # runtime.max_len is clamped to a checkpoint's position table
+                ids, mask = self.tokenizer.encode_batch(chunk, self.runtime.max_len)
+                vecs = self.runtime.forward_ids(ids, mask)
+                dt = time.perf_counter() - t0
+            self._m_batch_seconds.observe(dt, exemplar=sp.trace_id)
+            self._m_docs.inc(len(chunk))
+            if dt > 0:
+                self._m_rate.set(len(chunk) / dt)
             out.extend(vecs[j] for j in range(len(chunk)))
         return out
 

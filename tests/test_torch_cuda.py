@@ -199,3 +199,95 @@ def test_scheduler_default_path_launches_kernel(dev):
         assert s.pool.in_use == 0
     finally:
         s.stop()
+
+
+def _freeze_mid_decode(s, req, steps):
+    import time
+
+    s.submit(req)
+    deadline = time.monotonic() + 60
+    while s.stats()["decode_steps"] < steps and time.monotonic() < deadline:
+        time.sleep(0.002)
+    s._step = lambda: time.sleep(0.05)  # the in-process kill: the loop stops
+    time.sleep(0.2)
+
+
+def test_snapshot_round_trip_and_restore_bit_equal_on_the_card(dev, tmp_path, monkeypatch):
+    """A scheduler on the card snapshots mid-decode and is frozen; a new one
+    restores the store with pages bit-equal to the ledger's bytes, and then
+    finishes with the uninterrupted run's tokens."""
+    import time
+
+    from pathway_tpu_torch.generate import DecodeScheduler, GenerateConfig, GenerationRequest, KvLedger
+    from pathway_tpu_torch.xpacks.llm import decoder as dec
+
+    prompt = dec.encode_text("durable decode on the card")
+    kw = dict(max_new_tokens=24, temperature=0.7, top_k=20, seed=3)
+
+    def request(rid):
+        return GenerationRequest(rid, list(prompt), deadline=time.monotonic() + 60, **kw)
+
+    s0 = DecodeScheduler(GenerateConfig(max_batch=1))
+    try:
+        r0 = request("u")
+        s0.submit(r0)
+        res0 = r0.wait(60)
+    finally:
+        s0.stop()
+    root = str(tmp_path / "kv")
+    cfg = GenerateConfig(max_batch=1, snapshot_every=4, store_root=root)
+    s1 = DecodeScheduler(cfg)
+    try:
+        _freeze_mid_decode(s1, request("k"), 32)
+        led = KvLedger.restore(root)
+        (meta,) = led.live_seqs().values()
+        assert meta["n_generated"] > 0
+        real_step = DecodeScheduler._step
+        monkeypatch.setattr(DecodeScheduler, "_step", lambda self: time.sleep(0.05))
+        s2 = DecodeScheduler(cfg)
+        try:
+            assert s2.restored_seqs == 1 and s2.k_pool.is_cuda
+            (seq,) = s2._active
+            for (_sid, page_idx), (k, v, _i) in led.live_pages().items():
+                pid = seq.pages[page_idx]
+                assert s2.k_pool[:, pid].cpu().numpy().tobytes() == k.tobytes()
+                assert s2.v_pool[:, pid].cpu().numpy().tobytes() == v.tobytes()
+            s2._step = real_step.__get__(s2)  # resume decoding
+            deadline = time.monotonic() + 60
+            while not s2.finished and time.monotonic() < deadline:
+                time.sleep(0.01)
+            (res2,) = s2.finished.values()
+            assert res2["tokens"] == res0["tokens"]
+            assert s2.pool.in_use == 0
+        finally:
+            s2.stop()
+    finally:
+        s1.stop()
+
+
+def test_out_of_thread_snapshot_on_the_card(dev, tmp_path):
+    """snapshot() from another thread runs at a step boundary and mirrors
+    float32 pages of the decoder's [L, H, P, Dp] shape."""
+    import threading
+    import time
+
+    from pathway_tpu_torch.generate import DecodeScheduler, GenerateConfig, GenerationRequest
+    from pathway_tpu_torch.xpacks.llm import decoder as dec
+
+    s = DecodeScheduler(GenerateConfig(store_root=str(tmp_path / "kv")))
+    try:
+        hold, go = threading.Event(), threading.Event()
+        r = GenerationRequest(
+            "bg", dec.encode_text("w" * 40), deadline=time.monotonic() + 60, max_new_tokens=32,
+            on_token=lambda _t, _d: (hold.set(), go.wait(30)),
+        )
+        s.submit(r)
+        assert hold.wait(30)  # the decode thread holds at its first token
+        go.set()
+        out = s.snapshot()
+        assert out is not None and out["bytes_written"] > 0 and out["segments_written"] > 0
+        for (_sid, _pidx), (k, _v, _i) in s.ledger.live_pages().items():
+            assert k.dtype.name == "float32" and k.shape == (2, 4, 16, 128)
+        assert r.wait(60)["status"] == 200
+    finally:
+        s.stop()

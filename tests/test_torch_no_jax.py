@@ -4,6 +4,7 @@ file names them in an import. Without a card, an entry point left on its
 default device raises instead of falling back to the CPU."""
 
 import ast
+import json
 import subprocess
 import sys
 from pathlib import Path
@@ -59,9 +60,42 @@ print("ok")
 """
 
 
-def _run(code):
+_IMPORT_EACH = """
+import importlib, json, sys
+for name in {blocked!r}:
+    sys.modules[name] = None
+ok = []
+for mod in {mods!r}:
+    importlib.import_module(mod)
+    ok.append(mod)
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in {blocked!r} and sys.modules[m])
+assert not leaked, leaked
+print(json.dumps(ok))
+"""
+
+# the durability and observability modules, each imported on its own line
+# of the check so a failure names it
+DURABLE_MODULES = [
+    "pathway_tpu_torch.engine.arrangement",
+    "pathway_tpu_torch.engine.batch",
+    "pathway_tpu_torch.engine.sharded",
+    "pathway_tpu_torch.persistence.segments",
+    "pathway_tpu_torch.generate.kv_cache",
+    "pathway_tpu_torch.elastic.handover",
+    "pathway_tpu_torch.elastic.kv",
+    "pathway_tpu_torch.observability.registry",
+    "pathway_tpu_torch.observability.exposition",
+    "pathway_tpu_torch.observability.tracing",
+    "pathway_tpu_torch.observability.journal",
+    "pathway_tpu_torch.observability.tickscope",
+    "pathway_tpu_torch.observability.torch_metrics",
+    "pathway_tpu_torch.testing.faults",
+]
+
+
+def _run(code, **fmt):
     return subprocess.run(
-        [sys.executable, "-c", code.format(blocked=BLOCKED)],
+        [sys.executable, "-c", code.format(blocked=BLOCKED, **fmt)],
         cwd=ROOT,
         capture_output=True,
         text=True,
@@ -73,6 +107,18 @@ def test_every_port_module_imports_without_jax():
     r = _run(_IMPORT_ALL)
     assert r.returncode == 0, r.stderr
     assert int(r.stdout.strip().splitlines()[-1]) >= 29
+
+
+@pytest.fixture(scope="module")
+def imported_with_jax_blocked():
+    r = _run(_IMPORT_EACH, mods=DURABLE_MODULES)
+    assert r.returncode == 0, r.stderr
+    return set(json.loads(r.stdout.strip().splitlines()[-1]))
+
+
+@pytest.mark.parametrize("mod", DURABLE_MODULES)
+def test_durability_module_imports_without_jax(imported_with_jax_blocked, mod):
+    assert mod in imported_with_jax_blocked
 
 
 def _imported_roots(path: Path) -> set[str]:
