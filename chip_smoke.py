@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from csrc/ (nvcc, sm_90a, one process per
-source, all started together), then runs six phases, printing one JSON
+source, all started together), then runs seven phases, printing one JSON
 object per phase:
 
 1. device         — nvidia-smi name/power limit, toolchain versions, build seconds.
@@ -24,7 +24,28 @@ object per phase:
                     beside ~1M seeded unit vectors; 64 query texts are answered in
                     batches of 1 and 16 (k = 10) plus one filtered batch. The
                     results are checked against kernel="torch" on the same index.
-4. generation     — ask -> retrieve -> generate: 24 asks are embedded and
+4. engine         — the same retrieval through the dataflow engine, as a user
+                    writes it (``import pathway_tpu_torch as pw``): documents and
+                    precomputed vectors stream in through pw.io.python (4096
+                    documents in 16 commits of 256 through the embedder UDF at
+                    the phase-3 width, 1,044,480 seeded unit vectors in commits
+                    of 65,536, joined by concat_reindex), DataIndex over
+                    TpuKnn(device="cuda", kernel auto) answers queries that
+                    arrive as rows (64 ticks of B = 1, 8 of B = 16, k = 10),
+                    then 16 live ticks of 64 new documents and a query for one
+                    of them, then one tick retracting 64 documents and queries
+                    for them; pw.io.subscribe collects the replies. Every
+                    batch is one ConnectorSubject.commit() and one tick. Checked:
+                    every reply against a direct TpuDenseKnnIndex.search on a
+                    separate index holding the same rows (up to near ties), a
+                    copied query finds its document first, a live document is
+                    visible at rank 1 on the next tick, no retracted document
+                    comes back, one kernel launch per index search at B = 1
+                    and B = 16, one tick per commit, the embedder on cuda.
+                    Prints ingest, embed, reply and update-to-visible times,
+                    ticks per stage, and the corpus re-upload per dirty tick
+                    (from the knn.corpus_upload span).
+5. generation     — ask -> retrieve -> generate: 24 asks are embedded and
                     retrieved (k = 3) on the phase-3 index, each grounded prompt
                     goes to one DecodeScheduler(GenerateConfig()) at the decoder's
                     serving defaults (dim 128, 2 layers, 4 heads, head_dim 32,
@@ -34,7 +55,7 @@ object per phase:
                     back to empty, launches == decode steps x layers, the same
                     tokens from a kernel="ref" scheduler, and the logits of one
                     recorded step, kernel against plain.
-5. durability     — the same 24 prompts at the same width, with snapshots.
+6. durability     — the same 24 prompts at the same width, with snapshots.
                     A child process (this script with --kill-child) runs them
                     with PATHWAY_GENERATE_SNAPSHOT_EVERY=8, a store in a temp
                     dir and PATHWAY_FAULTS="kill=decode:150"; it must exit 23
@@ -51,12 +72,13 @@ object per phase:
                     segments per snapshot). Tokens are compared exactly; a
                     difference passes only at a near tie: the uninterrupted
                     run's top-2 logit margin there below GEN_LOGIT_TOL.
-6. kernels        — per kernel and per path shape: launches on its path, ms
+7. kernels        — per kernel and per path shape: launches on its path, ms
                     (CUDA events) and device ms (torch.profiler), its plain
                     version's ms, the bound and what sets it, the bytes it must
                     move, and the ms of the library call(s) computing the same
                     function (the yardstick). block_topk: B = 1 and B = 16
-                    (k = 10, retrieval), B = 16 with k = 40 (the filtered
+                    (k = 10, retrieval, and again on the engine phase's
+                    corpus), B = 16 with k = 40 (the filtered
                     batch, oversampled x4) and B = 32 (k = 3, the generation
                     phase's 24 asks padded to 32); paged_attention: the
                     recorded decode step and a long context, each with its
@@ -93,6 +115,15 @@ CORPUS_ROWS = 1 << 20
 N_QUERIES = 64
 K = 10
 KEY_BASE = 10_000_000  # keys of the synthetic unit vectors, disjoint from docs
+# the engine phase: the retrieval cell's CORPUS_ROWS (documents + precomputed
+# unit vectors) entering through the engine, one commit per tick
+ENGINE_DOC_COMMIT = 256
+ENGINE_VEC_COMMIT = 1 << 16
+ENGINE_B1_TICKS = 64
+ENGINE_B16_TICKS = 8
+ENGINE_LIVE_TICKS = 16
+ENGINE_LIVE_DOCS = 64
+ENGINE_RETRACT = 64
 # kernel vs plain on random unit vectors, |score| <= 1: the D products are
 # summed in another order. bf16 inputs are multiplied exactly in f32, so the
 # same f32 sum-order tolerance holds for bf16 corpora.
@@ -507,7 +538,365 @@ def main_path(dev) -> tuple[dict, dict]:
     }
 
 
-# --- phase 4: generation ------------------------------------------------------
+# --- phase 4: engine ----------------------------------------------------------
+
+
+def wait_until(cond, what: str, timeout: float = 300.0) -> None:
+    t_end = time.perf_counter() + timeout
+    while not cond():
+        check(time.perf_counter() < t_end, f"timed out waiting for {what}")
+        time.sleep(0.0005)
+
+
+def engine(dev) -> tuple[dict, dict]:
+    """The user script of the port's README on the card: documents and
+    precomputed vectors stream in through pw.io.python, the embedder UDF
+    runs inside the engine's ticks, DataIndex over TpuKnn answers queries
+    that arrive as rows, pw.io.subscribe collects the replies. Each batch of
+    rows is pushed with next() (or _remove()) and handed over by one
+    commit(), which the engine takes as one tick; the driver waits for that
+    tick to end before it commits again."""
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.engine.index_node import ExternalIndexExec
+    from pathway_tpu_torch.internals import parse_graph
+    from pathway_tpu_torch.internals.api import ref_scalar
+    from pathway_tpu_torch.observability.tracing import get_tracer
+    from pathway_tpu_torch.ops import block_topk as bt
+    from pathway_tpu_torch.stdlib.indexing import DataIndex, TpuKnn
+    from pathway_tpu_torch.stdlib.indexing._index_impls import TpuDenseKnnIndex
+    from pathway_tpu_torch.xpacks.llm.embedders import SentenceTransformerEmbedder
+
+    rng = np.random.default_rng(SEED + 7)
+    n_vec = CORPUS_ROWS - N_DOCS
+    docs = synthetic_docs(N_DOCS + ENGINE_LIVE_TICKS * ENGINE_LIVE_DOCS, rng)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    vec_host = torch.randn(n_vec, DIM, generator=gen, device=dev)
+    vec_host = (vec_host / vec_host.norm(dim=-1, keepdim=True)).cpu().numpy()
+    n_static = ENGINE_B1_TICKS + 16 * ENGINE_B16_TICKS
+    static_docs = rng.choice(N_DOCS, size=n_static, replace=False)
+    retracted = [int(i) for i in rng.choice(N_DOCS, size=ENGINE_RETRACT, replace=False)]
+    doc_key = lambda i: int(ref_scalar(ref_scalar(i), 0))  # noqa: E731 (concat_reindex side 0)
+
+    parse_graph.G.clear()
+    bt.block_topk.launches = 0
+    bt.block_topk.shapes.clear()
+    torch.cuda.reset_peak_memory_stats()
+    tracer = get_tracer()
+    check(tracer.enabled, "tracing is off (PATHWAY_TRACING=0): the re-upload is read from its span")
+    tracer.clear()
+
+    class DocSchema(pw.Schema):
+        doc_id: int = pw.column_definition(primary_key=True)
+        text: str
+        meta: str
+
+    class VecSchema(pw.Schema):
+        vid: int = pw.column_definition(primary_key=True)
+        vec: np.ndarray
+        meta: str
+
+    class QuerySchema(pw.Schema):
+        qid: int = pw.column_definition(primary_key=True)
+        q: str
+
+    finished = threading.Event()
+    failure: list[BaseException] = []
+
+    class Idle(pw.io.python.ConnectorSubject):
+        """Fed from the query subject's thread; ends with the traffic."""
+
+        def run(self):
+            finished.wait()
+
+    doc_subject, vec_subject = Idle(), Idle()
+
+    emb = SentenceTransformerEmbedder(device=dev)  # full width, bf16, seeded
+    # the batches are the commits: no autocommit takes a part of one while
+    # its rows are still being pushed
+    texts = pw.io.python.read(doc_subject, schema=DocSchema, autocommit_duration_ms=None)
+    vecs = pw.io.python.read(vec_subject, schema=VecSchema, autocommit_duration_ms=None)
+    corpus = texts.select(vec=emb(pw.this.text), meta=pw.this.meta).concat_reindex(
+        vecs.select(vec=pw.this.vec, meta=pw.this.meta)
+    )
+    # room for the live documents: the corpus never doubles mid-run
+    knn = TpuKnn(corpus.vec, corpus.meta, dimensions=DIM, reserved_space=CORPUS_ROWS
+                 + ENGINE_LIVE_TICKS * ENGINE_LIVE_DOCS, device=dev)
+    index = DataIndex(corpus, knn)
+
+    replies: dict[int, dict] = {}
+    updates: list[tuple[float, tuple]] = []
+    qvecs: dict[int, np.ndarray] = {}
+
+    def on_reply(key, row, time, is_addition):
+        # the first reply is the answer as of the query's tick; later
+        # updates re-join the data columns (a retracted match's meta
+        # becomes None), the ids and scores stay
+        if is_addition:
+            updates.append((_now(), row["meta"]))
+            if row["qid"] not in replies:
+                replies[row["qid"]] = {"t": _now(), "ids": tuple(int(i) for i in row["ids"]),
+                                       "scores": row["scores"], "meta": row["meta"]}
+
+    def on_query_vec(key, row, time, is_addition):
+        if is_addition:
+            qvecs[row["qid"]] = row["v"]
+
+    _now = time.perf_counter
+    stamps: dict[str, float] = {}
+    commits: dict[int, float] = {}
+    record: dict = {"update_ms": []}
+    n_commits = [0]
+    stage_ticks: dict[str, int] = {}
+
+    class QuerySubject(pw.io.python.ConnectorSubject):
+        def run(self):
+            try:
+                drive(self)
+            except BaseException as e:  # noqa: BLE001 — re-raised after pw.run
+                failure.append(e)
+            finally:
+                finished.set()
+
+    def engine_index() -> TpuDenseKnnIndex:
+        rt = parse_graph.G.runtime
+        return next(ex.index for ex in rt.execs.values() if isinstance(ex, ExternalIndexExec))
+
+    def commit(subject, cond, what: str) -> None:
+        """Hand the subject's staged rows to the engine, then wait until
+        cond() holds and the commit's tick has ended."""
+        subject.commit()
+        n_commits[0] += 1
+        goal, rt = n_commits[0], parse_graph.G.runtime
+        wait_until(lambda: cond() and rt.stats.ticks >= goal, what)
+
+    def stage(name: str, t0: int) -> None:
+        stage_ticks[name] = parse_graph.G.runtime.stats.ticks - t0
+
+    def ask(subject, qid_texts: list[tuple[int, str]]) -> None:
+        for qid, text in qid_texts:
+            subject.next(qid=qid, q=text)
+        t0 = _now()
+        for qid, _t in qid_texts:
+            commits[qid] = t0
+        commit(subject, lambda: all(q in replies for q, _t in qid_texts), "a query's reply")
+
+    def drive(qs) -> None:
+        ix = record["index"] = engine_index()
+        ticks = lambda: parse_graph.G.runtime.stats.ticks  # noqa: E731
+        # corpus: 16 commits of 256 documents, then the vectors in commits
+        # of ENGINE_VEC_COMMIT, each row through ConnectorSubject.next
+        stamps["ingest0"], t0 = _now(), ticks()
+        for lo in range(0, N_DOCS, ENGINE_DOC_COMMIT):
+            for i in range(lo, lo + ENGINE_DOC_COMMIT):
+                doc_subject.next(doc_id=i, text=docs[i], meta=f"doc:{i}")
+            commit(doc_subject, lambda: len(ix) >= lo + ENGINE_DOC_COMMIT, "a document commit")
+        stamps["docs_in"] = _now()
+        stage("docs", t0)
+        stamps["push_s"], t0 = 0.0, ticks()
+        for lo in range(0, n_vec, ENGINE_VEC_COMMIT):
+            tp = _now()
+            for j in range(lo, min(lo + ENGINE_VEC_COMMIT, n_vec)):
+                vec_subject.next(vid=j, vec=vec_host[j], meta=f"vec:{j}")
+            stamps["push_s"] += _now() - tp
+            commit(vec_subject, lambda: len(ix) >= N_DOCS + min(lo + ENGINE_VEC_COMMIT, n_vec),
+                   "a vector commit")
+        stamps["ingest1"] = _now()
+        stage("vectors", t0)
+        # traffic: B = 1, then B = 16, queries copied from documents
+        qid, t0 = 0, ticks()
+        for i in range(ENGINE_B1_TICKS):
+            d = int(static_docs[i])
+            ask(qs, [(qid, docs[d])])
+            qid += 1
+        stage("queries_B=1", t0)
+        t0 = ticks()
+        for t in range(ENGINE_B16_TICKS):
+            lo = ENGINE_B1_TICKS + 16 * t
+            ask(qs, [(qid + j, docs[int(static_docs[lo + j])]) for j in range(16)])
+            qid += 16
+        stage("queries_B=16", t0)
+        stamps["static_q"] = qid
+        record["mirror"] = snapshot(ix)
+        static = sorted(q for q in qvecs if q < qid)
+        record["static_ref"] = [
+            r for lo in range(0, len(static), 16)
+            for r in mirror_search(record["mirror"], [qvecs[q] for q in static[lo:lo + 16]])
+        ]
+        # live updates: a commit of 64 new documents, then a query for one
+        # of them; visible = from that commit to the query's reply
+        t0 = ticks()
+        for t in range(ENGINE_LIVE_TICKS):
+            lo = N_DOCS + t * ENGINE_LIVE_DOCS
+            for i in range(lo, lo + ENGINE_LIVE_DOCS):
+                doc_subject.next(doc_id=i, text=docs[i], meta=f"doc:{i}")
+            tc = _now()
+            n0 = CORPUS_ROWS + t * ENGINE_LIVE_DOCS
+            commit(doc_subject, lambda: len(ix) >= n0 + ENGINE_LIVE_DOCS, "a live commit")
+            target = lo + (t * 7) % ENGINE_LIVE_DOCS
+            ask(qs, [(qid, docs[target])])
+            record["update_ms"].append((replies[qid]["t"] - tc) * 1e3)
+            record.setdefault("live", []).append((qid, target))
+            mirror_add(record["mirror"], ix, range(lo, lo + ENGINE_LIVE_DOCS), doc_key)
+            record.setdefault("live_ref", []).extend(mirror_search(record["mirror"], [qvecs[qid]]))
+            qid += 1
+        stage("live_docs_and_queries", t0)
+        # one commit retracting 64 documents (the subject's _remove, as in
+        # the reference), then queries for them
+        stamps["retract"], t0 = _now(), ticks()
+        for i in retracted:
+            doc_subject._remove(ref_scalar(i), {"doc_id": i, "text": docs[i], "meta": f"doc:{i}"})
+        commit(doc_subject, lambda: len(ix) == CORPUS_ROWS + ENGINE_LIVE_TICKS * ENGINE_LIVE_DOCS
+               - ENGINE_RETRACT, "the retraction")
+        stage("retraction", t0)
+        stamps["retract_q"], t0 = qid, ticks()
+        for lo in range(0, ENGINE_RETRACT, 16):
+            ask(qs, [(qid + j, docs[retracted[lo + j]]) for j in range(16)])
+            qid += 16
+        stage("retraction_queries", t0)
+        for i in retracted:
+            record["mirror"].remove(doc_key(i))
+        record["retract_ref"] = [
+            r for lo in range(stamps["retract_q"], qid, 16)
+            for r in mirror_search(record["mirror"], [qvecs[q] for q in range(lo, lo + 16)])
+        ]
+        stamps["queries"] = qid
+
+    def snapshot(ix) -> TpuDenseKnnIndex:
+        """A separate index holding the engine index's rows (host copies)."""
+        state = ix.state_dict()
+        c = dict(state["corpus"], host=state["corpus"]["host"].copy(),
+                 valid_host=state["corpus"]["valid_host"].copy())
+        m = TpuDenseKnnIndex(dimensions=DIM, metric="cosine", reserved_space=c["capacity"], device=dev)
+        m.load_state({"metadata": dict(state["metadata"]), "corpus": c})
+        return m
+
+    def mirror_add(m, ix, doc_ids, key_of) -> None:
+        for i in doc_ids:
+            k = key_of(i)
+            m.upsert(k, ix.corpus.host[ix.corpus.slot_of[k]].copy(), ix.metadata[k])
+
+    def mirror_search(m, vs: list) -> list:
+        before = bt.block_topk.launches, bt.block_topk.shapes.copy()
+        out = m.search([(v, K, None) for v in vs])
+        bt.block_topk.launches, bt.block_topk.shapes = before  # not the path's
+        return out
+
+    queries = pw.io.python.read(QuerySubject(), schema=QuerySchema, autocommit_duration_ms=None)
+    qv = queries.select(qid=pw.this.qid, v=emb(pw.this.q))
+    answers = index.query_as_of_now(qv.v, number_of_matches=K).select(
+        qid=pw.left.qid,
+        ids=pw.right._pw_index_reply_id,
+        scores=pw.right._pw_index_reply_score,
+        meta=pw.right.meta,
+    )
+    pw.io.subscribe(qv, on_change=on_query_vec)
+    pw.io.subscribe(answers, on_change=on_reply)
+    t_run = _now()
+    pw.run()  # raises if an operator recorded an error (a kernel failure included)
+    run_s = _now() - t_run
+    if failure:
+        raise failure[0]
+    launches = bt.block_topk.launches
+    shapes = dict(bt.block_topk.shapes)
+    peak = torch.cuda.max_memory_allocated()
+    rt = parse_graph.G.last_runtime
+
+    # checks
+    n_q = stamps["queries"]
+    check(sorted(replies) == list(range(n_q)), "a query is missing from the replies")
+    # every reply against a separate index holding the same rows as the
+    # engine's at that reply (searched in the query subject's thread, engine idle)
+    static = range(stamps["static_q"])
+    exact = 0
+    for q, ref in zip(static, record["static_ref"]):
+        got = tuple(zip(replies[q]["ids"], replies[q]["scores"]))
+        check(same_up_to_near_ties(got, ref, F32_TOL), f"query {q}: engine reply differs from direct search")
+        exact += [k for k, _s in got] == [k for k, _s in ref]
+        d = int(static_docs[q])
+        check(replies[q]["meta"][0] == f"doc:{d}", f"query {q} copied from doc {d} got {replies[q]}")
+    for (q, target), ref in zip(record["live"], record["live_ref"]):
+        got = tuple(zip(replies[q]["ids"], replies[q]["scores"]))
+        check(replies[q]["meta"][0] == f"doc:{target}", f"live query {q} missed its new doc {target}")
+        check(same_up_to_near_ties(got, ref, F32_TOL), f"live query {q} differs from direct search")
+    gone = {f"doc:{i}" for i in retracted}
+    late = [meta for t, meta in updates if t >= stamps["retract"]]
+    check(bool(late) and not any(gone & set(meta) for meta in late),
+          "a reply emitted after the retraction carries a retracted document")
+    for q, ref in zip(range(stamps["retract_q"], n_q), record["retract_ref"]):
+        got = tuple(zip(replies[q]["ids"], replies[q]["scores"]))
+        check(not gone & set(replies[q]["meta"]), f"query {q} returned a retracted document")
+        check(same_up_to_near_ties(got, ref, F32_TOL), f"query {q} after the retraction differs")
+    del record["mirror"]
+    check(emb.runtime.device.type == "cuda", f"the embedder ran on {emb.runtime.device}")
+    check(shapes.get((1, K), 0) > 0 and shapes.get((16, K), 0) > 0,
+          f"block_topk did not run at B=1 and B=16 on the engine path: {dict(shapes)}")
+    searches = ENGINE_B1_TICKS + ENGINE_B16_TICKS + ENGINE_LIVE_TICKS + ENGINE_RETRACT // 16
+    check(launches == searches, f"{launches} kernel launches for {searches} index searches")
+    # one tick per commit, and the final tick that closes the run
+    check(rt.stats.ticks == n_commits[0] + 1, f"{rt.stats.ticks} ticks for {n_commits[0]} commits")
+    # the whole corpus went up again on the first search after each tick
+    # that changed it: after the ingest, each live commit and the retraction
+    # (uploads inside the engine's knn.search spans, not the check's index)
+    spans = tracer.spans()
+    searches_ids = {sp.span_id for sp in spans if sp.name == "knn.search"}
+    uploads = [sp for sp in spans if sp.name == "knn.corpus_upload" and sp.parent_id in searches_ids]
+    check(len(uploads) == ENGINE_LIVE_TICKS + 2, f"{len(uploads)} corpus uploads")
+    upload_ms = [sp.duration_ns / 1e6 for sp in uploads]
+
+    def lat(qs):
+        ms = [(replies[q]["t"] - commits[q]) * 1e3 for q in qs]
+        return {"p50": float(np.percentile(ms, 50)), "max": float(np.max(ms)), "n": len(ms)}
+
+    ingest_s = stamps["ingest1"] - stamps["ingest0"]
+    op_s: dict[str, float] = {}
+    for node in rt.order:
+        name = type(node).__name__
+        op_s[name] = op_s.get(name, 0.0) + rt.stats.node_ns.get(node.id, 0) / 1e9
+    b1 = range(ENGINE_B1_TICKS)
+    b16 = range(ENGINE_B1_TICKS, stamps["static_q"])
+    phase = {
+        "phase": "engine",
+        "rows": CORPUS_ROWS,
+        "docs": N_DOCS,
+        "commits": {"docs": N_DOCS // ENGINE_DOC_COMMIT, "doc_rows": ENGINE_DOC_COMMIT,
+                    "vectors": -(-n_vec // ENGINE_VEC_COMMIT), "vector_rows": ENGINE_VEC_COMMIT},
+        "ingest_s": ingest_s,
+        "ingest_rows_per_s": CORPUS_ROWS / ingest_s,
+        "embed_docs_per_s": N_DOCS / (stamps["docs_in"] - stamps["ingest0"]),
+        "vector_rows_per_s": n_vec / (stamps["ingest1"] - stamps["docs_in"]),
+        # where ingest goes: the subject's next() calls, and the engine's
+        # seconds per operator type over the whole run (runtime stats)
+        "vector_next_s": stamps["push_s"],
+        "operator_s": dict(sorted(op_s.items(), key=lambda kv: -kv[1])),
+        "query_reply_p50_ms": {"B=1": lat(b1)["p50"], "B=16": lat(b16)["p50"]},
+        "query_reply_max_ms": {"B=1": lat(b1)["max"], "B=16": lat(b16)["max"]},
+        "update_to_visible_ms": {"p50": float(np.percentile(record["update_ms"], 50)),
+                                 "max": float(np.max(record["update_ms"])), "n": len(record["update_ms"])},
+        "reupload_ms": {"p50": float(np.percentile(upload_ms, 50)),
+                        "max": float(np.max(upload_ms)), "n": len(upload_ms)},
+        "reupload_bytes": int(np.median([sp.attributes["bytes"] for sp in uploads])),
+        "ticks": rt.stats.ticks,
+        "ticks_by_stage": stage_ticks,
+        "run_s": run_s,
+        "queries": n_q,
+        "replies_keys_equal_direct_search": exact,
+        "replies_compared": len(static) + len(record["live"]) + ENGINE_RETRACT,
+        "block_topk_launches": launches,
+        "block_topk_launches_by_shape": {f"B={b},k={k}": n for (b, k), n in sorted(shapes.items())},
+        "embedder_device": str(emb.runtime.device),
+        "peak_allocated_bytes": peak,
+    }
+    prep, _c2, valid = record["index"].corpus.prepared_arrays("cosine", bf16=False)
+    batches = {
+        1: torch.from_numpy(np.stack([qvecs[0]])).to(dev),
+        16: torch.from_numpy(np.stack([qvecs[q] for q in b16[:16]])).to(dev),
+    }
+    parse_graph.G.clear()
+    return phase, {"prep": prep, "valid": valid, "queries": batches,
+                   "launches": launches, "shapes": shapes}
+
+
+# --- phase 5: generation ------------------------------------------------------
 
 
 class StepRecorder:
@@ -780,7 +1169,7 @@ def generation(dev, main: dict) -> tuple[dict, dict]:
     }
 
 
-# --- phase 5: durability ------------------------------------------------------
+# --- phase 6: durability ------------------------------------------------------
 
 
 def kill_child(prompts_path: str) -> int:
@@ -1130,25 +1519,28 @@ def durability(dev, gen: dict) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-# --- phase 6: kernel times ----------------------------------------------------
+# --- phase 7: kernel times ----------------------------------------------------
 
 
-def kernel_times(main: dict, gen: dict, rate: float, rate_src: str) -> list[dict]:
+def kernel_times(main: dict, eng: dict, gen: dict, rate: float, rate_src: str) -> list[dict]:
     from pathway_tpu_torch.ops import block_topk as bt
     from pathway_tpu_torch.ops.knn import BLK, _normalize
 
-    prep, valid = main["prep"], main["valid"]
-    n, d = prep.shape
-    # (B, k, queries, launches of that shape on its path)
+    # (B, k, queries, launches of that shape on its path, path, its corpus)
+    m_corpus, e_corpus = (main["prep"], main["valid"]), (eng["prep"], eng["valid"])
     path_shapes = [
-        (1, K, main["queries"][1], main["shapes"].get((1, K), 0), "retrieval"),
-        (16, K, main["queries"][16], main["shapes"].get((16, K), 0), "retrieval"),
+        (1, K, main["queries"][1], main["shapes"].get((1, K), 0), "retrieval", m_corpus),
+        (16, K, main["queries"][16], main["shapes"].get((16, K), 0), "retrieval", m_corpus),
         (16, 4 * K, main["queries"]["filtered"], main["shapes"].get((16, 4 * K), 0),
-         "retrieval (filtered)"),
-        (32, RETRIEVE_K, gen["asks"], gen["topk_shapes"].get((32, RETRIEVE_K), 0), "generation"),
+         "retrieval (filtered)", m_corpus),
+        (1, K, eng["queries"][1], eng["shapes"].get((1, K), 0), "engine", e_corpus),
+        (16, K, eng["queries"][16], eng["shapes"].get((16, K), 0), "engine", e_corpus),
+        (32, RETRIEVE_K, gen["asks"], gen["topk_shapes"].get((32, RETRIEVE_K), 0), "generation",
+         m_corpus),
     ]
     per_batch = []
-    for bs, k, q, path_launches, path in path_shapes:
+    for bs, k, q, path_launches, path, (prep, valid) in path_shapes:
+        n, d = prep.shape
         check(path_launches > 0, f"block_topk never ran at B={bs}, k={k} on the {path} path")
         qn = _normalize(q).to(prep.dtype).contiguous()
         before = bt.block_topk.launches, bt.block_topk.shapes.copy()
@@ -1189,6 +1581,8 @@ def kernel_times(main: dict, gen: dict, rate: float, rate_src: str) -> list[dict
         "source": "pathway_tpu_torch/csrc/block_topk.cu",
         "replaces": "pathway_tpu/ops/pallas_topk.py:69",
         "launches": main["launches"],
+        "engine_launches": eng["launches"],
+        "engine_launches_by_shape": {f"B={b},k={k}": n for (b, k), n in sorted(eng["shapes"].items())},
         "max_abs_err": max(p["max_abs_err"] for p in per_batch),
         "ms": head["ms"],
         "plain_ms": head["plain_ms"],
@@ -1313,10 +1707,12 @@ def main() -> int:
     emit(kernel_parity(dev))
     phase, main_data = main_path(dev)
     emit(phase)
+    phase, engine_data = engine(dev)
+    emit(phase)
     phase, gen_data = generation(dev, main_data)
     emit(phase)
     emit(durability(dev, gen_data))
-    kernels = kernel_times(main_data, gen_data, rate, rate_src) + [
+    kernels = kernel_times(main_data, engine_data, gen_data, rate, rate_src) + [
         paged_kernel_times(gen_data, rate, rate_src)
     ]
     emit({"phase": "kernels", "kernels": kernels})

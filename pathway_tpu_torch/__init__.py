@@ -1,21 +1,169 @@
 """pathway_tpu_torch — the PyTorch/CUDA port of ``pathway_tpu``.
 
 The JAX package ``pathway_tpu`` is the reference; this package re-implements
-its live-RAG retrieval path (tokenizer → sentence encoder → device-resident
-corpus → exact dense top-k) on PyTorch, with the fused score + block-top-k
-kernel written by hand in CUDA C++ for Hopper (``csrc/block_topk.cu``).
+it on PyTorch, with the reference's two Pallas kernels written by hand in
+CUDA C++ for Hopper (``csrc/block_topk.cu``, ``csrc/paged_attention.cu``).
+What is ported: the incremental dataflow engine and its Table API
+(``import pathway_tpu_torch as pw``: ``pw.Table``, ``pw.Schema``,
+``pw.this``, ``pw.reducers``, ``pw.udf``, ``pw.io.python``,
+``pw.io.subscribe``, ``pw.debug``, ``pw.run``), live-RAG retrieval
+(embedder UDF → ``DataIndex`` → dense top-k), and generation serving.
 
 Modules keep the JAX package's paths and public names so each counterpart is
-easy to find. The package imports neither ``jax`` nor anything of
-``pathway_tpu``: what it needs from the framework-neutral layers (tokenizer,
-filter compiler, ``Json``) it keeps as its own copy.
+easy to find. The package imports neither ``jax`` nor ``pandas`` nor
+anything of ``pathway_tpu``: what it needs from the framework-neutral layers
+it keeps as its own copy. Importing it does not initialise CUDA.
 
 Entry points take ``device=`` and default to ``"cuda"``; without a card they
-raise unless the caller passes ``device="cpu"`` explicitly.
+raise unless the caller passes ``device="cpu"`` explicitly. A reference
+feature that is not ported raises ``NotImplementedError`` naming its
+``ROADMAP.md`` item (``_unported.py``).
 """
 
+from __future__ import annotations
+
+import pathway_tpu_torch.reducers as reducers
+from pathway_tpu_torch import debug, io
 from pathway_tpu_torch._device import resolve_device
+from pathway_tpu_torch.internals import (
+    UDF,
+    ColumnExpression,
+    ColumnReference,
+    DateTimeNaive,
+    DateTimeUtc,
+    GroupedJoinResult,
+    GroupedTable,
+    Joinable,
+    JoinMode,
+    JoinResult,
+    Json,
+    MonitoringLevel,
+    PathwayType as Type,
+    PersistenceMode,
+    Pointer,
+    PyObjectWrapper,
+    Schema,
+    SchemaProperties,
+    Table,
+    TableLike,
+    __version__,
+    apply,
+    apply_async,
+    apply_with_type,
+    assert_table_has_schema,
+    cast,
+    coalesce,
+    column_definition,
+    declare_type,
+    fill_error,
+    global_error_log,
+    groupby,
+    if_else,
+    join,
+    join_inner,
+    join_left,
+    join_outer,
+    join_right,
+    left,
+    local_error_log,
+    make_tuple,
+    require,
+    right,
+    run,
+    run_all,
+    schema_builder,
+    schema_from_csv,
+    schema_from_dict,
+    schema_from_types,
+    this,
+    udf,
+    unwrap,
+    wrap_py_object,
+)
+from pathway_tpu_torch.internals.custom_reducers import BaseCustomAccumulator
+from pathway_tpu_torch.internals.joins import OuterJoinResult
 
-__version__ = "0.1.0"  # the reference's version: the port tracks it
 
-__all__ = ["resolve_device"]
+def __getattr__(name: str):
+    # stdlib subpackages load lazily, as in the reference; Duration builds
+    # (and imports pandas) only when asked for
+    import importlib
+
+    if name == "Duration":
+        from pathway_tpu_torch.internals import datetime_types
+
+        return datetime_types.Duration
+    if name == "indexing":
+        module = importlib.import_module("pathway_tpu_torch.stdlib.indexing")
+    elif name == "xpacks":
+        module = importlib.import_module("pathway_tpu_torch.xpacks")
+    else:
+        raise AttributeError(name)
+    globals()[name] = module
+    return module
+
+
+__all__ = [
+    "__version__",
+    "resolve_device",
+    "debug",
+    "io",
+    "indexing",
+    "xpacks",
+    "reducers",
+    "apply",
+    "apply_async",
+    "apply_with_type",
+    "assert_table_has_schema",
+    "cast",
+    "coalesce",
+    "column_definition",
+    "declare_type",
+    "fill_error",
+    "if_else",
+    "make_tuple",
+    "require",
+    "unwrap",
+    "udf",
+    "UDF",
+    "BaseCustomAccumulator",
+    "ColumnExpression",
+    "ColumnReference",
+    "DateTimeNaive",
+    "DateTimeUtc",
+    "Duration",
+    "GroupedJoinResult",
+    "GroupedTable",
+    "Joinable",
+    "JoinMode",
+    "JoinResult",
+    "OuterJoinResult",
+    "Json",
+    "MonitoringLevel",
+    "PersistenceMode",
+    "Pointer",
+    "PyObjectWrapper",
+    "wrap_py_object",
+    "Schema",
+    "SchemaProperties",
+    "Table",
+    "TableLike",
+    "Type",
+    "global_error_log",
+    "local_error_log",
+    "groupby",
+    "join",
+    "join_inner",
+    "join_left",
+    "join_outer",
+    "join_right",
+    "left",
+    "right",
+    "this",
+    "run",
+    "run_all",
+    "schema_builder",
+    "schema_from_csv",
+    "schema_from_dict",
+    "schema_from_types",
+]

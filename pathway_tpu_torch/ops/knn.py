@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from pathway_tpu_torch._device import resolve_device
+from pathway_tpu_torch.observability.tracing import get_tracer
 
 BLK = 1024
 
@@ -214,11 +215,16 @@ class DeviceCorpus:
 
     def device_arrays(self) -> tuple[torch.Tensor, torch.Tensor]:
         if self._dirty or self._device is None:
-            # drop the old copies first so a re-upload never holds two
-            self._device = self._device_valid = None
-            self._prepared.clear()
-            self._device = torch.from_numpy(self.host).to(self.device)
-            self._device_valid = torch.from_numpy(self.valid_host).to(self.device)
+            # the whole corpus goes up again after any change: the span
+            # times that re-upload as the caller's thread waits for it
+            with get_tracer().span(
+                "knn.corpus_upload", bytes=self.host.nbytes + self.valid_host.nbytes
+            ):
+                # drop the old copies first so a re-upload never holds two
+                self._device = self._device_valid = None
+                self._prepared.clear()
+                self._device = torch.from_numpy(self.host).to(self.device)
+                self._device_valid = torch.from_numpy(self.valid_host).to(self.device)
             self._dirty = False
         return self._device, self._device_valid
 

@@ -1,14 +1,15 @@
-"""Local sentence embedder — counterpart of ``SentenceTransformerEmbedder``
-in ``pathway_tpu/xpacks/llm/embedders.py``.
+"""Embedders — counterpart of ``BaseEmbedder`` and
+``SentenceTransformerEmbedder`` in ``pathway_tpu/xpacks/llm/embedders.py``.
 
-Same constructor arguments (less the mesh), tokenizer priority (HF tokenizer
-when one is cached locally → WordPiece over a local vocab.txt → hashing) and
-checkpoint fallback as the JAX class. It is a plain class here: the JAX
-class is a pw ``UDF``, which needs the dataflow engine, not ported yet.
-``embed_batch`` is the batched function the engine calls. Each device batch
-records the JAX class's ``pathway_embed_batch_seconds``/``_docs_total``/
-``_docs_per_sec_per_chip`` series and an ``embed.batch`` span; the batch
-occupancy histogram (``serving/metrics.py``) is not ported yet.
+As in the reference, both are pw ``UDF``s: ``emb(table.text)`` is a column
+expression, and the engine feeds whole ticks to the batched path
+(``embed_batch``, chunks of at most ``batch_size``). Same constructor
+arguments (less the mesh), tokenizer priority (HF tokenizer when one is
+cached locally → WordPiece over a local vocab.txt → hashing) and checkpoint
+fallback as the JAX class. Each device batch records the JAX class's
+``pathway_embed_batch_seconds``/``_docs_total``/``_docs_per_sec_per_chip``
+series and an ``embed.batch`` span; the batch occupancy histogram is not
+ported yet. The API embedders (OpenAI, LiteLLM, Gemini) are not ported.
 """
 
 from __future__ import annotations
@@ -22,6 +23,8 @@ from typing import Any, Sequence
 import numpy as np
 import torch
 
+from pathway_tpu_torch.internals import expression as expr_mod
+from pathway_tpu_torch.internals.udfs import UDF
 from pathway_tpu_torch.observability import REGISTRY
 from pathway_tpu_torch.observability.tracing import get_tracer
 from pathway_tpu_torch.xpacks.llm._bert import _find_model_dir
@@ -33,7 +36,17 @@ from pathway_tpu_torch.xpacks.llm._tokenizer import (
 )
 
 
-class SentenceTransformerEmbedder:
+class BaseEmbedder(UDF):
+    """UDF str -> np.ndarray; also callable on expressions."""
+
+    def get_embedding_dimension(self, **kwargs) -> int:
+        return len(self.func("pathway", **kwargs))  # type: ignore[misc]
+
+    def __call__(self, input: Any, **kwargs: Any) -> expr_mod.ColumnExpression:
+        return super().__call__(input, **kwargs)
+
+
+class SentenceTransformerEmbedder(BaseEmbedder):
     """Local embedder on the card (reference name: pathway's
     SentenceTransformerEmbedder). Pass a model name or directory with a
     local checkpoint/tokenizer to use it; otherwise a seeded random-init
@@ -112,6 +125,13 @@ class SentenceTransformerEmbedder:
             "throughput of the most recent embed batch, per local device",
             labelnames=("model",),
         ).labels(model)
+        super().__init__(
+            return_type=np.ndarray, max_batch_size=batch_size, deterministic=True
+        )
+        self._prepare(self._single)
+        # batched path: the engine hands embed_batch a list of texts
+        self._batched = True
+        self._fn = self.embed_batch
 
     def embed_batch(self, texts: Sequence[str]) -> list[np.ndarray]:
         """Embed ``texts`` in chunks of at most ``batch_size``; one f32

@@ -1,7 +1,10 @@
 """pathway_tpu_torch, chip_smoke.py and tools/ stand alone: every module of the port
 imports with ``jax``, ``flax`` and ``pathway_tpu`` blocked, and no source
-file names them in an import. Without a card, an entry point left on its
-default device raises instead of falling back to the CPU."""
+file names them in an import. The engine, the Table API and the root
+package also import with ``pandas`` blocked (the card's machine has none),
+and no module of the port imports it at module level.
+Without a card, an entry point left on its default device raises instead of
+falling back to the CPU."""
 
 import ast
 import json
@@ -14,6 +17,10 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "pathway_tpu_torch"
 BLOCKED = ("jax", "jaxlib", "flax", "pathway_tpu")
+BLOCKED_WITH_PANDAS = BLOCKED + ("pandas",)
+# modules that may import pandas at module level: none (the ``.dt``
+# namespace, the reference's one such module, is not ported)
+PANDAS_MODULES: set[str] = set()
 
 _IMPORT_ALL = """
 import importlib, pkgutil, sys
@@ -41,6 +48,19 @@ from pathway_tpu_torch.xpacks.llm._encoder import EncoderRuntime
 from pathway_tpu_torch.xpacks.llm.embedders import SentenceTransformerEmbedder
 from pathway_tpu_torch.generate import DecodeScheduler, GenerateConfig
 from pathway_tpu_torch.xpacks.llm.decoder import DecoderConfig, empty_pools
+import numpy as np
+import pathway_tpu_torch as pw
+from pathway_tpu_torch.stdlib.indexing import DataIndex, TpuKnn
+
+
+def _knn_pipeline_on_default_device():
+    docs = pw.debug.table_from_rows(pw.schema_from_types(v=np.ndarray), [(np.ones(4),)])
+    index = DataIndex(docs, TpuKnn(docs.v, dimensions=4))
+    res = index.query_as_of_now(docs.v, number_of_matches=1).select(r=pw.right.v)
+    pw.io.subscribe(res, on_change=lambda **kw: None)
+    pw.run()
+
+
 for make in (
     lambda: TpuDenseKnnIndex(dimensions=8),
     lambda: DeviceCorpus(8),
@@ -49,6 +69,7 @@ for make in (
     lambda: DecodeScheduler(),
     lambda: DecodeScheduler(GenerateConfig(kernel="ref")),
     lambda: empty_pools(DecoderConfig(), 4),
+    _knn_pipeline_on_default_device,
 ):
     try:
         make()
@@ -93,9 +114,60 @@ DURABLE_MODULES = [
 ]
 
 
-def _run(code, **fmt):
+# the engine, the Table API, the index operator and the root package: each
+# imports with pandas blocked too
+ENGINE_MODULES = [
+    "pathway_tpu_torch",
+    "pathway_tpu_torch._unported",
+    "pathway_tpu_torch.debug",
+    "pathway_tpu_torch.reducers",
+    "pathway_tpu_torch.engine.expression_eval",
+    "pathway_tpu_torch.engine.index_node",
+    "pathway_tpu_torch.engine.nodes",
+    "pathway_tpu_torch.engine.reducers",
+    "pathway_tpu_torch.engine.runtime",
+    "pathway_tpu_torch.internals",
+    "pathway_tpu_torch.internals.api",
+    "pathway_tpu_torch.internals.common",
+    "pathway_tpu_torch.internals.config",
+    "pathway_tpu_torch.internals.custom_reducers",
+    "pathway_tpu_torch.internals.datetime_types",
+    "pathway_tpu_torch.internals.dtype",
+    "pathway_tpu_torch.internals.error_log_table",
+    "pathway_tpu_torch.internals.errors",
+    "pathway_tpu_torch.internals.expression",
+    "pathway_tpu_torch.internals.expression_printer",
+    "pathway_tpu_torch.internals.expressions",
+    "pathway_tpu_torch.internals.expressions.numerical",
+    "pathway_tpu_torch.internals.expressions.string",
+    "pathway_tpu_torch.internals.groupbys",
+    "pathway_tpu_torch.internals.joins",
+    "pathway_tpu_torch.internals.json",
+    "pathway_tpu_torch.internals.parse_graph",
+    "pathway_tpu_torch.internals.reducer_descriptors",
+    "pathway_tpu_torch.internals.run",
+    "pathway_tpu_torch.internals.schema",
+    "pathway_tpu_torch.internals.table",
+    "pathway_tpu_torch.internals.table_slice",
+    "pathway_tpu_torch.internals.telemetry",
+    "pathway_tpu_torch.internals.thisclass",
+    "pathway_tpu_torch.internals.udfs",
+    "pathway_tpu_torch.internals.universe",
+    "pathway_tpu_torch.io",
+    "pathway_tpu_torch.io._subscribe",
+    "pathway_tpu_torch.io.python",
+    "pathway_tpu_torch.stdlib.indexing",
+    "pathway_tpu_torch.stdlib.indexing.colnames",
+    "pathway_tpu_torch.stdlib.indexing.data_index",
+    "pathway_tpu_torch.stdlib.indexing.nearest_neighbors",
+    "pathway_tpu_torch.stdlib.indexing.retrievers",
+    "pathway_tpu_torch.xpacks.llm.embedders",
+]
+
+
+def _run(code, blocked=BLOCKED, **fmt):
     return subprocess.run(
-        [sys.executable, "-c", code.format(blocked=BLOCKED, **fmt)],
+        [sys.executable, "-c", code.format(blocked=blocked, **fmt)],
         cwd=ROOT,
         capture_output=True,
         text=True,
@@ -106,7 +178,7 @@ def _run(code, **fmt):
 def test_every_port_module_imports_without_jax():
     r = _run(_IMPORT_ALL)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.strip().splitlines()[-1]) >= 29
+    assert int(r.stdout.strip().splitlines()[-1]) >= 29 + len(ENGINE_MODULES)
 
 
 @pytest.fixture(scope="module")
@@ -119,6 +191,38 @@ def imported_with_jax_blocked():
 @pytest.mark.parametrize("mod", DURABLE_MODULES)
 def test_durability_module_imports_without_jax(imported_with_jax_blocked, mod):
     assert mod in imported_with_jax_blocked
+
+
+@pytest.fixture(scope="module")
+def imported_with_pandas_blocked():
+    r = _run(_IMPORT_EACH, blocked=BLOCKED_WITH_PANDAS, mods=ENGINE_MODULES)
+    assert r.returncode == 0, r.stderr
+    return set(json.loads(r.stdout.strip().splitlines()[-1]))
+
+
+@pytest.mark.parametrize("mod", ENGINE_MODULES)
+def test_engine_module_imports_without_jax_or_pandas(imported_with_pandas_blocked, mod):
+    assert mod in imported_with_pandas_blocked
+
+
+def _module_level_roots(path: Path) -> set[str]:
+    roots = set()
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+def test_only_the_datetime_namespace_imports_pandas_at_module_level():
+    offenders = {
+        ".".join(p.relative_to(ROOT).with_suffix("").parts)
+        for p in PKG.rglob("*.py")
+        if "pandas" in _module_level_roots(p)
+    }
+    assert offenders <= PANDAS_MODULES, offenders
+    assert "pandas" not in _module_level_roots(ROOT / "chip_smoke.py")
 
 
 def _imported_roots(path: Path) -> set[str]:
