@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from csrc/ (nvcc, sm_90a, one process per
-source, all started together), then runs seven phases, printing one JSON
+source, all started together), then runs eight phases, printing one JSON
 object per phase:
 
 1. device         — nvidia-smi name/power limit, toolchain versions, build seconds.
@@ -45,7 +45,28 @@ object per phase:
                     Prints ingest, embed, reply and update-to-visible times,
                     ticks per stage, and the corpus re-upload per dirty tick
                     (from the knn.corpus_upload span).
-5. generation     — ask -> retrieve -> generate: 24 asks are embedded and
+5. vector store   — the RAG product layer as a user writes it: 32,768 documents
+                    arrive as bytes through pw.io.python in 16 commits of 2048;
+                    VectorStoreServer(device="cuda") parses (Utf8Parser), splits
+                    (TokenCountSplitter(20, 60): 78,185 chunks), embeds (the
+                    phase-3 embedder) and indexes them; query rows go through
+                    retrieve_query (64 ticks of B = 1, 8 of B = 16 whose replies
+                    also go through CrossEncoderReranker at its defaults and
+                    rerank_topk_filter, 4 filtered ticks of B = 16, k = 10),
+                    then 16 live ticks of 64 documents and a query for one of
+                    them, one statistics_query, one filtered inputs_query and
+                    8 asks through BaseRAGQuestionAnswerer(EchoChat()). Checked:
+                    every reply against a plain-torch index holding the store's
+                    rows (up to near ties), copied queries find their chunk
+                    first, filters hold, file_count equals the chunks, the
+                    inputs are exactly the matching paths, every kept rerank
+                    score within RERANK_TOL of a direct forward_ids of the same
+                    pairs, every echoed answer holds its retrieved texts,
+                    block_topk launches equal the searches per shape, one tick
+                    per commit. Prints embed, reply, update-to-visible and
+                    rerank figures, engine seconds per operator, beside the
+                    card's nvidia-smi name and power limit.
+6. generation     — ask -> retrieve -> generate: 24 asks are embedded and
                     retrieved (k = 3) on the phase-3 index, each grounded prompt
                     goes to one DecodeScheduler(GenerateConfig()) at the decoder's
                     serving defaults (dim 128, 2 layers, 4 heads, head_dim 32,
@@ -55,7 +76,7 @@ object per phase:
                     back to empty, launches == decode steps x layers, the same
                     tokens from a kernel="ref" scheduler, and the logits of one
                     recorded step, kernel against plain.
-6. durability     — the same 24 prompts at the same width, with snapshots.
+7. durability     — the same 24 prompts at the same width, with snapshots.
                     A child process (this script with --kill-child) runs them
                     with PATHWAY_GENERATE_SNAPSHOT_EVERY=8, a store in a temp
                     dir and PATHWAY_FAULTS="kill=decode:150"; it must exit 23
@@ -72,14 +93,15 @@ object per phase:
                     segments per snapshot). Tokens are compared exactly; a
                     difference passes only at a near tie: the uninterrupted
                     run's top-2 logit margin there below GEN_LOGIT_TOL.
-7. kernels        — per kernel and per path shape: launches on its path, ms
+8. kernels        — per kernel and per path shape: launches on its path, ms
                     (CUDA events) and device ms (torch.profiler), its plain
                     version's ms, the bound and what sets it, the bytes it must
                     move, and the ms of the library call(s) computing the same
                     function (the yardstick). block_topk: B = 1 and B = 16
                     (k = 10, retrieval, and again on the engine phase's
-                    corpus), B = 16 with k = 40 (the filtered
-                    batch, oversampled x4) and B = 32 (k = 3, the generation
+                    and the vector store's corpora), B = 16 with k = 40 (the
+                    filtered batch, oversampled x4, on the retrieval and the
+                    vector store corpora) and B = 32 (k = 3, the generation
                     phase's 24 asks padded to 32); paged_attention: the
                     recorded decode step and a long context, each with its
                     split count S.
@@ -124,6 +146,22 @@ ENGINE_B16_TICKS = 8
 ENGINE_LIVE_TICKS = 16
 ENGINE_LIVE_DOCS = 64
 ENGINE_RETRACT = 64
+# the vector store phase: VectorStoreServer over documents that arrive as
+# bytes, 16 commits of 2048 (≈2 chunks each, ≈65k chunks)
+VS_DOCS = 32768
+VS_COMMIT = 2048
+VS_MIN_TOKENS, VS_MAX_TOKENS = 20, 60
+VS_B1_TICKS = 64
+VS_B16_TICKS = 8
+VS_FILTER_TICKS = 4
+VS_LIVE_TICKS = 16
+VS_LIVE_DOCS = 64
+VS_ASKS = 8
+VS_GROUPS = 4  # document i sits under docs/<i % 4>/; a filter keeps one group
+RERANK_KEEP = 3
+# the cross-encoder's scores in the pipeline against a direct forward_ids of
+# the same tick's pairs in one batch: the same bf16 model, bucket and device
+RERANK_TOL = 1e-3
 # kernel vs plain on random unit vectors, |score| <= 1: the D products are
 # summed in another order. bf16 inputs are multiplied exactly in f32, so the
 # same f32 sum-order tolerance holds for bf16 corpora.
@@ -541,6 +579,30 @@ def main_path(dev) -> tuple[dict, dict]:
 # --- phase 4: engine ----------------------------------------------------------
 
 
+def operator_s(rt, since: dict | None = None) -> dict[str, float]:
+    """Engine seconds per operator type (runtime stats), over the whole run
+    or since the ``node_ns`` snapshot ``since``; largest first."""
+    out: dict[str, float] = {}
+    for node in rt.order:
+        ns = rt.stats.node_ns.get(node.id, 0) - (since or {}).get(node.id, 0)
+        out[type(node).__name__] = out.get(type(node).__name__, 0.0) + ns / 1e9
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]))
+
+
+def operator_s_by_node(rt, since: dict | None = None, top: int = 12) -> list[dict]:
+    """Engine seconds per operator instance since the ``node_ns`` snapshot
+    ``since``: node id, type, the user line that declared it and its output
+    columns; the ``top`` largest."""
+    out = []
+    for node in rt.order:
+        ns = rt.stats.node_ns.get(node.id, 0) - (since or {}).get(node.id, 0)
+        if ns > 0:
+            where = f"{os.path.basename(node.trace[0])}:{node.trace[1]}" if node.trace else None
+            out.append({"id": node.id, "op": type(node).__name__, "declared_at": where,
+                        "columns": list(node.column_names)[:4], "s": ns / 1e9})
+    return sorted(out, key=lambda r: -r["s"])[:top]
+
+
 def wait_until(cond, what: str, timeout: float = 300.0) -> None:
     t_end = time.perf_counter() + timeout
     while not cond():
@@ -807,17 +869,19 @@ def engine(dev) -> tuple[dict, dict]:
     # every reply against a separate index holding the same rows as the
     # engine's at that reply (searched in the query subject's thread, engine idle)
     static = range(stamps["static_q"])
-    exact = 0
+    # exact key order per group; the rest differ only at near ties
+    exact = {"static": 0, "live": 0, "retraction": 0}
     for q, ref in zip(static, record["static_ref"]):
         got = tuple(zip(replies[q]["ids"], replies[q]["scores"]))
         check(same_up_to_near_ties(got, ref, F32_TOL), f"query {q}: engine reply differs from direct search")
-        exact += [k for k, _s in got] == [k for k, _s in ref]
+        exact["static"] += [k for k, _s in got] == [k for k, _s in ref]
         d = int(static_docs[q])
         check(replies[q]["meta"][0] == f"doc:{d}", f"query {q} copied from doc {d} got {replies[q]}")
     for (q, target), ref in zip(record["live"], record["live_ref"]):
         got = tuple(zip(replies[q]["ids"], replies[q]["scores"]))
         check(replies[q]["meta"][0] == f"doc:{target}", f"live query {q} missed its new doc {target}")
         check(same_up_to_near_ties(got, ref, F32_TOL), f"live query {q} differs from direct search")
+        exact["live"] += [k for k, _s in got] == [k for k, _s in ref]
     gone = {f"doc:{i}" for i in retracted}
     late = [meta for t, meta in updates if t >= stamps["retract"]]
     check(bool(late) and not any(gone & set(meta) for meta in late),
@@ -826,6 +890,7 @@ def engine(dev) -> tuple[dict, dict]:
         got = tuple(zip(replies[q]["ids"], replies[q]["scores"]))
         check(not gone & set(replies[q]["meta"]), f"query {q} returned a retracted document")
         check(same_up_to_near_ties(got, ref, F32_TOL), f"query {q} after the retraction differs")
+        exact["retraction"] += [k for k, _s in got] == [k for k, _s in ref]
     del record["mirror"]
     check(emb.runtime.device.type == "cuda", f"the embedder ran on {emb.runtime.device}")
     check(shapes.get((1, K), 0) > 0 and shapes.get((16, K), 0) > 0,
@@ -848,10 +913,6 @@ def engine(dev) -> tuple[dict, dict]:
         return {"p50": float(np.percentile(ms, 50)), "max": float(np.max(ms)), "n": len(ms)}
 
     ingest_s = stamps["ingest1"] - stamps["ingest0"]
-    op_s: dict[str, float] = {}
-    for node in rt.order:
-        name = type(node).__name__
-        op_s[name] = op_s.get(name, 0.0) + rt.stats.node_ns.get(node.id, 0) / 1e9
     b1 = range(ENGINE_B1_TICKS)
     b16 = range(ENGINE_B1_TICKS, stamps["static_q"])
     phase = {
@@ -867,7 +928,7 @@ def engine(dev) -> tuple[dict, dict]:
         # where ingest goes: the subject's next() calls, and the engine's
         # seconds per operator type over the whole run (runtime stats)
         "vector_next_s": stamps["push_s"],
-        "operator_s": dict(sorted(op_s.items(), key=lambda kv: -kv[1])),
+        "operator_s": operator_s(rt),
         "query_reply_p50_ms": {"B=1": lat(b1)["p50"], "B=16": lat(b16)["p50"]},
         "query_reply_max_ms": {"B=1": lat(b1)["max"], "B=16": lat(b16)["max"]},
         "update_to_visible_ms": {"p50": float(np.percentile(record["update_ms"], 50)),
@@ -879,8 +940,11 @@ def engine(dev) -> tuple[dict, dict]:
         "ticks_by_stage": stage_ticks,
         "run_s": run_s,
         "queries": n_q,
-        "replies_keys_equal_direct_search": exact,
+        "replies_keys_equal_direct_search": sum(exact.values()),
+        "replies_keys_equal_direct_search_by_group": exact,
         "replies_compared": len(static) + len(record["live"]) + ENGINE_RETRACT,
+        "replies_compared_by_group": {"static": len(static), "live": len(record["live"]),
+                                      "retraction": ENGINE_RETRACT},
         "block_topk_launches": launches,
         "block_topk_launches_by_shape": {f"B={b},k={k}": n for (b, k), n in sorted(shapes.items())},
         "embedder_device": str(emb.runtime.device),
@@ -896,7 +960,425 @@ def engine(dev) -> tuple[dict, dict]:
                    "launches": launches, "shapes": shapes}
 
 
-# --- phase 5: generation ------------------------------------------------------
+# --- phase 5: vector store ----------------------------------------------------
+
+
+def vector_store(dev, smi: str) -> tuple[dict, dict]:
+    """The RAG product layer as a user writes it, on the card: documents
+    arrive as bytes through pw.io.python; VectorStoreServer parses them
+    (Utf8Parser), splits them (TokenCountSplitter), embeds the chunks
+    (SentenceTransformerEmbedder at full width) and indexes them
+    (USearchKnn on cuda: the block top-k kernel answers every retrieval).
+    Query rows go through retrieve_query; the B = 16 replies also through
+    CrossEncoderReranker and rerank_topk_filter; asks through
+    BaseRAGQuestionAnswerer(EchoChat()). Every batch is one commit() and
+    one tick; the feeding thread waits for that tick before it commits again."""
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.engine.index_node import ExternalIndexExec
+    from pathway_tpu_torch.internals import parse_graph
+    from pathway_tpu_torch.ops import block_topk as bt
+    from pathway_tpu_torch.stdlib.indexing._index_impls import TpuDenseKnnIndex
+    from pathway_tpu_torch.xpacks.llm.embedders import SentenceTransformerEmbedder
+    from pathway_tpu_torch.xpacks.llm.llms import EchoChat
+    from pathway_tpu_torch.xpacks.llm.parsers import Utf8Parser
+    from pathway_tpu_torch.xpacks.llm.question_answering import BaseRAGQuestionAnswerer
+    from pathway_tpu_torch.xpacks.llm.rerankers import CrossEncoderReranker, rerank_topk_filter
+    from pathway_tpu_torch.xpacks.llm.splitters import TokenCountSplitter
+    from pathway_tpu_torch.xpacks.llm.vector_store import VectorStoreServer
+
+    rng = np.random.default_rng(SEED + 11)
+    n_all = VS_DOCS + VS_LIVE_TICKS * VS_LIVE_DOCS
+    docs = synthetic_docs(n_all, rng)
+
+    def path(i: int) -> str:
+        return f"docs/{i % VS_GROUPS}/{i:06d}.txt"
+
+    # the chunks the store will index, split here on the host to know the
+    # corpus size per commit and to copy queries from
+    splitter = TokenCountSplitter(min_tokens=VS_MIN_TOKENS, max_tokens=VS_MAX_TOKENS)
+    chunks_of = [[c for c, _m in splitter.split(d)] for d in docs]
+    upto = np.cumsum([len(c) for c in chunks_of])  # chunks of documents 0..i
+    n_static = VS_B1_TICKS + 16 * VS_B16_TICKS + 16 * VS_FILTER_TICKS + VS_ASKS
+    qdocs = [int(d) for d in rng.choice(VS_DOCS, size=n_static, replace=False)]
+    live_targets = [VS_DOCS + t * VS_LIVE_DOCS + (t * 7) % VS_LIVE_DOCS for t in range(VS_LIVE_TICKS)]
+    wanted = {chunks_of[d][0] for d in qdocs + live_targets}
+    capacity = -(-int(upto[-1]) // 1024) * 1024  # the corpus never doubles mid-run
+
+    parse_graph.G.clear()
+    bt.block_topk.launches = 0
+    bt.block_topk.shapes.clear()
+    torch.cuda.reset_peak_memory_stats()
+    qvec: dict[str, np.ndarray] = {}
+    rerank_calls: list[tuple[int, float]] = []
+
+    class RecordingEmbedder(SentenceTransformerEmbedder):
+        """Keeps the vector of each query text it embeds (for the direct
+        search of the checks)."""
+
+        def embed_batch(self, texts):
+            out = super().embed_batch(texts)
+            for t, v in zip(texts, out):
+                if t in wanted:
+                    qvec[t] = v
+            return out
+
+    class TimedReranker(CrossEncoderReranker):
+        """Times each batched scoring call (one per tick's pairs)."""
+
+        def _score_batch(self, docs_, queries_):
+            t0 = time.perf_counter()
+            out = super()._score_batch(docs_, queries_)  # returns host floats
+            rerank_calls.append((len(docs_), time.perf_counter() - t0))
+            return out
+
+    class DocSchema(pw.Schema):
+        doc_id: int = pw.column_definition(primary_key=True)
+        data: bytes
+        _metadata: pw.Json
+
+    class QuerySchema(pw.Schema):
+        qid: int = pw.column_definition(primary_key=True)
+        query: str
+        k: int
+        metadata_filter: str | None = pw.column_definition(default_value=None, dtype=str)
+        filepath_globpattern: str | None = pw.column_definition(default_value=None, dtype=str)
+        rerank: bool
+
+    class StatsSchema(pw.Schema):
+        sid: int = pw.column_definition(primary_key=True)
+
+    finished = threading.Event()
+    failure: list[BaseException] = []
+
+    class Idle(pw.io.python.ConnectorSubject):
+        """Fed from the feeder's thread; ends with the traffic."""
+
+        def run(self):
+            finished.wait()
+
+    class Feeder(pw.io.python.ConnectorSubject):
+        def run(self):
+            try:
+                drive(self)
+            except BaseException as e:  # noqa: BLE001 — re-raised after pw.run
+                failure.append(e)
+            finally:
+                finished.set()
+
+    doc_subject, stats_subject, inputs_subject, ask_subject = Idle(), Idle(), Idle(), Idle()
+    t0 = time.perf_counter()
+    emb = RecordingEmbedder(device=dev)  # full width, bf16, seeded
+    init_s = {"embedder": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    reranker = TimedReranker(device=dev)  # dim 256, depth 4, heads 4, max_len 512
+    init_s["reranker"] = time.perf_counter() - t0
+    documents = pw.io.python.read(doc_subject, schema=DocSchema, autocommit_duration_ms=None)
+    store = VectorStoreServer(
+        documents, embedder=emb, parser=Utf8Parser(), splitter=splitter,
+        index_params={"reserved_space": capacity}, device=dev,
+    )
+    queries = pw.io.python.read(Feeder(), schema=QuerySchema, autocommit_duration_ms=None)
+    retrieved = store.retrieve_query(queries)
+    replied = queries.with_columns(result=retrieved.with_universe_of(queries).result)
+    pairs = replied.filter(pw.this.rerank).select(
+        qid=pw.this.qid, query=pw.this.query,
+        doc=pw.apply_with_type(lambda r: [d["text"] for d in r.value], list, pw.this.result),
+    ).flatten(pw.this.doc)
+    scored = pairs.select(qid=pw.this.qid, doc=pw.this.doc, score=reranker(pw.this.doc, pw.this.query))
+    top = scored.groupby(pw.this.qid).reduce(
+        pw.this.qid, docs=pw.reducers.tuple(pw.this.doc), scores=pw.reducers.tuple(pw.this.score)
+    ).select(qid=pw.this.qid, top=rerank_topk_filter(pw.this.docs, pw.this.scores, RERANK_KEEP))
+    stats = store.statistics_query(
+        pw.io.python.read(stats_subject, schema=StatsSchema, autocommit_duration_ms=None)
+    )
+    inputs = store.inputs_query(
+        pw.io.python.read(inputs_subject, schema=store.InputsQuerySchema, autocommit_duration_ms=None)
+    )
+    answerer = BaseRAGQuestionAnswerer(EchoChat(), store, search_topk=K)
+    asks = pw.io.python.read(ask_subject, schema=answerer.AnswerQuerySchema, autocommit_duration_ms=None)
+    answers = asks.select(prompt=pw.this.prompt, result=answerer.answer_query(asks).with_universe_of(asks).result)
+
+    _now = time.perf_counter
+    replies: dict[int, tuple[float, list]] = {}
+    ranked: dict[int, tuple[float, tuple]] = {}
+    text_of: dict[int, str] = {}
+    results: dict[str, list] = {"stats": [], "inputs": [], "answers": []}
+
+    def on_reply(key, row, time, is_addition):
+        if is_addition and row["qid"] not in replies:
+            replies[row["qid"]] = (_now(), row["result"].value)
+
+    def on_top(key, row, time, is_addition):
+        if is_addition:
+            ranked[row["qid"]] = (_now(), row["top"])
+
+    def on_chunk(key, row, time, is_addition):
+        if is_addition:
+            text_of[int(key)] = row["text"]
+
+    pw.io.subscribe(replied, on_change=on_reply)
+    pw.io.subscribe(top, on_change=on_top)
+    pw.io.subscribe(store._graph["chunked_docs"], on_change=on_chunk)
+    for name, table in (("stats", stats), ("inputs", inputs), ("answers", answers)):
+        pw.io.subscribe(
+            table,
+            on_change=lambda key, row, time, is_addition, out=results[name]: is_addition
+            and out.append(row),
+        )
+
+    commits: dict[int, float] = {}
+    n_commits = [0]
+    stamps: dict[str, float] = {}
+    record: dict = {"update_ms": [], "ticks": {}}
+
+    def commit(subject, cond, what: str) -> float:
+        subject.commit()
+        t = _now()
+        n_commits[0] += 1
+        goal, rt = n_commits[0], parse_graph.G.runtime
+        wait_until(lambda: cond() and rt.stats.ticks >= goal, what)
+        return t
+
+    def ask(qs, rows: list[tuple]) -> None:
+        """rows: (qid, text, k, filter, rerank)."""
+        for qid, text, k, flt, rerank in rows:
+            qs.next(qid=qid, query=text, k=k, metadata_filter=flt, filepath_globpattern=None,
+                    rerank=rerank)
+        t = commit(qs, lambda: all(r[0] in replies for r in rows)
+                   and all(r[0] in ranked for r in rows if r[4]), "a query's reply")
+        for r in rows:
+            commits[r[0]] = t
+
+    def snapshot(ix) -> TpuDenseKnnIndex:
+        """A separate plain-torch index holding the store index's rows."""
+        state = ix.state_dict()
+        c = dict(state["corpus"], host=state["corpus"]["host"].copy(),
+                 valid_host=state["corpus"]["valid_host"].copy())
+        m = TpuDenseKnnIndex(dimensions=DIM, metric="cosine", reserved_space=c["capacity"],
+                             kernel="torch", device=dev)
+        m.load_state({"metadata": dict(state["metadata"]), "corpus": c})
+        return m
+
+    def drive(qs) -> None:
+        rt = parse_graph.G.runtime
+        execs = sorted((ex for ex in rt.execs.values() if isinstance(ex, ExternalIndexExec)),
+                       key=lambda ex: ex.node.id)
+        ix = record["index"] = execs[0].index  # retrieve_query's (built before the answerer's)
+        ticks = lambda: rt.stats.ticks  # noqa: E731
+        stamps["ingest0"], t0 = _now(), ticks()
+        for lo in range(0, VS_DOCS, VS_COMMIT):
+            for i in range(lo, lo + VS_COMMIT):
+                doc_subject.next(doc_id=i, data=docs[i].encode(), _metadata={"path": path(i)})
+            commit(doc_subject, lambda: len(ix) >= upto[lo + VS_COMMIT - 1], "a document commit")
+        stamps["ingest1"] = _now()
+        record["ticks"]["docs"] = ticks() - t0
+        qid, it, t0 = 0, iter(qdocs), ticks()
+        groups: dict[str, list] = {"B=1": [], "B=16": [], "filtered": []}
+        for _ in range(VS_B1_TICKS):
+            d = next(it)
+            ask(qs, [(qid, chunks_of[d][0], K, None, False)])
+            groups["B=1"].append((qid, d, None))
+            qid += 1
+        record["ticks"]["queries_B=1"] = ticks() - t0
+        t0 = ticks()
+        for _ in range(VS_B16_TICKS):
+            rows = []
+            for j in range(16):
+                d = next(it)
+                rows.append((qid + j, chunks_of[d][0], K, None, True))
+                groups["B=16"].append((qid + j, d, None))
+            ask(qs, rows)
+            record.setdefault("rerank_ticks", []).append([r[0] for r in rows])
+            qid += 16
+        record["ticks"]["queries_B=16_reranked"] = ticks() - t0
+        t0 = ticks()
+        for _ in range(VS_FILTER_TICKS):
+            rows = []
+            for j in range(16):
+                d = next(it)
+                flt = f"globmatch('docs/{d % VS_GROUPS}/*', path)"
+                rows.append((qid + j, chunks_of[d][0], K, flt, False))
+                groups["filtered"].append((qid + j, d, flt))
+            ask(qs, rows)
+            qid += 16
+        record["ticks"]["queries_filtered"] = ticks() - t0
+        mirror = snapshot(ix)
+        record["static_ref"] = {
+            q: mirror.search([(qvec[chunks_of[d][0]], K, flt)])[0]
+            for rows in groups.values() for q, d, flt in rows
+        }
+        record["groups"] = groups
+        del mirror
+        # live: a commit of 64 new documents, then a query for one of them
+        t0, record["live_ns0"] = ticks(), dict(rt.stats.node_ns)
+        for t in range(VS_LIVE_TICKS):
+            lo = VS_DOCS + t * VS_LIVE_DOCS
+            for i in range(lo, lo + VS_LIVE_DOCS):
+                doc_subject.next(doc_id=i, data=docs[i].encode(), _metadata={"path": path(i)})
+            tc = commit(doc_subject, lambda: len(ix) >= upto[lo + VS_LIVE_DOCS - 1], "a live commit")
+            target = live_targets[t]
+            ask(qs, [(qid, chunks_of[target][0], K, None, False)])
+            record["update_ms"].append((replies[qid][0] - tc) * 1e3)
+            mirror = snapshot(ix)
+            record.setdefault("live", []).append(
+                (qid, target, mirror.search([(qvec[chunks_of[target][0]], K, None)])[0]))
+            del mirror
+            qid += 1
+        record["ticks"]["live_docs_and_queries"] = ticks() - t0
+        record["live_operator_s"] = operator_s(rt, record["live_ns0"])
+        record["live_operator_s_by_node"] = operator_s_by_node(rt, record["live_ns0"])
+        t0 = ticks()
+        stats_subject.next(sid=0)
+        commit(stats_subject, lambda: bool(results["stats"]), "the statistics reply")
+        inputs_subject.next(metadata_filter="globmatch('docs/1/*', path)", filepath_globpattern=None)
+        commit(inputs_subject, lambda: bool(results["inputs"]), "the inputs reply")
+        for a in range(VS_ASKS):
+            d = next(it)
+            ask_subject.next(prompt=chunks_of[d][0], filters=None, model=None, return_context_docs=True)
+            commit(ask_subject, lambda: len(results["answers"]) > a, "an answer")
+        record["ticks"]["statistics_inputs_asks"] = ticks() - t0
+        stamps["queries"] = qid
+
+    t_run = _now()
+    pw.run()  # raises if an operator recorded an error (a kernel failure included)
+    run_s = _now() - t_run
+    if failure:
+        raise failure[0]
+    launches = bt.block_topk.launches
+    shapes = dict(bt.block_topk.shapes)
+    peak = torch.cuda.max_memory_allocated()
+    rt = parse_graph.G.last_runtime
+    n_chunks = int(upto[-1])
+
+    # checks
+    check(len(text_of) == n_chunks, f"{len(text_of)} chunks indexed, {n_chunks} expected")
+    check(sorted(replies) == list(range(stamps["queries"])), "a query is missing from the replies")
+    exact: dict[str, int] = {}
+    for group, rows in record["groups"].items():
+        exact[group] = 0
+        for q, d, flt in rows:
+            got = tuple((r["text"], -r["dist"]) for r in replies[q][1])
+            ref = tuple((text_of[key], score) for key, score in record["static_ref"][q])
+            check(same_up_to_near_ties(got, ref, F32_TOL), f"{group} query {q}: reply differs from direct search")
+            exact[group] += [t for t, _s in got] == [t for t, _s in ref]
+            check(got[0][0] == chunks_of[d][0] and abs(got[0][1]) < 1e-2,
+                  f"{group} query {q} copied from a chunk of doc {d} got {got[:1]}")
+            # a filter keeps what passes among the 4k best (the reference's
+            # oversample), so a filtered reply may hold fewer than k
+            check(len(got) == K or (flt is not None and len(got) > 0),
+                  f"{group} query {q} returned {len(got)} of {K}")
+            if flt is not None:
+                check(all(r["metadata"]["path"].startswith(f"docs/{d % VS_GROUPS}/") for r in replies[q][1]),
+                      f"filtered query {q} let a non-matching path through")
+    exact["live"] = 0
+    for q, target, ref_rows in record["live"]:
+        got = tuple((r["text"], -r["dist"]) for r in replies[q][1])
+        ref = tuple((text_of[key], score) for key, score in ref_rows)
+        check(got[0][0] == chunks_of[target][0], f"live query {q} missed its new doc {target}")
+        check(same_up_to_near_ties(got, ref, F32_TOL), f"live query {q} differs from direct search")
+        exact["live"] += [t for t, _s in got] == [t for t, _s in ref]
+    (stat,) = [r["result"].value for r in results["stats"]]
+    check(stat["file_count"] == n_chunks, f"statistics file_count {stat['file_count']} for {n_chunks} chunks")
+    (inp,) = [r["result"].value for r in results["inputs"]]
+    want = {path(i) for i in range(n_all) if i % VS_GROUPS == 1}
+    got_paths = [m["path"] for m in inp]
+    check(len(got_paths) == len(set(got_paths)) and set(got_paths) == want,
+          f"inputs_query under the filter: {len(got_paths)} paths, {len(want)} expected")
+    check(len(results["answers"]) == VS_ASKS, "an ask is missing an answer")
+    for row in results["answers"]:
+        ans = row["result"].value
+        ctx = ans["context_docs"]
+        check(len(ctx) == K and row["prompt"] == ctx[0]["text"], "an answer's first context is not its chunk")
+        check(all(c["text"] in ans["response"] for c in ctx), "an echoed answer misses a retrieved text")
+    # rerank: every kept score against a direct forward of the tick's pairs
+    rerank_err = 0.0
+    tokenize_ms = []  # the host share of a rerank call: its pairs' tokenization
+    for tick_qids in record["rerank_ticks"]:
+        pair_q, pair_t = [], []
+        for q in tick_qids:
+            query = chunks_of[next(d for qq, d, _f in record["groups"]["B=16"] if qq == q)][0]
+            for r in replies[q][1]:
+                pair_q.append((q, r["text"]))
+                pair_t.append(reranker._pair_text(r["text"], query))
+        t0 = time.perf_counter()
+        ids, mask = reranker.tokenizer.encode_batch(pair_t, reranker.runtime.max_len)
+        tokenize_ms.append((time.perf_counter() - t0) * 1e3)
+        direct = dict(zip(pair_q, reranker.runtime.forward_ids(ids, mask).tolist()))
+        for q in tick_qids:
+            kept_docs, kept_scores = ranked[q][1]
+            want_top = sorted(((s, t) for (qq, t), s in direct.items() if qq == q), key=lambda p: -p[0])
+            check(len(kept_docs) == RERANK_KEEP, f"rerank of query {q} kept {len(kept_docs)}")
+            for t, s in zip(kept_docs, kept_scores):
+                rerank_err = max(rerank_err, abs(s - direct[(q, t)]))
+            check(all(abs(s - ws) <= RERANK_TOL for s, (ws, _t) in zip(kept_scores, want_top)),
+                  f"rerank of query {q} kept other scores than the direct forward's top {RERANK_KEEP}")
+    check(rerank_err <= RERANK_TOL, f"reranked scores differ from a direct forward by {rerank_err}")
+    check(emb.runtime.device.type == "cuda" and reranker.runtime.device.type == "cuda",
+          "the embedder or the reranker left the card")
+    want_shapes = {(1, K): VS_B1_TICKS + VS_LIVE_TICKS + VS_ASKS, (16, K): VS_B16_TICKS,
+                   (16, 4 * K): VS_FILTER_TICKS}
+    check(shapes == want_shapes, f"block_topk launches by shape {shapes}, searches {want_shapes}")
+    check(launches == sum(want_shapes.values()), f"{launches} kernel launches for the searches")
+    check(rt.stats.ticks == n_commits[0] + 1, f"{rt.stats.ticks} ticks for {n_commits[0]} commits")
+
+    def lat(rows):
+        ms = [(replies[q][0] - commits[q]) * 1e3 for q, *_r in rows]
+        return float(np.percentile(ms, 50)), float(np.max(ms))
+
+    ingest_s = stamps["ingest1"] - stamps["ingest0"]
+    pairs_n, rerank_s = sum(n for n, _s in rerank_calls), sum(s for _n, s in rerank_calls)
+    rerank_reply = [(ranked[q][0] - commits[q]) * 1e3 for qs_ in record["rerank_ticks"] for q in qs_]
+    groups = record["groups"]
+    phase = {
+        "phase": "vector store",
+        "nvidia_smi": smi,
+        # the seeded (flax-equal, numpy) init of each encoder, on the host
+        "embedder_init_s": init_s["embedder"],
+        "reranker_init_s": init_s["reranker"],
+        "docs": VS_DOCS,
+        "live_docs": VS_LIVE_TICKS * VS_LIVE_DOCS,
+        "chunks": n_chunks,
+        "corpus_capacity": capacity,
+        "ingest_s": ingest_s,
+        "embed_chunks_per_s": int(upto[VS_DOCS - 1]) / ingest_s,
+        "retrieve_reply_p50_ms": {g: lat(rows)[0] for g, rows in groups.items()},
+        "retrieve_reply_max_ms": {g: lat(rows)[1] for g, rows in groups.items()},
+        "update_to_visible_ms": {"p50": float(np.percentile(record["update_ms"], 50)),
+                                 "max": float(np.max(record["update_ms"])), "n": len(record["update_ms"])},
+        "rerank_pairs": pairs_n,
+        "rerank_pairs_per_s": pairs_n / rerank_s,
+        "rerank_p50_ms": float(np.percentile([s * 1e3 for _n, s in rerank_calls], 50)),
+        "rerank_tokenize_p50_ms": float(np.percentile(tokenize_ms, 50)),
+        "rerank_reply_p50_ms": float(np.percentile(rerank_reply, 50)),
+        "rerank_max_abs_err": rerank_err,
+        "replies_keys_equal_direct_search": sum(exact.values()),
+        "replies_keys_equal_direct_search_by_group": exact,
+        "replies_compared": sum(len(r) for r in groups.values()) + len(record["live"]),
+        "block_topk_launches": launches,
+        "block_topk_launches_by_shape": {f"B={b},k={k}": n for (b, k), n in sorted(shapes.items())},
+        "ticks": rt.stats.ticks,
+        "ticks_by_stage": record["ticks"],
+        # the engine's seconds per operator type: the whole run, and the
+        # 16 live ticks alone (what update-to-visible waits on)
+        "operator_s": operator_s(rt),
+        "live_operator_s": record["live_operator_s"],
+        "live_operator_s_by_node": record["live_operator_s_by_node"],
+        "run_s": run_s,
+        "peak_allocated_bytes": peak,
+    }
+    prep, _c2, valid = record["index"].corpus.prepared_arrays("cosine", bf16=False)
+
+    def batch(rows):
+        return torch.from_numpy(np.stack([qvec[chunks_of[d][0]] for _q, d, _f in rows])).to(dev)
+
+    out = {"prep": prep, "valid": valid, "launches": launches, "shapes": shapes,
+           "queries": {1: batch(groups["B=1"][:1]), 16: batch(groups["B=16"][:16]),
+                       "filtered": batch(groups["filtered"][:16])}}
+    parse_graph.G.clear()
+    return phase, out
+
+
+# --- phase 6: generation ------------------------------------------------------
 
 
 class StepRecorder:
@@ -1169,7 +1651,7 @@ def generation(dev, main: dict) -> tuple[dict, dict]:
     }
 
 
-# --- phase 6: durability ------------------------------------------------------
+# --- phase 7: durability ------------------------------------------------------
 
 
 def kill_child(prompts_path: str) -> int:
@@ -1519,15 +2001,16 @@ def durability(dev, gen: dict) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-# --- phase 7: kernel times ----------------------------------------------------
+# --- phase 8: kernel times ----------------------------------------------------
 
 
-def kernel_times(main: dict, eng: dict, gen: dict, rate: float, rate_src: str) -> list[dict]:
+def kernel_times(main: dict, eng: dict, vs: dict, gen: dict, rate: float, rate_src: str) -> list[dict]:
     from pathway_tpu_torch.ops import block_topk as bt
     from pathway_tpu_torch.ops.knn import BLK, _normalize
 
     # (B, k, queries, launches of that shape on its path, path, its corpus)
     m_corpus, e_corpus = (main["prep"], main["valid"]), (eng["prep"], eng["valid"])
+    v_corpus = (vs["prep"], vs["valid"])
     path_shapes = [
         (1, K, main["queries"][1], main["shapes"].get((1, K), 0), "retrieval", m_corpus),
         (16, K, main["queries"][16], main["shapes"].get((16, K), 0), "retrieval", m_corpus),
@@ -1535,6 +2018,10 @@ def kernel_times(main: dict, eng: dict, gen: dict, rate: float, rate_src: str) -
          "retrieval (filtered)", m_corpus),
         (1, K, eng["queries"][1], eng["shapes"].get((1, K), 0), "engine", e_corpus),
         (16, K, eng["queries"][16], eng["shapes"].get((16, K), 0), "engine", e_corpus),
+        (1, K, vs["queries"][1], vs["shapes"].get((1, K), 0), "vector store", v_corpus),
+        (16, K, vs["queries"][16], vs["shapes"].get((16, K), 0), "vector store", v_corpus),
+        (16, 4 * K, vs["queries"]["filtered"], vs["shapes"].get((16, 4 * K), 0),
+         "vector store (filtered)", v_corpus),
         (32, RETRIEVE_K, gen["asks"], gen["topk_shapes"].get((32, RETRIEVE_K), 0), "generation",
          m_corpus),
     ]
@@ -1583,6 +2070,8 @@ def kernel_times(main: dict, eng: dict, gen: dict, rate: float, rate_src: str) -
         "launches": main["launches"],
         "engine_launches": eng["launches"],
         "engine_launches_by_shape": {f"B={b},k={k}": n for (b, k), n in sorted(eng["shapes"].items())},
+        "vector_store_launches": vs["launches"],
+        "vector_store_launches_by_shape": {f"B={b},k={k}": n for (b, k), n in sorted(vs["shapes"].items())},
         "max_abs_err": max(p["max_abs_err"] for p in per_batch),
         "ms": head["ms"],
         "plain_ms": head["plain_ms"],
@@ -1709,10 +2198,12 @@ def main() -> int:
     emit(phase)
     phase, engine_data = engine(dev)
     emit(phase)
+    phase, vs_data = vector_store(dev, smi)
+    emit(phase)
     phase, gen_data = generation(dev, main_data)
     emit(phase)
     emit(durability(dev, gen_data))
-    kernels = kernel_times(main_data, engine_data, gen_data, rate, rate_src) + [
+    kernels = kernel_times(main_data, engine_data, vs_data, gen_data, rate, rate_src) + [
         paged_kernel_times(gen_data, rate, rate_src)
     ]
     emit({"phase": "kernels", "kernels": kernels})

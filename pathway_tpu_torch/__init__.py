@@ -17,7 +17,7 @@ it keeps as its own copy. Importing it does not initialise CUDA.
 Entry points take ``device=`` and default to ``"cuda"``; without a card they
 raise unless the caller passes ``device="cpu"`` explicitly. A reference
 feature that is not ported raises ``NotImplementedError`` naming its
-``ROADMAP.md`` item (``_unported.py``).
+``ROADMAP.md`` tag (``_unported.py``).
 """
 
 from __future__ import annotations

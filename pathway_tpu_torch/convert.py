@@ -3,9 +3,9 @@
 ``flax_to_torch(params, module)`` loads a flax parameter tree (numpy arrays,
 or anything ``np.asarray`` accepts, with or without the top-level
 ``"params"`` key) into a ``TransformerEncoder``, ``CrossEncoderHead`` or
-``BertEncoder`` of this package, in place, and returns the module. The port's
-own random init cannot reproduce ``jax.random``, so parity between the two
-packages always goes through this function.
+``BertEncoder`` of this package, in place, and returns the module: trained or
+converted weights cross over through it. (A seeded init needs no crossing:
+``EncoderRuntime(seed=s)`` draws the JAX package's weights itself.)
 
 Layout rules:
 

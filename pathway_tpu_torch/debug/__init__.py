@@ -7,7 +7,7 @@ __init__.py:207-709) that the port's tests and users need —
 
 Not ported: the pandas surfaces (``table_from_pandas``, ``table_to_pandas``,
 parquet), ``StreamGenerator``, the trace/diagnose helpers, and
-``persistence_config`` (the persistence glue is ROADMAP section 0 item 1).
+``persistence_config`` (the persistence glue is ROADMAP [persistence]).
 The module imports no pandas."""
 
 from __future__ import annotations

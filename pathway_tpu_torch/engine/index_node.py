@@ -9,12 +9,12 @@ worker searches its shard. Here the index lives on the card (the port's
 ``TpuDenseKnnIndex``: one block top-k launch per tick's query batch).
 
 Not ported: the replication writer (``PATHWAY_REPL_PORT`` raises,
-ROADMAP section 0 item 1) and the multi-process exec (the runtime raises
-for a process group, queue 1 item 9). Nor are the hooks of the serving
+ROADMAP [replication]) and the multi-process exec (the runtime raises
+for a process group, [mesh]). Nor are the hooks of the serving
 plane that no path of the port reaches yet: the registration for stale
-reads during recovery (``serving/degrade.py``, section 0 item 2) and the
+reads during recovery (``serving/degrade.py``, [replication]) and the
 drop of queries whose REST deadline expired (``serving/deadline.py``,
-with the REST connector of queue 1 item 15).
+with the REST connector of [rest]).
 """
 
 from __future__ import annotations
@@ -22,7 +22,7 @@ from __future__ import annotations
 import os
 from typing import Any, Protocol, Sequence
 
-from pathway_tpu_torch._unported import PERSISTENCE, unported
+from pathway_tpu_torch._unported import REPLICATION, unported
 from pathway_tpu_torch.engine.batch import DiffBatch
 from pathway_tpu_torch.engine.nodes import Node, NodeExec
 from pathway_tpu_torch.internals.api import Pointer
@@ -105,7 +105,7 @@ class ExternalIndexExec(NodeExec):
         # (parallel/replicate.py); the port has no delta stream yet, so a
         # writer that asks for one raises instead of serving no replica
         if os.environ.get("PATHWAY_REPL_PORT"):
-            raise unported("replication (PATHWAY_REPL_PORT)", PERSISTENCE)
+            raise unported("replication (PATHWAY_REPL_PORT)", REPLICATION)
 
     def state_dict(self) -> dict:
         # indexes holding device arrays expose their own host-side snapshot;

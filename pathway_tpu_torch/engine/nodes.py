@@ -3,9 +3,9 @@
 
 Hooks of the reference this copy does not carry: the sharded execs of the
 engine mesh (``engine/sharded.py``) and the multi-process execs
-(``engine/dcn.py``; the runtime raises for both, ROADMAP queue 1 item 9)
+(``engine/dcn.py``; the runtime raises for both, ROADMAP [mesh])
 — and the compiled-tick helpers (typed ingest,
-the jitted groupby partials; queue 1 item 7). The columnar groupby
+the jitted groupby partials; [compiled-ticks]). The columnar groupby
 factorizes with numpy (``factorize``) where the reference calls pandas.
 
 This is the engine's operator vocabulary — the capability contract the

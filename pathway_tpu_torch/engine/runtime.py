@@ -5,14 +5,14 @@ path, metrics, spans and the fault plan, as in the reference.
 
 Not ported, and raising ``NotImplementedError`` rather than running
 without them: compiled ticks (an explicit ``PATHWAY_COMPILED_TICK=1``;
-unset or 0 runs the interpreter, ROADMAP queue 1 item 7), the engine
+unset or 0 runs the interpreter, ROADMAP [compiled-ticks]), the engine
 mesh (``PATHWAY_ENGINE_SHARDS`` > 1) and the multi-process engine
-(``PATHWAY_PROCESSES`` > 1; queue 1 item 9). Tick Scope's per-tick flight
-recorder is not ported either (queue 1 item 10): its slot stays None, the
+(``PATHWAY_PROCESSES`` > 1; [mesh]). Tick Scope's per-tick flight
+recorder is not ported either ([tickscope]): its slot stays None, the
 reference's ``PATHWAY_TICKSCOPE=0`` behaviour. Nor are the Surge Gate's
 session priority classes and ``PATHWAY_SERVING_BULK_CHUNK``: they bound
 bulk drains only while a REST query session is hot, and the port has no
-REST connector yet (ROADMAP queue 1 item 15); every tick drains every
+REST connector yet (ROADMAP [rest]); every tick drains every
 session whole.
 
 The reference's design: a replacement for the timely worker main loop
@@ -369,7 +369,7 @@ class Runtime:
 
         self._fault_plan = faults.active()
         # Tick Scope's per-runtime flight recorder is not ported yet
-        # (ROADMAP queue 1 item 10): the slot stays None, the reference's
+        # (ROADMAP [tickscope]): the slot stays None, the reference's
         # PATHWAY_TICKSCOPE=0 behaviour, so the hot loop pays one
         # `is None` check per node
         self._tickscope = None

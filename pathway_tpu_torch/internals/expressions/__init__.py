@@ -1,4 +1,4 @@
 """Expression namespaces (``.num``, ``.str``, ``.bin``) — counterpart of
 ``pathway_tpu/internals/expressions``. ``expression.py`` imports each
 submodule when its namespace is first used. The ``.dt`` namespace is not
-ported (it raises, ROADMAP queue 1 item 14)."""
+ported (it raises, ROADMAP [temporal])."""

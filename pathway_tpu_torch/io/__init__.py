@@ -1,7 +1,7 @@
 """pw.io — the connectors the port carries: ``pw.io.python`` (a
 ``ConnectorSubject`` feeding a streaming table) and ``pw.io.subscribe``.
 Counterpart of ``pathway_tpu/io/__init__.py``; the file, HTTP and service
-connectors are not ported (ROADMAP queue 1 item 15) and raise
+connectors are not ported (ROADMAP [connectors]) and raise
 ``NotImplementedError`` when asked for."""
 
 from __future__ import annotations

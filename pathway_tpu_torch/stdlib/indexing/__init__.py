@@ -1,8 +1,8 @@
 """pw.indexing — counterpart of ``pathway_tpu/stdlib/indexing``:
 ``DataIndex`` over the dense KNN indexes (``TpuKnn``, ``BruteForceKnn``,
 ``USearchKnn`` and their factories). ``LshKnn`` and ``IvfKnn`` raise
-``NotImplementedError`` (ROADMAP queue 1 item 8); ``TantivyBM25``,
-``HybridIndex`` and the document-index helpers likewise (queue 1 item 13).
+``NotImplementedError`` (ROADMAP [index-kinds]); ``TantivyBM25``,
+``HybridIndex`` and the document-index helpers likewise.
 """
 
 from pathway_tpu_torch._unported import BM25_HYBRID, unported

@@ -8,7 +8,8 @@ by exact top-k (``TpuDenseKnnIndex``; on CUDA the hand-written block top-k
 kernel). ``USearchKnn`` / ``BruteForceKnn`` keep the reference's parameter
 surfaces and lower to it; they take ``device=`` (default ``"cuda"``).
 ``LshKnn`` and ``IvfKnn`` (and their factories) are not ported and raise
-``NotImplementedError`` (ROADMAP queue 1 item 8), as does ``mesh=``."""
+``NotImplementedError`` (ROADMAP [index-kinds]), as does ``mesh=``
+([mesh])."""
 
 from __future__ import annotations
 
@@ -230,7 +231,7 @@ class UsearchKnnFactory(InnerIndexFactory):
 
 class _Unported:
     """An index kind of the reference that the port does not carry yet:
-    constructing it raises, naming its ROADMAP item."""
+    constructing it raises, naming its ROADMAP tag."""
 
     def __init__(self, *args: Any, **kwargs: Any):
         raise unported(type(self).__name__, INDEX_KINDS)

@@ -11,10 +11,10 @@ finite), masked mean pooling in f32 and L2 normalisation. As with flax
 ``dtype=bf16``, parameters are kept in f32 and cast to the compute dtype
 where they are used (bf16 by default).
 
-Weights: the port's own random init draws from ``torch.Generator(seed)`` with
-flax's scales (normal, std ``fan_in**-0.5``); it cannot reproduce
-``jax.random``, so parity with the JAX package always goes through
-``pathway_tpu_torch.convert.flax_to_torch``. Attention is plain tensor ops:
+Weights: ``EncoderRuntime(seed=s)`` loads the JAX package's seeded init,
+reproduced in numpy by ``_flax_init.py`` (threefry keys, flax's per-scope
+key derivation and initializers), so both packages give the same vectors
+and scores for the same seed. Attention is plain tensor ops:
 the JAX encoder has no Pallas kernel. The mesh (data-parallel batches) is
 not ported yet.
 """
@@ -29,6 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from pathway_tpu_torch._device import resolve_device
+from pathway_tpu_torch.xpacks.llm import _flax_init
 
 
 def _linear(x: torch.Tensor, lin: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
@@ -135,23 +136,27 @@ class CrossEncoderHead(nn.Module):
 
 
 def init_weights(module: nn.Module, seed: int) -> nn.Module:
-    """The port's own random init with flax's scales: every Linear and
-    Embedding weight ~ N(0, fan_in**-0.5) (fan_in = the Embedding's width),
-    biases 0, LayerNorm scale 1. Drawn from ``torch.Generator(seed)`` on the
-    CPU, so the weights are the same on every device."""
-    g = torch.Generator().manual_seed(seed)
-    with torch.no_grad():
-        for m in module.modules():
-            if isinstance(m, nn.Linear):
-                w = torch.randn(m.weight.shape, generator=g) * m.in_features**-0.5
-                m.weight.copy_(w)
-                m.bias.zero_()
-            elif isinstance(m, nn.Embedding):
-                m.weight.copy_(torch.randn(m.weight.shape, generator=g) * m.embedding_dim**-0.5)
-            elif isinstance(m, nn.LayerNorm):
-                m.weight.fill_(1.0)
-                m.bias.zero_()
-    return module
+    """Load the JAX package's seeded init into ``module`` (a
+    ``TransformerEncoder`` or a ``CrossEncoderHead``): the flax tree that
+    ``model.init(jax.random.PRNGKey(seed), ...)`` draws, computed in numpy
+    (``_flax_init.py``), so the weights are the same on every device and in
+    both packages."""
+    from pathway_tpu_torch.convert import flax_to_torch
+
+    cross = isinstance(module, CrossEncoderHead)
+    enc = module.encoder if cross else module
+    blk = enc.blocks[0]
+    params = _flax_init.init_params(
+        seed,
+        vocab_size=enc.tok_embed.num_embeddings,
+        dim=enc.dim,
+        depth=len(enc.blocks),
+        heads=blk.attn.heads,
+        mlp_ratio=blk.fc1.out_features // enc.dim,
+        max_len=enc.max_len,
+        cross_encoder=cross,
+    )
+    return flax_to_torch(params, module)
 
 
 def _bucket_batch(n: int) -> int:

@@ -1,5 +1,5 @@
-"""Embedders — counterpart of ``BaseEmbedder`` and
-``SentenceTransformerEmbedder`` in ``pathway_tpu/xpacks/llm/embedders.py``.
+"""Embedders — counterpart of ``pathway_tpu/xpacks/llm/embedders.py``:
+``BaseEmbedder``, ``SentenceTransformerEmbedder`` and the API embedders.
 
 As in the reference, both are pw ``UDF``s: ``emb(table.text)`` is a column
 expression, and the engine feeds whole ticks to the batched path
@@ -9,11 +9,14 @@ cached locally → WordPiece over a local vocab.txt → hashing) and checkpoint
 fallback as the JAX class. Each device batch records the JAX class's
 ``pathway_embed_batch_seconds``/``_docs_total``/``_docs_per_sec_per_chip``
 series and an ``embed.batch`` span; the batch occupancy histogram is not
-ported yet. The API embedders (OpenAI, LiteLLM, Gemini) are not ported.
+ported yet. The API embedders (``OpenAIEmbedder``, ``LiteLLMEmbedder``,
+``GeminiEmbedder``) are async UDFs that import their client (``openai``,
+``litellm``, ``google.generativeai``) only inside the call.
 """
 
 from __future__ import annotations
 
+import inspect
 import json
 import logging
 import os
@@ -29,6 +32,7 @@ from pathway_tpu_torch.observability import REGISTRY
 from pathway_tpu_torch.observability.tracing import get_tracer
 from pathway_tpu_torch.xpacks.llm._bert import _find_model_dir
 from pathway_tpu_torch.xpacks.llm._encoder import EncoderRuntime
+from pathway_tpu_torch.xpacks.llm._utils import _run_async
 from pathway_tpu_torch.xpacks.llm._tokenizer import (
     HashingTokenizer,
     HFTokenizerAdapter,
@@ -40,7 +44,10 @@ class BaseEmbedder(UDF):
     """UDF str -> np.ndarray; also callable on expressions."""
 
     def get_embedding_dimension(self, **kwargs) -> int:
-        return len(self.func("pathway", **kwargs))  # type: ignore[misc]
+        out = self.func("pathway", **kwargs)  # type: ignore[misc]
+        if inspect.iscoroutine(out):
+            out = _run_async(out)
+        return len(out)
 
     def __call__(self, input: Any, **kwargs: Any) -> expr_mod.ColumnExpression:
         return super().__call__(input, **kwargs)
@@ -161,3 +168,77 @@ class SentenceTransformerEmbedder(BaseEmbedder):
 
     def get_embedding_dimension(self, **kwargs) -> int:
         return self.runtime.dim
+
+
+class _ApiEmbedder(BaseEmbedder):
+    """Shared plumbing for API-backed embedders."""
+
+    def __init__(self, capacity=None, retry_strategy=None, cache_strategy=None, **kwargs):
+        self._api_kwargs = kwargs
+        super().__init__(
+            return_type=np.ndarray,
+            cache_strategy=cache_strategy,
+            retry_strategy=retry_strategy,
+        )
+        self._prepare(self._embed)
+
+    async def _embed(self, input: str, **kwargs) -> np.ndarray:
+        raise NotImplementedError
+
+
+class OpenAIEmbedder(_ApiEmbedder):
+    """Requires the ``openai`` package and network access."""
+
+    def __init__(self, model: str = "text-embedding-3-small", **kwargs):
+        self.model = model
+        super().__init__(**kwargs)
+
+    async def _embed(self, input: str, **kwargs) -> np.ndarray:
+        try:
+            import openai  # type: ignore[import-not-found]
+        except ImportError as exc:
+            raise ImportError(
+                "OpenAIEmbedder requires the `openai` package; use "
+                "SentenceTransformerEmbedder for embedding on the card"
+            ) from exc
+        client = openai.AsyncOpenAI(**self._api_kwargs)
+        ret = await client.embeddings.create(
+            input=[input or "."], model=kwargs.get("model", self.model)
+        )
+        return np.array(ret.data[0].embedding)
+
+
+class LiteLLMEmbedder(_ApiEmbedder):
+    def __init__(self, model: str = "", **kwargs):
+        self.model = model
+        super().__init__(**kwargs)
+
+    async def _embed(self, input: str, **kwargs) -> np.ndarray:
+        try:
+            import litellm  # type: ignore[import-not-found]
+        except ImportError as exc:
+            raise ImportError("LiteLLMEmbedder requires `litellm`") from exc
+        ret = await litellm.aembedding(
+            input=[input or "."], model=kwargs.get("model", self.model)
+        )
+        return np.array(ret.data[0]["embedding"])
+
+
+class GeminiEmbedder(_ApiEmbedder):
+    def __init__(self, model: str = "models/embedding-001", **kwargs):
+        self.model = model
+        super().__init__(**kwargs)
+
+    async def _embed(self, input: str, **kwargs) -> np.ndarray:
+        try:
+            import google.generativeai as genai  # type: ignore[import-not-found]
+        except ImportError as exc:
+            raise ImportError("GeminiEmbedder requires `google-generativeai`") from exc
+        ret = genai.embed_content(
+            model=kwargs.get("model", self.model), content=input or "."
+        )
+        return np.array(ret["embedding"])
+
+
+class OpenAIEmbedderWithDimensions(OpenAIEmbedder):
+    pass

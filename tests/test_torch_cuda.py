@@ -365,3 +365,83 @@ def test_engine_live_update_visible_next_tick(dev, fresh_graph):
     first = {q: names for t, q, names, _s in replies if t == 4}
     later = {q: names for t, q, names, _s in replies if t == 6}
     assert "late" not in first["q0"] and later["q0"][0] == "late"
+
+
+# --- the RAG layer on the card ------------------------------------------------
+
+
+def _store_replies(device, n_docs=400):
+    """A small ``VectorStoreServer`` (f32 embedder, dim 32) over seeded
+    documents; plain and filtered ``retrieve_query`` replies by query key."""
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.xpacks.llm.embedders import SentenceTransformerEmbedder
+    from pathway_tpu_torch.xpacks.llm.splitters import TokenCountSplitter
+    from pathway_tpu_torch.xpacks.llm.vector_store import VectorStoreServer
+
+    rng = np.random.default_rng(0)
+    words = [f"w{i}" for i in range(500)]
+    texts = [" ".join(rng.choice(words, size=int(rng.integers(12, 60)))) + "." for _ in range(n_docs)]
+
+    class Doc(pw.Schema):
+        doc_id: int = pw.column_definition(primary_key=True)
+        data: bytes
+        _metadata: pw.Json
+
+    docs = pw.debug.table_from_rows(
+        Doc, [(i, t.encode(), {"path": f"d{i % 4}/{i}.txt"}) for i, t in enumerate(texts)]
+    )
+    emb = SentenceTransformerEmbedder(dim=32, depth=2, heads=2, max_len=64, device=device)
+    emb.runtime.model.dtype = torch.float32
+    store = VectorStoreServer(
+        docs, embedder=emb, splitter=TokenCountSplitter(min_tokens=8, max_tokens=24), device=device
+    )
+    queries = pw.debug.table_from_rows(
+        store.RetrieveQuerySchema,
+        [(" ".join(texts[i].split()[:8]), 5, "path == 'd1/%d.txt' || contains(path, 'd2')" % i if i % 2 else None, None)
+         for i in range(0, 64, 4)],
+    )
+    out = {}
+    pw.io.subscribe(
+        store.retrieve_query(queries),
+        on_change=lambda key, row, time, is_addition: is_addition
+        and out.__setitem__(int(key), row["result"].value),
+    )
+    pw.run()
+    return out
+
+
+def test_vector_store_on_the_card_replies_as_on_cpu(dev, fresh_graph):
+    from pathway_tpu_torch.internals import parse_graph
+    from pathway_tpu_torch.ops import block_topk as bt
+
+    before = dict(bt.block_topk.shapes)
+    got = _store_replies("cuda")
+    launched = {s: n - before.get(s, 0) for s, n in bt.block_topk.shapes.items() if n > before.get(s, 0)}
+    assert launched  # the kernel answered the store's queries
+    parse_graph.G.clear()
+    ref = _store_replies("cpu")
+    assert sorted(got) == sorted(ref) and len(got) == 16
+    for key in ref:
+        assert [(d["text"], d["metadata"]) for d in got[key]] == [(d["text"], d["metadata"]) for d in ref[key]]
+        np.testing.assert_allclose(
+            [d["dist"] for d in got[key]], [d["dist"] for d in ref[key]], atol=1e-4, rtol=0
+        )
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cross_encoder_on_the_card_scores_as_on_cpu(dev, dtype):
+    """Seeded weights are the same on every device: f32 scores within 1e-4,
+    bf16 within 2e-2 (the two devices' bf16 kernels round differently)."""
+    from pathway_tpu_torch.xpacks.llm.rerankers import CrossEncoderReranker
+
+    rng = np.random.default_rng(3)
+    words = [f"w{i}" for i in range(300)]
+    docs = [" ".join(rng.choice(words, size=int(rng.integers(5, 80)))) for _ in range(40)]
+    queries = [" ".join(rng.choice(words, size=4)) for _ in range(40)]
+    scores = []
+    for device in ("cuda", "cpu"):
+        rr = CrossEncoderReranker(device=device)
+        rr.runtime.model.encoder.dtype = dtype
+        scores.append(np.asarray(rr._score_batch(docs, queries)))
+    atol = 1e-4 if dtype == torch.float32 else 2e-2
+    np.testing.assert_allclose(scores[0], scores[1], atol=atol, rtol=0)

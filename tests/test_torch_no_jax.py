@@ -2,8 +2,11 @@
 imports with ``jax``, ``flax`` and ``pathway_tpu`` blocked, and no source
 file names them in an import. The engine, the Table API and the root
 package also import with ``pandas`` blocked (the card's machine has none),
-and no module of the port imports it at module level.
-Without a card, an entry point left on its default device raises instead of
+and no module of the port imports it at module level. The RAG layer
+(``xpacks/llm``) imports with the HTTP and API clients blocked too
+(``requests``, ``openai``, ``litellm``, ``aiohttp``, ``flashrank``, …): the
+card's machine has none of them, and no port module imports one at module
+level. Without a card, an entry point left on its default device raises instead of
 falling back to the CPU."""
 
 import ast
@@ -18,6 +21,14 @@ ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "pathway_tpu_torch"
 BLOCKED = ("jax", "jaxlib", "flax", "pathway_tpu")
 BLOCKED_WITH_PANDAS = BLOCKED + ("pandas",)
+# clients the RAG layer imports only inside the call that needs them
+# (``google.generativeai`` is checked in the sources only: the ``google``
+# namespace may be loaded at interpreter start by other packages)
+CLIENTS = (
+    "requests", "openai", "litellm", "aiohttp", "flashrank", "cohere",
+    "transformers", "pypdf", "unstructured", "docling",
+)
+BLOCKED_WITH_CLIENTS = BLOCKED_WITH_PANDAS + CLIENTS
 # modules that may import pandas at module level: none (the ``.dt``
 # namespace, the reference's one such module, is not ported)
 PANDAS_MODULES: set[str] = set()
@@ -46,6 +57,8 @@ from pathway_tpu_torch.ops.knn import DeviceCorpus
 from pathway_tpu_torch.stdlib.indexing._index_impls import TpuDenseKnnIndex
 from pathway_tpu_torch.xpacks.llm._encoder import EncoderRuntime
 from pathway_tpu_torch.xpacks.llm.embedders import SentenceTransformerEmbedder
+from pathway_tpu_torch.xpacks.llm.rerankers import CrossEncoderReranker
+from pathway_tpu_torch.xpacks.llm.vector_store import VectorStoreServer
 from pathway_tpu_torch.generate import DecodeScheduler, GenerateConfig
 from pathway_tpu_torch.xpacks.llm.decoder import DecoderConfig, empty_pools
 import numpy as np
@@ -66,6 +79,11 @@ for make in (
     lambda: DeviceCorpus(8),
     lambda: EncoderRuntime(vocab_size=50, dim=8, depth=1, heads=2, max_len=16),
     lambda: SentenceTransformerEmbedder(dim=8, depth=1, heads=2, max_len=16),
+    lambda: CrossEncoderReranker(dim=8, depth=1, heads=2, max_len=16),
+    lambda: VectorStoreServer(
+        pw.debug.table_from_rows(pw.schema_from_types(data=bytes), [(b"x",)]),
+        embedder=SentenceTransformerEmbedder(dim=8, depth=1, heads=2, max_len=16, device="cpu"),
+    ),
     lambda: DecodeScheduler(),
     lambda: DecodeScheduler(GenerateConfig(kernel="ref")),
     lambda: empty_pools(DecoderConfig(), 4),
@@ -164,6 +182,24 @@ ENGINE_MODULES = [
     "pathway_tpu_torch.xpacks.llm.embedders",
 ]
 
+# the RAG product layer: each imports with pandas and the clients blocked
+RAG_MODULES = [
+    "pathway_tpu_torch.xpacks.llm",
+    "pathway_tpu_torch.xpacks.llm._flax_init",
+    "pathway_tpu_torch.xpacks.llm._utils",
+    "pathway_tpu_torch.xpacks.llm.document_store",
+    "pathway_tpu_torch.xpacks.llm.embedders",
+    "pathway_tpu_torch.xpacks.llm.llms",
+    "pathway_tpu_torch.xpacks.llm.parsers",
+    "pathway_tpu_torch.xpacks.llm.prompts",
+    "pathway_tpu_torch.xpacks.llm.question_answering",
+    "pathway_tpu_torch.xpacks.llm.rerankers",
+    "pathway_tpu_torch.xpacks.llm.servers",
+    "pathway_tpu_torch.xpacks.llm.splitters",
+    "pathway_tpu_torch.xpacks.llm.utils",
+    "pathway_tpu_torch.xpacks.llm.vector_store",
+]
+
 
 def _run(code, blocked=BLOCKED, **fmt):
     return subprocess.run(
@@ -176,7 +212,7 @@ def _run(code, blocked=BLOCKED, **fmt):
 
 
 def test_every_port_module_imports_without_jax():
-    r = _run(_IMPORT_ALL)
+    r = _run(_IMPORT_ALL, blocked=BLOCKED + CLIENTS)
     assert r.returncode == 0, r.stderr
     assert int(r.stdout.strip().splitlines()[-1]) >= 29 + len(ENGINE_MODULES)
 
@@ -205,6 +241,18 @@ def test_engine_module_imports_without_jax_or_pandas(imported_with_pandas_blocke
     assert mod in imported_with_pandas_blocked
 
 
+@pytest.fixture(scope="module")
+def imported_with_clients_blocked():
+    r = _run(_IMPORT_EACH, blocked=BLOCKED_WITH_CLIENTS, mods=RAG_MODULES)
+    assert r.returncode == 0, r.stderr
+    return set(json.loads(r.stdout.strip().splitlines()[-1]))
+
+
+@pytest.mark.parametrize("mod", RAG_MODULES)
+def test_rag_module_imports_without_jax_pandas_or_clients(imported_with_clients_blocked, mod):
+    assert mod in imported_with_clients_blocked
+
+
 def _module_level_roots(path: Path) -> set[str]:
     roots = set()
     for node in ast.parse(path.read_text()).body:
@@ -223,6 +271,15 @@ def test_only_the_datetime_namespace_imports_pandas_at_module_level():
     }
     assert offenders <= PANDAS_MODULES, offenders
     assert "pandas" not in _module_level_roots(ROOT / "chip_smoke.py")
+
+
+def test_no_port_module_imports_a_client_at_module_level():
+    offenders = {
+        str(p.relative_to(ROOT))
+        for p in list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+        if _module_level_roots(p) & {*CLIENTS, "google"}
+    }
+    assert not offenders, offenders
 
 
 def _imported_roots(path: Path) -> set[str]:
