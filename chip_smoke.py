@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from csrc/ (nvcc, sm_90a, one process per
-source, all started together), then runs eight phases, printing one JSON
+source, all started together), then runs nine phases, printing one JSON
 object per phase:
 
 1. device         — nvidia-smi name/power limit, toolchain versions, build seconds.
@@ -66,7 +66,37 @@ object per phase:
                     per commit. Prints embed, reply, update-to-visible and
                     rerank figures, engine seconds per operator, beside the
                     card's nvidia-smi name and power limit.
-6. generation     — ask -> retrieve -> generate: 24 asks are embedded and
+6. rest           — VectorStoreServer.run_server answering /v1/retrieve over
+                    HTTP: the vector store phase's corpus (the same 32,768
+                    documents in 16 commits of 2048, 78,185 chunks, the same
+                    embedder, device="cuda") served ungated by run_server on
+                    one port and, in the same graph, through a Surge Gate
+                    (rest_connector with QoSConfig(max_batch_size=16,
+                    max_wait_ms=5, max_queue=64) wired to retrieve_query) on
+                    another. Stdlib http.client clients in a child process
+                    (this script with --rest-client) send: 64 POST and 8 GET
+                    one at a time, 4 filtered POST (k = 40 in the kernel),
+                    16 clients x 8 ungated and 16 x 16 gated on keep-alive
+                    connections, a burst of 256 at the gate, 16 requests with
+                    a 1 ms budget, /v1/statistics, /v1/inputs and /_schema,
+                    16 live commits of 64 documents each followed by a query
+                    for one of them, stale reads through a stale responder
+                    while the engine is marked recovering, and 16 requests in
+                    flight when each server drains. Checked: every 200 reply
+                    against a direct search, with the vector the embedder
+                    computed for that request, of a plain-torch copy of the
+                    store's index (up to near ties); an insert and a remove
+                    tick per sequential request; the burst answered 200, or
+                    429/503 with Retry-After, within its deadline; the 1 ms
+                    requests 504 with no search; stale reads 200 with
+                    x-pathway-stale and the fresh reads' documents, 503 past
+                    x-pathway-max-staleness-ms 0; every drained request
+                    answered, then connects refused. Prints reply p50 / p99 /
+                    max per group, requests/s at 16 clients, the server's
+                    pathway_rest_request_seconds p50, the HTTP overhead over
+                    the vector store phase's B = 1 reply, update-to-visible,
+                    the 429/503/504 counts and block_topk launches per shape.
+7. generation     — ask -> retrieve -> generate: 24 asks are embedded and
                     retrieved (k = 3) on the phase-3 index, each grounded prompt
                     goes to one DecodeScheduler(GenerateConfig()) at the decoder's
                     serving defaults (dim 128, 2 layers, 4 heads, head_dim 32,
@@ -76,7 +106,7 @@ object per phase:
                     back to empty, launches == decode steps x layers, the same
                     tokens from a kernel="ref" scheduler, and the logits of one
                     recorded step, kernel against plain.
-7. durability     — the same 24 prompts at the same width, with snapshots.
+8. durability     — the same 24 prompts at the same width, with snapshots.
                     A child process (this script with --kill-child) runs them
                     with PATHWAY_GENERATE_SNAPSHOT_EVERY=8, a store in a temp
                     dir and PATHWAY_FAULTS="kill=decode:150"; it must exit 23
@@ -93,7 +123,7 @@ object per phase:
                     segments per snapshot). Tokens are compared exactly; a
                     difference passes only at a near tie: the uninterrupted
                     run's top-2 logit margin there below GEN_LOGIT_TOL.
-8. kernels        — per kernel and per path shape: launches on its path, ms
+9. kernels        — per kernel and per path shape: launches on its path, ms
                     (CUDA events) and device ms (torch.profiler), its plain
                     version's ms, the bound and what sets it, the bytes it must
                     move, and the ms of the library call(s) computing the same
@@ -101,8 +131,9 @@ object per phase:
                     (k = 10, retrieval, and again on the engine phase's
                     and the vector store's corpora), B = 16 with k = 40 (the
                     filtered batch, oversampled x4, on the retrieval and the
-                    vector store corpora) and B = 32 (k = 3, the generation
-                    phase's 24 asks padded to 32); paged_attention: the
+                    vector store corpora), B = 32 (k = 3, the generation
+                    phase's 24 asks padded to 32) and every (B, k) the rest
+                    phase launched, on its corpus; paged_attention: the
                     recorded decode step and a long context, each with its
                     split count S.
 
@@ -123,6 +154,7 @@ import sys
 import tempfile
 import threading
 import time
+from collections import Counter
 from dataclasses import replace
 from pathlib import Path
 
@@ -158,6 +190,19 @@ VS_LIVE_TICKS = 16
 VS_LIVE_DOCS = 64
 VS_ASKS = 8
 VS_GROUPS = 4  # document i sits under docs/<i % 4>/; a filter keeps one group
+# the rest phase: the vector store phase's corpus served over HTTP by
+# VectorStoreServer.run_server (ungated) and a gated rest_connector route
+REST_SEQ = 64  # POST /v1/retrieve one at a time (B = 1 in the kernel)
+REST_GET = 8
+REST_FILTERED = 4  # k = 40 in the kernel after the x4 oversample
+REST_CLIENTS = 16  # the concurrency of the concurrent groups
+REST_UNGATED_EACH = 8
+REST_GATED_EACH = 16
+REST_BURST = 256  # the overload burst at the gated route
+REST_DEADLINE = 16  # requests with a 1 ms budget: 504, no search
+REST_STALE = 4
+REST_DRAIN = 16  # requests in flight when each server drains
+REST_QOS = {"max_batch_size": 16, "max_wait_ms": 5.0, "max_queue": 64}
 RERANK_KEEP = 3
 # the cross-encoder's scores in the pipeline against a direct forward_ids of
 # the same tick's pairs in one batch: the same bf16 model, bucket and device
@@ -432,6 +477,24 @@ def build_index_state(doc_vecs: np.ndarray, dev) -> dict:
             "key_of": dict(zip(range(CORPUS_ROWS), keys)),
         },
     }
+
+
+def doc_path(i: int) -> str:
+    """The ``path`` of document i of the store phases' corpus."""
+    return f"docs/{i % VS_GROUPS}/{i:06d}.txt"
+
+
+def snapshot_index(ix, dev):
+    """A separate plain-torch index holding the rows of the store's index."""
+    from pathway_tpu_torch.stdlib.indexing._index_impls import TpuDenseKnnIndex
+
+    state = ix.state_dict()
+    c = dict(state["corpus"], host=state["corpus"]["host"].copy(),
+             valid_host=state["corpus"]["valid_host"].copy())
+    m = TpuDenseKnnIndex(dimensions=DIM, metric="cosine", reserved_space=c["capacity"],
+                         kernel="torch", device=dev)
+    m.load_state({"metadata": dict(state["metadata"]), "corpus": c})
+    return m
 
 
 def same_up_to_near_ties(a: tuple, b: tuple, tol: float) -> bool:
@@ -977,7 +1040,6 @@ def vector_store(dev, smi: str) -> tuple[dict, dict]:
     from pathway_tpu_torch.engine.index_node import ExternalIndexExec
     from pathway_tpu_torch.internals import parse_graph
     from pathway_tpu_torch.ops import block_topk as bt
-    from pathway_tpu_torch.stdlib.indexing._index_impls import TpuDenseKnnIndex
     from pathway_tpu_torch.xpacks.llm.embedders import SentenceTransformerEmbedder
     from pathway_tpu_torch.xpacks.llm.llms import EchoChat
     from pathway_tpu_torch.xpacks.llm.parsers import Utf8Parser
@@ -989,9 +1051,6 @@ def vector_store(dev, smi: str) -> tuple[dict, dict]:
     rng = np.random.default_rng(SEED + 11)
     n_all = VS_DOCS + VS_LIVE_TICKS * VS_LIVE_DOCS
     docs = synthetic_docs(n_all, rng)
-
-    def path(i: int) -> str:
-        return f"docs/{i % VS_GROUPS}/{i:06d}.txt"
 
     # the chunks the store will index, split here on the host to know the
     # corpus size per commit and to copy queries from
@@ -1149,16 +1208,6 @@ def vector_store(dev, smi: str) -> tuple[dict, dict]:
         for r in rows:
             commits[r[0]] = t
 
-    def snapshot(ix) -> TpuDenseKnnIndex:
-        """A separate plain-torch index holding the store index's rows."""
-        state = ix.state_dict()
-        c = dict(state["corpus"], host=state["corpus"]["host"].copy(),
-                 valid_host=state["corpus"]["valid_host"].copy())
-        m = TpuDenseKnnIndex(dimensions=DIM, metric="cosine", reserved_space=c["capacity"],
-                             kernel="torch", device=dev)
-        m.load_state({"metadata": dict(state["metadata"]), "corpus": c})
-        return m
-
     def drive(qs) -> None:
         rt = parse_graph.G.runtime
         execs = sorted((ex for ex in rt.execs.values() if isinstance(ex, ExternalIndexExec)),
@@ -1168,7 +1217,7 @@ def vector_store(dev, smi: str) -> tuple[dict, dict]:
         stamps["ingest0"], t0 = _now(), ticks()
         for lo in range(0, VS_DOCS, VS_COMMIT):
             for i in range(lo, lo + VS_COMMIT):
-                doc_subject.next(doc_id=i, data=docs[i].encode(), _metadata={"path": path(i)})
+                doc_subject.next(doc_id=i, data=docs[i].encode(), _metadata={"path": doc_path(i)})
             commit(doc_subject, lambda: len(ix) >= upto[lo + VS_COMMIT - 1], "a document commit")
         stamps["ingest1"] = _now()
         record["ticks"]["docs"] = ticks() - t0
@@ -1202,7 +1251,7 @@ def vector_store(dev, smi: str) -> tuple[dict, dict]:
             ask(qs, rows)
             qid += 16
         record["ticks"]["queries_filtered"] = ticks() - t0
-        mirror = snapshot(ix)
+        mirror = snapshot_index(ix, dev)
         record["static_ref"] = {
             q: mirror.search([(qvec[chunks_of[d][0]], K, flt)])[0]
             for rows in groups.values() for q, d, flt in rows
@@ -1214,12 +1263,12 @@ def vector_store(dev, smi: str) -> tuple[dict, dict]:
         for t in range(VS_LIVE_TICKS):
             lo = VS_DOCS + t * VS_LIVE_DOCS
             for i in range(lo, lo + VS_LIVE_DOCS):
-                doc_subject.next(doc_id=i, data=docs[i].encode(), _metadata={"path": path(i)})
+                doc_subject.next(doc_id=i, data=docs[i].encode(), _metadata={"path": doc_path(i)})
             tc = commit(doc_subject, lambda: len(ix) >= upto[lo + VS_LIVE_DOCS - 1], "a live commit")
             target = live_targets[t]
             ask(qs, [(qid, chunks_of[target][0], K, None, False)])
             record["update_ms"].append((replies[qid][0] - tc) * 1e3)
-            mirror = snapshot(ix)
+            mirror = snapshot_index(ix, dev)
             record.setdefault("live", []).append(
                 (qid, target, mirror.search([(qvec[chunks_of[target][0]], K, None)])[0]))
             del mirror
@@ -1280,7 +1329,7 @@ def vector_store(dev, smi: str) -> tuple[dict, dict]:
     (stat,) = [r["result"].value for r in results["stats"]]
     check(stat["file_count"] == n_chunks, f"statistics file_count {stat['file_count']} for {n_chunks} chunks")
     (inp,) = [r["result"].value for r in results["inputs"]]
-    want = {path(i) for i in range(n_all) if i % VS_GROUPS == 1}
+    want = {doc_path(i) for i in range(n_all) if i % VS_GROUPS == 1}
     got_paths = [m["path"] for m in inp]
     check(len(got_paths) == len(set(got_paths)) and set(got_paths) == want,
           f"inputs_query under the filter: {len(got_paths)} paths, {len(want)} expected")
@@ -1372,13 +1421,539 @@ def vector_store(dev, smi: str) -> tuple[dict, dict]:
         return torch.from_numpy(np.stack([qvec[chunks_of[d][0]] for _q, d, _f in rows])).to(dev)
 
     out = {"prep": prep, "valid": valid, "launches": launches, "shapes": shapes,
+           "corpus": (docs, chunks_of, upto),  # the rest phase serves the same corpus
            "queries": {1: batch(groups["B=1"][:1]), 16: batch(groups["B=16"][:16]),
                        "filtered": batch(groups["filtered"][:16])}}
     parse_graph.G.clear()
     return phase, out
 
 
-# --- phase 6: generation ------------------------------------------------------
+# --- phase 6: rest ------------------------------------------------------------
+
+
+def rest_client() -> int:
+    """The rest phase's HTTP clients, in a process of their own so that
+    their Python does not share the server's interpreter lock. One JSON
+    command per stdin line: {"port": p, "clients": [[request, ...], ...],
+    "new_connection": bool}, a request being [id, method, target, body or
+    null, headers]. Each client list runs in its own thread, its requests
+    one after another on one keep-alive connection (a new connection each
+    with new_connection). Answers two stdout lines: {"sent": n} once every
+    client has sent its first request, then {"replies": [[id, status,
+    headers, body, sent, done], ...]}, the stamps from time.monotonic()
+    (one clock for every process of the machine). A failed connection
+    answers status "conn"."""
+    import http.client
+
+    for line in sys.stdin:
+        cmd = json.loads(line)
+        lists = cmd["clients"]
+        replies: list = []
+        lock = threading.Lock()
+        started = threading.Barrier(len(lists))
+        first_sent = threading.Semaphore(0)
+
+        def client(reqs: list) -> None:
+            conn = None
+            started.wait()
+            for n, (rid, method, target, body, headers) in enumerate(reqs):
+                if conn is None or cmd["new_connection"]:
+                    conn = http.client.HTTPConnection("127.0.0.1", cmd["port"], timeout=120)
+                t0 = time.monotonic()
+                try:
+                    conn.request(method, target, body=body, headers=headers)
+                    if n == 0:
+                        first_sent.release()
+                    resp = conn.getresponse()
+                    raw = resp.read()
+                    hdrs = {k.lower(): v for k, v in resp.getheaders()}
+                    data = json.loads(raw) if hdrs.get("content-type", "").startswith("application/json") \
+                        else raw.decode(errors="replace")
+                    rep = [rid, resp.status, hdrs, data, t0, time.monotonic()]
+                except (OSError, http.client.HTTPException) as e:
+                    if n == 0:
+                        first_sent.release()
+                    rep = [rid, "conn", {}, repr(e), t0, time.monotonic()]
+                    conn.close()
+                    conn = None
+                with lock:
+                    replies.append(rep)
+                if cmd["new_connection"] and conn is not None:
+                    conn.close()
+            if conn is not None:
+                conn.close()
+
+        threads = [threading.Thread(target=client, args=(reqs,)) for reqs in lists]
+        for t in threads:
+            t.start()
+        for _ in lists:
+            first_sent.acquire()
+        print(json.dumps({"sent": len(lists)}), flush=True)
+        for t in threads:
+            t.join()
+        print(json.dumps({"replies": replies}), flush=True)
+    return 0
+
+
+class RestClients:
+    """The parent's side of ``rest_client``: one child process for the
+    whole phase."""
+
+    def __init__(self):
+        import queue
+
+        self.proc = subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--rest-client"],
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True,
+        )
+        self.lines: queue.Queue = queue.Queue()
+        self.reader = threading.Thread(target=lambda: [self.lines.put(ln) for ln in self.proc.stdout], daemon=True)
+        self.reader.start()
+
+    def _line(self, key: str) -> object:
+        import queue
+
+        try:
+            msg = json.loads(self.lines.get(timeout=300))
+        except queue.Empty:
+            raise AssertionError("the REST client process did not answer") from None
+        check(key in msg, f"the REST client process answered {msg}")
+        return msg[key]
+
+    def start(self, port: int, lists: list, new_connection: bool = False) -> None:
+        """Send the requests; returns once every client sent its first."""
+        self.proc.stdin.write(json.dumps({"port": port, "clients": lists, "new_connection": new_connection}) + "\n")
+        self.proc.stdin.flush()
+        self._line("sent")
+
+    def finish(self) -> list:
+        return self._line("replies")
+
+    def run(self, port: int, lists: list, new_connection: bool = False) -> list:
+        self.start(port, lists, new_connection)
+        return self.finish()
+
+    def close(self) -> None:
+        self.proc.stdin.close()
+        try:
+            self.proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait()
+
+
+def free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def refused(port: int) -> bool:
+    import socket
+
+    try:
+        socket.create_connection(("127.0.0.1", port), timeout=5).close()
+    except ConnectionRefusedError:
+        return True
+    return False
+
+
+def rest(dev, smi: str, vs_b1_p50_ms: float, corpus: tuple) -> tuple[dict, dict]:
+    """VectorStoreServer.run_server answering /v1/retrieve over HTTP on the
+    card: the vector store phase's corpus (the same 32,768 seeded
+    documents in 16 commits of 2048 through pw.io.python, the same
+    full-width embedder, device="cuda"), served ungated by run_server on one
+    port and, in the same graph, through a Surge Gate (a gated
+    rest_connector wired to retrieve_query) on another. Stdlib http.client
+    clients in a child process send the groups of REST_GROUPS; every 200
+    reply of /v1/retrieve is checked against a direct search, with the
+    vector the embedder computed for that request, of a plain-torch copy
+    of the store's index."""
+    import urllib.parse
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.engine.index_node import ExternalIndexExec
+    from pathway_tpu_torch.internals import errors, parse_graph
+    from pathway_tpu_torch.io.http import PathwayWebserver, rest_connector
+    from pathway_tpu_torch.observability import REGISTRY
+    from pathway_tpu_torch.ops import block_topk as bt
+    from pathway_tpu_torch.serving import QoSConfig, degrade, drain_all, gates
+    from pathway_tpu_torch.xpacks.llm.embedders import SentenceTransformerEmbedder
+    from pathway_tpu_torch.xpacks.llm.parsers import Utf8Parser
+    from pathway_tpu_torch.xpacks.llm.splitters import TokenCountSplitter
+    from pathway_tpu_torch.xpacks.llm.vector_store import VectorStoreServer
+
+    t_phase = time.perf_counter()
+    stage_s: dict[str, float] = {}
+    t_mark = [t_phase]
+
+    def mark(stage: str) -> None:
+        now = time.perf_counter()
+        stage_s[stage], t_mark[0] = now - t_mark[0], now
+
+    clients = RestClients()  # starts while the corpus loads
+    docs, chunks_of, upto = corpus  # the vector store phase's documents and their chunks
+    splitter = TokenCountSplitter(min_tokens=VS_MIN_TOKENS, max_tokens=VS_MAX_TOKENS)
+    capacity = -(-int(upto[-1]) // 1024) * 1024
+    n_asks = (2 + REST_SEQ + REST_GET + REST_FILTERED + REST_CLIENTS * (REST_UNGATED_EACH + REST_GATED_EACH)
+              + REST_BURST + REST_DEADLINE + REST_STALE + 2 * REST_DRAIN)
+    qdocs = iter(int(d) for d in np.random.default_rng(SEED + 13).choice(VS_DOCS, size=n_asks, replace=False))
+    mark("clients_and_queries")
+
+    parse_graph.G.clear()
+    bt.block_topk.launches = 0
+    bt.block_topk.shapes.clear()
+    torch.cuda.reset_peak_memory_stats()
+    qvec: dict[str, np.ndarray] = {}
+    recording = threading.Event()
+
+    class RecordingEmbedder(SentenceTransformerEmbedder):
+        """Keeps the first vector it computes for each text once the corpus
+        is loaded: a request's insert tick embeds its query before the
+        remove tick embeds it again."""
+
+        def embed_batch(self, texts):
+            out = super().embed_batch(texts)
+            if recording.is_set():
+                for t, v in zip(texts, out):
+                    qvec.setdefault(t, v)
+            return out
+
+    class DocSchema(pw.Schema):
+        doc_id: int = pw.column_definition(primary_key=True)
+        data: bytes
+        _metadata: pw.Json
+
+    finished = threading.Event()
+
+    class Idle(pw.io.python.ConnectorSubject):
+        def run(self):
+            finished.wait()
+
+    doc_subject = Idle()
+    emb = RecordingEmbedder(device=dev)
+    mark("embedder_init")
+    documents = pw.io.python.read(doc_subject, schema=DocSchema, autocommit_duration_ms=None)
+    store = VectorStoreServer(
+        documents, embedder=emb, parser=Utf8Parser(), splitter=splitter,
+        index_params={"reserved_space": capacity}, device=dev,
+    )
+    text_of: dict[int, str] = {}
+    meta_of: dict[int, dict] = {}
+
+    def on_chunk(key, row, time, is_addition):
+        if is_addition:
+            text_of[int(key)], meta_of[int(key)] = row["text"], row["metadata"].value
+
+    pw.io.subscribe(store._graph["chunked_docs"], on_change=on_chunk)
+    port_a, port_b = free_port(), free_port()
+    qos = QoSConfig(**REST_QOS)
+    gated_ws = PathwayWebserver("127.0.0.1", port_b)
+    gated_q, gated_writer = rest_connector(
+        webserver=gated_ws, route="/v1/retrieve", schema=store.RetrieveQuerySchema,
+        methods=("GET", "POST"), delete_completed_queries=True, qos=qos,
+    )
+    gated_res = store.retrieve_query(gated_q)
+    gated_writer(gated_res.select(query_id=gated_res.id, result=gated_res.result))
+    err0 = errors.error_count()
+    run_thread = store.run_server("127.0.0.1", port_a, threaded=True)
+    wait_until(lambda: parse_graph.G.runtime is not None, "the runtime")
+    rt = parse_graph.G.runtime
+    wait_until(lambda: not refused(port_a) and not refused(port_b), "the two listeners", 60)
+    execs = sorted((ex for ex in rt.execs.values() if isinstance(ex, ExternalIndexExec)), key=lambda ex: ex.node.id)
+    check(len(execs) == 2, f"{len(execs)} index execs, expected the gated and the ungated retrieve")
+    ix = execs[0].index
+    mark("graph_and_servers_up")
+    t0 = time.perf_counter()
+    for lo in range(0, VS_DOCS, VS_COMMIT):
+        for i in range(lo, lo + VS_COMMIT):
+            doc_subject.next(doc_id=i, data=docs[i].encode(), _metadata={"path": doc_path(i)})
+        doc_subject.commit()
+        goal = upto[lo + VS_COMMIT - 1]
+        wait_until(lambda: all(len(ex.index) >= goal for ex in execs), "a document commit")
+    ingest_s = time.perf_counter() - t0
+    recording.set()
+    mark("ingest")
+
+    # --- requests ------------------------------------------------------------
+    asked: dict[int, dict] = {}  # request id -> what it asked
+
+    def req(group: str, port: int, k: int = K, flt: str | None = None, method: str = "POST",
+            headers: dict | None = None, d: int | None = None, text: str | None = None) -> list:
+        d = next(qdocs) if d is None and text is None else d
+        text = chunks_of[d][0] if text is None else text
+        rid = len(asked)
+        asked[rid] = {"group": group, "doc": d, "text": text, "k": k, "filter": flt, "port": port}
+        if method == "GET":
+            target = "/v1/retrieve?" + urllib.parse.urlencode({"query": text, "k": k})
+            return [rid, "GET", target, None, headers or {}]
+        body = {"query": text, "k": k, **({"metadata_filter": flt} if flt else {})}
+        return [rid, "POST", "/v1/retrieve", json.dumps(body), {"Content-Type": "application/json", **(headers or {})}]
+
+    replies: dict[str, list] = {}
+    ticks: dict[str, int] = {}
+
+    def settled() -> None:
+        """Wait until the gate is idle and no tick ran for 0.3 s: a reply
+        reaches its client before the remove tick that follows it."""
+        wait_until(lambda: all(g.inflight == 0 and g.queue_depth == 0 for g in gates()), "the gate to go idle")
+        n = -1
+        while n != rt.stats.ticks:
+            n = rt.stats.ticks
+            time.sleep(0.3)
+
+    def lockstep(group: str, n: int, make) -> None:
+        """One request at a time, from a quiet engine; the next goes once
+        the last one's insert and remove ticks both ran."""
+        settled()
+        t_first = rt.stats.ticks
+        for _ in range(n):
+            t_before = rt.stats.ticks
+            replies.setdefault(group, []).extend(clients.run(port_a, [[make()]]))
+            wait_until(lambda: rt.stats.ticks >= t_before + 2, "a request's remove tick")
+        ticks[group] = rt.stats.ticks - t_first
+
+    def filtered() -> list:
+        d = next(qdocs)
+        return req("filtered", port_a, flt=f"globmatch('docs/{d % VS_GROUPS}/*', path)", d=d)
+
+    replies["warmup"] = clients.run(port_a, [[req("warmup", port_a)]]) + clients.run(port_b, [[req("warmup", port_b)]])
+    lockstep("ungated sequential POST", REST_SEQ, lambda: req("ungated sequential POST", port_a))
+    server_hist = REGISTRY.get("pathway_rest_request_seconds").labels("/v1/retrieve")
+    server_p50_sequential_ms = server_hist.quantile(0.5) * 1e3
+    lockstep("ungated sequential GET", REST_GET, lambda: req("ungated sequential GET", port_a, method="GET"))
+    lockstep("filtered", REST_FILTERED, filtered)
+    mark("sequential")
+    replies["ungated concurrent"] = clients.run(
+        port_a, [[req("ungated concurrent", port_a) for _ in range(REST_UNGATED_EACH)] for _ in range(REST_CLIENTS)])
+    replies["gated concurrent"] = clients.run(
+        port_b, [[req("gated concurrent", port_b) for _ in range(REST_GATED_EACH)] for _ in range(REST_CLIENTS)])
+    mark("concurrent")
+    replies["overload"] = clients.run(port_b, [[req("overload", port_b)] for _ in range(REST_BURST)],
+                                      new_connection=True)
+    mark("overload")
+
+    # deadline: a 1 ms budget must end in 504 and reach no search
+    knn_queries = REGISTRY.get("pathway_knn_queries_total").labels(type(ix).__name__)
+    expired = REGISTRY.get("pathway_serving_deadline_expired_total")
+    settled()
+    before = (bt.block_topk.launches, knn_queries.value)
+    exp0 = {s: expired.labels(s).value for s in ("gate", "knn")}
+    replies["deadline"] = clients.run(
+        port_b, [[req("deadline", port_b, headers={"x-pathway-deadline-ms": "1"})] for _ in range(REST_DEADLINE)])
+    settled()
+    deadline_searches = (bt.block_topk.launches - before[0], knn_queries.value - before[1])
+    deadline_expired = {s: expired.labels(s).value - exp0[s] for s in exp0}
+
+    # the store's other routes and the OpenAPI document
+    n_static = int(upto[VS_DOCS - 1])
+    (stats,) = clients.run(port_a, [[[-1, "POST", "/v1/statistics", "{}", {}]]])
+    (inputs,) = clients.run(port_a, [[[-2, "POST", "/v1/inputs",
+                                       json.dumps({"metadata_filter": "globmatch('docs/1/*', path)"}), {}]]])
+    (schema,) = clients.run(port_a, [[[-3, "GET", "/_schema", None, {}]]])
+    mark("deadline_and_store_routes")
+    static_mirror = snapshot_index(ix, dev)
+
+    # live: 64 new documents, then a REST query for one of them
+    update_ms, live = [], []
+    for t in range(VS_LIVE_TICKS):
+        lo = VS_DOCS + t * VS_LIVE_DOCS
+        for i in range(lo, lo + VS_LIVE_DOCS):
+            doc_subject.next(doc_id=i, data=docs[i].encode(), _metadata={"path": doc_path(i)})
+        tc = time.monotonic()
+        doc_subject.commit()
+        goal = upto[lo + VS_LIVE_DOCS - 1]
+        wait_until(lambda: all(len(ex.index) >= goal for ex in execs), "a live commit")
+        target = VS_DOCS + t * VS_LIVE_DOCS + (t * 7) % VS_LIVE_DOCS
+        qvec.pop(chunks_of[target][0], None)  # the live commit embedded it as a document
+        (rep,) = clients.run(port_a, [[req("live", port_a, d=target)]])
+        update_ms.append((rep[5] - tc) * 1e3)
+        mirror = snapshot_index(ix, dev)
+        live.append((rep, mirror.search([(qvec[chunks_of[target][0]], K, None)])[0]))
+        del mirror
+    post_mirror = snapshot_index(ix, dev)
+    mark("live")
+
+    # stale reads while the engine "recovers", answered by a stale responder
+    def responder(values: dict):
+        vec = emb.embed_batch([values["query"]])[0]
+        (matches,) = degrade.stale_knn_search([(vec, int(values.get("k") or 3), None)])
+        return [{"text": text_of[key], "metadata": meta_of[key], "dist": -float(s)} for key, s in matches]
+
+    stale_docs = [next(qdocs) for _ in range(REST_STALE)]
+    replies["stale fresh"] = clients.run(port_b, [[req("stale fresh", port_b, d=d) for d in stale_docs]])
+    degrade.register_stale_responder("/v1/retrieve", responder)
+    launches_before_stale = bt.block_topk.launches
+    degrade.enter_recovery("chip smoke")
+    try:
+        stale = clients.run(port_b, [[req("stale", port_b, d=d) for d in stale_docs]])
+        (bounded,) = clients.run(port_b, [[req("stale bounded", port_b, d=stale_docs[0],
+                                              headers={"x-pathway-max-staleness-ms": "0"})]])
+    finally:
+        degrade.exit_recovery("chip smoke")
+    stale_launches = bt.block_topk.launches - launches_before_stale
+    mark("stale")
+
+    # drain: 16 requests in flight at each server, then drain it
+    inflight = REGISTRY.get("pathway_rest_inflight_requests").labels("/v1/retrieve")
+
+    admitted = REGISTRY.get("pathway_serving_admitted_total").labels("/v1/retrieve")
+
+    def drained(port: int, group: str, in_flight, drain) -> tuple[list, bool]:
+        """Drain once all REST_DRAIN requests are in flight: inside their
+        handlers (ungated), or admitted past the gate."""
+        n0 = in_flight()
+        clients.start(port, [[req(group, port)] for _ in range(REST_DRAIN)], new_connection=True)
+        wait_until(lambda: in_flight() - n0 >= REST_DRAIN, f"{group}: the requests in flight", 60)
+        idle = drain()
+        return clients.finish(), idle
+
+    replies["drain ungated"], idle_a = drained(
+        port_a, "drain ungated", lambda: inflight.current() + server_hist.count, store.drain)
+    replies["drain gated"], idle_b = drained(
+        port_b, "drain gated", lambda: admitted.value, lambda: drain_all(grace_s=30))
+    refused_after = (refused(port_a), refused(port_b))
+    mark("drain")
+    finished.set()
+    rt.stop()
+    run_thread.join(timeout=60)
+    clients.close()
+    check(not run_thread.is_alive(), "the server's run did not stop")
+    err = errors.first_exception_since(err0)
+    if err is not None:
+        raise err if isinstance(err, BaseException) else RuntimeError(err)
+    launches, shapes = bt.block_topk.launches, dict(bt.block_topk.shapes)
+    peak = torch.cuda.max_memory_allocated()
+
+    # --- checks --------------------------------------------------------------
+    def as_rows(body: list) -> tuple:
+        return tuple((r["text"], -r["dist"]) for r in body)
+
+    checked: dict[str, int] = {}
+    exact: dict[str, int] = {}
+    statuses: dict[str, dict] = {}
+
+    def check_reply(rep: list, ref_matches) -> None:
+        rid, status, _h, body = rep[:4]
+        a = asked[rid]
+        got = as_rows(body)
+        ref = tuple((text_of[key], score) for key, score in ref_matches)
+        check(same_up_to_near_ties(got, ref, F32_TOL), f"{a['group']} request {rid}: reply differs from direct search")
+        checked[a["group"]] = checked.get(a["group"], 0) + 1
+        exact[a["group"]] = exact.get(a["group"], 0) + ([t for t, _s in got] == [t for t, _s in ref])
+        if a["doc"] is not None:
+            check(got[0][0] == chunks_of[a["doc"]][0] and abs(got[0][1]) < 1e-2,
+                  f"{a['group']} request {rid} copied from doc {a['doc']} got {got[:1]}")
+        check(len(got) == a["k"] or (a["filter"] is not None and len(got) > 0),
+              f"{a['group']} request {rid} returned {len(got)} of {a['k']}")
+        if a["filter"] is not None:
+            check(all(r["metadata"]["path"].startswith(f"docs/{a['doc'] % VS_GROUPS}/") for r in body),
+                  f"filtered request {rid} let a non-matching path through")
+
+    for group, reps in replies.items():
+        statuses[group] = dict(sorted(Counter(str(r[1]) for r in reps).items()))
+        mirror = post_mirror if group in ("stale fresh", "drain ungated", "drain gated") else static_mirror
+        for rep in reps:
+            if rep[1] == 200:
+                a = asked[rep[0]]
+                check_reply(rep, mirror.search([(qvec[a["text"]], a["k"], a["filter"])])[0])
+    for group in ("warmup", "ungated sequential POST", "ungated sequential GET", "filtered", "ungated concurrent",
+                  "gated concurrent", "stale fresh", "drain ungated", "drain gated"):
+        check(statuses[group] == {"200": len(replies[group])}, f"{group}: statuses {statuses[group]}")
+    for group in ("ungated sequential POST", "ungated sequential GET", "filtered"):
+        n = len(replies[group])
+        check(ticks[group] == 2 * n, f"{group}: {ticks[group]} ticks for {n} requests, expected an insert "
+                                     "and a remove tick each")
+    check(set(statuses["overload"]) <= {"200", "429", "503"}, f"overload statuses {statuses['overload']}")
+    for rep in replies["overload"]:
+        if rep[1] in (429, 503):
+            check(float(rep[2]["retry-after"]) >= 0.0 and rep[3]["error"].startswith("request shed"),
+                  f"overload shed without Retry-After: {rep}")
+    overload_max_s = max(r[5] - r[4] for r in replies["overload"])
+    check(overload_max_s < qos.default_deadline_ms / 1000.0, f"an overload reply took {overload_max_s} s")
+    check(statuses["deadline"] == {"504": REST_DEADLINE}, f"deadline statuses {statuses['deadline']}")
+    check(deadline_searches == (0, 0), f"the expired requests reached a search: {deadline_searches}")
+    for rep, ref_matches in live:
+        check(rep[1] == 200, f"live request {rep[0]}: status {rep[1]}")
+        check_reply(rep, ref_matches)
+    for fresh, st in zip(replies["stale fresh"], stale):
+        check(st[1] == 200 and st[2].get("x-pathway-stale") == "true", f"stale read {st[:3]}")
+        check(same_up_to_near_ties(as_rows(st[3]), as_rows(fresh[3]), F32_TOL),
+              f"stale read {st[0]} returned other documents than fresh")
+    check(bounded[1] == 503 and bounded[2].get("x-pathway-stale") == "true", f"bounded stale read {bounded[:3]}")
+    check(stale_launches == REST_STALE, f"{stale_launches} launches for {REST_STALE} stale reads")
+    check(idle_a and idle_b and refused_after == (True, True),
+          f"drain: idle {idle_a, idle_b}, refused after {refused_after}")
+    stat = stats[3]
+    check(stats[1] == 200 and stat["file_count"] == n_static, f"statistics {stats[:2]} {stat}")
+    want = {doc_path(i) for i in range(VS_DOCS) if i % VS_GROUPS == 1}
+    got_paths = [m["path"] for m in inputs[3]]
+    check(inputs[1] == 200 and len(got_paths) == len(set(got_paths)) and set(got_paths) == want,
+          f"/v1/inputs under the filter: {len(got_paths)} paths, {len(want)} expected")
+    check(schema[1] == 200 and {"/v1/retrieve", "/v1/statistics", "/v1/inputs"} <= set(schema[3]["paths"]),
+          "the OpenAPI document misses a route")
+    check(all(ex.index is not None and len(ex.index) == len(ix) for ex in execs), "the two indexes differ")
+    check(emb.runtime.device.type == "cuda", "the embedder left the card")
+
+    def lat(group: str) -> dict:
+        ms = [(r[5] - r[4]) * 1e3 for r in replies[group] if r[1] == 200]
+        return {"p50": float(np.percentile(ms, 50)), "p99": float(np.percentile(ms, 99)),
+                "max": float(np.max(ms)), "n": len(ms)}
+
+    def rps(group: str) -> float:
+        reps = replies[group]
+        return len(reps) / (max(r[5] for r in reps) - min(r[4] for r in reps))
+
+    every = [str(r[1]) for reps in replies.values() for r in reps]
+    latency = {g: lat(g) for g in replies if any(r[1] == 200 for r in replies[g])}
+    latency["live"] = {"p50": float(np.percentile([(r[5] - r[4]) * 1e3 for r, _m in live], 50)),
+                       "max": float(max((r[5] - r[4]) * 1e3 for r, _m in live)), "n": len(live)}
+    phase = {
+        "phase": "rest",
+        "nvidia_smi": smi,
+        "docs": VS_DOCS,
+        "chunks": int(upto[-1]),
+        "corpus_capacity": capacity,
+        "ingest_s": ingest_s,
+        "reply_ms_by_group": latency,
+        "requests_per_s_at_16": {"ungated": rps("ungated concurrent"), "gated": rps("gated concurrent")},
+        "server_request_p50_ms": {"sequential": server_p50_sequential_ms,
+                                  "whole_phase": server_hist.quantile(0.5) * 1e3},
+        "http_overhead_p50_ms": latency["ungated sequential POST"]["p50"] - vs_b1_p50_ms,
+        "vector_store_b1_reply_p50_ms": vs_b1_p50_ms,
+        "update_to_visible_ms": {"p50": float(np.percentile(update_ms, 50)), "max": float(np.max(update_ms)),
+                                 "n": len(update_ms)},
+        "status_counts": {s: every.count(s) for s in ("429", "503", "504")},
+        "statuses_by_group": statuses,
+        "overload_max_reply_s": overload_max_s,
+        "deadline_expired_by_stage": deadline_expired,
+        "deadline_block_topk_launches_and_knn_queries": list(deadline_searches),
+        "ticks_per_ungated_request": {g: ticks[g] / len(replies[g]) for g in ticks},
+        "stale_headers": {k: stale[0][2].get(k) for k in ("x-pathway-stale", "x-pathway-staleness-seconds")},
+        "replies_checked_by_group": checked,
+        "replies_keys_equal_direct_search_by_group": exact,
+        "block_topk_launches": launches,
+        "block_topk_launches_by_shape": {f"B={b},k={k}": n for (b, k), n in sorted(shapes.items())},
+        "ticks": rt.stats.ticks,
+        "operator_s": operator_s(rt),
+        "peak_allocated_bytes": peak,
+        "stage_s": stage_s,
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    prep, _c2, valid = ix.corpus.prepared_arrays("cosine", bf16=False)
+    gated_texts = [asked[r[0]]["text"] for r in replies["gated concurrent"]]
+    queries = {b: torch.from_numpy(np.stack([qvec[t] for t in gated_texts[:b]])).to(dev)
+               for b in sorted({b for b, _k in shapes})}
+    out = {"prep": prep, "valid": valid, "launches": launches, "shapes": shapes, "queries": queries}
+    parse_graph.G.clear()
+    return phase, out
+
+
+# --- phase 7: generation ------------------------------------------------------
 
 
 class StepRecorder:
@@ -1651,7 +2226,7 @@ def generation(dev, main: dict) -> tuple[dict, dict]:
     }
 
 
-# --- phase 7: durability ------------------------------------------------------
+# --- phase 8: durability ------------------------------------------------------
 
 
 def kill_child(prompts_path: str) -> int:
@@ -2001,10 +2576,11 @@ def durability(dev, gen: dict) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-# --- phase 8: kernel times ----------------------------------------------------
+# --- phase 9: kernel times ----------------------------------------------------
 
 
-def kernel_times(main: dict, eng: dict, vs: dict, gen: dict, rate: float, rate_src: str) -> list[dict]:
+def kernel_times(main: dict, eng: dict, vs: dict, rest: dict, gen: dict, rate: float,
+                 rate_src: str) -> list[dict]:
     from pathway_tpu_torch.ops import block_topk as bt
     from pathway_tpu_torch.ops.knn import BLK, _normalize
 
@@ -2024,6 +2600,11 @@ def kernel_times(main: dict, eng: dict, vs: dict, gen: dict, rate: float, rate_s
          "vector store (filtered)", v_corpus),
         (32, RETRIEVE_K, gen["asks"], gen["topk_shapes"].get((32, RETRIEVE_K), 0), "generation",
          m_corpus),
+    ] + [
+        # every shape the REST phase launched: the gate's micro-batches and
+        # the concurrent ungated ticks after the index's pad ladder
+        (b, k, rest["queries"][b], n, "rest", (rest["prep"], rest["valid"]))
+        for (b, k), n in sorted(rest["shapes"].items())
     ]
     per_batch = []
     for bs, k, q, path_launches, path, (prep, valid) in path_shapes:
@@ -2072,6 +2653,8 @@ def kernel_times(main: dict, eng: dict, vs: dict, gen: dict, rate: float, rate_s
         "engine_launches_by_shape": {f"B={b},k={k}": n for (b, k), n in sorted(eng["shapes"].items())},
         "vector_store_launches": vs["launches"],
         "vector_store_launches_by_shape": {f"B={b},k={k}": n for (b, k), n in sorted(vs["shapes"].items())},
+        "rest_launches": rest["launches"],
+        "rest_launches_by_shape": {f"B={b},k={k}": n for (b, k), n in sorted(rest["shapes"].items())},
         "max_abs_err": max(p["max_abs_err"] for p in per_batch),
         "ms": head["ms"],
         "plain_ms": head["plain_ms"],
@@ -2166,6 +2749,8 @@ def paged_kernel_times(gen: dict, rate: float, rate_src: str) -> dict:
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--rest-client"]:
+        return rest_client()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 2
@@ -2200,10 +2785,12 @@ def main() -> int:
     emit(phase)
     phase, vs_data = vector_store(dev, smi)
     emit(phase)
+    phase, rest_data = rest(dev, smi, phase["retrieve_reply_p50_ms"]["B=1"], vs_data.pop("corpus"))
+    emit(phase)
     phase, gen_data = generation(dev, main_data)
     emit(phase)
     emit(durability(dev, gen_data))
-    kernels = kernel_times(main_data, engine_data, vs_data, gen_data, rate, rate_src) + [
+    kernels = kernel_times(main_data, engine_data, vs_data, rest_data, gen_data, rate, rate_src) + [
         paged_kernel_times(gen_data, rate, rate_src)
     ]
     emit({"phase": "kernels", "kernels": kernels})

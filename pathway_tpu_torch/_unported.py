@@ -14,7 +14,6 @@ BM25_HYBRID = "[index-kinds] (BM25, hybrid and document-index helpers)"
 TEMPORAL = "[temporal] (temporal nodes and windows)"
 CONNECTORS = "[connectors] (file and service connectors)"
 OBSERVABILITY = "[observability] (the rest of observability)"
-REST = "[rest] (the REST connector and the servers over it)"
 
 
 def unported(what: str, item: str) -> NotImplementedError:

@@ -8,13 +8,14 @@ operators/external_index.rs — there, queries broadcast to all workers and each
 worker searches its shard. Here the index lives on the card (the port's
 ``TpuDenseKnnIndex``: one block top-k launch per tick's query batch).
 
+The serving hooks are the reference's: the exec registers with
+``serving/degrade.py`` as the index stale reads answer from while the
+engine recovers, and a query whose REST deadline expired
+(``serving/deadline.py``) answers empty without a device search.
+
 Not ported: the replication writer (``PATHWAY_REPL_PORT`` raises,
 ROADMAP [replication]) and the multi-process exec (the runtime raises
-for a process group, [mesh]). Nor are the hooks of the serving
-plane that no path of the port reaches yet: the registration for stale
-reads during recovery (``serving/degrade.py``, [replication]) and the
-drop of queries whose REST deadline expired (``serving/deadline.py``,
-with the REST connector of [rest]).
+for a process group, [mesh]).
 """
 
 from __future__ import annotations
@@ -90,6 +91,9 @@ class ExternalIndexExec(NodeExec):
             "upserts/removals applied to the index corpus",
             labelnames=("index",),
         ).labels(index_label)
+        from pathway_tpu_torch.serving import metrics as serving_metrics
+
+        self._m_expired = serving_metrics.expired_counter().labels("knn")
         dcols = node.inputs[0].column_names
         qcols = node.inputs[1].column_names
         self.d_data = dcols.index("_data")
@@ -100,6 +104,13 @@ class ExternalIndexExec(NodeExec):
         # live queries (for full `query` mode re-answers) / emitted replies
         self.live_queries: dict[int, tuple] = {}
         self.emitted: dict[int, tuple] = {}
+        # Phoenix degradation: this exec's corpus is the "last hydrated
+        # index snapshot" degraded serving answers from — register it
+        # (weakly) and keep the staleness clock fresh per tick
+        from pathway_tpu_torch.serving import degrade as _degrade
+
+        self._degrade = _degrade
+        _degrade.register_index_reader(self)
         # Replica Shield: the reference streams every tick's corpus deltas
         # to read replicas when PATHWAY_REPL_PORT is set
         # (parallel/replicate.py); the port has no delta stream yet, so a
@@ -168,28 +179,48 @@ class ExternalIndexExec(NodeExec):
     def process(self, t, inputs):
         node = self.node
         data_changed = False
-        for b in inputs[0]:
-            for k, d, vals in b.iter_rows():
-                data_changed = True
-                self._m_updates.inc()
-                if d > 0:
-                    meta = (
-                        vals[self.d_meta]
-                        if self.d_meta is not None
-                        else None
-                    )
-                    try:
-                        self.index.upsert(k, vals[self.d_data], meta)
-                    except Exception as exc:
-                        record_error(exc, str(node))
-                        continue
-                else:
-                    self.index.remove(k)
+        # corpus mutation races a concurrent degraded-mode stale search
+        # (replay ticks rebuild state while the REST handler reads it):
+        # the shared guard serializes them. Uncontended cost is one
+        # RLock acquire per tick.
+        with self._degrade.index_guard:
+            for b in inputs[0]:
+                for k, d, vals in b.iter_rows():
+                    data_changed = True
+                    self._m_updates.inc()
+                    if d > 0:
+                        meta = (
+                            vals[self.d_meta]
+                            if self.d_meta is not None
+                            else None
+                        )
+                        try:
+                            self.index.upsert(k, vals[self.d_data], meta)
+                        except Exception as exc:
+                            record_error(exc, str(node))
+                            continue
+                    else:
+                        self.index.remove(k)
+        # the engine is ticking this node: whatever the corpus now holds
+        # is as fresh as the stream — restart the staleness clock
+        self._degrade.mark_fresh()
+        # Surge Gate deadline propagation: queries whose REST deadline
+        # already expired answer empty WITHOUT a device search — the
+        # client got its 504, so the top-k would burn a batch slot for a
+        # response nobody reads (the empty reply keeps the output
+        # universe aligned for downstream row-wise stages).
+        from pathway_tpu_torch.serving import deadline as _deadline
+
         to_answer: list[tuple[int, tuple]] = []
+        expired_keys: list[int] = []
         retracted: list[int] = []
         for b in inputs[1]:
             for k, d, vals in b.iter_rows():
                 if d > 0:
+                    if _deadline.expired(k):
+                        self._m_expired.inc()
+                        expired_keys.append(k)
+                        continue
                     if not node.as_of_now:
                         self.live_queries[k] = vals
                     to_answer.append((k, vals))
@@ -207,8 +238,11 @@ class ExternalIndexExec(NodeExec):
             old = self.emitted.pop(k, None)
             if old is not None:
                 out_rows.append((k, -1, old))
+        replies: dict[int, tuple] = {k: () for k in expired_keys}
         if to_answer:
-            for k, reply in self._answer(to_answer).items():
+            replies.update(self._answer(to_answer))
+        if replies:
+            for k, reply in replies.items():
                 new = (reply,)
                 old = self.emitted.get(k)
                 if old == new:

@@ -9,11 +9,7 @@ unset or 0 runs the interpreter, ROADMAP [compiled-ticks]), the engine
 mesh (``PATHWAY_ENGINE_SHARDS`` > 1) and the multi-process engine
 (``PATHWAY_PROCESSES`` > 1; [mesh]). Tick Scope's per-tick flight
 recorder is not ported either ([tickscope]): its slot stays None, the
-reference's ``PATHWAY_TICKSCOPE=0`` behaviour. Nor are the Surge Gate's
-session priority classes and ``PATHWAY_SERVING_BULK_CHUNK``: they bound
-bulk drains only while a REST query session is hot, and the port has no
-REST connector yet (ROADMAP [rest]); every tick drains every
-session whole.
+reference's ``PATHWAY_TICKSCOPE=0`` behaviour.
 
 The reference's design: a replacement for the timely worker main loop
 (upstream Pathway: src/engine/dataflow.rs:5962-6173): instead of N OS worker
@@ -137,8 +133,16 @@ class InputSession:
     (reference: InputSession/UpsertSession, src/connectors/adaptors.rs:27-42;
     the mpsc sender + poller pattern of src/connectors/mod.rs:426)."""
 
+    # priority classes (Surge Gate): 0 = interactive serving queries,
+    # 1 = bulk ingest/backfill. When an interactive session has data,
+    # the streaming loop defers draining bulk sessions for a bounded
+    # number of ticks so query latency is not paid behind a backfill.
+    PRIORITY_INTERACTIVE = 0
+    PRIORITY_BULK = 1
+
     def __init__(self, column_names: Sequence[str]):
         self.column_names = list(column_names)
+        self.priority = self.PRIORITY_BULK
         self._lock = threading.Lock()
         self._rows: list[tuple[int, int, tuple]] = []
         self._upserts: dict[int, tuple | None] = {}
@@ -153,6 +157,14 @@ class InputSession:
         # snapshot, src/persistence/state.rs + src/connectors/offset.rs)
         self._pending_offsets: Any = None
         self.last_offsets: Any = None
+
+    def hot(self) -> bool:
+        """Data pending now, or (for gated sessions) queued upstream in
+        the micro-batcher and about to land."""
+        if self.has_data():
+            return True
+        backlog = getattr(self, "backlog", None)
+        return backlog is not None and backlog() > 0
 
     def insert(self, key: int, values: tuple) -> None:
         with self._lock:
@@ -190,16 +202,42 @@ class InputSession:
         if self._wake is not None:
             self._wake()
 
-    def drain(self) -> list[tuple[int, int, tuple]]:
-        """Take every pending row, and the offset marker that covers them."""
+    def has_data(self) -> bool:
         with self._lock:
-            rows = self._rows
-            self._rows = []
-            upserts = self._upserts
-            self._upserts = {}
-            if self._pending_offsets is not None:
-                self.last_offsets = self._pending_offsets
-                self._pending_offsets = None
+            return bool(self._rows) or bool(self._upserts)
+
+    def drain(
+        self, max_rows: int | None = None
+    ) -> list[tuple[int, int, tuple]]:
+        """Take pending rows. ``max_rows`` bounds the take (Surge Gate
+        bulk chunking: a backfill burst must not block a serving tick
+        longer than one chunk) — a partial drain returns a prefix of the
+        row log (then a bounded slice of pending upserts) and leaves the
+        offset marker pending, so persisted offsets can never run ahead
+        of ticked input."""
+        with self._lock:
+            partial = max_rows is not None and (
+                len(self._rows) + len(self._upserts) > max_rows
+            )
+            if partial:
+                take = min(len(self._rows), max_rows)
+                rows = self._rows[:take]
+                self._rows = self._rows[take:]
+                upserts: dict[int, tuple | None] = {}
+                if not self._rows:
+                    # row log exhausted: spend the remaining budget on
+                    # upserts (insertion order) so upsert-fed bulk
+                    # sources are chunk-bounded too
+                    for k in list(self._upserts)[: max_rows - take]:
+                        upserts[k] = self._upserts.pop(k)
+            else:
+                rows = self._rows
+                self._rows = []
+                upserts = self._upserts
+                self._upserts = {}
+                if self._pending_offsets is not None:
+                    self.last_offsets = self._pending_offsets
+                    self._pending_offsets = None
         for k, vals in upserts.items():
             old = self._last_upserted.get(k)
             if old is not None:
@@ -606,20 +644,53 @@ class Runtime:
                 injected.setdefault(nid, []).append(batch)
             last_t = self._now_ms()
             self.tick(last_t, injected)
+        # Surge Gate priority classes: while an interactive session (REST
+        # queries behind a gate) is hot — rows pending, or queued in its
+        # micro-batcher — bulk ingest/backfill sessions drain at most
+        # BULK_CHUNK rows per tick, so serving ticks never stall behind
+        # an unbounded backfill batch. Chunking (vs skipping) keeps
+        # ingest starvation-free: every tick still moves bulk rows.
+        from pathway_tpu_torch.internals.config import serving_bulk_chunk
+
+        BULK_CHUNK = serving_bulk_chunk()
         while not self._stop.is_set():
             self._wake.wait(timeout=self.autocommit_ms / 1000.0)
             self._wake.clear()
             injected = {}
             any_data = False
             all_done = True
+            # re-read priorities every tick: the SurgeGate marks its
+            # session interactive from the connector thread, possibly
+            # after this loop already started
+            hot = any(
+                src.session.hot()
+                for _node, src in sources
+                if getattr(src.session, "priority", 1)
+                == InputSession.PRIORITY_INTERACTIVE
+            )
             for node, src in sources:
-                rows = src.session.drain()
+                sess = src.session
+                limit = (
+                    BULK_CHUNK
+                    if (
+                        hot
+                        and getattr(sess, "priority", 1)
+                        != InputSession.PRIORITY_INTERACTIVE
+                        and not sess.finished
+                    )
+                    else None
+                )
+                rows = sess.drain(limit)
                 if rows:
                     any_data = True
                     injected[node.id] = [
                         DiffBatch.from_rows(rows, src.column_names)
                     ]
-                if not src.session.finished:
+                if sess.has_data():
+                    # chunk leftover: re-tick promptly instead of waiting
+                    # out the autocommit interval
+                    self._wake.set()
+                if not sess.finished:
                     all_done = False
             if any_data:
                 t = max(self._now_ms(), last_t + 2)

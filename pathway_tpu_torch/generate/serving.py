@@ -3,11 +3,16 @@
 
 ``assemble_prompt`` builds the grounded prompt (retrieved doc keys/scores
 prefix the user ask) and ``is_generate_route`` names the route the router
-sends to one member. ``attach_generate`` and the aiohttp handlers mount the
-scheduler on a ``ReplicaServer``, which is not ported yet.
+sends to one member. ``attach_generate`` mounts the scheduler on a
+``ReplicaServer``, which is not ported yet: it raises naming ROADMAP
+[replication].
 """
 
 from __future__ import annotations
+
+from typing import Any
+
+from pathway_tpu_torch._unported import REPLICATION, unported
 
 GENERATE_ROUTE = "/generate"
 
@@ -18,6 +23,11 @@ def is_generate_route(path: str) -> bool:
     # a sharded plane a false match would divert a scatter-gather read
     # to a single member's partial corpus
     return path.rstrip("/").endswith(GENERATE_ROUTE)
+
+
+def attach_generate(server: Any, scheduler: Any = None, *, route: str = GENERATE_ROUTE) -> Any:
+    """The ``/generate`` route on a ``ReplicaServer``: not ported."""
+    raise unported(f"generate.attach_generate (the {route} route on a ReplicaServer)", REPLICATION)
 
 
 def assemble_prompt(prompt: str, matches: list) -> str:

@@ -62,6 +62,17 @@ def get_pathway_config() -> PathwayConfig:
     return pathway_config
 
 
+def serving_bulk_chunk() -> int:
+    """Max bulk-session rows drained per tick while an interactive
+    (Surge Gate) session is hot — bounds how long a serving tick can
+    stall behind ingest/backfill. Re-read per run like engine_threads."""
+    raw = os.environ.get("PATHWAY_SERVING_BULK_CHUNK", "")
+    try:
+        return max(1, int(raw)) if raw else 128
+    except ValueError:
+        return 128
+
+
 def engine_threads() -> int:
     """Worker-thread count at RUN start. The reference re-reads the env
     per run (Config::from_env, src/engine/dataflow/config.rs:88), unlike

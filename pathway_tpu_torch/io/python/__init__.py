@@ -52,7 +52,7 @@ class _CommitSession(InputSession):
         self.commit()
         super().close()
 
-    def drain(self) -> list[tuple[int, int, tuple]]:
+    def drain(self, max_rows: int | None = None) -> list[tuple[int, int, tuple]]:
         # the tick loop wakes at least every autocommit_ms of the runtime,
         # so an expired autocommit is taken within one such interval
         with self._lock:
@@ -63,7 +63,7 @@ class _CommitSession(InputSession):
             ):
                 self._rows.extend(self._staged)
                 self._staged = []
-        return super().drain()
+        return super().drain(max_rows)
 
 
 class ConnectorSubject:

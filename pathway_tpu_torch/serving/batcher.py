@@ -7,8 +7,9 @@ the OLDEST queued request has waited ``max_wait_ms`` (bounded added
 latency even at low load), or immediately in drain mode. Expired
 requests are rejected at flush — they never reach the engine, so a dead
 deadline cannot burn a batch slot. The dispatch callback runs on the
-batcher thread and hands the whole release on at once (the decode
-scheduler stages it for its next step boundary).
+batcher thread and hands the whole release on at once: the Surge Gate
+inserts it into the endpoint's ``InputSession`` (one engine tick), the
+decode scheduler stages it for its next step boundary.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ from pathway_tpu_torch.serving.config import QoSConfig
 
 
 class MicroBatcher:
-    """``put`` is thread-safe (called from aiohttp handlers); flushing
+    """``put`` is thread-safe (called from the REST handlers); flushing
     runs on one dedicated daemon thread."""
 
     def __init__(

@@ -4,8 +4,8 @@
 One ``QoSConfig`` describes the serving QoS policy of one endpoint: how many
 requests may queue, how they batch, what deadline budget they carry and how
 overload is shed. Every knob has a ``PATHWAY_SERVING_*`` environment override
-(``QoSConfig.from_env``). ``serving_enabled_via_env`` and ``plane_knobs``
-belong to the REST gate and the plane doctor, which are not ported yet.
+(``QoSConfig.from_env``); ``PATHWAY_SERVING_ENABLED=1`` puts every REST
+endpoint without an explicit ``qos=`` behind the gate.
 """
 
 from __future__ import annotations
@@ -36,6 +36,28 @@ _ENV_FIELDS = {
 _NONEABLE_FIELDS = frozenset(
     ("rate_limit_rps", "rate_limit_burst", "max_inflight", "max_dispatched")
 )
+
+
+def serving_enabled_via_env() -> bool:
+    """``PATHWAY_SERVING_ENABLED=1`` turns the gate on for every
+    rest_connector that was not given an explicit ``qos=``."""
+    return os.environ.get(_ENV_PREFIX + "ENABLED", "0").lower() in (
+        "1",
+        "true",
+        "yes",
+    )
+
+
+def plane_knobs() -> dict[str, str]:
+    """Snapshot of every ``PATHWAY_*`` knob set in this environment —
+    the serving plane's metadata hook for static verification (the
+    reference's Plane Doctor lints this surface and records it beside
+    its findings)."""
+    return {
+        k: v
+        for k, v in sorted(os.environ.items())
+        if k.startswith("PATHWAY_")
+    }
 
 
 def default_bucket_ladder(max_batch_size: int) -> tuple[int, ...]:

@@ -1,8 +1,7 @@
 """pathway_tpu_torch.xpacks.llm — the RAG product layer, counterpart of
 ``pathway_tpu/xpacks/llm``: parsers, splitters, embedders, rerankers,
 chats, prompts, ``VectorStoreServer``/``DocumentStore`` and the question
-answerers, with the reference's names. The REST servers raise naming
-ROADMAP [rest]."""
+answerers and the REST servers over them, with the reference's names."""
 
 from pathway_tpu_torch.xpacks.llm import (
     embedders,

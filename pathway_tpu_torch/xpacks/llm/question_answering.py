@@ -5,16 +5,15 @@ the geometric RAG strategy, ``BaseRAGQuestionAnswerer``,
 The table flows (``answer_query``, ``summarize_query``, ``retrieve``,
 ``statistics``, ``list_documents``) are the reference's, over the port's
 ``VectorStoreServer``/``DocumentStore``. ``build_server`` and
-``run_server`` serve them over REST, which is not ported: both raise
-naming ROADMAP [rest]. ``RAGClient`` imports ``requests`` only when it
-posts."""
+``run_server`` serve them over REST on the port's stdlib server.
+``RAGClient`` imports ``requests`` only when it posts."""
 
 from __future__ import annotations
 
+import threading
 from typing import Any, Callable, Sequence
 
 import pathway_tpu_torch as pw
-from pathway_tpu_torch._unported import REST, unported
 from pathway_tpu_torch.internals.common import apply_with_type
 from pathway_tpu_torch.internals.json import Json
 from pathway_tpu_torch.internals.schema import column_definition
@@ -340,10 +339,38 @@ class BaseRAGQuestionAnswerer(BaseQuestionAnswerer):
     def list_documents(self, queries: Table) -> Table:
         return self.indexer.inputs_query(queries)
 
-    # --- serving: the REST connector is not ported ---------------------------
+    # --- serving -------------------------------------------------------------
 
     def build_server(self, host: str, port: int, **rest_kwargs) -> None:
-        raise unported("BaseRAGQuestionAnswerer.build_server", REST)
+        """Register the RAG REST endpoints on one webserver at
+        ``host:port``; ``run_server`` then runs the graph."""
+        from pathway_tpu_torch.io.http import PathwayWebserver, rest_connector
+
+        webserver = PathwayWebserver(host=host, port=port)
+        self.server = webserver
+
+        def serve(route, schema, handler):
+            queries, writer = rest_connector(
+                webserver=webserver,
+                route=route,
+                schema=schema,
+                methods=("POST",),
+                delete_completed_queries=True,
+            )
+            result = handler(queries)
+            writer(result.select(query_id=result.id, result=result.result))
+
+        serve("/v1/pw_ai_answer", self.AnswerQuerySchema, self.answer_query)
+        serve(
+            "/v1/pw_ai_summary", self.SummarizeQuerySchema, self.summarize_query
+        )
+        serve("/v2/answer", self.AnswerQuerySchema, self.answer_query)
+        serve("/v2/summarize", self.SummarizeQuerySchema, self.summarize_query)
+
+        serve("/v1/retrieve", self.RetrieveQuerySchema, self.retrieve)
+        serve("/v2/list_documents", self.InputsQuerySchema, self.list_documents)
+        serve("/v1/statistics", self.StatisticsQuerySchema, self.statistics)
+        serve("/v1/pw_list_documents", self.InputsQuerySchema, self.list_documents)
 
     def run_server(
         self,
@@ -353,7 +380,14 @@ class BaseRAGQuestionAnswerer(BaseQuestionAnswerer):
         threaded: bool = False,
         **kwargs,
     ):
-        raise unported("BaseRAGQuestionAnswerer.run_server", REST)
+        def run():
+            pw.run(terminate_on_error=terminate_on_error)
+
+        if threaded:
+            t = threading.Thread(target=run, daemon=True, name="RAGServer")
+            t.start()
+            return t
+        run()
 
 
 class AdaptiveRAGQuestionAnswerer(BaseRAGQuestionAnswerer):

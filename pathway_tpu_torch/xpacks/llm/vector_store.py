@@ -7,18 +7,19 @@ The chunks' vectors live on ``device`` (default ``"cuda"``): the store
 passes it to the ``USearchKnn`` it builds, so every retrieval is one launch
 of the hand-written block top-k kernel per tick's query batch. Without a
 card it raises unless ``device="cpu"`` is passed. The embedder keeps its
-own ``device=``. ``run_server`` and ``drain`` serve the queries over REST,
-which is not ported: both raise naming ROADMAP [rest].
+own ``device=``. ``run_server`` serves the three queries over REST
+(``/v1/retrieve``, ``/v1/statistics``, ``/v1/inputs``) on the port's stdlib
+server, and ``drain`` shuts it down gracefully.
 ``VectorStoreClient`` imports ``requests`` only when it posts."""
 
 from __future__ import annotations
 
+import threading
 from typing import Any, Callable, Iterable, Sequence
 
 import pathway_tpu_torch as pw
 import pathway_tpu_torch.reducers as reducers
 from pathway_tpu_torch._device import resolve_device
-from pathway_tpu_torch._unported import REST, unported
 from pathway_tpu_torch.internals import dtype as dtp
 from pathway_tpu_torch.internals.common import apply_with_type, if_else
 from pathway_tpu_torch.internals.json import Json
@@ -409,7 +410,7 @@ class VectorStoreServer:
             )
         )
 
-    # --- REST serving: the REST connector is not ported ----------------------
+    # --- REST serving ------------------------------------------------------------
 
     def run_server(
         self,
@@ -422,10 +423,45 @@ class VectorStoreServer:
         qos: Any = None,
         **kwargs,
     ):
-        raise unported("VectorStoreServer.run_server", REST)
+        from pathway_tpu_torch.io.http import PathwayWebserver, rest_connector
+
+        webserver = PathwayWebserver(host=host, port=port)
+        self._webserver = webserver
+
+        def serve(route, schema, handler):
+            queries, writer = rest_connector(
+                webserver=webserver,
+                route=route,
+                schema=schema,
+                methods=("GET", "POST"),
+                delete_completed_queries=True,
+                qos=qos,
+            )
+            result = handler(queries)
+            writer(result.select(query_id=result.id, result=result.result))
+
+        serve("/v1/retrieve", self.RetrieveQuerySchema, self.retrieve_query)
+        serve("/v1/statistics", self.StatisticsQuerySchema, self.statistics_query)
+        serve("/v1/inputs", self.InputsQuerySchema, self.inputs_query)
+
+        def run():
+            pw.run(terminate_on_error=terminate_on_error)
+
+        if threaded:
+            t = threading.Thread(target=run, daemon=True, name="VectorStoreServer")
+            t.start()
+            return t
+        run()
 
     def drain(self, grace_s: float | None = None) -> bool:
-        raise unported("VectorStoreServer.drain", REST)
+        """Graceful shutdown of a running ``run_server``: stop admitting,
+        flush in-flight micro-batches, answer every admitted query, then
+        close the webserver (requires ``qos=`` to have enabled the gate;
+        ungated servers just stop the listener)."""
+        ws = getattr(self, "_webserver", None)
+        if ws is None:
+            return True
+        return ws.drain(grace_s)
 
     def __repr__(self):
         return f"VectorStoreServer({self.embedder!r})"

@@ -445,3 +445,75 @@ def test_cross_encoder_on_the_card_scores_as_on_cpu(dev, dtype):
         scores.append(np.asarray(rr._score_batch(docs, queries)))
     atol = 1e-4 if dtype == torch.float32 else 2e-2
     np.testing.assert_allclose(scores[0], scores[1], atol=atol, rtol=0)
+
+
+def test_rest_retrieve_on_the_card_matches_direct_search(dev, fresh_graph):
+    """One ``/v1/retrieve`` round trip through the port's REST server with
+    the store on the card; the reply against a direct search of the
+    store's rows on a plain-torch index (keys exact, scores within 1e-5)."""
+    import http.client
+    import json
+    import socket
+    import time
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.engine.index_node import ExternalIndexExec
+    from pathway_tpu_torch.internals import parse_graph
+    from pathway_tpu_torch.ops import block_topk as bt
+    from pathway_tpu_torch.stdlib.indexing._index_impls import TpuDenseKnnIndex
+    from pathway_tpu_torch.xpacks.llm.embedders import SentenceTransformerEmbedder
+    from pathway_tpu_torch.xpacks.llm.splitters import TokenCountSplitter
+    from pathway_tpu_torch.xpacks.llm.vector_store import VectorStoreServer
+
+    rng = np.random.default_rng(1)
+    words = [f"w{i}" for i in range(500)]
+    texts = [" ".join(rng.choice(words, size=int(rng.integers(12, 60)))) + "." for _ in range(200)]
+
+    class Doc(pw.Schema):
+        doc_id: int = pw.column_definition(primary_key=True)
+        data: bytes
+        _metadata: pw.Json
+
+    docs = pw.debug.table_from_rows(Doc, [(i, t.encode(), {"path": f"d{i}.txt"}) for i, t in enumerate(texts)])
+    emb = SentenceTransformerEmbedder(dim=32, depth=2, heads=2, max_len=64, device="cuda")
+    emb.runtime.model.dtype = torch.float32
+    store = VectorStoreServer(docs, embedder=emb, splitter=TokenCountSplitter(min_tokens=8, max_tokens=24),
+                              device="cuda")
+    text_of = {}
+    pw.io.subscribe(store._graph["chunked_docs"],
+                    on_change=lambda key, row, time, is_addition: text_of.__setitem__(int(key), row["text"]))
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    thread = store.run_server("127.0.0.1", port, threaded=True)
+    query = " ".join(texts[7].split()[:8])
+    try:
+        reply = None
+        for _ in range(600):
+            try:
+                conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+                before = bt.block_topk.launches
+                conn.request("POST", "/v1/retrieve", body=json.dumps({"query": query, "k": 5}))
+                resp = conn.getresponse()
+                status, reply = resp.status, json.loads(resp.read())
+                conn.close()
+                if status == 200 and reply:
+                    break
+            except ConnectionRefusedError:
+                pass
+            time.sleep(0.1)
+        assert status == 200 and len(reply) == 5
+        assert bt.block_topk.launches == before + 1  # the kernel answered it
+        (ex,) = [e for e in parse_graph.G.runtime.execs.values() if isinstance(e, ExternalIndexExec)]
+        state = ex.index.state_dict()
+        plain = TpuDenseKnnIndex(dimensions=32, metric="cosine", reserved_space=state["corpus"]["capacity"],
+                                 kernel="torch", device="cuda")
+        plain.load_state(state)
+        (ref,) = plain.search([(emb.embed_batch([query])[0], 5, None)])
+        assert [d["text"] for d in reply] == [text_of[key] for key, _s in ref]
+        np.testing.assert_allclose([-d["dist"] for d in reply], [s for _k, s in ref], atol=1e-5, rtol=0)
+    finally:
+        parse_graph.G.runtime.stop()
+        thread.join(timeout=30)
+    assert not thread.is_alive()

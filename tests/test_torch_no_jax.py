@@ -6,8 +6,11 @@ and no module of the port imports it at module level. The RAG layer
 (``xpacks/llm``) imports with the HTTP and API clients blocked too
 (``requests``, ``openai``, ``litellm``, ``aiohttp``, ``flashrank``, …): the
 card's machine has none of them, and no port module imports one at module
-level. Without a card, an entry point left on its default device raises instead of
-falling back to the CPU."""
+level. The REST connector and the Surge Gate (``io/http``, ``serving``)
+import with the clients blocked as well, and a port server started with
+``aiohttp`` and ``requests`` blocked answers over HTTP without loading
+either. Without a card, an entry point left on its default device raises
+instead of falling back to the CPU."""
 
 import ast
 import json
@@ -201,6 +204,65 @@ RAG_MODULES = [
 ]
 
 
+# the REST connector and the Surge Gate: each imports with pandas and the
+# clients blocked (the server is the standard library's)
+REST_MODULES = [
+    "pathway_tpu_torch.io.http",
+    "pathway_tpu_torch.io.http._client",
+    "pathway_tpu_torch.io.http._server",
+    "pathway_tpu_torch.io.http._web",
+    "pathway_tpu_torch.serving",
+    "pathway_tpu_torch.serving.admission",
+    "pathway_tpu_torch.serving.batcher",
+    "pathway_tpu_torch.serving.config",
+    "pathway_tpu_torch.serving.deadline",
+    "pathway_tpu_torch.serving.degrade",
+    "pathway_tpu_torch.serving.gate",
+    "pathway_tpu_torch.serving.metrics",
+    "pathway_tpu_torch.serving.tenancy",
+    "pathway_tpu_torch.xpacks.llm.servers",
+]
+
+_SERVE_WITHOUT_CLIENTS = """
+import http.client, json, socket, sys, threading, time
+for name in {blocked!r}:
+    sys.modules[name] = None
+import pathway_tpu_torch as pw
+from pathway_tpu_torch.io.http import rest_connector
+from pathway_tpu_torch.serving import QoSConfig
+
+def free_port():
+    s = socket.socket(); s.bind(("127.0.0.1", 0)); p = s.getsockname()[1]; s.close(); return p
+
+ports = []
+for qos in (None, QoSConfig(max_batch_size=4, max_wait_ms=2)):
+    port = free_port(); ports.append(port)
+    q, writer = rest_connector(host="127.0.0.1", port=port, schema=pw.schema_from_types(text=str),
+                               route="/up", qos=qos)
+    writer(q.select(query_id=q.id, result=pw.apply(str.upper, q.text)))
+t = threading.Thread(target=pw.run, daemon=True)
+t.start()
+for port in ports:
+    for _ in range(200):
+        try:
+            c = http.client.HTTPConnection("127.0.0.1", port, timeout=10)
+            c.request("POST", "/up", body=json.dumps({{"text": "ok"}}))
+            r = c.getresponse()
+            assert r.status == 200 and json.loads(r.read()) == "OK", r.status
+            break
+        except ConnectionRefusedError:
+            time.sleep(0.05)
+    else:
+        raise AssertionError("no server")
+pw.internals.parse_graph.G.runtime.stop()
+t.join(10)
+assert not t.is_alive()
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in {blocked!r} and sys.modules[m])
+assert not leaked, leaked
+print("ok")
+"""
+
+
 def _run(code, blocked=BLOCKED, **fmt):
     return subprocess.run(
         [sys.executable, "-c", code.format(blocked=blocked, **fmt)],
@@ -251,6 +313,24 @@ def imported_with_clients_blocked():
 @pytest.mark.parametrize("mod", RAG_MODULES)
 def test_rag_module_imports_without_jax_pandas_or_clients(imported_with_clients_blocked, mod):
     assert mod in imported_with_clients_blocked
+
+
+@pytest.fixture(scope="module")
+def rest_imported_with_clients_blocked():
+    r = _run(_IMPORT_EACH, blocked=BLOCKED_WITH_CLIENTS, mods=REST_MODULES)
+    assert r.returncode == 0, r.stderr
+    return set(json.loads(r.stdout.strip().splitlines()[-1]))
+
+
+@pytest.mark.parametrize("mod", REST_MODULES)
+def test_rest_module_imports_without_jax_pandas_or_clients(rest_imported_with_clients_blocked, mod):
+    assert mod in rest_imported_with_clients_blocked
+
+
+def test_port_server_answers_with_aiohttp_and_requests_blocked():
+    r = _run(_SERVE_WITHOUT_CLIENTS, blocked=BLOCKED_WITH_CLIENTS)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip().endswith("ok")
 
 
 def _module_level_roots(path: Path) -> set[str]:

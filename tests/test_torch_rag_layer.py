@@ -643,7 +643,41 @@ def test_rest_clients_post_like_reference(monkeypatch):
 
 @pytest.mark.parametrize("hook", ["build_server", "run_server"])
 def test_answerer_rest_hooks_raise(embedders, hook):
+    """The answerer's REST hooks serve instead of raising: ``build_server``
+    registers the reference's eight routes on one webserver, and
+    ``run_server`` runs the graph that answers them over HTTP."""
+    import http.client
+    import json
+    import socket
+    import time
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
     _j, temb = embedders
     qa = tqa.BaseRAGQuestionAnswerer(tllms.EchoChat(), _store(PORT, temb, ["a b c d e f"]))
-    with pytest.raises(NotImplementedError, match=r"\[rest\]"):
-        qa.build_server("127.0.0.1", 0) if hook == "build_server" else qa.run_server()
+    qa.build_server("127.0.0.1", port)
+    assert set(qa.server._openapi["paths"]) == {
+        "/v1/pw_ai_answer", "/v1/pw_ai_summary", "/v2/answer", "/v2/summarize",
+        "/v1/retrieve", "/v2/list_documents", "/v1/statistics", "/v1/pw_list_documents",
+    }
+    if hook == "build_server":
+        return
+    thread = qa.run_server(threaded=True)
+    try:
+        for _ in range(300):
+            try:
+                conn = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+                conn.request("POST", "/v2/answer", body=json.dumps({"prompt": "a b c"}))
+                resp = conn.getresponse()
+                status, body = resp.status, json.loads(resp.read())
+                conn.close()
+                break
+            except ConnectionRefusedError:
+                time.sleep(0.05)
+        assert status == 200 and "a b c" in body["response"]
+    finally:
+        port_parse_graph.G.runtime.stop()
+        thread.join(timeout=15)
+    assert not thread.is_alive()

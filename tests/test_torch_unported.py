@@ -3,7 +3,8 @@
 without it: compiled ticks, engine shards, the multi-process engine (DCN),
 replication, ``persistence_config``, ``mesh=``, and the LSH / IVF / BM25 /
 hybrid indexes, the temporal operators and the ``.dt`` namespace, the
-other connectors, and the REST serving of the RAG layer."""
+other connectors, and the replicated read plane (``ReplicaServer``,
+``FailoverRouter``, ``ResultCache`` and the ``/generate`` route)."""
 
 import numpy as np
 import pytest
@@ -110,42 +111,16 @@ def test_unported_kind_raises(make, item):
         make(_table())
 
 
-def _store():
-    from pathway_tpu_torch.xpacks.llm.embedders import SentenceTransformerEmbedder
-    from pathway_tpu_torch.xpacks.llm.vector_store import VectorStoreServer
+@pytest.mark.parametrize("name", ["ReplicaServer", "FailoverRouter", "ResultCache"])
+def test_replica_plane_names_raise(name):
+    import pathway_tpu_torch.serving as serving
 
-    docs = pw.debug.table_from_rows(pw.schema_from_types(data=bytes), [(b"a b c",)])
-    emb = SentenceTransformerEmbedder(dim=8, depth=1, heads=2, max_len=16, device="cpu")
-    return VectorStoreServer(docs, embedder=emb, device="cpu")
-
-
-def _answerer():
-    from pathway_tpu_torch.xpacks.llm.llms import EchoChat
-    from pathway_tpu_torch.xpacks.llm.question_answering import BaseRAGQuestionAnswerer
-
-    return BaseRAGQuestionAnswerer(EchoChat(), _store())
+    with pytest.raises(NotImplementedError, match=r"\[replication\]"):
+        getattr(serving, name)
 
 
-@pytest.mark.parametrize(
-    "call",
-    [
-        lambda llm: _store().run_server("127.0.0.1", 0),
-        lambda llm: _store().drain(),
-        lambda llm: _answerer().build_server("127.0.0.1", 0),
-        lambda llm: _answerer().run_server(),
-        lambda llm: llm.BaseRestServer("127.0.0.1", 0),
-        lambda llm: llm.DocumentStoreServer("127.0.0.1", 0, None),
-        lambda llm: llm.QARestServer("127.0.0.1", 0, None),
-        lambda llm: llm.QASummaryRestServer("127.0.0.1", 0, None),
-    ],
-    ids=[
-        "VectorStoreServer.run_server", "VectorStoreServer.drain", "build_server",
-        "answerer.run_server", "BaseRestServer", "DocumentStoreServer", "QARestServer",
-        "QASummaryRestServer",
-    ],
-)
-def test_rest_hooks_raise(call):
-    import pathway_tpu_torch.xpacks.llm as llm
+def test_generate_route_raises():
+    from pathway_tpu_torch.generate.serving import attach_generate
 
-    with pytest.raises(NotImplementedError, match=r"\[rest\]"):
-        call(llm)
+    with pytest.raises(NotImplementedError, match=r"\[replication\].*/generate|/generate.*\[replication\]"):
+        attach_generate(object())

@@ -370,8 +370,45 @@ def test_store_device_defaults_to_cuda(embedders):
 
 @pytest.mark.parametrize("hook", ["run_server", "drain"])
 def test_rest_hooks_raise(embedders, hook):
+    """The store's REST hooks serve instead of raising: ``run_server``
+    answers ``/v1/retrieve`` as ``retrieve_query`` does, ``drain`` (a
+    no-op before ``run_server``) closes the listener after it."""
+    import http.client
+    import json
+    import socket
+    import time
+
     _jemb, temb = embedders
-    docs = tpw.debug.table_from_rows(_doc_schema(tpw), _docs(n=4))
-    store = tvs.VectorStoreServer(docs, embedder=temb, device="cpu")
-    with pytest.raises(NotImplementedError, match=r"\[rest\]"):
-        store.run_server("127.0.0.1", 0) if hook == "run_server" else store.drain()
+    docs = _docs(n=4)
+    store = tvs.VectorStoreServer(
+        tpw.debug.table_from_rows(_doc_schema(tpw), docs), embedder=temb, device="cpu"
+    )
+    if hook == "drain":
+        assert store.drain() is True
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    thread = store.run_server("127.0.0.1", port, threaded=True)
+    query = _chunk_text(docs[2][1])
+    try:
+        for _ in range(300):
+            try:
+                conn = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+                conn.request("POST", "/v1/retrieve", body=json.dumps({"query": query, "k": 2}))
+                resp = conn.getresponse()
+                status, body = resp.status, json.loads(resp.read())
+                conn.close()
+                if status == 200 and body:
+                    break
+            except ConnectionRefusedError:
+                time.sleep(0.05)
+        assert status == 200 and body[0]["text"] == query and body[0]["dist"] < 1e-5
+        if hook == "drain":
+            assert store.drain() is True
+            with pytest.raises(ConnectionRefusedError):
+                http.client.HTTPConnection("127.0.0.1", port, timeout=5).connect()
+    finally:
+        port_parse_graph.G.runtime.stop()
+        thread.join(timeout=15)
+    assert not thread.is_alive()
