@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from csrc/ (nvcc, sm_90a, one process per
-source, all started together), then runs nine phases, printing one JSON
+source, all started together), then runs ten phases, printing one JSON
 object per phase:
 
 1. device         — nvidia-smi name/power limit, toolchain versions, build seconds.
@@ -44,7 +44,9 @@ object per phase:
                     and B = 16, one tick per commit, the embedder on cuda.
                     Prints ingest, embed, reply and update-to-visible times,
                     ticks per stage, and the corpus re-upload per dirty tick
-                    (from the knn.corpus_upload span).
+                    (from the knn.corpus_upload span). Then 64 more B = 1
+                    queries with Tick Scope's recorder on for every other
+                    one: the reply p50 with it on and off, in one window.
 5. vector store   — the RAG product layer as a user writes it: 32,768 documents
                     arrive as bytes through pw.io.python in 16 commits of 2048;
                     VectorStoreServer(device="cuda") parses (Utf8Parser), splits
@@ -66,6 +68,11 @@ object per phase:
                     per commit. Prints embed, reply, update-to-visible and
                     rerank figures, engine seconds per operator, beside the
                     card's nvidia-smi name and power limit.
+                    Phases 4-6 also print Tick Scope's split of their query
+                    ticks (the engine's and the store's B = 1 and B = 16
+                    ticks, the insert and remove ticks of the sequential
+                    POSTs): seconds and rows in/out per operator type, and
+                    the critical path of the slowest tick.
 6. rest           — VectorStoreServer.run_server answering /v1/retrieve over
                     HTTP: the vector store phase's corpus (the same 32,768
                     documents in 16 commits of 2048, 78,185 chunks, the same
@@ -96,7 +103,40 @@ object per phase:
                     pathway_rest_request_seconds p50, the HTTP overhead over
                     the vector store phase's B = 1 reply, update-to-visible,
                     the 429/503/504 counts and block_topk launches per shape.
-7. generation     — ask -> retrieve -> generate: 24 asks are embedded and
+7. persistence    — the vector store phase's 32,768 documents written as files
+                    (tmp + rename) into a folder, 16 batches of 2048, read by
+                    pw.io.fs.read(format="binary", mode="streaming") into
+                    VectorStoreServer(device="cuda") with
+                    persistence_config=Config.simple_config(Backend.filesystem)
+                    (a snapshot every 8 commits). A child (this script with
+                    --persist-child) runs it with PATHWAY_FAULTS="kill=tick:10",
+                    one tick per batch, and must exit 23 after batch 9.
+                    Restart 1 restores the operator snapshot (batches 1-8),
+                    replays the log tail (batch 9), seeks the scanner, reads
+                    batch 10 again, answers one query (time to the first
+                    correct reply), ingests the 6 remaining batches, answers
+                    64 B = 1 and 8 B = 16 queries (the vector store phase's
+                    texts), then 4 writes of 64 documents each followed by a
+                    query for one of them, then the 64 B = 1 texts again.
+                    Restart 2 adds no file and asks the 64 again. Checked:
+                    exit 23; restored from a snapshot with a non-empty
+                    replayed tail, then none; the index holds each chunk of
+                    the 32,768 documents exactly once (its keys against the
+                    keys pw.io.fs and the two flattens give each chunk, whose
+                    texts are the vector store phase's); every reply against a
+                    direct search of a plain-torch copy of the index with the
+                    vector the embedder computed for it (up to near ties);
+                    restart 1's replies against the vector store phase's to
+                    the same texts (up to near ties within CROSS_RUN_TOL);
+                    restart 2's replies equal restart 1's last ones; restart
+                    2 embeds its queries and no document; launches per shape.
+                    Prints the kill tick and the files indexed, restore
+                    seconds (operators, log tail ticks and rows, seek), time
+                    to the first correct reply with the corpus upload's share,
+                    snapshots (ms, bytes), the store's size, ingest chunks/s
+                    beside the vector store phase's, update-to-visible and
+                    reply p50 / max.
+8. generation     — ask -> retrieve -> generate: 24 asks are embedded and
                     retrieved (k = 3) on the phase-3 index, each grounded prompt
                     goes to one DecodeScheduler(GenerateConfig()) at the decoder's
                     serving defaults (dim 128, 2 layers, 4 heads, head_dim 32,
@@ -106,7 +146,7 @@ object per phase:
                     back to empty, launches == decode steps x layers, the same
                     tokens from a kernel="ref" scheduler, and the logits of one
                     recorded step, kernel against plain.
-8. durability     — the same 24 prompts at the same width, with snapshots.
+9. durability     — the same 24 prompts at the same width, with snapshots.
                     A child process (this script with --kill-child) runs them
                     with PATHWAY_GENERATE_SNAPSHOT_EVERY=8, a store in a temp
                     dir and PATHWAY_FAULTS="kill=decode:150"; it must exit 23
@@ -123,7 +163,7 @@ object per phase:
                     segments per snapshot). Tokens are compared exactly; a
                     difference passes only at a near tie: the uninterrupted
                     run's top-2 logit margin there below GEN_LOGIT_TOL.
-9. kernels        — per kernel and per path shape: launches on its path, ms
+10. kernels       — per kernel and per path shape: launches on its path, ms
                     (CUDA events) and device ms (torch.profiler), its plain
                     version's ms, the bound and what sets it, the bytes it must
                     move, and the ms of the library call(s) computing the same
@@ -133,7 +173,8 @@ object per phase:
                     filtered batch, oversampled x4, on the retrieval and the
                     vector store corpora), B = 32 (k = 3, the generation
                     phase's 24 asks padded to 32) and every (B, k) the rest
-                    phase launched, on its corpus; paged_attention: the
+                    phase launched, on its corpus, and B = 1 and 16 on the
+                    persistence phase's restored corpus; paged_attention: the
                     recorded decode step and a long context, each with its
                     split count S.
 
@@ -178,6 +219,8 @@ ENGINE_B16_TICKS = 8
 ENGINE_LIVE_TICKS = 16
 ENGINE_LIVE_DOCS = 64
 ENGINE_RETRACT = 64
+# the recorder's cost: B = 1 queries alternating Tick Scope on and off
+ENGINE_TICKSCOPE_AB = 64
 # the vector store phase: VectorStoreServer over documents that arrive as
 # bytes, 16 commits of 2048 (≈2 chunks each, ≈65k chunks)
 VS_DOCS = 32768
@@ -203,6 +246,18 @@ REST_DEADLINE = 16  # requests with a 1 ms budget: 504, no search
 REST_STALE = 4
 REST_DRAIN = 16  # requests in flight when each server drains
 REST_QOS = {"max_batch_size": 16, "max_wait_ms": 5.0, "max_queue": 64}
+# the persistence phase: the vector store phase's documents as files, 16
+# batches of 2048, a killed run and two restarts over one store. With one
+# tick per batch and a snapshot every 8 commits (the default), a kill at
+# the head of tick 10 leaves generation 1 (batches 1-8), a log tail
+# (batch 9) and one batch drained but never logged (batch 10).
+PERSIST_KILL_TICK = 10
+PERSIST_LIVE_WRITES = 4  # writes of VS_LIVE_DOCS documents, each then queried
+PERSIST_CAPACITY = 80 * 1024  # index rows reserved: 78,185 chunks + the live writes'
+# a reply of a restart against the never-killed vector store phase's reply
+# to the same text: the same corpus and query vector, but the document
+# vectors come from other embedder batches (other GEMM shapes in bf16)
+CROSS_RUN_TOL = 5e-3
 RERANK_KEEP = 3
 # the cross-encoder's scores in the pipeline against a direct forward_ids of
 # the same tick's pairs in one batch: the same bf16 model, bucket and device
@@ -446,7 +501,9 @@ def paged_parity(dev) -> dict:
 
 
 def synthetic_docs(n: int, rng: np.random.Generator) -> list[str]:
-    words = [f"term{i}" for i in range(20000)]
+    # an array, not a list: rng.choice draws the same words from either,
+    # but converts a list anew on every call
+    words = np.array([f"term{i}" for i in range(20000)])
     return [
         f"doc {i}: " + " ".join(rng.choice(words, size=int(rng.integers(24, 200))))
         for i in range(n)
@@ -673,6 +730,38 @@ def wait_until(cond, what: str, timeout: float = 300.0) -> None:
         time.sleep(0.0005)
 
 
+def tick_anatomy(rt, t0_ns: int, t1_ns: int) -> dict:
+    """Tick Scope's split of the ticks that began between two
+    perf_counter_ns stamps: seconds and rows in/out per operator type, the
+    share of the ticks' wall the operators account for (over 1 when the
+    worker pool runs operators side by side), and the critical path of the
+    slowest of those ticks, operator by operator."""
+    scope = rt._tickscope
+    recs = [r for r in scope.records() if t0_ns <= r.start_ns <= t1_ns]
+    check(bool(recs), "Tick Scope recorded none of the ticks in the window")
+    ops: dict[str, dict] = {}
+    for rec in recs:
+        for nid, a, b, rows_in, rows_out, _compiled in rec.entries:
+            d = ops.setdefault(scope._names[nid].rsplit("_", 1)[0], {"s": 0.0, "rows_in": 0, "rows_out": 0})
+            d["s"] += (b - a) / 1e9
+            d["rows_in"] += rows_in
+            d["rows_out"] += rows_out
+    wall_s = sum(r.tick_ns for r in recs) / 1e9
+    slow = max(recs, key=lambda r: r.tick_ns)
+    total_s, path = scope.record_critical_path(slow)
+    ms = {e[0]: (e[2] - e[1]) / 1e6 for e in slow.entries}
+    return {
+        "ticks": len(recs),
+        "tick_ms_p50": float(np.percentile([r.tick_ns / 1e6 for r in recs], 50)),
+        "operators_share_of_tick_wall": sum(d["s"] for d in ops.values()) / wall_s,
+        "operator_s": dict(sorted(ops.items(), key=lambda kv: -kv[1]["s"])),
+        "slowest_tick_ms": slow.tick_ns / 1e6,
+        "slowest_critical_path": [{"op": scope._names[n], "ms": ms[n]} for n in path],
+        "slowest_critical_path_ms": total_s * 1e3,
+        "slowest_critical_path_share": total_s / (slow.tick_ns / 1e9),
+    }
+
+
 def engine(dev) -> tuple[dict, dict]:
     """The user script of the port's README on the card: documents and
     precomputed vectors stream in through pw.io.python, the embedder UDF
@@ -769,9 +858,10 @@ def engine(dev) -> tuple[dict, dict]:
     _now = time.perf_counter
     stamps: dict[str, float] = {}
     commits: dict[int, float] = {}
-    record: dict = {"update_ms": []}
+    record: dict = {"update_ms": [], "tickscope_ab": []}
     n_commits = [0]
     stage_ticks: dict[str, int] = {}
+    windows: dict[str, list[int]] = {}
 
     class QuerySubject(pw.io.python.ConnectorSubject):
         def run(self):
@@ -829,17 +919,31 @@ def engine(dev) -> tuple[dict, dict]:
         stage("vectors", t0)
         # traffic: B = 1, then B = 16, queries copied from documents
         qid, t0 = 0, ticks()
+        windows["B=1"] = [time.perf_counter_ns()]
         for i in range(ENGINE_B1_TICKS):
             d = int(static_docs[i])
             ask(qs, [(qid, docs[d])])
             qid += 1
+        windows["B=1"].append(time.perf_counter_ns())
         stage("queries_B=1", t0)
         t0 = ticks()
+        windows["B=16"] = [time.perf_counter_ns()]
         for t in range(ENGINE_B16_TICKS):
             lo = ENGINE_B1_TICKS + 16 * t
             ask(qs, [(qid + j, docs[int(static_docs[lo + j])]) for j in range(16)])
             qid += 16
+        windows["B=16"].append(time.perf_counter_ns())
         stage("queries_B=16", t0)
+        # the recorder's cost in one window: the B = 1 texts again, the
+        # recorder on for even and off for odd queries
+        t0, scope = ticks(), parse_graph.G.runtime._tickscope
+        for i in range(ENGINE_TICKSCOPE_AB):
+            scope.enabled = i % 2 == 0
+            ask(qs, [(qid, docs[int(static_docs[i])])])
+            record["tickscope_ab"].append((scope.enabled, qid))
+            qid += 1
+        scope.enabled = True
+        stage("queries_B=1_tickscope_on_off", t0)
         stamps["static_q"] = qid
         record["mirror"] = snapshot(ix)
         static = sorted(q for q in qvecs if q < qid)
@@ -938,7 +1042,7 @@ def engine(dev) -> tuple[dict, dict]:
         got = tuple(zip(replies[q]["ids"], replies[q]["scores"]))
         check(same_up_to_near_ties(got, ref, F32_TOL), f"query {q}: engine reply differs from direct search")
         exact["static"] += [k for k, _s in got] == [k for k, _s in ref]
-        d = int(static_docs[q])
+        d = int(static_docs[q if q < n_static else q - n_static])
         check(replies[q]["meta"][0] == f"doc:{d}", f"query {q} copied from doc {d} got {replies[q]}")
     for (q, target), ref in zip(record["live"], record["live_ref"]):
         got = tuple(zip(replies[q]["ids"], replies[q]["scores"]))
@@ -958,7 +1062,8 @@ def engine(dev) -> tuple[dict, dict]:
     check(emb.runtime.device.type == "cuda", f"the embedder ran on {emb.runtime.device}")
     check(shapes.get((1, K), 0) > 0 and shapes.get((16, K), 0) > 0,
           f"block_topk did not run at B=1 and B=16 on the engine path: {dict(shapes)}")
-    searches = ENGINE_B1_TICKS + ENGINE_B16_TICKS + ENGINE_LIVE_TICKS + ENGINE_RETRACT // 16
+    searches = (ENGINE_B1_TICKS + ENGINE_B16_TICKS + ENGINE_TICKSCOPE_AB + ENGINE_LIVE_TICKS
+                + ENGINE_RETRACT // 16)
     check(launches == searches, f"{launches} kernel launches for {searches} index searches")
     # one tick per commit, and the final tick that closes the run
     check(rt.stats.ticks == n_commits[0] + 1, f"{rt.stats.ticks} ticks for {n_commits[0]} commits")
@@ -977,7 +1082,8 @@ def engine(dev) -> tuple[dict, dict]:
 
     ingest_s = stamps["ingest1"] - stamps["ingest0"]
     b1 = range(ENGINE_B1_TICKS)
-    b16 = range(ENGINE_B1_TICKS, stamps["static_q"])
+    b16 = range(ENGINE_B1_TICKS, n_static)
+    ab = {on: [q for e, q in record["tickscope_ab"] if e == on] for on in (True, False)}
     phase = {
         "phase": "engine",
         "rows": CORPUS_ROWS,
@@ -994,6 +1100,10 @@ def engine(dev) -> tuple[dict, dict]:
         "operator_s": operator_s(rt),
         "query_reply_p50_ms": {"B=1": lat(b1)["p50"], "B=16": lat(b16)["p50"]},
         "query_reply_max_ms": {"B=1": lat(b1)["max"], "B=16": lat(b16)["max"]},
+        # Tick Scope's own cost: alternate B = 1 queries in one window
+        "b1_reply_ms_tickscope_on_off": {"on": lat(ab[True]), "off": lat(ab[False])},
+        # the query ticks, operator by operator (Tick Scope)
+        "query_ticks": {g: tick_anatomy(rt, *w) for g, w in windows.items()},
         "update_to_visible_ms": {"p50": float(np.percentile(record["update_ms"], 50)),
                                  "max": float(np.max(record["update_ms"])), "n": len(record["update_ms"])},
         "reupload_ms": {"p50": float(np.percentile(upload_ms, 50)),
@@ -1189,6 +1299,7 @@ def vector_store(dev, smi: str) -> tuple[dict, dict]:
     n_commits = [0]
     stamps: dict[str, float] = {}
     record: dict = {"update_ms": [], "ticks": {}}
+    windows: dict[str, list[int]] = {}
 
     def commit(subject, cond, what: str) -> float:
         subject.commit()
@@ -1223,13 +1334,16 @@ def vector_store(dev, smi: str) -> tuple[dict, dict]:
         record["ticks"]["docs"] = ticks() - t0
         qid, it, t0 = 0, iter(qdocs), ticks()
         groups: dict[str, list] = {"B=1": [], "B=16": [], "filtered": []}
+        windows["B=1"] = [time.perf_counter_ns()]
         for _ in range(VS_B1_TICKS):
             d = next(it)
             ask(qs, [(qid, chunks_of[d][0], K, None, False)])
             groups["B=1"].append((qid, d, None))
             qid += 1
+        windows["B=1"].append(time.perf_counter_ns())
         record["ticks"]["queries_B=1"] = ticks() - t0
         t0 = ticks()
+        windows["B=16 reranked"] = [time.perf_counter_ns()]
         for _ in range(VS_B16_TICKS):
             rows = []
             for j in range(16):
@@ -1239,6 +1353,7 @@ def vector_store(dev, smi: str) -> tuple[dict, dict]:
             ask(qs, rows)
             record.setdefault("rerank_ticks", []).append([r[0] for r in rows])
             qid += 16
+        windows["B=16 reranked"].append(time.perf_counter_ns())
         record["ticks"]["queries_B=16_reranked"] = ticks() - t0
         t0 = ticks()
         for _ in range(VS_FILTER_TICKS):
@@ -1407,6 +1522,8 @@ def vector_store(dev, smi: str) -> tuple[dict, dict]:
         "block_topk_launches_by_shape": {f"B={b},k={k}": n for (b, k), n in sorted(shapes.items())},
         "ticks": rt.stats.ticks,
         "ticks_by_stage": record["ticks"],
+        # the query ticks, operator by operator (Tick Scope)
+        "query_ticks": {g: tick_anatomy(rt, *w) for g, w in windows.items()},
         # the engine's seconds per operator type: the whole run, and the
         # 16 live ticks alone (what update-to-visible waits on)
         "operator_s": operator_s(rt),
@@ -1420,8 +1537,11 @@ def vector_store(dev, smi: str) -> tuple[dict, dict]:
     def batch(rows):
         return torch.from_numpy(np.stack([qvec[chunks_of[d][0]] for _q, d, _f in rows])).to(dev)
 
-    out = {"prep": prep, "valid": valid, "launches": launches, "shapes": shapes,
-           "corpus": (docs, chunks_of, upto),  # the rest phase serves the same corpus
+    # the never-killed run's replies, by query text, for the persistence phase
+    by_text = {g: [(chunks_of[d][0], tuple((r["text"], -r["dist"]) for r in replies[q][1])) for q, d, _f in rows]
+               for g, rows in groups.items() if g != "filtered"}
+    out = {"prep": prep, "valid": valid, "launches": launches, "shapes": shapes, "replies_by_text": by_text,
+           "corpus": (docs, chunks_of, upto),  # the rest and persistence phases serve the same corpus
            "queries": {1: batch(groups["B=1"][:1]), 16: batch(groups["B=16"][:16]),
                        "filtered": batch(groups["filtered"][:16])}}
     parse_graph.G.clear()
@@ -1722,7 +1842,9 @@ def rest(dev, smi: str, vs_b1_p50_ms: float, corpus: tuple) -> tuple[dict, dict]
         return req("filtered", port_a, flt=f"globmatch('docs/{d % VS_GROUPS}/*', path)", d=d)
 
     replies["warmup"] = clients.run(port_a, [[req("warmup", port_a)]]) + clients.run(port_b, [[req("warmup", port_b)]])
+    seq_window = [time.perf_counter_ns()]
     lockstep("ungated sequential POST", REST_SEQ, lambda: req("ungated sequential POST", port_a))
+    seq_window.append(time.perf_counter_ns())
     server_hist = REGISTRY.get("pathway_rest_request_seconds").labels("/v1/retrieve")
     server_p50_sequential_ms = server_hist.quantile(0.5) * 1e3
     lockstep("ungated sequential GET", REST_GET, lambda: req("ungated sequential GET", port_a, method="GET"))
@@ -1933,6 +2055,9 @@ def rest(dev, smi: str, vs_b1_p50_ms: float, corpus: tuple) -> tuple[dict, dict]
         "deadline_expired_by_stage": deadline_expired,
         "deadline_block_topk_launches_and_knn_queries": list(deadline_searches),
         "ticks_per_ungated_request": {g: ticks[g] / len(replies[g]) for g in ticks},
+        # the insert and remove ticks of the sequential POSTs, operator by
+        # operator (Tick Scope): what the engine spends per request
+        "sequential_post_ticks": tick_anatomy(rt, *seq_window),
         "stale_headers": {k: stale[0][2].get(k) for k in ("x-pathway-stale", "x-pathway-staleness-seconds")},
         "replies_checked_by_group": checked,
         "replies_keys_equal_direct_search_by_group": exact,
@@ -1953,7 +2078,444 @@ def rest(dev, smi: str, vs_b1_p50_ms: float, corpus: tuple) -> tuple[dict, dict]
     return phase, out
 
 
-# --- phase 7: generation ------------------------------------------------------
+# --- phase 7: persistence -----------------------------------------------------
+
+
+def store_docs() -> list[str]:
+    """The store phases' documents (the vector store phase's seeded draw)."""
+    return synthetic_docs(VS_DOCS + VS_LIVE_TICKS * VS_LIVE_DOCS, np.random.default_rng(SEED + 11))
+
+
+def doc_file(folder: str, i: int) -> str:
+    return os.path.join(folder, str(i % VS_GROUPS), f"{i:06d}.txt")
+
+
+def write_docs(folder: str, docs: list[str], ids) -> None:
+    """Each document as a file, written beside the watched folder and
+    renamed into it: the scanner never meets a half-written file."""
+    staging = folder + ".staging"
+    os.makedirs(staging, exist_ok=True)
+    for i in ids:
+        path = doc_file(folder, i)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        tmp = os.path.join(staging, f"{i:06d}.tmp")
+        with open(tmp, "w") as f:
+            f.write(docs[i])
+        os.replace(tmp, path)
+
+
+def expected_chunk_keys(folder: str, ids, chunks_of) -> dict[int, str]:
+    """The row key of every chunk of documents ``ids`` read from ``folder``
+    by pw.io.fs (binary: the key hashes the path), mapped to its text:
+    VectorStoreServer's two flattens key chunk j of a document as
+    hash(hash(doc key, 0), j)."""
+    from pathway_tpu_torch.internals.api import ptr_column, ref_scalar, ref_scalars_columns
+
+    ids = list(ids)
+    k0 = np.array([int(ref_scalar(doc_file(folder, i))) for i in ids], dtype=np.uint64)
+    k1 = np.asarray(ref_scalars_columns([ptr_column(k0), np.zeros(len(ids), np.int64)], len(ids)),
+                    dtype=np.uint64)
+    counts = np.array([len(chunks_of[i]) for i in ids])
+    idx = np.concatenate([np.arange(c) for c in counts])
+    keys = ref_scalars_columns([ptr_column(np.repeat(k1, counts)), idx], int(counts.sum()))
+    texts = [c for i in ids for c in chunks_of[i]]
+    return dict(zip((int(k) for k in keys), texts))
+
+
+def persist_graph(folder: str, store: str, emb, subject, dev):
+    """The phase's graph, identical in every run over one store (the
+    operator snapshot is restored by graph position): pw.io.fs over the
+    folder → VectorStoreServer(device) → retrieve_query over the query rows
+    of ``subject``. Returns the reply table and the persistence config."""
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.xpacks.llm.parsers import Utf8Parser
+    from pathway_tpu_torch.xpacks.llm.splitters import TokenCountSplitter
+    from pathway_tpu_torch.xpacks.llm.vector_store import VectorStoreServer
+
+    class QuerySchema(pw.Schema):
+        qid: int = pw.column_definition(primary_key=True)
+        query: str
+        k: int
+        metadata_filter: str | None = pw.column_definition(default_value=None, dtype=str)
+        filepath_globpattern: str | None = pw.column_definition(default_value=None, dtype=str)
+
+    documents = pw.io.fs.read(folder, format="binary", mode="streaming", with_metadata=True)
+    server = VectorStoreServer(
+        documents, embedder=emb, parser=Utf8Parser(),
+        splitter=TokenCountSplitter(min_tokens=VS_MIN_TOKENS, max_tokens=VS_MAX_TOKENS),
+        index_params={"reserved_space": PERSIST_CAPACITY}, device=dev,
+    )
+    queries = pw.io.python.read(subject, schema=QuerySchema, autocommit_duration_ms=None)
+    replied = queries.with_columns(result=server.retrieve_query(queries).with_universe_of(queries).result)
+    cfg = pw.persistence.Config.simple_config(pw.persistence.Backend.filesystem(store))
+    return replied, cfg
+
+
+def store_index(rt):
+    from pathway_tpu_torch.engine.index_node import ExternalIndexExec
+
+    return next(ex.index for ex in rt.execs.values() if isinstance(ex, ExternalIndexExec))
+
+
+def write_batch_as_one_tick(rt, folder: str, docs: list[str], ids: range) -> None:
+    """Write a batch of files with the fs scanner's wake-up held until it
+    has queued them all, then wake the engine once: the batch is one tick,
+    as a commit of the vector store phase is (the run's autocommit must not
+    tick on its own)."""
+    sess = next(n.source.session for n in rt.order
+                if type(getattr(n, "source", None)).__name__ == "_FsStreamingSource")
+    wake, sess._wake = sess._wake, None
+    write_docs(folder, docs, ids)
+    wait_until(lambda: len(sess._rows) >= len(ids), "the scanner to queue a batch")
+    sess._wake = wake
+    wake()
+
+
+def persist_child(folder: str, store: str, progress: str) -> int:
+    """The persistence phase's killed run, armed with PATHWAY_FAULTS: the
+    documents' files go into the folder batch by batch. The child holds
+    the scanner's wake-up until a whole batch is queued, so each batch is
+    one tick, and writes the next batch once the index holds this one;
+    ``progress`` records the batches indexed. kill=tick:PERSIST_KILL_TICK
+    ends the process at the head of a tick: returning (exit code 1) means
+    it never fired."""
+    t_start, t_wall = time.perf_counter(), time.time()
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.internals import parse_graph
+    from pathway_tpu_torch.xpacks.llm.embedders import SentenceTransformerEmbedder
+
+    dev = torch.device("cuda", 0)
+    docs = store_docs()
+    upto = json.loads(Path(progress).read_text())["upto"]  # the parent's split of the documents
+    failure: list[BaseException] = []
+
+    class Feeder(pw.io.python.ConnectorSubject):
+        def run(self):
+            try:
+                rt = parse_graph.G.runtime
+                ix = store_index(rt)
+                done = {"graph_s": time.perf_counter() - t_start, "batch_s": [], "start_wall": t_wall}
+                for b in range(VS_DOCS // VS_COMMIT):
+                    lo, hi = b * VS_COMMIT, (b + 1) * VS_COMMIT
+                    t0 = time.perf_counter()
+                    write_batch_as_one_tick(rt, folder, docs, range(lo, hi))
+                    t1 = time.perf_counter()
+                    wait_until(lambda: len(ix) >= upto[hi - 1] and rt.stats.ticks > b, "a batch's tick")
+                    # seconds to write and queue the batch, then to index it
+                    done["batch_s"].append([t1 - t0, time.perf_counter() - t1])
+                    done.update(batches=b + 1, ticks=rt.stats.ticks, wall=time.time())
+                    Path(progress).write_text(json.dumps(done))
+            except BaseException as e:  # noqa: BLE001 — reported after pw.run
+                failure.append(e)
+            finally:
+                parse_graph.G.runtime.stop()
+
+    replied, cfg = persist_graph(folder, store, SentenceTransformerEmbedder(device=dev), Feeder(), dev)
+    pw.io.subscribe(replied, on_change=lambda **kw: None)
+    # the batches are the ticks: no autocommit wakes the loop in between
+    pw.run(persistence_config=cfg, autocommit_duration_ms=3_600_000)
+    print(f"chip_smoke: the fault never fired ({failure})", file=sys.stderr)
+    return 1
+
+
+def persistence(dev, smi: str, vs_phase: dict, vs_data: dict, corpus: tuple) -> tuple[dict, dict]:
+    """Kill and restart of a persisted VectorStoreServer fed by pw.io.fs.
+    The vector store phase's 32,768 documents go into a folder as files,
+    16 batches of 2048. A child (this script with --persist-child) runs
+    the graph with PATHWAY_FAULTS=kill=tick:PERSIST_KILL_TICK and must
+    exit 23 after batch 9: operator snapshot generation 1 covers batches
+    1-8 (snapshot_every 8), the log tail batch 9, batch 10 was drained
+    but never logged. Restart 1: a fresh graph over the same store
+    restores the snapshot, replays the tail, seeks the scanner past the
+    logged files, re-reads batch 10; one query is answered (time to the
+    first correct reply), the remaining 6 batches arrive, then 64 B = 1
+    and 8 B = 16 queries (the vector store phase's texts) and 4 live
+    writes of 64 documents, each followed by a query that must find one
+    at rank 1. Restart 2 adds no file: the 64 B = 1 queries again, and
+    no document chunk may reach the embedder."""
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.internals import parse_graph
+    from pathway_tpu_torch.observability.tracing import get_tracer
+    from pathway_tpu_torch.ops import block_topk as bt
+    from pathway_tpu_torch.xpacks.llm.embedders import SentenceTransformerEmbedder
+
+    now = time.perf_counter
+    t_phase = now()
+    docs, chunks_of, upto = corpus
+    work = tempfile.mkdtemp(prefix="pw_persist_")
+    folder, store, progress = os.path.join(work, "docs"), os.path.join(work, "store"), os.path.join(work, "p.json")
+    os.makedirs(folder)
+    env = dict(os.environ, PATHWAY_FAULTS=f"kill=tick:{PERSIST_KILL_TICK}")
+    Path(progress).write_text(json.dumps({"upto": [int(u) for u in upto[:VS_DOCS]]}))
+    log = os.path.join(work, "child.log")
+    t0, wall0 = time.perf_counter(), time.time()
+    with open(log, "w") as out:
+        child = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--persist-child", folder, store,
+                                progress], env=env, stdout=out, stderr=subprocess.STDOUT, timeout=900)
+    killed_s, wall1 = time.perf_counter() - t0, time.time()
+    check(child.returncode == FAULT_EXIT, f"the killed run exited {child.returncode}: {Path(log).read_text()[-3000:]}")
+    killed = json.loads(Path(progress).read_text())
+    on_disk = sum(len(f) for _r, _d, f in os.walk(folder))
+    check(killed["batches"] == PERSIST_KILL_TICK - 1 and killed["ticks"] == PERSIST_KILL_TICK - 1,
+          f"the killed run indexed {killed} before the kill at tick {PERSIST_KILL_TICK}")
+    want = expected_chunk_keys(folder, range(VS_DOCS), chunks_of)
+    check(len(want) == int(upto[VS_DOCS - 1]), "the host's chunk keys collide")
+    by_text = vs_data["replies_by_text"]
+    tracer = get_tracer()
+    check(tracer.enabled, "tracing is off (PATHWAY_TRACING=0): the corpus upload is read from its span")
+    bt.block_topk.launches = 0
+    bt.block_topk.shapes.clear()
+
+    wanted = {t for g in by_text.values() for t, _r in g} | {
+        chunks_of[VS_DOCS + t * VS_LIVE_DOCS + (t * 7) % VS_LIVE_DOCS][0] for t in range(PERSIST_LIVE_WRITES)}
+
+    def run(restart: int):
+        """One restart over the store; returns what the run recorded."""
+        parse_graph.G.clear()
+        tracer.clear()
+        embedded = [0]  # texts through the embedder
+
+        class CountingEmbedder(SentenceTransformerEmbedder):
+            """Counts the texts it embeds and keeps the last vector of each
+            query text (a query embeds after the chunk it copies)."""
+
+            def embed_batch(self, texts):
+                out = super().embed_batch(texts)
+                embedded[0] += len(texts)
+                for t, v in zip(texts, out):
+                    if t in wanted:
+                        rec["qvec"][t] = v
+                return out
+
+        rec: dict = {"qvec": {}, "replies": {}, "commits": {}, "update_ms": [], "live": []}
+        failure: list[BaseException] = []
+        n_commits = [0]
+
+        class Feeder(pw.io.python.ConnectorSubject):
+            def run(self):
+                try:
+                    drive(self)
+                except BaseException as e:  # noqa: BLE001 — re-raised after pw.run
+                    failure.append(e)
+                finally:
+                    parse_graph.G.runtime.stop()
+
+        def ask(qs, rows: list[tuple[int, str]]) -> None:
+            for qid, text in rows:
+                qs.next(qid=qid, query=text, k=K, metadata_filter=None, filepath_globpattern=None)
+            qs.commit()
+            t = time.perf_counter()
+            n_commits[0] += 1
+            for qid, _t in rows:
+                rec["commits"][qid] = t
+            wait_until(lambda: all(q in rec["replies"] for q, _t in rows), "a query's reply")
+
+        def drive(qs) -> None:
+            rt = parse_graph.G.runtime
+            ix = rec["index"] = store_index(rt)
+            qid = restart * 1_000_000  # the query log persists too: fresh keys per run
+            if restart == 1:
+                # the unlogged batch is read again, then the first query
+                on_disk_docs = PERSIST_KILL_TICK * VS_COMMIT
+                wait_until(lambda: len(ix) >= upto[on_disk_docs - 1], "the re-read of the unlogged batch")
+                rec["reread_s"] = time.perf_counter() - rec["t_run"]
+                text = by_text["B=1"][0][0]
+                ask(qs, [(qid, text)])
+                rec["first_upload_ms"] = [sp.duration_ns / 1e6 for sp in tracer.spans()
+                                          if sp.name == "knn.corpus_upload"]
+                rec["first"] = (qid, text, snapshot_index(ix, dev))
+                qid += 1
+                t0 = time.perf_counter()
+                for lo in range(on_disk_docs, VS_DOCS, VS_COMMIT):
+                    write_batch_as_one_tick(rt, folder, docs, range(lo, lo + VS_COMMIT))
+                    wait_until(lambda: len(ix) >= upto[lo + VS_COMMIT - 1], "a batch in the index")
+                rec["ingest"] = (int(upto[VS_DOCS - 1] - upto[on_disk_docs - 1]), time.perf_counter() - t0)
+            rec["keys"] = set(ix.keys())
+            groups: dict[str, list] = {}
+            rec["groups"], rec["ref"] = groups, {}
+
+            def b1(group: str) -> None:
+                nonlocal qid
+                groups[group] = []
+                for text, _r in by_text["B=1"]:
+                    ask(qs, [(qid, text)])
+                    groups[group].append((qid, text))
+                    qid += 1
+
+            def refs(group: str) -> None:
+                mirror = snapshot_index(ix, dev)
+                rec["ref"].update({q: mirror.search([(rec["qvec"][t], K, None)])[0] for q, t in groups[group]})
+
+            if restart == 1:
+                b1("B=1")
+                b16 = by_text["B=16"]
+                groups["B=16"] = []
+                for lo in range(0, len(b16), 16):
+                    rows = [(qid + j, b16[lo + j][0]) for j in range(16)]
+                    ask(qs, rows)
+                    groups["B=16"].extend(rows)
+                    qid += 16
+                refs("B=1")
+                refs("B=16")
+                for t in range(PERSIST_LIVE_WRITES):
+                    lo = VS_DOCS + t * VS_LIVE_DOCS
+                    tc = time.perf_counter()
+                    write_docs(folder, docs, range(lo, lo + VS_LIVE_DOCS))
+                    wait_until(lambda: len(ix) >= upto[lo + VS_LIVE_DOCS - 1], "a live write")
+                    target = lo + (t * 7) % VS_LIVE_DOCS
+                    ask(qs, [(qid, chunks_of[target][0])])
+                    rec["update_ms"].append((rec["replies"][qid][0] - tc) * 1e3)
+                    mirror = snapshot_index(ix, dev)
+                    rec["live"].append((qid, target, mirror.search([(rec["qvec"][chunks_of[target][0]], K, None)])[0]))
+                    del mirror
+                    qid += 1
+            # the B = 1 texts over the final corpus: what restart 2 must repeat
+            b1("B=1 final")
+            refs("B=1 final")
+
+        emb = CountingEmbedder(device=dev)
+        replied, cfg = persist_graph(folder, store, emb, Feeder(), dev)
+
+        def on_reply(key, row, time, is_addition):
+            if is_addition and row["qid"] not in rec["replies"]:
+                rec["replies"][row["qid"]] = (now(), tuple((r["text"], -r["dist"]) for r in row["result"].value))
+
+        pw.io.subscribe(replied, on_change=on_reply)
+        rec["t_run"] = time.perf_counter()
+        # as in the killed run: only the scanner and the queries wake the engine
+        pw.run(persistence_config=cfg, autocommit_duration_ms=3_600_000)  # raises on an operator error
+        rec["run_s"] = time.perf_counter() - rec["t_run"]
+        if failure:
+            raise failure[0]
+        rt = parse_graph.G.last_runtime
+        # where the run went: inside ticks (Tick Scope), and the snapshots
+        # taken after them
+        rec["tick_wall_s"] = sum(r.tick_ns for r in rt._tickscope.records()) / 1e9
+        rec["recovery"] = rt.persistence_driver
+        rec["embedded"] = embedded[0]
+        rec["ticks"] = rt.stats.ticks
+        return rec
+
+    r1 = run(1)
+    r2 = run(2)
+    launches, shapes = bt.block_topk.launches, dict(bt.block_topk.shapes)
+    peak = torch.cuda.max_memory_allocated()
+
+    # checks
+    d1, d2 = r1["recovery"], r2["recovery"]
+    check(d1.restored_from_snapshot and d1.replayed_events > 0,
+          f"restart 1: restored {d1.restored_from_snapshot}, {d1.replayed_events} events replayed")
+    check(d1.replayed_ticks == 1 and d1.replayed_rows == VS_COMMIT,
+          f"restart 1 replayed {d1.replayed_ticks} ticks, {d1.replayed_rows} rows: batch 9 expected")
+    check(d2.restored_from_snapshot and d2.replayed_events == 0,
+          f"restart 2: restored {d2.restored_from_snapshot}, {d2.replayed_events} events replayed")
+    text_of = dict(want)
+    text_of.update(expected_chunk_keys(folder, range(VS_DOCS, VS_DOCS + PERSIST_LIVE_WRITES * VS_LIVE_DOCS),
+                                       chunks_of))
+    for r, keys in ((r1, set(want)), (r2, set(text_of))):
+        check(r["keys"] == keys, f"the index holds {len(r['keys'])} chunks; "
+              f"{len(keys - r['keys'])} missing, {len(r['keys'] - keys)} unexpected")
+    check(Counter(want.values()) == Counter(c for d in range(VS_DOCS) for c in chunks_of[d]),
+          "the chunk texts differ from the vector store phase's")
+    q1, text, mirror = r1["first"]
+    got = r1["replies"][q1][1]
+    ref = tuple((text_of[k], s) for k, s in mirror.search([(r1["qvec"][text], K, None)])[0])
+    check(same_up_to_near_ties(got, ref, F32_TOL), "restart 1's first reply differs from direct search")
+    del mirror
+    exact, cross = {}, {"compared": 0, "keys_equal": 0, "max_score_diff": 0.0}
+    vs_of = {t: rows for g in by_text.values() for t, rows in g}
+    for name, r in (("restart 1", r1), ("restart 2", r2)):
+        for g, rows in r["groups"].items():
+            for q, t in rows:
+                got = r["replies"][q][1]
+                ref = tuple((text_of[k], s) for k, s in r["ref"][q])
+                check(same_up_to_near_ties(got, ref, F32_TOL), f"{name} {g} query {q}: reply differs from direct search")
+                exact[f"{name} {g}"] = exact.get(f"{name} {g}", 0) + ([a for a, _s in got] == [a for a, _s in ref])
+                check(got[0][0] == t, f"{name} {g} query {q} did not find its own chunk first: {got[:1]}")
+                if g in ("B=1", "B=16") and name == "restart 1":  # the never-killed run's corpus
+                    vs = vs_of[t]
+                    check(same_up_to_near_ties(got, vs, CROSS_RUN_TOL),
+                          f"{name} {g} query {q}: reply differs from the never-killed run's")
+                    cross["compared"] += 1
+                    cross["keys_equal"] += [a for a, _s in got] == [a for a, _s in vs]
+                    cross["max_score_diff"] = max(cross["max_score_diff"],
+                                                  max(abs(a - b) for (_x, a), (_y, b) in zip(got, vs)))
+    for (q, t), (q2, t2) in zip(r1["groups"]["B=1 final"], r2["groups"]["B=1 final"]):
+        a, b = r1["replies"][q][1], r2["replies"][q2][1]
+        check(t == t2 and [x for x, _s in a] == [x for x, _s in b]
+              and max(abs(x - y) for (_p, x), (_q, y) in zip(a, b)) <= F32_TOL,
+              f"restart 2 answered {t[:40]!r} otherwise than restart 1")
+    for q, target, ref_rows in r1["live"]:
+        got = r1["replies"][q][1]
+        check(got[0][0] == chunks_of[target][0], f"live query {q} missed its new document {target}")
+        check(same_up_to_near_ties(got, tuple((text_of[k], s) for k, s in ref_rows), F32_TOL),
+              f"live query {q} differs from direct search")
+    n_asked2 = len(r2["groups"]["B=1 final"])
+    check(r2["embedded"] == n_asked2, f"restart 2 embedded {r2['embedded']} texts for {n_asked2} queries: "
+          "a document chunk went through the embedder again")
+    want_shapes = {(1, K): 1 + 3 * VS_B1_TICKS + PERSIST_LIVE_WRITES, (16, K): VS_B16_TICKS}
+    check(shapes == want_shapes, f"block_topk launches by shape {shapes}, searches {want_shapes}")
+
+    def lat(r, rows):
+        ms = [(r["replies"][q][0] - r["commits"][q]) * 1e3 for q, _t in rows]
+        return {"p50": float(np.percentile(ms, 50)), "max": float(np.max(ms)), "n": len(ms)}
+
+    snaps = d1.snapshots + d2.snapshots
+    store_bytes = sum(os.path.getsize(os.path.join(r, f)) for r, _d, fs in os.walk(store) for f in fs)
+    first_s = r1["replies"][q1][0] - r1["t_run"]
+    ingest_chunks, ingest_s = r1["ingest"]
+    phase = {
+        "phase": "persistence",
+        "nvidia_smi": smi,
+        "docs": VS_DOCS,
+        "chunks": int(upto[VS_DOCS - 1]),
+        "killed_run": {"kill_tick": PERSIST_KILL_TICK, "exit_code": child.returncode,
+                       "batches_indexed": killed["batches"], "files_indexed": killed["batches"] * VS_COMMIT,
+                       "files_on_disk": on_disk, "s": killed_s, "graph_s": killed["graph_s"],
+                       # the child's clock against this one: spawn to its start, last batch to exit
+                       "spawn_to_start_s": killed["start_wall"] - wall0, "last_batch_to_exit_s": wall1 - killed["wall"],
+                       "batch_write_and_queue_s": [w for w, _i in killed["batch_s"]],
+                       "batch_index_s": [i for _w, i in killed["batch_s"]]},
+        "restore_s": {"operators": d1.restore_seconds, "log_tail_replay": d1.replay_seconds,
+                      "log_tail_ticks": d1.replayed_ticks, "log_tail_rows": d1.replayed_rows,
+                      "offset_seek": d1.seek_seconds, "recovery_total": d1.recovery_seconds,
+                      "second_restart_operators": d2.restore_seconds},
+        "first_correct_reply_s": {"from_restart": first_s, "reread_unlogged_batch_s": r1["reread_s"],
+                                  "first_search_corpus_upload_ms": sum(r1["first_upload_ms"])},
+        "snapshots": {"n": len(snaps), "ms": [s * 1e3 for s, _b in snaps], "bytes": [b for _s, b in snaps],
+                      "ms_p50": float(np.percentile([s * 1e3 for s, _b in snaps], 50)),
+                      "bytes_p50": float(np.percentile([b for _s, b in snaps], 50))},
+        "store_bytes_on_disk": store_bytes,
+        "ingest_chunks_per_s": ingest_chunks / ingest_s,
+        "ingest_chunks": ingest_chunks,
+        "vector_store_embed_chunks_per_s": vs_phase["embed_chunks_per_s"],
+        "update_to_visible_ms": {"p50": float(np.percentile(r1["update_ms"], 50)),
+                                 "max": float(np.max(r1["update_ms"])), "n": len(r1["update_ms"])},
+        "reply_ms": {f"{name} {g}": lat(r, rows) for name, r in (("restart 1", r1), ("restart 2", r2))
+                     for g, rows in r["groups"].items()},
+        "replies_keys_equal_direct_search": exact,
+        "replies_vs_never_killed_run": cross,
+        "cross_run_tol": CROSS_RUN_TOL,
+        "second_restart_texts_embedded": r2["embedded"],
+        "block_topk_launches": launches,
+        "block_topk_launches_by_shape": {f"B={b},k={k}": n for (b, k), n in sorted(shapes.items())},
+        "ticks": {"restart 1": r1["ticks"], "restart 2": r2["ticks"]},
+        "run_s": {"restart 1": r1["run_s"], "restart 2": r2["run_s"]},
+        "tick_wall_s": {"restart 1": r1["tick_wall_s"], "restart 2": r2["tick_wall_s"]},
+        "snapshot_s": {"restart 1": sum(x for x, _b in d1.snapshots), "restart 2": sum(x for x, _b in d2.snapshots)},
+        "peak_allocated_bytes": peak,
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    prep, _c2, valid = r2["index"].corpus.prepared_arrays("cosine", bf16=False)
+    q16 = [r1["qvec"][t] for _q, t in r1["groups"]["B=16"][:16]]
+    out = {"prep": prep, "valid": valid, "launches": launches, "shapes": shapes,
+           "queries": {1: torch.from_numpy(np.stack(q16[:1])).to(dev), 16: torch.from_numpy(np.stack(q16)).to(dev)}}
+    parse_graph.G.clear()
+    shutil.rmtree(work, ignore_errors=True)
+    return phase, out
+
+
+# --- phase 8: generation ------------------------------------------------------
 
 
 class StepRecorder:
@@ -2226,7 +2788,7 @@ def generation(dev, main: dict) -> tuple[dict, dict]:
     }
 
 
-# --- phase 8: durability ------------------------------------------------------
+# --- phase 9: durability ------------------------------------------------------
 
 
 def kill_child(prompts_path: str) -> int:
@@ -2576,10 +3138,10 @@ def durability(dev, gen: dict) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-# --- phase 9: kernel times ----------------------------------------------------
+# --- phase 10: kernel times ---------------------------------------------------
 
 
-def kernel_times(main: dict, eng: dict, vs: dict, rest: dict, gen: dict, rate: float,
+def kernel_times(main: dict, eng: dict, vs: dict, rest: dict, persist: dict, gen: dict, rate: float,
                  rate_src: str) -> list[dict]:
     from pathway_tpu_torch.ops import block_topk as bt
     from pathway_tpu_torch.ops.knn import BLK, _normalize
@@ -2600,6 +3162,10 @@ def kernel_times(main: dict, eng: dict, vs: dict, rest: dict, gen: dict, rate: f
          "vector store (filtered)", v_corpus),
         (32, RETRIEVE_K, gen["asks"], gen["topk_shapes"].get((32, RETRIEVE_K), 0), "generation",
          m_corpus),
+        (1, K, persist["queries"][1], persist["shapes"].get((1, K), 0), "persistence (restored)",
+         (persist["prep"], persist["valid"])),
+        (16, K, persist["queries"][16], persist["shapes"].get((16, K), 0), "persistence (restored)",
+         (persist["prep"], persist["valid"])),
     ] + [
         # every shape the REST phase launched: the gate's micro-batches and
         # the concurrent ungated ticks after the index's pad ladder
@@ -2625,7 +3191,11 @@ def kernel_times(main: dict, eng: dict, vs: dict, rest: dict, gen: dict, rate: f
         sr, ir = bt.block_topk_ref(qn, prep, valid, k)
         # timing launches are not the path's
         bt.block_topk.launches, bt.block_topk.shapes = before
-        err = float((sc - sr).abs().max())
+        # a block with no valid row scores -inf in both (the persistence
+        # corpus reserves whole blocks ahead of its rows)
+        live = torch.isfinite(sr)
+        check(torch.equal(torch.isfinite(sc), live), f"block_topk timing inputs disagree on -inf at B={bs}")
+        err = float((sc - sr)[live].abs().max())
         check(err <= F32_TOL, f"block_topk timing inputs disagree by {err} at B={bs}")
         elem = prep.element_size()
         bytes_read = n * d * elem + bs * d * elem + n  # corpus, queries, valid
@@ -2655,6 +3225,8 @@ def kernel_times(main: dict, eng: dict, vs: dict, rest: dict, gen: dict, rate: f
         "vector_store_launches_by_shape": {f"B={b},k={k}": n for (b, k), n in sorted(vs["shapes"].items())},
         "rest_launches": rest["launches"],
         "rest_launches_by_shape": {f"B={b},k={k}": n for (b, k), n in sorted(rest["shapes"].items())},
+        "persistence_launches": persist["launches"],
+        "persistence_launches_by_shape": {f"B={b},k={k}": n for (b, k), n in sorted(persist["shapes"].items())},
         "max_abs_err": max(p["max_abs_err"] for p in per_batch),
         "ms": head["ms"],
         "plain_ms": head["plain_ms"],
@@ -2762,8 +3334,13 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # Tick Scope keeps every tick of a phase, so a window's ticks are all
+    # there when the phase reads them
+    os.environ.setdefault("PATHWAY_TICKSCOPE_RING", str(1 << 20))
     if sys.argv[1:2] == ["--kill-child"]:
         return kill_child(sys.argv[2])
+    if sys.argv[1:2] == ["--persist-child"]:
+        return persist_child(*sys.argv[2:5])
     dev = torch.device("cuda", 0)
     smi = nvidia_smi("name,power.limit")
 
@@ -2783,14 +3360,19 @@ def main() -> int:
     emit(phase)
     phase, engine_data = engine(dev)
     emit(phase)
-    phase, vs_data = vector_store(dev, smi)
+    vs_phase, vs_data = vector_store(dev, smi)
+    emit(vs_phase)
+    corpus = vs_data.pop("corpus")
+    phase, rest_data = rest(dev, smi, vs_phase["retrieve_reply_p50_ms"]["B=1"], corpus)
     emit(phase)
-    phase, rest_data = rest(dev, smi, phase["retrieve_reply_p50_ms"]["B=1"], vs_data.pop("corpus"))
+    phase, persist_data = persistence(dev, smi, vs_phase, vs_data, corpus)
     emit(phase)
+    del corpus
     phase, gen_data = generation(dev, main_data)
     emit(phase)
     emit(durability(dev, gen_data))
-    kernels = kernel_times(main_data, engine_data, vs_data, rest_data, gen_data, rate, rate_src) + [
+    kernels = kernel_times(main_data, engine_data, vs_data, rest_data, persist_data, gen_data, rate,
+                           rate_src) + [
         paged_kernel_times(gen_data, rate, rate_src)
     ]
     emit({"phase": "kernels", "kernels": kernels})

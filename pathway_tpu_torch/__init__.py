@@ -6,8 +6,10 @@ CUDA C++ for Hopper (``csrc/block_topk.cu``, ``csrc/paged_attention.cu``).
 What is ported: the incremental dataflow engine and its Table API
 (``import pathway_tpu_torch as pw``: ``pw.Table``, ``pw.Schema``,
 ``pw.this``, ``pw.reducers``, ``pw.udf``, ``pw.io.python``,
-``pw.io.subscribe``, ``pw.debug``, ``pw.run``), live-RAG retrieval
-(embedder UDF → ``DataIndex`` → dense top-k), and generation serving.
+``pw.io.subscribe``, the file connectors ``pw.io.fs``/``csv``/``jsonlines``/
+``plaintext``/``null``, ``pw.debug``, ``pw.run``, ``pw.persistence``),
+live-RAG retrieval (embedder UDF → ``DataIndex`` → dense top-k), and
+generation serving.
 
 Modules keep the JAX package's paths and public names so each counterpart is
 easy to find. The package imports neither ``jax`` nor ``pandas`` nor
@@ -82,6 +84,7 @@ from pathway_tpu_torch.internals import (
 )
 from pathway_tpu_torch.internals.custom_reducers import BaseCustomAccumulator
 from pathway_tpu_torch.internals.joins import OuterJoinResult
+import pathway_tpu_torch.persistence as persistence
 
 
 def __getattr__(name: str):
@@ -141,6 +144,7 @@ __all__ = [
     "Json",
     "MonitoringLevel",
     "PersistenceMode",
+    "persistence",
     "Pointer",
     "PyObjectWrapper",
     "wrap_py_object",

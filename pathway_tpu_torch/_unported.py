@@ -8,11 +8,10 @@ from __future__ import annotations
 COMPILED_TICKS = "[compiled-ticks] (compiled ticks)"
 INDEX_KINDS = "[index-kinds] (IVF/LSH/segment ops)"
 MESH = "[mesh] (multi-device: engine mesh, DCN, sharded top-k)"
-PERSISTENCE = "[persistence] (persistence glue)"
 REPLICATION = "[replication] (parallel/replicate.py and the replica)"
 BM25_HYBRID = "[index-kinds] (BM25, hybrid and document-index helpers)"
 TEMPORAL = "[temporal] (temporal nodes and windows)"
-CONNECTORS = "[connectors] (file and service connectors)"
+CONNECTORS = "[connectors] (service connectors)"
 OBSERVABILITY = "[observability] (the rest of observability)"
 
 

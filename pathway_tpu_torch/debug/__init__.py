@@ -6,9 +6,9 @@ __init__.py:207-709) that the port's tests and users need —
 ``assert_table_equality[_wo_index]``, copied as they are.
 
 Not ported: the pandas surfaces (``table_from_pandas``, ``table_to_pandas``,
-parquet), ``StreamGenerator``, the trace/diagnose helpers, and
-``persistence_config`` (the persistence glue is ROADMAP [persistence]).
-The module imports no pandas."""
+parquet), ``StreamGenerator`` and the trace/diagnose helpers. Capture with
+``persistence_config`` restores and records through the persistence glue, as
+in the reference. The module imports no pandas."""
 
 from __future__ import annotations
 
@@ -17,7 +17,6 @@ from typing import Any, Iterable, Mapping, Sequence
 
 import numpy as np
 
-from pathway_tpu_torch._unported import PERSISTENCE, unported
 from pathway_tpu_torch.engine.batch import DiffBatch
 from pathway_tpu_torch.engine.nodes import InputNode, OutputNode
 from pathway_tpu_torch.engine.runtime import Runtime, StaticSource
@@ -444,9 +443,11 @@ def _run_capture(
         cap = _Capture(tbl)
         captures.append(cap)
         outputs.append(OutputNode(tbl._node, cap.on_batch))
-    if persistence_config is not None:
-        raise unported("debug capture with persistence_config", PERSISTENCE)
     rt = Runtime(outputs)
+    if persistence_config is not None:
+        from pathway_tpu_torch.persistence._runtime_glue import attach_persistence
+
+        attach_persistence(rt, persistence_config)
     from pathway_tpu_torch.internals import parse_graph
 
     parse_graph.G.last_runtime = rt

@@ -543,7 +543,9 @@ class GroupByExec(NodeExec):
         if not self._ledger_enabled or not touched:
             return
         try:
-            import pickle as _pickle
+            import pickle
+
+            from pathway_tpu_torch.persistence import _pickle
 
             jks: list[int] = []
             diffs: list[int] = []
@@ -560,7 +562,7 @@ class GroupByExec(NodeExec):
                     jks.append(gk)
                     diffs.append(1)
                     blobs.append(
-                        _pickle.dumps(gs, protocol=_pickle.HIGHEST_PROTOCOL)
+                        _pickle.dumps(gs, protocol=pickle.HIGHEST_PROTOCOL)
                     )
                     self._ledgered.add(gk)
             if jks:
@@ -598,7 +600,7 @@ class GroupByExec(NodeExec):
         return residual, {"ledger": self.ledger}
 
     def load_arranged_state(self, residual, arrangements) -> None:
-        import pickle as _pickle
+        from pathway_tpu_torch.persistence import _pickle
 
         self.__dict__.update(residual)
         self.ledger = arrangements["ledger"]

@@ -7,9 +7,8 @@ Not ported, and raising ``NotImplementedError`` rather than running
 without them: compiled ticks (an explicit ``PATHWAY_COMPILED_TICK=1``;
 unset or 0 runs the interpreter, ROADMAP [compiled-ticks]), the engine
 mesh (``PATHWAY_ENGINE_SHARDS`` > 1) and the multi-process engine
-(``PATHWAY_PROCESSES`` > 1; [mesh]). Tick Scope's per-tick flight
-recorder is not ported either ([tickscope]): its slot stays None, the
-reference's ``PATHWAY_TICKSCOPE=0`` behaviour.
+(``PATHWAY_PROCESSES`` > 1; [mesh]). Every tick lands in the runtime's
+Tick Scope recorder (``observability/tickscope.py``), as in the reference.
 
 The reference's design: a replacement for the timely worker main loop
 (upstream Pathway: src/engine/dataflow.rs:5962-6173): instead of N OS worker
@@ -406,11 +405,15 @@ class Runtime:
         from pathway_tpu_torch.testing import faults
 
         self._fault_plan = faults.active()
-        # Tick Scope's per-runtime flight recorder is not ported yet
-        # (ROADMAP [tickscope]): the slot stays None, the reference's
-        # PATHWAY_TICKSCOPE=0 behaviour, so the hot loop pays one
-        # `is None` check per node
-        self._tickscope = None
+        # Tick Scope (observability/tickscope.py): per-runtime flight
+        # recorder. Per-runtime, NOT process-global — nested runtimes'
+        # inner ticks would otherwise corrupt the outer tick's record.
+        # Disabled (PATHWAY_TICKSCOPE=0) the hot loop pays one `is None`
+        # check per node and nothing else.
+        from pathway_tpu_torch.observability import tickscope as _tickscope_mod
+
+        self._tickscope = _tickscope_mod.make_recorder(self)
+        self._ts_entries: list | None = None
         # intra-tick worker parallelism (reference: PATHWAY_THREADS timely
         # workers, src/engine/dataflow/config.rs:63-86): independent nodes
         # of one topo level process concurrently on a thread pool. Each
@@ -460,6 +463,12 @@ class Runtime:
         has_injected = (
             isinstance(ex, InputExec) and injected and node.id in injected
         )
+        # Tick Scope: entries is None when the recorder is off — that
+        # one check is the entire disabled-path cost. The operator clock
+        # starts BEFORE injection: batch tightening is the single biggest
+        # cost of an ingest tick and it belongs to the InputNode, not to
+        # the unattributed gap between stage sum and tick wall
+        ts_entries = self._ts_entries
         t0 = _time.perf_counter_ns()
         if has_injected:
             for b in injected[node.id]:
@@ -507,6 +516,19 @@ class Runtime:
                 self._otel_metrics.record_operator_latency(
                     self._node_names[node.id], node_ns
                 )
+            if ts_entries is not None:
+                # list.append is GIL-atomic — safe from pool threads; the
+                # port runs no compiled segment, so `compiled` is False
+                ts_entries.append(
+                    (
+                        node.id,
+                        t0,
+                        t0 + node_ns,
+                        sum(len(b) for b in inputs),
+                        nrows,
+                        False,
+                    )
+                )
         if isinstance(ex, InputExec) and nrows:
             stats.rows_in[node.id] = stats.rows_in.get(node.id, 0) + nrows
 
@@ -536,6 +558,7 @@ class Runtime:
         if self._fault_plan is not None and not final:
             self._fault_plan.on_tick(t, "head")
         stats = self.stats
+        self._ts_entries = self._tickscope.begin_tick(t)
         tick_start = _time.perf_counter_ns()
         if self._pool is not None and self._levels is not None:
             import contextvars as _cv
@@ -584,6 +607,8 @@ class Runtime:
         stats.ticks += 1
         stats.current_time = t if not final else stats.current_time
         stats.last_tick_ns = _time.perf_counter_ns() - tick_start
+        self._tickscope.end_tick(self._ts_entries, stats.last_tick_ns)
+        self._ts_entries = None
         self._tick_count += 1
         if self._fault_plan is not None and not final:
             # "tail" kills land AFTER this tick's node processing but

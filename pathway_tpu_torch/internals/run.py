@@ -5,7 +5,7 @@ from __future__ import annotations
 
 from typing import Any
 
-from pathway_tpu_torch._unported import OBSERVABILITY, PERSISTENCE, unported
+from pathway_tpu_torch._unported import OBSERVABILITY, unported
 from pathway_tpu_torch.engine.runtime import Runtime
 from pathway_tpu_torch.internals import parse_graph
 
@@ -34,15 +34,17 @@ def run(
 ) -> None:
     """Execute the dataflow declared so far (all registered outputs).
 
+    ``persistence_config`` (or ``PATHWAY_REPLAY_STORAGE`` for record/replay)
+    restores the store's state before the first tick and records every tick
+    into it (``persistence/_runtime_glue.py``).
+
     Not ported, and raising ``NotImplementedError`` rather than running
-    without them: ``persistence_config`` (and record/replay), the Graph
-    Doctor (``diagnostics``), the monitoring server and dashboard
+    without them: the Graph Doctor (``diagnostics``), the monitoring server
+    and dashboard
     (``with_http_server``, ``monitoring_level`` ALL/IN_OUT) and the
     multi-process engine. The reference's terminal dashboard for
     ``monitoring_level=AUTO`` on a tty is not shown.
     """
-    if persistence_config is not None:
-        raise unported("pw.run(persistence_config=...)", PERSISTENCE)
     if diagnostics not in (None, "off"):
         raise unported("pw.run(diagnostics=...) (the Graph Doctor)", OBSERVABILITY)
     if with_http_server or monitoring_level in (
@@ -58,17 +60,27 @@ def run(
         seeds += _nodes.ALL_NODES
     if not seeds:
         return
-    # record/replay debugging (PATHWAY_REPLAY_STORAGE) rides persistence
-    import os
-
-    from pathway_tpu_torch.internals.config import get_pathway_config
-
-    if os.environ.get("PATHWAY_REPLAY_STORAGE") or get_pathway_config().replay_storage:
-        raise unported("record/replay (PATHWAY_REPLAY_STORAGE)", PERSISTENCE)
     # a multi-process group (PATHWAY_PROCESSES > 1) raises in Runtime
     runtime = Runtime(seeds, autocommit_ms=autocommit_duration_ms)
     G.runtime = runtime
     G.last_runtime = runtime
+    if persistence_config is None:
+        # record/replay debugging via env (PATHWAY_REPLAY_STORAGE, upstream
+        # Pathway's internals/config.py:64-97 + `pathway spawn --record`)
+        from pathway_tpu_torch.internals.config import get_pathway_config
+
+        pw_cfg = get_pathway_config()
+        if pw_cfg.replay_storage:
+            from pathway_tpu_torch import persistence as _p
+
+            persistence_config = _p.Config(
+                backend=_p.Backend.filesystem(pw_cfg.replay_storage),
+                snapshot_access=pw_cfg.snapshot_access or "record",
+            )
+    if persistence_config is not None:
+        from pathway_tpu_torch.persistence._runtime_glue import attach_persistence
+
+        attach_persistence(runtime, persistence_config)
     from pathway_tpu_torch.internals.telemetry import get_telemetry
 
     from pathway_tpu_torch.internals import errors as _errors

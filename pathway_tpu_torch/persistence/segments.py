@@ -39,6 +39,7 @@ import numpy as np
 
 from pathway_tpu_torch.engine.arrangement import Arrangement, _Segment
 from pathway_tpu_torch.engine.batch import _obj_column, uniform_element_spec
+from pathway_tpu_torch.persistence import _pickle
 
 MAGIC = b"PWSEG01\n"
 _ALIGN = 64
@@ -77,7 +78,7 @@ def _encode_col(col: np.ndarray) -> tuple[dict, bytes]:
         )
     return (
         {"kind": "pickle"},
-        pickle.dumps(col, protocol=pickle.HIGHEST_PROTOCOL),
+        _pickle.dumps(col, protocol=pickle.HIGHEST_PROTOCOL),
     )
 
 
@@ -154,7 +155,7 @@ def segment_from_buffer(buf) -> _Segment:
             cols.append(_obj_column(list(flat.reshape((n, *shape)))))
         elif kind == "pickle":
             raw = bytes(mv[base + desc["off"] : base + desc["off"] + desc["nbytes"]])
-            cols.append(pickle.loads(raw))
+            cols.append(_pickle.loads(raw))
         else:  # a future format must fail loud, not half-load
             raise ValueError(f"unknown column kind {kind!r}")
     return _Segment(

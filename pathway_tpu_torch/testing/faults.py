@@ -1,7 +1,9 @@
 """Own copy of ``pathway_tpu/testing/faults.py``: the same ``PATHWAY_FAULTS``
 grammar and exit code 23. The whole grammar parses; of the hooks, the port
-calls only ``on_decode_step`` (from ``generate/scheduler.py``) today — the
-engine, replica, ferry and wire hooks wait for those modules' slices.
+calls ``on_tick`` (the engine's runtime), ``before_meta_commit`` and
+``wrap_store`` (the persistence glue) and ``on_decode_step``
+(``generate/scheduler.py``) — the replica, ferry and wire hooks wait for
+those modules' slices.
 
 Fault Forge — deterministic, seeded fault injection for chaos tests.
 

@@ -517,3 +517,93 @@ def test_rest_retrieve_on_the_card_matches_direct_search(dev, fresh_graph):
         parse_graph.G.runtime.stop()
         thread.join(timeout=30)
     assert not thread.is_alive()
+
+
+# --- persistence: a DataIndex on the card restored from its store -----------
+
+
+def _persisted_index_replies(folder, store, qid_base, n_docs=2000, dim=48, device="cuda"):
+    """A persisted ``DataIndex`` over ``TpuKnn(device="cuda")`` fed by
+    ``pw.io.fs`` (seeded vectors in a jsonlines file); 8 queries asked once
+    the index holds every document, then a clean stop. Returns the replies
+    by query, the run's persistence state, and the kernel's launches."""
+    import json
+    import os
+    import threading
+    import time
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.engine.index_node import ExternalIndexExec
+    from pathway_tpu_torch.ops import block_topk as bt
+    from pathway_tpu_torch.stdlib.indexing import DataIndex, TpuKnn
+
+    rng = np.random.default_rng(3)
+    vecs = rng.standard_normal((n_docs, dim)).astype(np.float32)
+    path = os.path.join(folder, "docs.jsonl")
+    if not os.path.exists(path):
+        with open(path, "w") as f:
+            for i in range(n_docs):
+                f.write(json.dumps({"name": f"d{i}", "v": vecs[i].tolist()}) + "\n")
+
+    class Doc(pw.Schema):
+        name: str
+        v: list
+
+    class Q(pw.Schema):
+        qid: int = pw.column_definition(primary_key=True)
+        q: int
+
+    raw = pw.io.jsonlines.read(folder, schema=Doc, mode="streaming")
+    docs = raw.select(name=raw.name, vec=pw.apply_with_type(lambda v: np.asarray(v, np.float32), np.ndarray, raw.v))
+    index = DataIndex(docs, TpuKnn(docs.vec, dimensions=dim, device=device))
+    done = threading.Event()
+
+    class Asker(pw.io.python.ConnectorSubject):
+        def run(self):
+            rt = pw.internals.parse_graph.G.runtime
+            ix = next(ex for ex in rt.execs.values() if isinstance(ex, ExternalIndexExec)).index
+            deadline = time.time() + 120
+            while len(ix) < n_docs and time.time() < deadline:
+                time.sleep(0.02)
+            for j in range(8):
+                self.next(qid=qid_base + j, q=j * 97)
+            self.commit()
+            done.wait(120)
+            rt.stop()
+
+    asks = pw.io.python.read(Asker(), schema=Q, autocommit_duration_ms=None)
+    qv = asks.select(qid=asks.qid, vec=pw.apply_with_type(lambda j: vecs[j] + 0.01, np.ndarray, asks.q))
+    res = index.query_as_of_now(qv.vec, number_of_matches=5).select(
+        qid=pw.left.qid, names=pw.right.name, scores=pw.right._pw_index_reply_score
+    )
+    out = {}
+
+    def on_change(key, row, time, is_addition):
+        if is_addition:
+            out[row["qid"] - qid_base] = (row["names"], row["scores"])
+            if len(out) == 8:
+                done.set()
+
+    pw.io.subscribe(res, on_change=on_change)
+    before = bt.block_topk.launches
+    cfg = pw.persistence.Config.simple_config(pw.persistence.Backend.filesystem(store))
+    pw.run(persistence_config=cfg, autocommit_duration_ms=20)
+    drv = pw.internals.parse_graph.G.last_runtime.persistence_driver
+    return out, drv, bt.block_topk.launches - before
+
+
+def test_persisted_index_on_the_card_restores_and_replies_as_before(dev, fresh_graph, tmp_path):
+    from pathway_tpu_torch.internals import parse_graph
+
+    folder, store = tmp_path / "docs", tmp_path / "store"
+    folder.mkdir()
+    before, drv0, launched0 = _persisted_index_replies(str(folder), str(store), 0)
+    assert not drv0.restored_from_snapshot and launched0 > 0 and len(before) == 8
+    parse_graph.G.clear()
+    after, drv1, launched1 = _persisted_index_replies(str(folder), str(store), 100)
+    assert drv1.restored_from_snapshot and drv1.replayed_events == 0
+    assert launched1 > 0  # the restored corpus was searched by the kernel
+    assert sorted(after) == sorted(before)
+    for j in before:
+        assert after[j][0] == before[j][0]
+        np.testing.assert_allclose(after[j][1], before[j][1], atol=1e-5, rtol=0)

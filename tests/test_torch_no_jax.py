@@ -9,7 +9,10 @@ card's machine has none of them, and no port module imports one at module
 level. The REST connector and the Surge Gate (``io/http``, ``serving``)
 import with the clients blocked as well, and a port server started with
 ``aiohttp`` and ``requests`` blocked answers over HTTP without loading
-either. Without a card, an entry point left on its default device raises
+either. The persistence glue, its stores and the file connectors import
+with ``pandas`` and ``fsspec`` blocked, and a persisted ``pw.io.fs`` run
+stops and restores from its store without loading either (``fsspec`` is
+imported only when an ``FsspecStore`` is built). Without a card, an entry point left on its default device raises
 instead of falling back to the CPU."""
 
 import ast
@@ -32,6 +35,7 @@ CLIENTS = (
     "transformers", "pypdf", "unstructured", "docling",
 )
 BLOCKED_WITH_CLIENTS = BLOCKED_WITH_PANDAS + CLIENTS
+BLOCKED_WITH_FSSPEC = BLOCKED_WITH_PANDAS + ("fsspec",)
 # modules that may import pandas at module level: none (the ``.dt``
 # namespace, the reference's one such module, is not ported)
 PANDAS_MODULES: set[str] = set()
@@ -223,6 +227,62 @@ REST_MODULES = [
     "pathway_tpu_torch.xpacks.llm.servers",
 ]
 
+# persistence and the file connectors: each imports with pandas and fsspec
+# blocked
+PERSISTENCE_MODULES = [
+    "pathway_tpu_torch.persistence",
+    "pathway_tpu_torch.persistence._pickle",
+    "pathway_tpu_torch.persistence._runtime_glue",
+    "pathway_tpu_torch.persistence.backends",
+    "pathway_tpu_torch.persistence.cached_object_storage",
+    "pathway_tpu_torch.io._utils",
+    "pathway_tpu_torch.io.csv",
+    "pathway_tpu_torch.io.fs",
+    "pathway_tpu_torch.io.jsonlines",
+    "pathway_tpu_torch.io.null",
+    "pathway_tpu_torch.io.plaintext",
+]
+
+_PERSISTED_RUN = """
+import json, os, sys, tempfile, threading, time
+for name in {blocked!r}:
+    sys.modules[name] = None
+import pathway_tpu_torch as pw
+
+base = tempfile.mkdtemp()
+os.makedirs(base + "/in")
+with open(base + "/in/f1.jsonl", "w") as f:
+    f.write("".join(json.dumps({{"word": w}}) + "\\n" for w in "a b a".split()))
+cfg = pw.persistence.Config.simple_config(pw.persistence.Backend.filesystem(base + "/p"), snapshot_every=1)
+
+class S(pw.Schema):
+    word: str
+
+def run(out, want):
+    pw.internals.parse_graph.G.clear()
+    t = pw.io.fs.read(base + "/in", format="json", schema=S, mode="streaming")
+    pw.io.jsonlines.write(t.groupby(t.word).reduce(t.word, n=pw.reducers.count()), out)
+    th = threading.Thread(target=lambda: pw.run(persistence_config=cfg, autocommit_duration_ms=20))
+    th.start()
+    deadline = time.time() + 30
+    while time.time() < deadline:
+        if os.path.exists(out) and want in open(out).read():
+            break
+        time.sleep(0.02)
+    pw.internals.parse_graph.G.runtime.stop()
+    th.join(10)
+    return pw.internals.parse_graph.G.last_runtime.persistence_driver
+
+run(base + "/a.jsonl", '"a", "n": 2')
+with open(base + "/in/f2.jsonl", "w") as f:
+    f.write(json.dumps({{"word": "c"}}) + "\\n")
+drv = run(base + "/b.jsonl", '"c", "n": 1')
+assert drv.restored_from_snapshot and drv.replayed_events == 0
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in {blocked!r} and sys.modules[m])
+assert not leaked, leaked
+print("ok")
+"""
+
 _SERVE_WITHOUT_CLIENTS = """
 import http.client, json, socket, sys, threading, time
 for name in {blocked!r}:
@@ -327,6 +387,24 @@ def test_rest_module_imports_without_jax_pandas_or_clients(rest_imported_with_cl
     assert mod in rest_imported_with_clients_blocked
 
 
+@pytest.fixture(scope="module")
+def persistence_imported_with_fsspec_blocked():
+    r = _run(_IMPORT_EACH, blocked=BLOCKED_WITH_FSSPEC, mods=PERSISTENCE_MODULES)
+    assert r.returncode == 0, r.stderr
+    return set(json.loads(r.stdout.strip().splitlines()[-1]))
+
+
+@pytest.mark.parametrize("mod", PERSISTENCE_MODULES)
+def test_persistence_module_imports_without_jax_pandas_or_fsspec(persistence_imported_with_fsspec_blocked, mod):
+    assert mod in persistence_imported_with_fsspec_blocked
+
+
+def test_persisted_fs_run_restores_with_pandas_and_fsspec_blocked():
+    r = _run(_PERSISTED_RUN, blocked=BLOCKED_WITH_FSSPEC)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip().endswith("ok")
+
+
 def test_port_server_answers_with_aiohttp_and_requests_blocked():
     r = _run(_SERVE_WITHOUT_CLIENTS, blocked=BLOCKED_WITH_CLIENTS)
     assert r.returncode == 0, r.stderr
@@ -357,7 +435,7 @@ def test_no_port_module_imports_a_client_at_module_level():
     offenders = {
         str(p.relative_to(ROOT))
         for p in list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-        if _module_level_roots(p) & {*CLIENTS, "google"}
+        if _module_level_roots(p) & {*CLIENTS, "google", "fsspec"}
     }
     assert not offenders, offenders
 

@@ -1,9 +1,9 @@
 """Every reference hook the port does not carry yet raises
 ``NotImplementedError`` naming its ROADMAP tag, instead of running
 without it: compiled ticks, engine shards, the multi-process engine (DCN),
-replication, ``persistence_config``, ``mesh=``, and the LSH / IVF / BM25 /
-hybrid indexes, the temporal operators and the ``.dt`` namespace, the
-other connectors, and the replicated read plane (``ReplicaServer``,
+replication, ``mesh=``, and the LSH / IVF / BM25 / hybrid indexes, the
+temporal operators and the ``.dt`` namespace, the service connectors, and
+the replicated read plane (``ReplicaServer``,
 ``FailoverRouter``, ``ResultCache`` and the ``/generate`` route)."""
 
 import numpy as np
@@ -51,7 +51,6 @@ ENV_CASES = [
     ({"PATHWAY_ENGINE_SHARDS": "4"}, _run_simple, r"\[mesh\]"),
     ({"PATHWAY_PROCESSES": "2"}, _run_simple, r"\[mesh\]"),  # the DCN engine
     ({"PATHWAY_REPL_PORT": "18765"}, _index_pipeline, r"\[replication\]"),
-    ({"PATHWAY_REPLAY_STORAGE": "/nonexistent"}, _run_simple, r"\[persistence\]"),
 ]
 
 
@@ -69,13 +68,6 @@ def test_compiled_tick_off_or_unset_runs_the_interpreter(monkeypatch):
     monkeypatch.setenv("PATHWAY_COMPILED_TICK", "0")
     _run_simple()
     assert parse_graph.G.last_runtime.compiled_plan is None
-
-
-def test_persistence_config_raises():
-    t = _table()
-    pw.io.subscribe(t, on_change=lambda **kw: None)
-    with pytest.raises(NotImplementedError, match=r"\[persistence\]"):
-        pw.run(persistence_config=object())
 
 
 def test_tpu_knn_mesh_raises():
@@ -97,13 +89,13 @@ def test_tpu_knn_mesh_raises():
         (lambda t: t.interval_join(t, t.a, t.a, None), r"\[temporal\]"),
         (lambda t: t.diff(t.a, t.b), r"\[temporal\]"),
         (lambda t: t.b.dt, r"\[temporal\]"),
-        (lambda t: pw.io.csv, r"\[connectors\]"),
+        # the file connectors are ported: the case holds a service connector
+        (lambda t: pw.io.kafka, r"\[connectors\]"),
         (lambda t: pw.run(with_http_server=True), r"\[observability\]"),
-        (lambda t: pw.debug.table_to_dicts(t, persistence_config=object()), r"\[persistence\]"),
     ],
     ids=[
         "LshKnn", "LshKnnFactory", "IvfKnn", "IvfKnnFactory", "TantivyBM25", "HybridIndex",
-        "windowby", "interval_join", "diff", "dt_namespace", "io.csv", "http_server", "debug_persistence",
+        "windowby", "interval_join", "diff", "dt_namespace", "io.csv", "http_server",
     ],
 )
 def test_unported_kind_raises(make, item):
