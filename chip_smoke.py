@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from csrc/ (nvcc, sm_90a, one process per
-source, all started together), then runs ten phases, printing one JSON
+source, all started together), then runs eleven phases, printing one JSON
 object per phase:
 
 1. device         — nvidia-smi name/power limit, toolchain versions, build seconds.
@@ -136,7 +136,45 @@ object per phase:
                     snapshots (ms, bytes), the store's size, ingest chunks/s
                     beside the vector store phase's, update-to-visible and
                     reply p50 / max.
-8. generation     — ask -> retrieve -> generate: 24 asks are embedded and
+8. index kinds    — the other index kinds on the card, in four parts.
+                    (a) DocumentStore over HybridIndexFactory([TantivyBM25Factory(),
+                    BruteForceKnnFactory(the phase-3 embedder, device="cuda")]):
+                    the vector store phase's documents (16 commits of 2048,
+                    Utf8Parser, TokenCountSplitter(20, 60)), 64 B = 1 and 8
+                    B = 16 queries (k = 10), then 4 live writes of 64
+                    documents, each followed by a query for one of them.
+                    Checked: every reply against a direct computation — the
+                    reference's BM25 written out here over the same chunks,
+                    a direct dense search (kernel="torch") on a copy of the
+                    store's dense index, fused by RRF (k = 60) — ranked by
+                    fused score with the same chunks at each score (a dense
+                    near tie is read back from the fused scores and allowed),
+                    a copied query finds its chunk first, block_topk launches
+                    equal the dense searches per shape. (b) DataIndex over
+                    IvfKnn(device="cuda") at its defaults (1000 clusters, 32
+                    probes) through the engine: bench.py's accelerator IVF
+                    mixture (1,000,000 x 384 f32, 2000 centres, noise 0.35,
+                    default_rng(7)) in commits of 65,536 via pw.io.python,
+                    then 64 B = 1 and 8 B = 16 queries (k = 10); the index
+                    trains once. Checked: every score is its row's cosine - 1
+                    (numpy, 1e-5), replies descend, every key's cluster is
+                    among the query's probes (numpy, from the index's
+                    centroids), recall@10 >= 0.95 against the exact top-10
+                    (block_topk over the same rows). (c) IvfDeviceIndex at
+                    bench.py's shape (n_probe None, spill 2, its 50 queries):
+                    recall@10 >= 0.95, no duplicate id in a reply. (d) DataIndex
+                    over LshKnn(dimensions=384, device="cuda") at the reference
+                    defaults over the mixture's first 65,536 rows (cut: one
+                    device call and one sync per upserted row), 16 queries:
+                    the card's bucket ids equal the CPU's but within 1e-4 x
+                    bucket_length of a cell edge, every key shares a bucket
+                    with its query, every score is -|q - v|^2; the segment ops
+                    on 1,048,576 values into 4096 segments (some empty, ids out
+                    of range), f32 and int32, against numpy. Prints reply p50 /
+                    max per batch size, update-to-visible, BM25 ms per query,
+                    RRF us per tick, IVF train / assign s, recall, per-row LSH
+                    upsert us, and each device op's ms against its bound.
+9. generation     — ask -> retrieve -> generate: 24 asks are embedded and
                     retrieved (k = 3) on the phase-3 index, each grounded prompt
                     goes to one DecodeScheduler(GenerateConfig()) at the decoder's
                     serving defaults (dim 128, 2 layers, 4 heads, head_dim 32,
@@ -146,7 +184,7 @@ object per phase:
                     back to empty, launches == decode steps x layers, the same
                     tokens from a kernel="ref" scheduler, and the logits of one
                     recorded step, kernel against plain.
-9. durability     — the same 24 prompts at the same width, with snapshots.
+10. durability    — the same 24 prompts at the same width, with snapshots.
                     A child process (this script with --kill-child) runs them
                     with PATHWAY_GENERATE_SNAPSHOT_EVERY=8, a store in a temp
                     dir and PATHWAY_FAULTS="kill=decode:150"; it must exit 23
@@ -163,7 +201,7 @@ object per phase:
                     segments per snapshot). Tokens are compared exactly; a
                     difference passes only at a near tie: the uninterrupted
                     run's top-2 logit margin there below GEN_LOGIT_TOL.
-10. kernels       — per kernel and per path shape: launches on its path, ms
+11. kernels       — per kernel and per path shape: launches on its path, ms
                     (CUDA events) and device ms (torch.profiler), its plain
                     version's ms, the bound and what sets it, the bytes it must
                     move, and the ms of the library call(s) computing the same
@@ -173,8 +211,10 @@ object per phase:
                     filtered batch, oversampled x4, on the retrieval and the
                     vector store corpora), B = 32 (k = 3, the generation
                     phase's 24 asks padded to 32) and every (B, k) the rest
-                    phase launched, on its corpus, and B = 1 and 16 on the
-                    persistence phase's restored corpus; paged_attention: the
+                    phase launched, on its corpus, B = 1 and 16 on the
+                    persistence phase's restored corpus and on the hybrid
+                    store's dense corpus, and B = 16 on the 1M IVF ground truth;
+                    paged_attention: the
                     recorded decode step and a long context, each with its
                     split count S.
 
@@ -187,6 +227,7 @@ without one.
 from __future__ import annotations
 
 import json
+import math
 import os
 import re
 import shutil
@@ -283,6 +324,28 @@ RECORD_STEP = 150  # the decode step whose inputs the phase records
 KILL_STEP = 150  # the durability child dies after this decode step
 SNAPSHOT_EVERY = 8
 FAULT_EXIT = 23  # the fault plan's exit code
+# the index kinds phase: a hybrid DocumentStore over the vector store
+# phase's documents; IvfKnn, IvfDeviceIndex and LshKnn over bench.py's
+# accelerator IVF mixture; the segment ops
+IK_B1 = 64
+IK_B16 = 8
+IK_LIVE_WRITES = 4
+RRF_K = 60.0  # HybridIndexFactory's default
+IK_IVF_ROWS = 1_000_000
+IK_IVF_CENTRES = 2000
+IK_IVF_COMMIT = 1 << 16
+IK_IVF_DEVICE_QUERIES = 50
+IK_RECALL = 0.95  # the reference's bar (tests/test_ivf.py)
+# IVF scores (cos - 1 in f32) against numpy's f64; LSH scores -|q - v|^2
+# in f32 against f64, relative
+IK_SCORE_TOL = 1e-5
+IK_LSH_ROWS = 1 << 16  # cut from 1M: LshKnnIndex syncs with the host once per upserted row
+IK_LSH_QUERIES = 16
+# of bucket_length: a projection this near a cell edge may round to either
+# cell between the card's and the CPU's f32 sums
+LSH_EDGE = 1e-4
+IK_SEG_VALUES = 1 << 20
+IK_SEG_SEGMENTS = 4096
 PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}  # dense, H100 SXM
 
 
@@ -2515,7 +2578,789 @@ def persistence(dev, smi: str, vs_phase: dict, vs_data: dict, corpus: tuple) -> 
     return phase, out
 
 
-# --- phase 8: generation ------------------------------------------------------
+# --- phase 8: index kinds -----------------------------------------------------
+
+
+def bm25_tokens(text: str) -> list[str]:
+    return [w.lower() for w in re.findall(r"\w+", str(text), re.UNICODE)]
+
+
+class DirectBm25:
+    """The reference's BM25 (``_index_impls.py`` ``Bm25Index.search``,
+    k1 1.2, b 0.75) written out over the chunk texts, fed in the index's
+    insertion order so that equal scores rank in the same order."""
+
+    def __init__(self):
+        self.postings: dict[str, dict[int, int]] = {}
+        self.doc_len: dict[int, int] = {}
+
+    def add(self, key: int, text: str) -> None:
+        toks = bm25_tokens(text)
+        tf: dict[str, int] = {}
+        for t in toks:
+            tf[t] = tf.get(t, 0) + 1
+        self.doc_len[key] = len(toks)
+        for t, c in tf.items():
+            self.postings.setdefault(t, {})[key] = c
+
+    def search(self, query: str, k: int) -> list[tuple[int, float]]:
+        k1, b, n = 1.2, 0.75, len(self.doc_len)
+        avg = sum(self.doc_len.values()) / n
+        scores: dict[int, float] = {}
+        for t in bm25_tokens(query):
+            plist = self.postings.get(t)
+            if not plist:
+                continue
+            idf = math.log(1 + (n - len(plist) + 0.5) / (len(plist) + 0.5))
+            for doc, tf in plist.items():
+                dl = self.doc_len[doc] or 1
+                scores[doc] = scores.get(doc, 0.0) + idf * tf * (k1 + 1) / (tf + k1 * (1 - b + b * dl / avg))
+        return sorted(scores.items(), key=lambda kv: -kv[1])[:k]
+
+
+def rrf_scores(replies: list[list[tuple[int, float]]]) -> dict[int, float]:
+    """Reciprocal-rank fusion, k = 60, replies in the inner indexes' order."""
+    fused: dict[int, float] = {}
+    for reply in replies:
+        for rank, (key, _s) in enumerate(reply):
+            fused[key] = fused.get(key, 0.0) + 1.0 / (RRF_K + rank + 1)
+    return fused
+
+
+def check_fused(got: list[tuple[int, float]], bm: list, dense: list, dense_score, what: str) -> bool:
+    """A hybrid reply against BM25 (exact) and the direct dense search:
+    ranked by fused score, the same documents at each fused score. Where the
+    dense side met a near tie, its ranks are read back from the fused
+    scores (fused - the BM25 part = 1 / (61 + dense rank)) and held against
+    the direct search up to near ties. Returns whether it was exact."""
+    check(all(a[1] >= b[1] for a, b in zip(got, got[1:])), f"{what}: not ranked by fused score")
+    want = rrf_scores([bm, dense])
+    if dict(got) == want and len(got) == len(want):
+        return True
+    bpart = {key: 1.0 / (RRF_K + r + 1) for r, (key, _s) in enumerate(bm)}
+    check(set(bpart) <= {key for key, _f in got}, f"{what}: a BM25 match is missing")
+    ranks = {}
+    for key, f in got:
+        x = f - bpart.get(key, 0.0)
+        if x > 1e-12:
+            r = round(1.0 / x - RRF_K - 1)
+            check(abs(1.0 / (RRF_K + r + 1) - x) < 1e-12 and r not in ranks, f"{what}: fused score {f} of {key}")
+            ranks[r] = key
+    check(sorted(ranks) == list(range(len(dense))), f"{what}: dense ranks {sorted(ranks)}")
+    got_dense = tuple((ranks[r], dense_score(ranks[r])) for r in range(len(dense)))
+    check(same_up_to_near_ties(got_dense, tuple(dense), F32_TOL), f"{what}: dense side differs from direct search")
+    return False
+
+
+def hybrid_store(dev) -> tuple[dict, dict]:
+    """(a) DocumentStore over HybridIndexFactory([TantivyBM25Factory(),
+    BruteForceKnnFactory(the full-width embedder)]): the vector store
+    phase's documents in 16 commits of 2048, queries at B = 1 and B = 16,
+    live writes each followed by a query for one of their documents."""
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.engine.index_node import ExternalIndexExec
+    from pathway_tpu_torch.internals import parse_graph
+    from pathway_tpu_torch.ops import block_topk as bt
+    from pathway_tpu_torch.stdlib.indexing import (
+        BruteForceKnnFactory,
+        HybridIndexFactory,
+        TantivyBM25Factory,
+        hybrid_index,
+    )
+    from pathway_tpu_torch.stdlib.indexing._index_impls import Bm25Index, TpuDenseKnnIndex
+    from pathway_tpu_torch.xpacks.llm.document_store import DocumentStore
+    from pathway_tpu_torch.xpacks.llm.embedders import SentenceTransformerEmbedder
+    from pathway_tpu_torch.xpacks.llm.parsers import Utf8Parser
+    from pathway_tpu_torch.xpacks.llm.splitters import TokenCountSplitter
+
+    docs = store_docs()
+    splitter = TokenCountSplitter(min_tokens=VS_MIN_TOKENS, max_tokens=VS_MAX_TOKENS)
+    chunks_of = [[c for c, _m in splitter.split(d)] for d in docs]
+    upto = np.cumsum([len(c) for c in chunks_of])
+    capacity = -(-int(upto[-1]) // 1024) * 1024  # the vector store phase's
+    rng = np.random.default_rng(SEED + 13)
+    qdocs = [int(d) for d in rng.choice(VS_DOCS, size=IK_B1 + 16 * IK_B16, replace=False)]
+    live_targets = [VS_DOCS + t * VS_LIVE_DOCS + (t * 7) % VS_LIVE_DOCS for t in range(IK_LIVE_WRITES)]
+    wanted = {chunks_of[d][0] for d in qdocs + live_targets}
+
+    parse_graph.G.clear()
+    bt.block_topk.launches = 0
+    bt.block_topk.shapes.clear()
+    qvec: dict[str, np.ndarray] = {}
+    bm25_calls: list[tuple[int, float]] = []
+    rrf_us: list[float] = []
+
+    class RecordingEmbedder(SentenceTransformerEmbedder):
+        def embed_batch(self, texts):
+            out = super().embed_batch(texts)
+            for t, v in zip(texts, out):
+                if t in wanted:
+                    qvec[t] = v
+            return out
+
+    class DocSchema(pw.Schema):
+        doc_id: int = pw.column_definition(primary_key=True)
+        data: bytes
+        _metadata: pw.Json
+
+    class QuerySchema(pw.Schema):
+        qid: int = pw.column_definition(primary_key=True)
+        query: str
+        k: int
+        metadata_filter: str | None = pw.column_definition(default_value=None, dtype=str)
+        filepath_globpattern: str | None = pw.column_definition(default_value=None, dtype=str)
+
+    Idle, feeder, failure = driven_subjects(pw, lambda qs: drive(qs))
+    emb = RecordingEmbedder(device=dev)  # full width, bf16, seeded
+    doc_subject = Idle()
+    documents = pw.io.python.read(doc_subject, schema=DocSchema, autocommit_duration_ms=None)
+    store = DocumentStore(
+        documents,
+        retriever_factory=HybridIndexFactory([
+            TantivyBM25Factory(),
+            BruteForceKnnFactory(embedder=emb, reserved_space=capacity, device=dev),
+        ]),
+        parser=Utf8Parser(),
+        splitter=splitter,
+    )
+    queries = pw.io.python.read(feeder, schema=QuerySchema, autocommit_duration_ms=None)
+    replied = queries.with_columns(result=store.retrieve_query(queries).with_universe_of(queries).result)
+    _now = time.perf_counter
+    replies: dict[int, tuple[float, list]] = {}
+    # a chunk is named by its document's path and its text: a one-word
+    # tail chunk may repeat in another document
+    text_of: dict[int, str] = {}
+    path_of: dict[int, str] = {}
+
+    def on_reply(key, row, time, is_addition):
+        if is_addition and row["qid"] not in replies:
+            replies[row["qid"]] = (_now(), row["result"].value)
+
+    def on_chunk(key, row, time, is_addition):
+        if is_addition:
+            text_of[int(key)] = row["text"]
+            path_of[int(key)] = row["metadata"].value["path"]
+
+    pw.io.subscribe(replied, on_change=on_reply)
+    pw.io.subscribe(store._graph["chunked_docs"], on_change=on_chunk)
+    commits: dict[int, float] = {}
+    n_commits = [0]
+    record: dict = {"update_ms": [], "live": []}
+    stamps: dict[str, float] = {}
+    fuse = hybrid_index.rrf
+
+    def timed_rrf(replies_, k):
+        t0 = _now()
+        out = fuse(replies_, k)
+        rrf_us.append((_now() - t0) * 1e6)
+        return out
+
+    def commit(subject, cond, what: str) -> float:
+        return commit_tick(subject, cond, what, n_commits)
+
+    def ask(qs, rows: list[tuple[int, str]]) -> None:
+        for qid, text in rows:
+            qs.next(qid=qid, query=text, k=K, metadata_filter=None, filepath_globpattern=None)
+        t = commit(qs, lambda: all(q in replies for q, _t in rows), "a hybrid reply")
+        for q, _t in rows:
+            commits[q] = t
+
+    def dense_expected(dense_ix, rows) -> dict:
+        """The direct dense search (kernel="torch") of each query on a copy
+        of the store's dense index, and a scorer of any of its rows."""
+        mirror = snapshot_index(dense_ix, dev)
+        host, slot_of = mirror.corpus.host, mirror.corpus.slot_of
+        out = {}
+        for q, d in rows:
+            text = chunks_of[d][0]
+            qn = qvec[text] / np.linalg.norm(qvec[text])
+
+            def dense_score(key, qn=qn):
+                v = host[slot_of[key]]
+                return float(np.dot(qn, v / np.linalg.norm(v))) - 1.0
+
+            out[q] = (list(mirror.search([(qvec[text], K, None)])[0]), dense_score)
+        return out
+
+    def drive(qs) -> None:
+        rt = parse_graph.G.runtime
+        execs = [ex for ex in rt.execs.values() if isinstance(ex, ExternalIndexExec)]
+        bm25 = next(ex.index for ex in execs if isinstance(ex.index, Bm25Index))
+        dense_ix = next(ex.index for ex in execs if isinstance(ex.index, TpuDenseKnnIndex))
+        search = bm25.search
+
+        def timed_search(qs_):
+            t0 = _now()
+            out = search(qs_)
+            bm25_calls.append((len(qs_), (_now() - t0) * 1e3))
+            return out
+
+        bm25.search = timed_search
+        stamps["ingest0"] = _now()
+        for lo in range(0, VS_DOCS, VS_COMMIT):
+            for i in range(lo, lo + VS_COMMIT):
+                doc_subject.next(doc_id=i, data=docs[i].encode(), _metadata={"path": doc_path(i)})
+            commit(doc_subject, lambda: len(dense_ix) >= upto[lo + VS_COMMIT - 1]
+                   and len(bm25.docs) >= upto[lo + VS_COMMIT - 1], "a document commit")
+        stamps["ingest1"] = _now()
+        qid, it = 0, iter(qdocs)
+        groups: dict[str, list] = {"B=1": [], "B=16": []}
+        for _ in range(IK_B1):
+            d = next(it)
+            ask(qs, [(qid, chunks_of[d][0])])
+            groups["B=1"].append((qid, d))
+            qid += 1
+        for _ in range(IK_B16):
+            rows = [(qid + j, next(it)) for j in range(16)]
+            ask(qs, [(q, chunks_of[d][0]) for q, d in rows])
+            groups["B=16"].extend(rows)
+            qid += 16
+        record["groups"] = groups
+        # the BM25 side is computed after the run, over the index's first n
+        # documents in its insertion order (documents are only added here)
+        record["static_ref"] = (len(bm25.docs), dense_expected(dense_ix, [r for g in groups.values() for r in g]))
+        for t in range(IK_LIVE_WRITES):
+            lo = VS_DOCS + t * VS_LIVE_DOCS
+            for i in range(lo, lo + VS_LIVE_DOCS):
+                doc_subject.next(doc_id=i, data=docs[i].encode(), _metadata={"path": doc_path(i)})
+            tc = commit(doc_subject, lambda: len(dense_ix) >= upto[lo + VS_LIVE_DOCS - 1], "a live write")
+            ask(qs, [(qid, chunks_of[live_targets[t]][0])])
+            record["update_ms"].append((replies[qid][0] - tc) * 1e3)
+            record["live"].append((qid, live_targets[t], len(bm25.docs),
+                                   dense_expected(dense_ix, [(qid, live_targets[t])])[qid]))
+            qid += 1
+        stamps["queries"] = qid
+        record["bm25_order"] = list(bm25.docs)
+        record["prep"] = dense_ix.corpus.prepared_arrays("cosine", bf16=False)
+
+    hybrid_index.rrf = timed_rrf
+    t_run = _now()
+    try:
+        pw.run()
+    finally:
+        hybrid_index.rrf = fuse
+    run_s = _now() - t_run
+    if failure:
+        raise failure[0]
+    launches, shapes = bt.block_topk.launches, dict(bt.block_topk.shapes)
+    rt = parse_graph.G.last_runtime
+    n_chunks = int(upto[VS_DOCS + IK_LIVE_WRITES * VS_LIVE_DOCS - 1])
+    check(len(text_of) == n_chunks, f"{len(text_of)} chunks indexed, {n_chunks} expected")
+    key_of = {(path_of[k], t): k for k, t in text_of.items()}
+    check(len(key_of) == len(text_of), "two chunks of one document share a text: replies cannot name them")
+    first_chunk = lambda d: key_of[(doc_path(d), chunks_of[d][0])]  # noqa: E731
+    check(sorted(replies) == list(range(stamps["queries"])), "a hybrid query is missing from the replies")
+    direct, order = DirectBm25(), record["bm25_order"]
+
+    def bm25_at(n: int, text: str) -> list:
+        for key in order[len(direct.doc_len):n]:
+            direct.add(key, text_of[key])
+        return direct.search(text, K)
+
+    t0 = _now()
+    exact = {"B=1": 0, "B=16": 0, "live": 0}
+    n_static, static_dense = record["static_ref"]
+    for group, rows in record["groups"].items():
+        for q, d in rows:
+            got = [(key_of[(r["metadata"]["path"], r["text"])], r["score"]) for r in replies[q][1]]
+            dense, dense_score = static_dense[q]
+            exact[group] += check_fused(got, bm25_at(n_static, chunks_of[d][0]), dense, dense_score,
+                                        f"hybrid {group} query {q}")
+            check(got[0][0] == first_chunk(d), f"hybrid query {q} did not find its own chunk first")
+    for q, target, n_docs, (dense, dense_score) in record["live"]:
+        got = [(key_of[(r["metadata"]["path"], r["text"])], r["score"]) for r in replies[q][1]]
+        check(got[0][0] == first_chunk(target), f"live hybrid query {q} missed its new document")
+        exact["live"] += check_fused(got, bm25_at(n_docs, chunks_of[target][0]), dense, dense_score,
+                                     f"live hybrid query {q}")
+    direct_s = _now() - t0
+    want_shapes = {(1, K): IK_B1 + IK_LIVE_WRITES, (16, K): IK_B16}
+    check(shapes == want_shapes, f"hybrid block_topk launches by shape {shapes}, searches {want_shapes}")
+    check(rt.stats.ticks == n_commits[0] + 1, f"{rt.stats.ticks} ticks for {n_commits[0]} commits")
+
+    def lat(rows):
+        ms = [(replies[q][0] - commits[q]) * 1e3 for q, *_r in rows]
+        return {"p50": float(np.percentile(ms, 50)), "max": float(np.max(ms)), "n": len(ms)}
+
+    ingest_s = stamps["ingest1"] - stamps["ingest0"]
+    per_query = [ms / n for n, ms in bm25_calls]
+    phase = {
+        "chunks": n_chunks,
+        "corpus_capacity": capacity,
+        "ingest_s": ingest_s,
+        "ingest_chunks_per_s": int(upto[VS_DOCS - 1]) / ingest_s,
+        "reply_ms": {g: lat(rows) for g, rows in record["groups"].items()},
+        "update_to_visible_ms": {"p50": float(np.percentile(record["update_ms"], 50)),
+                                 "max": float(np.max(record["update_ms"])), "n": len(record["update_ms"])},
+        "bm25_search_ms_per_query": {"p50": float(np.percentile(per_query, 50)), "max": float(np.max(per_query)),
+                                     "calls": len(bm25_calls)},
+        "rrf_fusion_us_per_tick": {"p50": float(np.percentile(rrf_us, 50)), "max": float(np.max(rrf_us)),
+                                   "n": len(rrf_us)},
+        "direct_check_s": direct_s,
+        "replies_exact": exact,
+        "replies_compared": sum(len(r) for r in record["groups"].values()) + len(record["live"]),
+        "block_topk_launches": launches,
+        "block_topk_launches_by_shape": {f"B={b},k={k}": n for (b, k), n in sorted(shapes.items())},
+        "ticks": rt.stats.ticks,
+        "run_s": run_s,
+    }
+    prep, _c2, valid = record["prep"]
+    groups = record["groups"]
+
+    def batch(rows):
+        return torch.from_numpy(np.stack([qvec[chunks_of[d][0]] for _q, d in rows])).to(dev)
+
+    out = {"prep": prep, "valid": valid, "launches": launches, "shapes": shapes,
+           "queries": {1: batch(groups["B=1"][:1]), 16: batch(groups["B=16"][:16])}}
+    parse_graph.G.clear()
+    return phase, out
+
+
+def ivf_mixture() -> dict:
+    """bench.py's accelerator IVF corpus (``_bench_ivf``): 2000 centres,
+    noise 0.35, ``default_rng(7)``, 1M x 384 f32, its 50 queries; then the
+    engine part's queries from the same stream."""
+    rng = np.random.default_rng(7)
+    n = IK_IVF_ROWS
+    centers = rng.normal(size=(IK_IVF_CENTRES, DIM)).astype(np.float32)
+    asn = rng.integers(0, len(centers), size=n)
+    corpus = (centers[asn] + 0.35 * rng.normal(size=(n, DIM))).astype(np.float32)
+    dq = corpus[rng.choice(n, IK_IVF_DEVICE_QUERIES)] + 0.1 * rng.normal(
+        size=(IK_IVF_DEVICE_QUERIES, DIM)).astype(np.float32)
+    n_eng = IK_B1 + 16 * IK_B16
+    eq = corpus[rng.choice(n, n_eng)] + 0.1 * rng.normal(size=(n_eng, DIM)).astype(np.float32)
+    return {"corpus": corpus, "device_queries": dq, "engine_queries": eq}
+
+
+def exact_top10(dev, corpus: np.ndarray, queries: np.ndarray) -> tuple[np.ndarray, dict]:
+    """The exact cosine top-10 row ids of every query over the whole corpus,
+    by the block top-k kernel in batches of 16 (the corpus padded to whole
+    blocks with invalid rows)."""
+    from pathway_tpu_torch.ops import block_topk as bt
+    from pathway_tpu_torch.ops.knn import BLK, _normalize
+
+    n = corpus.shape[0]
+    pad = -(-n // BLK) * BLK
+    prep = torch.zeros(pad, DIM, device=dev)
+    prep[:n] = _normalize(torch.from_numpy(corpus).to(dev))
+    valid = torch.zeros(pad, dtype=torch.bool, device=dev)
+    valid[:n] = True
+    before = bt.block_topk.launches, bt.block_topk.shapes.copy()
+    bt.block_topk.launches = 0
+    bt.block_topk.shapes.clear()
+    ids = []
+    for lo in range(0, len(queries), 16):
+        q = queries[lo:lo + 16]
+        q = np.concatenate([q, np.repeat(q[:1], 16 - len(q), axis=0)])
+        _s, ix = bt.dense_topk_kernel(torch.from_numpy(q).to(dev), prep, valid, K, metric="cosine")
+        ids.append(ix[: min(16, len(queries) - lo)].cpu().numpy())
+    gt = {"prep": prep, "valid": valid, "launches": bt.block_topk.launches,
+          "shapes": dict(bt.block_topk.shapes), "queries": {16: torch.from_numpy(queries[:16]).to(dev)}}
+    bt.block_topk.launches, bt.block_topk.shapes = before
+    return np.concatenate(ids), gt
+
+
+def driven_subjects(pw, drive):
+    """The connector subjects of a phase: an ``Idle`` class (its subjects
+    are fed from the driving thread and end with it) and the subject that
+    runs ``drive(subject)``. An exception in ``drive`` lands in ``failure``,
+    to be raised after ``pw.run``."""
+    finished = threading.Event()
+    failure: list[BaseException] = []
+
+    class Idle(pw.io.python.ConnectorSubject):
+        def run(self):
+            finished.wait()
+
+    class Feeder(pw.io.python.ConnectorSubject):
+        def run(self):
+            try:
+                drive(self)
+            except BaseException as e:  # noqa: BLE001 — re-raised after pw.run
+                failure.append(e)
+            finally:
+                finished.set()
+
+    return Idle, Feeder(), failure
+
+
+def commit_tick(subject, cond, what: str, n_commits: list) -> float:
+    """Hand the subject's rows to the engine (one tick), then wait until
+    cond() holds and that tick has ended; returns the commit's time."""
+    from pathway_tpu_torch.internals import parse_graph
+
+    subject.commit()
+    t = time.perf_counter()
+    n_commits[0] += 1
+    goal, rt = n_commits[0], parse_graph.G.runtime
+    wait_until(lambda: cond() and rt.stats.ticks >= goal, what)
+    return t
+
+
+def vector_index_run(make_inner, rows: np.ndarray, commit_rows: int, queries: np.ndarray,
+                     batches: list[int], instrument) -> dict:
+    """DataIndex over ``make_inner(vecs.vec)`` through the engine: ``rows``
+    through pw.io.python in commits of ``commit_rows`` (a tick each), then
+    ``queries`` in ticks of the sizes in ``batches`` (k = 10).
+    ``instrument(index)`` runs before the first row. Returns the index
+    object, each query's reply (data row ids, keys, scores) and
+    commit-to-reply ms, the ingest seconds, ticks and run seconds."""
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.engine.index_node import ExternalIndexExec
+    from pathway_tpu_torch.internals import parse_graph
+    from pathway_tpu_torch.stdlib.indexing import DataIndex
+
+    parse_graph.G.clear()
+
+    class VecSchema(pw.Schema):
+        vid: int = pw.column_definition(primary_key=True)
+        vec: np.ndarray
+
+    class QSchema(pw.Schema):
+        qid: int = pw.column_definition(primary_key=True)
+        qv: np.ndarray
+
+    _now = time.perf_counter
+    replies: dict[int, tuple] = {}
+    out: dict = {"replies": replies, "reply_ms": {}}
+    n_commits = [0]
+
+    def drive(qs) -> None:
+        rt = parse_graph.G.runtime
+        ix = out["index"] = next(ex.index for ex in rt.execs.values() if isinstance(ex, ExternalIndexExec))
+        instrument(ix)
+        t0 = _now()
+        for lo in range(0, len(rows), commit_rows):
+            for j in range(lo, min(lo + commit_rows, len(rows))):
+                vec_subject.next(vid=j, vec=rows[j])
+            commit_tick(vec_subject, lambda: True, "a vector commit", n_commits)
+        out["ingest_s"] = _now() - t0
+        qid = 0
+        for b in batches:
+            tick = list(range(qid, qid + b))
+            for q in tick:
+                qs.next(qid=q, qv=queries[q])
+            t = commit_tick(qs, lambda: all(q in replies for q in tick), "a query's reply", n_commits)
+            for q in tick:
+                out["reply_ms"][q] = (replies[q][0] - t) * 1e3
+            qid += b
+
+    Idle, feeder, failure = driven_subjects(pw, drive)
+    vec_subject = Idle()
+    vecs = pw.io.python.read(vec_subject, schema=VecSchema, autocommit_duration_ms=None)
+    qs_table = pw.io.python.read(feeder, schema=QSchema, autocommit_duration_ms=None)
+    res = DataIndex(vecs, make_inner(vecs.vec)).query_as_of_now(qs_table.qv, number_of_matches=K).select(
+        qid=pw.left.qid, vids=pw.right.vid, ids=pw.right._pw_index_reply_id,
+        scores=pw.right._pw_index_reply_score)
+
+    def on_reply(key, row, time, is_addition):
+        if is_addition and row["qid"] not in replies:
+            replies[row["qid"]] = (_now(), row["vids"], row["ids"], row["scores"])
+
+    pw.io.subscribe(res, on_change=on_reply)
+    t_run = _now()
+    pw.run()
+    out["run_s"] = _now() - t_run
+    if failure:
+        raise failure[0]
+    out["replies"] = {q: r[1:] for q, r in replies.items()}
+    out["ticks"] = parse_graph.G.last_runtime.stats.ticks
+    check(out["ticks"] == n_commits[0] + 1, f"{out['ticks']} ticks for {n_commits[0]} commits")
+    parse_graph.G.clear()
+    return out
+
+
+def timed(obj, name: str, into: list, scale: float = 1.0) -> None:
+    """Wrap the method ``name`` of ``obj`` to append each call's seconds x
+    ``scale`` to ``into``."""
+    fn = getattr(obj, name)
+
+    def wrapper(*a, **kw):
+        t0 = time.perf_counter()
+        result = fn(*a, **kw)
+        into.append((time.perf_counter() - t0) * scale)
+        return result
+
+    setattr(obj, name, wrapper)
+
+
+def ivf_engine(dev, mix: dict, truth: np.ndarray) -> dict:
+    """(b) DataIndex over IvfKnn(device="cuda") at 1M x 384 through the
+    engine: the mixture in commits of 65,536 via pw.io.python, then 64 B = 1
+    and 8 B = 16 queries (the index trains once, at the first); checked
+    against numpy and the exact top-10."""
+    from pathway_tpu_torch.stdlib.indexing import IvfKnn
+
+    corpus, eq = mix["corpus"], mix["engine_queries"]
+    n = corpus.shape[0]
+    timing: dict[str, list] = {"train_s": [], "assign_s": [], "score_ms": []}
+
+    def instrument(ix) -> None:
+        train = ix._maybe_train
+
+        def maybe_train():  # times the calls that train, not the ones that return early
+            before, t0 = ix.centroids, time.perf_counter()
+            train()
+            if ix.centroids is not before:
+                timing["train_s"].append(time.perf_counter() - t0)
+
+        ix._maybe_train = maybe_train
+        timed(ix, "_flush_assign", timing["assign_s"])
+        timed(ix, "_score", timing["score_ms"], 1e3)
+
+    run = vector_index_run(lambda col: IvfKnn(col, dimensions=DIM, device=dev), corpus, IK_IVF_COMMIT, eq,
+                           [1] * IK_B1 + [16] * IK_B16, instrument)
+    ix, replies = run["index"], run["replies"]
+    check(len(timing["train_s"]) == 1 and ix._trained_size == n, f"IVF trained {len(timing['train_s'])} times")
+    c = ix.centroids
+    n_clusters = max(8, int(round(math.sqrt(n) / 8)) * 8)  # the defaults: 1000 clusters, 32 probes at 1M
+    n_probe = max(1, int(round(math.sqrt(n_clusters))))
+    check(c.shape == (n_clusters, DIM), f"IVF centroids {c.shape}")
+    c2 = np.sum(c * c, axis=1)
+    cn = corpus / np.linalg.norm(corpus, axis=1, keepdims=True)
+    hits, score_err = 0, 0.0
+    for q in range(len(eq)):
+        vids, ids, scores = replies[q]
+        check(len(vids) == K, f"IVF query {q} returned {len(vids)} of {K}")
+        check(all(a >= b for a, b in zip(scores, scores[1:])), f"IVF query {q}: not in descending order")
+        qn = eq[q] / np.linalg.norm(eq[q])
+        want = cn[list(vids)].astype(np.float64) @ qn.astype(np.float64) - 1.0
+        score_err = max(score_err, float(np.max(np.abs(want - np.asarray(scores)))))
+        d = c2 - 2.0 * (qn.astype(np.float32)[None, :] @ c.T)[0]
+        probes = set(np.argpartition(d, n_probe - 1)[:n_probe].tolist())
+        check(all(ix.key_cluster[int(k)] in probes for k in ids), f"IVF query {q}: a key outside its probes")
+        hits += len(set(int(v) for v in vids) & set(truth[q].tolist()))
+    check(score_err <= IK_SCORE_TOL, f"IVF scores differ from numpy's cosine - 1 by {score_err}")
+    recall = hits / (len(eq) * K)
+    check(recall >= IK_RECALL, f"IVF recall@10 {recall} through the engine")
+
+    def lat(qids):
+        ms = [run["reply_ms"][q] for q in qids]
+        return {"p50": float(np.percentile(ms, 50)), "max": float(np.max(ms)), "n": len(ms)}
+
+    out = {
+        "rows": n, "clusters": int(c.shape[0]), "n_probe": n_probe,
+        "ingest_s": run["ingest_s"], "ingest_rows_per_s": n / run["ingest_s"],
+        "train_s": timing["train_s"][0],
+        "assign_s": max(timing["assign_s"]),  # the flush of every key after training
+        "first_reply_ms": run["reply_ms"][0],
+        "reply_ms": {"B=1": lat(range(1, IK_B1)), "B=16": lat(range(IK_B1, len(eq)))},
+        "host_score_ms_per_query": {"p50": float(np.percentile(timing["score_ms"], 50)),
+                                    "max": float(np.max(timing["score_ms"]))},
+        "recall_at_10": recall, "max_score_err": score_err, "ticks": run["ticks"], "run_s": run["run_s"],
+    }
+    return out
+
+
+def ivf_device(dev, mix: dict, truth: np.ndarray) -> tuple[dict, object]:
+    """(c) IvfDeviceIndex at bench.py's accelerator shape: 1M x 384,
+    n_probe None, spill 2, its 50 queries."""
+    from pathway_tpu_torch.ops.ivf import IvfDeviceIndex
+
+    corpus, dq = mix["corpus"], mix["device_queries"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ix = IvfDeviceIndex(corpus, n_probe=None, spill=2, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    ix.query(dq[0], K)  # warm-up
+    lat, hits = [], 0
+    for i, q in enumerate(dq):
+        t0 = time.perf_counter()
+        _s, ids = ix.query(q, K)
+        lat.append((time.perf_counter() - t0) * 1e3)
+        check(len(ids) == K and len(set(ids.tolist())) == K, f"IvfDeviceIndex query {i}: {len(ids)} ids, duplicates")
+        hits += len(set(ids.tolist()) & set(truth[i].tolist()))
+    recall = hits / (len(dq) * K)
+    check(recall >= IK_RECALL, f"IvfDeviceIndex recall@10 {recall}")
+    out = {"rows": corpus.shape[0], "clusters": ix.n_clusters, "n_probe": ix.n_probe, "spill": ix.spill,
+           "corpus_bytes_on_device": ix.corpus_dev.numel() * 4, "build_s": build_s,
+           "query_ms": {"p50": float(np.percentile(lat, 50)), "max": float(np.max(lat)), "n": len(lat)},
+           "recall_at_10": recall}
+    return out, ix
+
+
+def lsh_index(dev, mix: dict) -> tuple[dict, object]:
+    """(d) DataIndex over LshKnn(dimensions=384, device="cuda") at the
+    reference defaults over the mixture's first 65,536 rows (one commit),
+    then 16 queries at B = 1, each near one of those rows."""
+    from pathway_tpu_torch.ops.lsh import lsh_buckets
+    from pathway_tpu_torch.stdlib.indexing import LshKnn
+
+    rows = mix["corpus"][:IK_LSH_ROWS]
+    # queries near rows of the indexed part: a row plus the mixture's 0.1 query noise
+    rng = np.random.default_rng(SEED + 19)
+    eq = rows[rng.choice(IK_LSH_ROWS, IK_LSH_QUERIES)] + 0.1 * rng.normal(size=(IK_LSH_QUERIES, DIM)).astype(np.float32)
+    upsert_s: list[float] = []
+    run = vector_index_run(lambda col: LshKnn(col, dimensions=DIM, device=dev), rows, IK_LSH_ROWS, eq,
+                           [1] * IK_LSH_QUERIES, lambda ix: timed(ix, "upsert", upsert_s))
+    ix, replies = run["index"], run["replies"]
+    # the card's bucket ids (the index's tables) against the port's plain
+    # CPU computation; a row may differ only where its projection is within
+    # LSH_EDGE x bucket_length of a cell edge (f32 sums in another order)
+    keys = list(ix.vectors)
+    card = {key: [0] * ix.n_or for key in keys}
+    for t, table in enumerate(ix.buckets):
+        for b, members in table.items():
+            for key in members:
+                card[key][t] = b
+    x = torch.from_numpy(np.stack([ix.vectors[k] for k in keys]))
+    planes, offsets = ix.planes.cpu(), ix.offsets.cpu()
+    cpu = lsh_buckets(x, planes, offsets, ix.bucket_length).numpy()
+    cells = (torch.einsum("nd,oad->noa", x, planes) + offsets[None]) / ix.bucket_length
+    edge = ((cells - torch.round(cells)).abs() < LSH_EDGE).flatten(1).any(dim=1).numpy()
+    differ = np.array([card[k] != cpu[i].tolist() for i, k in enumerate(keys)])
+    check(not (differ & ~edge).any(), f"{int((differ & ~edge).sum())} LSH rows hash otherwise away from an edge")
+    # replies: each key shares a bucket with its query, each score is -|q - v|^2
+    score_err = 0.0
+    for q in range(IK_LSH_QUERIES):
+        vids, ids, scores = replies[q]
+        qb = ix._bucket_ids(eq[q][None])[0]
+        check(len(ids) > 0, f"LSH query {q} found no candidate")
+        for key, vid, s in zip(ids, vids, scores):
+            check(any(int(key) in ix.buckets[t].get(int(b), ()) for t, b in enumerate(qb)),
+                  f"LSH query {q}: key {key} shares no bucket with the query")
+            want = -float(np.sum((eq[q].astype(np.float64) - rows[vid]) ** 2))
+            score_err = max(score_err, abs(want - s) / abs(want))
+        check(all(a >= b for a, b in zip(scores, scores[1:])), f"LSH query {q}: not in descending order")
+    check(score_err <= IK_SCORE_TOL, f"LSH scores differ from -|q - v|^2 by {score_err} (relative)")
+    return {"rows": IK_LSH_ROWS, "n_or": ix.n_or, "n_and": int(ix.planes.shape[1]),
+            "bucket_length": ix.bucket_length, "ingest_s": run["ingest_s"],
+            "upsert_us_per_row": sum(upsert_s) / IK_LSH_ROWS * 1e6,
+            "bucket_rows_differ_from_cpu": int(differ.sum()), "bucket_rows_near_an_edge": int(edge.sum()),
+            "queries": IK_LSH_QUERIES, "matches": sum(len(r[0]) for r in replies.values()),
+            "max_score_rel_err": score_err}, ix
+
+
+def op_row(name: str, shape: str, ms: float, nbytes: float, ops: float, rate: float) -> dict:
+    t_bytes = nbytes / rate * 1e3
+    t_ops = ops / PEAK_OPS_PER_S["float32"] * 1e3
+    return {"op": name, "shape": shape, "ms": ms, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations", "bytes": nbytes, "ops": ops}
+
+
+def device_ops(dev, mix: dict, ivf_ix, lsh_ix, rate: float) -> tuple[list[dict], dict]:
+    """The plain-torch device ops under the index kinds (not TPU kernels):
+    time per call against its bound, and the segment ops against numpy on
+    1,048,576 values into 4096 segments (some empty, a few ids out of
+    range), f32 and int32."""
+    from pathway_tpu_torch.ops import segment as seg
+    from pathway_tpu_torch.ops.ivf import _assign_impl
+    from pathway_tpu_torch.ops.lsh import lsh_buckets
+
+    rows = []
+    x = torch.from_numpy(mix["corpus"][:262_144]).to(dev)
+    c = ivf_ix.cent_dev
+    n, cl = x.shape[0], c.shape[0]
+    rows.append(op_row("ivf._assign_impl", f"[{n}, {DIM}] x [{cl}, {DIM}]", cuda_ms(lambda: _assign_impl(x, c), 5),
+                       (n + cl) * DIM * 4 + n * 8, 2.0 * n * cl * DIM, rate))
+    del x
+    bucket = 1 << 15
+    idx = torch.randint(0, ivf_ix.corpus_dev.shape[0], (bucket,), device=dev)
+    valid = torch.ones(bucket, dtype=torch.bool, device=dev)
+    q = torch.from_numpy(mix["device_queries"][0]).to(dev)
+    rows.append(op_row("IvfDeviceIndex._fine", f"bucket {bucket}, D {DIM}, k {K}",
+                       cuda_ms(lambda: ivf_ix._fine(q, idx, valid, K)), bucket * (DIM * 4 + 9) + DIM * 4,
+                       2.0 * bucket * DIM, rate))
+    o, a = lsh_ix.planes.shape[:2]
+    for nr in (1, IK_LSH_ROWS):
+        v = torch.from_numpy(mix["corpus"][:nr]).to(dev)
+        rows.append(op_row("lsh_buckets", f"[{nr}, {DIM}], n_or {o}, n_and {a}",
+                           cuda_ms(lambda: lsh_buckets(v, lsh_ix.planes, lsh_ix.offsets, lsh_ix.bucket_length)),
+                           (nr + o * a) * DIM * 4 + o * a * 4 + nr * o * 4, 2.0 * nr * o * a * DIM, rate))
+    rng = np.random.default_rng(SEED + 17)
+    ids = rng.integers(0, IK_SEG_SEGMENTS, size=IK_SEG_VALUES)
+    ids[ids % 97 == 0] += 1  # every 97th segment stays empty
+    ids[:8] = [-1, -5, IK_SEG_SEGMENTS, IK_SEG_SEGMENTS + 3, 0, 1, 2, 3]  # out of range: dropped
+    ids = ids.astype(np.int32)
+    keep = (ids >= 0) & (ids < IK_SEG_SEGMENTS)
+    empty = np.bincount(ids[keep], minlength=IK_SEG_SEGMENTS) == 0
+    check(empty.any(), "no empty segment")
+    ids_t = torch.from_numpy(ids).to(dev)
+    errs = {}
+    for dtype in (np.float32, np.int32):
+        vals = (rng.normal(size=IK_SEG_VALUES) * 1000).astype(dtype)
+        vals_t = torch.from_numpy(vals).to(dev)
+        kv, ki = vals[keep], ids[keep]
+        info = np.iinfo(np.int32)
+        lo_id, hi_id = (-np.inf, np.inf) if dtype == np.float32 else (info.min, info.max)
+        s = np.zeros(IK_SEG_SEGMENTS, np.float64)
+        np.add.at(s, ki, kv.astype(np.float64))
+        scale = np.zeros(IK_SEG_SEGMENTS, np.float64)  # sum of |v|: what f32 rounding scales with
+        np.add.at(scale, ki, np.abs(kv.astype(np.float64)))
+        cnt = np.bincount(ki, minlength=IK_SEG_SEGMENTS)
+        mx = np.full(IK_SEG_SEGMENTS, lo_id, dtype)
+        np.maximum.at(mx, ki, kv)
+        mn = np.full(IK_SEG_SEGMENTS, hi_id, dtype)
+        np.minimum.at(mn, ki, kv)
+        want = {"segment_sum": (s, scale), "segment_mean": (s / np.maximum(cnt, 1), scale / np.maximum(cnt, 1)),
+                "segment_max": (mx, None), "segment_min": (mn, None)}
+        name = np.dtype(dtype).name
+        for op, (ref, sc) in want.items():
+            fn = getattr(seg, op)
+            got = fn(vals_t, ids_t, IK_SEG_SEGMENTS).cpu().numpy()
+            if sc is None:
+                check(np.array_equal(got, ref), f"{op} {name} differs from numpy")
+                err = 0.0
+            else:
+                err = float(np.max(np.abs(got.astype(np.float64) - ref) / np.maximum(sc, 1.0)))
+                # an int sum is exact; a float sum or mean runs in another order
+                check(err == 0.0 if (dtype == np.int32 and op == "segment_sum") else err <= 1e-5,
+                      f"{op} {name} differs from numpy by {err}")
+            errs[f"{op} {name}"] = err
+            rows.append(op_row(op, f"{IK_SEG_VALUES} {name} -> {IK_SEG_SEGMENTS} segments",
+                               cuda_ms(lambda fn=fn: fn(vals_t, ids_t, IK_SEG_SEGMENTS)),
+                               IK_SEG_VALUES * 8 + IK_SEG_SEGMENTS * 4, float(IK_SEG_VALUES), rate))
+    got = seg.segment_count(ids_t, IK_SEG_SEGMENTS).cpu().numpy()
+    check(np.array_equal(got, np.bincount(ids[keep], minlength=IK_SEG_SEGMENTS)), "segment_count differs")
+    rows.append(op_row("segment_count", f"{IK_SEG_VALUES} -> {IK_SEG_SEGMENTS} segments",
+                       cuda_ms(lambda: seg.segment_count(ids_t, IK_SEG_SEGMENTS)),
+                       IK_SEG_VALUES * 4 + IK_SEG_SEGMENTS * 4, float(IK_SEG_VALUES), rate))
+    return rows, {"empty_segments": int(empty.sum()), "dropped_ids": int((~keep).sum()), "rel_err": errs}
+
+
+def index_kinds(dev, smi: str, rate: float) -> tuple[dict, dict]:
+    """Phase 8: the other index kinds on the card — (a) a hybrid
+    DocumentStore, (b) IvfKnn through the engine at 1M x 384, (c)
+    IvfDeviceIndex at bench.py's shape, (d) LshKnn and the segment ops."""
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    hybrid, hybrid_data = hybrid_store(dev)
+    hybrid["part_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mix = ivf_mixture()
+    mixture_s = time.perf_counter() - t0
+    truth, gt = exact_top10(dev, mix["corpus"], np.concatenate([mix["engine_queries"], mix["device_queries"]]))
+    n_eng = len(mix["engine_queries"])
+    t0 = time.perf_counter()
+    ivf = ivf_engine(dev, mix, truth[:n_eng])
+    ivf["part_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ivf_dev, ivf_ix = ivf_device(dev, mix, truth[n_eng:])
+    ivf_dev["part_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lsh, lsh_ix = lsh_index(dev, mix)
+    lsh["part_s"] = time.perf_counter() - t0
+    ops, seg_check = device_ops(dev, mix, ivf_ix, lsh_ix, rate)
+    del ivf_ix, lsh_ix, mix
+    phase = {
+        "phase": "index kinds",
+        "nvidia_smi": smi,
+        "hybrid_document_store": hybrid,
+        "ivf_knn_engine": ivf,
+        "ivf_device_index": ivf_dev,
+        "lsh_knn": lsh,
+        "segment_ops": seg_check,
+        "device_ops": ops,
+        "mixture_s": mixture_s,
+        "ground_truth_launches_by_shape": {f"B={b},k={k}": n for (b, k), n in sorted(gt["shapes"].items())},
+        "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    return phase, {"hybrid": hybrid_data, "ground_truth": gt}
+
+
+# --- phase 9: generation ------------------------------------------------------
 
 
 class StepRecorder:
@@ -2788,7 +3633,7 @@ def generation(dev, main: dict) -> tuple[dict, dict]:
     }
 
 
-# --- phase 9: durability ------------------------------------------------------
+# --- phase 10: durability ------------------------------------------------------
 
 
 def kill_child(prompts_path: str) -> int:
@@ -3138,17 +3983,19 @@ def durability(dev, gen: dict) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-# --- phase 10: kernel times ---------------------------------------------------
+# --- phase 11: kernel times ---------------------------------------------------
 
 
-def kernel_times(main: dict, eng: dict, vs: dict, rest: dict, persist: dict, gen: dict, rate: float,
-                 rate_src: str) -> list[dict]:
+def kernel_times(main: dict, eng: dict, vs: dict, rest: dict, persist: dict, ik: dict, gen: dict,
+                 rate: float, rate_src: str) -> list[dict]:
     from pathway_tpu_torch.ops import block_topk as bt
     from pathway_tpu_torch.ops.knn import BLK, _normalize
 
     # (B, k, queries, launches of that shape on its path, path, its corpus)
     m_corpus, e_corpus = (main["prep"], main["valid"]), (eng["prep"], eng["valid"])
     v_corpus = (vs["prep"], vs["valid"])
+    hyb, gt = ik["hybrid"], ik["ground_truth"]
+    h_corpus = (hyb["prep"], hyb["valid"])
     path_shapes = [
         (1, K, main["queries"][1], main["shapes"].get((1, K), 0), "retrieval", m_corpus),
         (16, K, main["queries"][16], main["shapes"].get((16, K), 0), "retrieval", m_corpus),
@@ -3166,6 +4013,10 @@ def kernel_times(main: dict, eng: dict, vs: dict, rest: dict, persist: dict, gen
          (persist["prep"], persist["valid"])),
         (16, K, persist["queries"][16], persist["shapes"].get((16, K), 0), "persistence (restored)",
          (persist["prep"], persist["valid"])),
+        (1, K, hyb["queries"][1], hyb["shapes"].get((1, K), 0), "index kinds (hybrid)", h_corpus),
+        (16, K, hyb["queries"][16], hyb["shapes"].get((16, K), 0), "index kinds (hybrid)", h_corpus),
+        (16, K, gt["queries"][16], gt["shapes"].get((16, K), 0), "index kinds (IVF ground truth)",
+         (gt["prep"], gt["valid"])),
     ] + [
         # every shape the REST phase launched: the gate's micro-batches and
         # the concurrent ungated ticks after the index's pad ladder
@@ -3227,6 +4078,9 @@ def kernel_times(main: dict, eng: dict, vs: dict, rest: dict, persist: dict, gen
         "rest_launches_by_shape": {f"B={b},k={k}": n for (b, k), n in sorted(rest["shapes"].items())},
         "persistence_launches": persist["launches"],
         "persistence_launches_by_shape": {f"B={b},k={k}": n for (b, k), n in sorted(persist["shapes"].items())},
+        "index_kinds_launches": hyb["launches"],
+        "index_kinds_launches_by_shape": {f"B={b},k={k}": n for (b, k), n in sorted(hyb["shapes"].items())},
+        "ivf_ground_truth_launches_by_shape": {f"B={b},k={k}": n for (b, k), n in sorted(gt["shapes"].items())},
         "max_abs_err": max(p["max_abs_err"] for p in per_batch),
         "ms": head["ms"],
         "plain_ms": head["plain_ms"],
@@ -3368,11 +4222,13 @@ def main() -> int:
     phase, persist_data = persistence(dev, smi, vs_phase, vs_data, corpus)
     emit(phase)
     del corpus
+    phase, ik_data = index_kinds(dev, smi, rate)
+    emit(phase)
     phase, gen_data = generation(dev, main_data)
     emit(phase)
     emit(durability(dev, gen_data))
-    kernels = kernel_times(main_data, engine_data, vs_data, rest_data, persist_data, gen_data, rate,
-                           rate_src) + [
+    kernels = kernel_times(main_data, engine_data, vs_data, rest_data, persist_data, ik_data, gen_data,
+                           rate, rate_src) + [
         paged_kernel_times(gen_data, rate, rate_src)
     ]
     emit({"phase": "kernels", "kernels": kernels})

@@ -8,7 +8,8 @@ What is ported: the incremental dataflow engine and its Table API
 ``pw.this``, ``pw.reducers``, ``pw.udf``, ``pw.io.python``,
 ``pw.io.subscribe``, the file connectors ``pw.io.fs``/``csv``/``jsonlines``/
 ``plaintext``/``null``, ``pw.debug``, ``pw.run``, ``pw.persistence``),
-live-RAG retrieval (embedder UDF → ``DataIndex`` → dense top-k), and
+live-RAG retrieval (embedder UDF → ``DataIndex`` → dense top-k, or the
+IVF, LSH, BM25 and hybrid indexes; ``pw.stdlib.ml.KNNIndex``), and
 generation serving.
 
 Modules keep the JAX package's paths and public names so each counterpart is
@@ -27,6 +28,7 @@ from __future__ import annotations
 import pathway_tpu_torch.reducers as reducers
 from pathway_tpu_torch import debug, io
 from pathway_tpu_torch._device import resolve_device
+from pathway_tpu_torch._unported import ROOT_NAMES, unported
 from pathway_tpu_torch.internals import (
     UDF,
     ColumnExpression,
@@ -89,17 +91,20 @@ import pathway_tpu_torch.persistence as persistence
 
 def __getattr__(name: str):
     # stdlib subpackages load lazily, as in the reference; Duration builds
-    # (and imports pandas) only when asked for
+    # (and imports pandas) only when asked for; a reference root name the
+    # port lacks raises naming its ROADMAP item
     import importlib
 
     if name == "Duration":
         from pathway_tpu_torch.internals import datetime_types
 
         return datetime_types.Duration
-    if name == "indexing":
-        module = importlib.import_module("pathway_tpu_torch.stdlib.indexing")
-    elif name == "xpacks":
-        module = importlib.import_module("pathway_tpu_torch.xpacks")
+    if name in ("indexing", "ml"):
+        module = importlib.import_module(f"pathway_tpu_torch.stdlib.{name}")
+    elif name in ("stdlib", "xpacks"):
+        module = importlib.import_module(f"pathway_tpu_torch.{name}")
+    elif name in ROOT_NAMES:
+        raise unported(f"pw.{name}", ROOT_NAMES[name])
     else:
         raise AttributeError(name)
     globals()[name] = module
@@ -112,6 +117,7 @@ __all__ = [
     "debug",
     "io",
     "indexing",
+    "ml",
     "xpacks",
     "reducers",
     "apply",

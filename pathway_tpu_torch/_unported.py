@@ -6,13 +6,42 @@ behaviour."""
 from __future__ import annotations
 
 COMPILED_TICKS = "[compiled-ticks] (compiled ticks)"
-INDEX_KINDS = "[index-kinds] (IVF/LSH/segment ops)"
+CORE_API = "[core-api] (the rest of the Table API)"
 MESH = "[mesh] (multi-device: engine mesh, DCN, sharded top-k)"
 REPLICATION = "[replication] (parallel/replicate.py and the replica)"
-BM25_HYBRID = "[index-kinds] (BM25, hybrid and document-index helpers)"
 TEMPORAL = "[temporal] (temporal nodes and windows)"
 CONNECTORS = "[connectors] (service connectors)"
 OBSERVABILITY = "[observability] (the rest of observability)"
+ML_REST = "[ml-rest] (the LSH classifiers, the fuzzy join, hmm)"
+STDLIB_REST = "[stdlib-rest] (graphs, viz)"
+
+# ``pw.stdlib.<name>`` the port lacks (each is a root name too)
+STDLIB_NAMES = {
+    "graphs": STDLIB_REST,
+    "viz": STDLIB_REST,
+    "ordered": TEMPORAL,
+    "stateful": TEMPORAL,
+    "statistical": TEMPORAL,
+    "temporal": TEMPORAL,
+    "utils": CORE_API,
+}
+
+# root names of the reference the port lacks, each with its item
+ROOT_NAMES = {
+    **STDLIB_NAMES,
+    **dict.fromkeys(
+        (
+            "iterate", "iterate_universe", "transformer", "ClassArg", "attribute",
+            "input_attribute", "input_method", "method", "output_attribute", "sql",
+            "AsyncTransformer", "pandas_transformer", "LiveTable", "live", "load_yaml",
+            "udfs", "universes", "demo", "set_license_key", "set_monitoring_config",
+            "enable_interactive_mode", "table_transformer", "TableSlice",
+        ),
+        CORE_API,
+    ),
+    **dict.fromkeys(("AsofJoinResult", "IntervalJoinResult", "WindowJoinResult"), TEMPORAL),
+    "analysis": OBSERVABILITY,
+}
 
 
 def unported(what: str, item: str) -> NotImplementedError:

@@ -1,7 +1,8 @@
 """pathway_tpu_torch.ops — dense KNN with the hand-written block top-k kernel,
-and ragged paged attention with the hand-written decode kernel (counterpart
-of ``pathway_tpu/ops/__init__.py``; the retrieval and generation ops are
-ported so far). The raw kernel wrappers are ``ops.block_topk.block_topk`` and
+ragged paged attention with the hand-written decode kernel, and the plain
+torch device ops: IVF (``ops.ivf``), LSH hashing (``ops.lsh``) and the
+segment reductions (``ops.segment``) (counterpart of
+``pathway_tpu/ops/__init__.py``). The raw kernel wrappers are ``ops.block_topk.block_topk`` and
 ``ops.paged_attention.paged_attention``; the names ``block_topk`` and
 ``paged_attention`` here stay the modules."""
 
@@ -15,6 +16,7 @@ from pathway_tpu_torch.ops.knn import (
     prepare_corpus,
 )
 from pathway_tpu_torch.ops.paged_attention import lane_pad, paged_attention_ref
+from pathway_tpu_torch.ops.segment import segment_count, segment_mean, segment_sum
 
 __all__ = [
     "KnnParams",
@@ -27,4 +29,7 @@ __all__ = [
     "dense_topk_kernel",
     "lane_pad",
     "paged_attention_ref",
+    "segment_sum",
+    "segment_count",
+    "segment_mean",
 ]

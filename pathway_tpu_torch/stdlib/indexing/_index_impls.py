@@ -1,7 +1,15 @@
-"""Dense KNN index with a device-resident corpus — counterpart of
-``TpuDenseKnnIndex`` in ``pathway_tpu/stdlib/indexing/_index_impls.py``.
+"""Host-side index objects behind the engine's ``ExternalIndexNode`` —
+counterpart of ``pathway_tpu/stdlib/indexing/_index_impls.py``:
 
-Same surface and results as the JAX class: ``upsert``/``remove``/``keys``/
+* ``TpuDenseKnnIndex`` — exact dense KNN over a device-resident corpus;
+* ``Bm25Index`` — a host-side BM25 inverted index (no device part, as in
+  the reference);
+* ``LshKnnIndex`` — LSH candidate buckets from device projections, exact
+  rerank of the candidates on the host;
+* ``IvfKnnIndex`` — two-level IVF: training and assignment on the device,
+  the candidates scored on the host, as the reference splits it.
+
+``TpuDenseKnnIndex``: same surface and results as the JAX class: ``upsert``/``remove``/``keys``/
 ``filter_keys`` (with compaction)/``resident_bytes``, the same
 ``state_dict``/``load_state`` format (host-side numpy content, loadable by
 either package), the power-of-two query-batch ladder, the x4 oversample when
@@ -21,12 +29,20 @@ default here goes through the hand-written kernel on the card:
   corpus its wrapper runs the plain version).
 
 ``l2sq`` always takes the torch matmul path, as it takes the XLA path in JAX.
+
+The other three keep the reference's attribute names and ``state_dict``
+keys, so their snapshots cross the packages both ways; ``Bm25Index`` has no
+``state_dict`` and is pickled whole, so its attributes and their types are
+the reference's (``postings`` a ``defaultdict(dict)``).
 """
 
 from __future__ import annotations
 
+import math
 import os
+import re
 import time
+from collections import defaultdict
 from typing import Any, Sequence
 
 import numpy as np
@@ -34,6 +50,8 @@ import torch
 
 from pathway_tpu_torch._device import resolve_device
 from pathway_tpu_torch.ops import block_topk as bt
+from pathway_tpu_torch.ops.ivf import assign_clusters, train_centroids
+from pathway_tpu_torch.ops.lsh import lsh_buckets, make_projections
 from pathway_tpu_torch.observability import tickscope
 from pathway_tpu_torch.ops.knn import DeviceCorpus, dense_topk_prepared
 from pathway_tpu_torch.stdlib.indexing._filters import compile_filter
@@ -217,6 +235,349 @@ class TpuDenseKnnIndex:
                 if pred is not None and not pred(self.metadata.get(key)):
                     continue
                 matches.append((key, float(scores[qi, j])))
+                if len(matches) >= int(k):
+                    break
+            out.append(tuple(matches))
+        return out
+
+
+_WORD = re.compile(r"\w+", re.UNICODE)
+
+
+class Bm25Index:
+    """BM25 full-text index (reference: tantivy_integration.rs:16); host only.
+    Replies rank by score, ties in the order ``postings`` met the documents
+    (Python's stable ``sorted``), as in the reference."""
+
+    def __init__(self, k1: float = 1.2, b: float = 0.75):
+        self.k1 = k1
+        self.b = b
+        self.docs: dict[int, dict[str, int]] = {}
+        self.doc_len: dict[int, int] = {}
+        self.postings: dict[str, dict[int, int]] = defaultdict(dict)
+        self.metadata: dict[int, Any] = {}
+
+    @staticmethod
+    def _tokens(text: str) -> list[str]:
+        return [w.lower() for w in _WORD.findall(str(text))]
+
+    def upsert(self, key: int, data: Any, metadata: Any) -> None:
+        self.remove(key)
+        tf: dict[str, int] = defaultdict(int)
+        toks = self._tokens(data)
+        for tok in toks:
+            tf[tok] += 1
+        self.docs[key] = dict(tf)
+        self.doc_len[key] = len(toks)
+        for tok, c in tf.items():
+            self.postings[tok][key] = c
+        if metadata is not None:
+            self.metadata[key] = metadata
+
+    def remove(self, key: int) -> None:
+        tf = self.docs.pop(key, None)
+        if tf:
+            for tok in tf:
+                self.postings[tok].pop(key, None)
+        self.doc_len.pop(key, None)
+        self.metadata.pop(key, None)
+
+    def search(self, queries: Sequence[tuple[Any, int, Any]]):
+        n = len(self.docs)
+        if n == 0:
+            return [() for _ in queries]
+        avg_len = sum(self.doc_len.values()) / n
+        out = []
+        for qtext, k, flt in queries:
+            pred = compile_filter(flt) if flt else None
+            scores: dict[int, float] = defaultdict(float)
+            for tok in self._tokens(qtext):
+                plist = self.postings.get(tok)
+                if not plist:
+                    continue
+                idf = math.log(1 + (n - len(plist) + 0.5) / (len(plist) + 0.5))
+                for doc, tf in plist.items():
+                    dl = self.doc_len[doc] or 1
+                    scores[doc] += (
+                        idf
+                        * tf
+                        * (self.k1 + 1)
+                        / (tf + self.k1 * (1 - self.b + self.b * dl / avg_len))
+                    )
+            ranked = sorted(scores.items(), key=lambda kv: -kv[1])
+            matches = []
+            for doc, s in ranked:
+                if pred is not None and not pred(self.metadata.get(doc)):
+                    continue
+                matches.append((doc, float(s)))
+                if len(matches) >= int(k):
+                    break
+            out.append(tuple(matches))
+        return out
+
+
+class LshKnnIndex:
+    """LSH-bucketed ANN: device projections pick candidate buckets, exact
+    rerank of the candidates on the host (reference:
+    stdlib/ml/classifiers/_lsh.py). ``upsert`` and ``remove`` hash one row
+    each: one device call and one host sync per row, as in the reference."""
+
+    def __init__(
+        self,
+        dimensions: int,
+        n_or: int = 8,
+        n_and: int = 4,
+        bucket_length: float = 4.0,
+        metric: str = "l2sq",
+        seed: int = 42,
+        device: str | torch.device = "cuda",
+    ):
+        self.dim = dimensions
+        self.n_or = n_or
+        self.bucket_length = bucket_length
+        self.metric = metric
+        self.device = resolve_device(device)
+        self.planes, self.offsets = make_projections(
+            dimensions, n_or, n_and, bucket_length, seed, device=self.device
+        )
+        self.buckets: list[dict[int, set[int]]] = [defaultdict(set) for _ in range(n_or)]
+        self.vectors: dict[int, np.ndarray] = {}
+        self.metadata: dict[int, Any] = {}
+
+    def _bucket_ids(self, vecs: np.ndarray) -> np.ndarray:
+        v = torch.from_numpy(np.ascontiguousarray(vecs, dtype=np.float32)).to(self.device)
+        return lsh_buckets(v, self.planes, self.offsets, self.bucket_length).cpu().numpy()
+
+    def upsert(self, key: int, data: Any, metadata: Any) -> None:
+        vec = _as_vector(data)
+        self.remove(key)
+        self.vectors[key] = vec
+        ids = self._bucket_ids(vec[None])[0]
+        for t, b in enumerate(ids):
+            self.buckets[t][int(b)].add(key)
+        if metadata is not None:
+            self.metadata[key] = metadata
+
+    def remove(self, key: int) -> None:
+        vec = self.vectors.pop(key, None)
+        if vec is not None:
+            ids = self._bucket_ids(vec[None])[0]
+            for t, b in enumerate(ids):
+                self.buckets[t][int(b)].discard(key)
+        self.metadata.pop(key, None)
+
+    def state_dict(self) -> dict:
+        # the planes and offsets follow from the constructor's arguments, so
+        # only the mutable content snapshots (no device tensors)
+        return {
+            "buckets": [dict(b) for b in self.buckets],
+            "vectors": self.vectors,
+            "metadata": self.metadata,
+        }
+
+    def load_state(self, state: dict) -> None:
+        self.buckets = [defaultdict(set, b) for b in state["buckets"]]
+        self.vectors = dict(state["vectors"])
+        self.metadata = dict(state["metadata"])
+
+    def search(self, queries: Sequence[tuple[Any, int, Any]]):
+        if not self.vectors:
+            return [() for _ in queries]
+        qmat = np.stack([_as_vector(q) for q, _k, _f in queries])
+        all_ids = self._bucket_ids(qmat)
+        out = []
+        for qi, (q, k, flt) in enumerate(queries):
+            pred = compile_filter(flt) if flt else None
+            candidates: set[int] = set()
+            for t, b in enumerate(all_ids[qi]):
+                candidates |= self.buckets[t].get(int(b), set())
+            if not candidates:
+                out.append(())
+                continue
+            qv = _as_vector(q)
+            scored = []
+            for key in candidates:
+                if pred is not None and not pred(self.metadata.get(key)):
+                    continue
+                v = self.vectors[key]
+                if self.metric == "cosine":
+                    # the dense indexes' convention: cos - 1, an exact match 0
+                    s = float(np.dot(qv, v) / ((np.linalg.norm(qv) * np.linalg.norm(v)) + 1e-30)) - 1.0
+                else:
+                    s = -float(np.sum((qv - v) ** 2))
+                scored.append((key, s))
+            scored.sort(key=lambda kv: -kv[1])
+            out.append(tuple(scored[: int(k)]))
+        return out
+
+
+class IvfKnnIndex:
+    """Two-level IVF KNN (design note in ``ops/ivf.py``): the coarse
+    quantization picks ``n_probe`` inverted lists, exact scoring ranks their
+    members. Below ``min_train`` points (and until training) the index scores
+    exactly over everything, so small corpora behave as the brute-force
+    index. Training and assignment run on ``device``; the coarse probe of a
+    query and the scoring of its candidates run on the host (``_score``), as
+    the reference splits it. The index trains at its first search past
+    ``min_train`` and again at 4x growth, each time reassigning every key."""
+
+    def __init__(
+        self,
+        dimensions: int | None = None,
+        metric: str = "cosine",
+        n_clusters: int | None = None,
+        n_probe: int | None = None,
+        min_train: int = 4096,
+        train_sample: int = 20000,
+        seed: int = 0,
+        device: str | torch.device = "cuda",
+    ):
+        if metric not in ("cosine", "dot", "l2sq"):
+            raise ValueError(f"unknown metric {metric!r}")
+        self.dim = dimensions
+        self.metric = metric
+        self.n_clusters = n_clusters
+        self.n_probe = n_probe
+        self.min_train = min_train
+        self.train_sample = train_sample
+        self.seed = seed
+        self.device = resolve_device(device)
+        self.vecs: dict[int, np.ndarray] = {}
+        self.metadata: dict[int, Any] = {}
+        self.centroids: np.ndarray | None = None
+        self.lists: dict[int, set[int]] = {}
+        self.key_cluster: dict[int, int] = {}
+        self._pending: list[int] = []  # keys awaiting cluster assignment
+        self._trained_size = 0
+
+    # --- maintenance ------------------------------------------------------
+
+    def _space(self, v: np.ndarray) -> np.ndarray:
+        """Clustering space: normalized for cosine (so L2 ~ angle), raw
+        otherwise."""
+        if self.metric == "cosine":
+            return v / (np.linalg.norm(v, axis=-1, keepdims=True) + 1e-30)
+        return v
+
+    def upsert(self, key: int, data: Any, metadata: Any) -> None:
+        vec = _as_vector(data)
+        if self.dim is not None and len(vec) != self.dim:
+            raise ValueError(f"IvfKnnIndex: expected {self.dim}-dim vectors, got {len(vec)}")
+        self.remove(key)
+        self.vecs[key] = vec
+        if metadata is not None:
+            self.metadata[key] = metadata
+        self._pending.append(key)
+
+    def remove(self, key: int) -> None:
+        self.vecs.pop(key, None)
+        self.metadata.pop(key, None)
+        c = self.key_cluster.pop(key, None)
+        if c is not None:
+            self.lists.get(c, set()).discard(key)
+
+    def _maybe_train(self) -> None:
+        n = len(self.vecs)
+        if n < self.min_train:
+            return
+        if self.centroids is not None and n < 4 * self._trained_size:
+            return
+        rng = np.random.default_rng(self.seed)
+        keys = list(self.vecs.keys())
+        if len(keys) > self.train_sample:
+            keys = [keys[i] for i in rng.choice(len(keys), size=self.train_sample, replace=False)]
+        sample = self._space(np.stack([self.vecs[k] for k in keys]))
+        n_clusters = self.n_clusters or max(8, int(round(math.sqrt(n) / 8)) * 8)
+        self.centroids = train_centroids(sample, n_clusters, seed=self.seed, device=self.device)
+        # reassign every key under the new centroids
+        self.lists = {}
+        self.key_cluster = {}
+        self._pending = list(self.vecs.keys())
+        self._trained_size = n
+
+    def _flush_assign(self) -> None:
+        if self.centroids is None or not self._pending:
+            return  # keep pending until training happens
+        keys = [k for k in self._pending if k in self.vecs]
+        self._pending = []
+        if not keys:
+            return
+        x = self._space(np.stack([self.vecs[k] for k in keys]))
+        assign = assign_clusters(x, self.centroids, device=self.device)
+        for k, c in zip(keys, assign.tolist()):
+            self.key_cluster[k] = c
+            self.lists.setdefault(c, set()).add(k)
+
+    # --- snapshots --------------------------------------------------------
+
+    def state_dict(self) -> dict:
+        return {
+            "vecs": self.vecs,
+            "metadata": self.metadata,
+            "centroids": self.centroids,
+            "key_cluster": self.key_cluster,
+            "trained_size": self._trained_size,
+        }
+
+    def load_state(self, state: dict) -> None:
+        self.vecs = dict(state["vecs"])
+        self.metadata = dict(state["metadata"])
+        self.centroids = state["centroids"]
+        self._trained_size = int(state.get("trained_size", 0))
+        self.key_cluster = dict(state["key_cluster"])
+        self.lists = {}
+        for k, c in self.key_cluster.items():
+            self.lists.setdefault(c, set()).add(k)
+        self._pending = [k for k in self.vecs if k not in self.key_cluster]
+
+    # --- query ------------------------------------------------------------
+
+    def _score(self, q: np.ndarray, keys: list[int]) -> np.ndarray:
+        mat = np.stack([self.vecs[k] for k in keys]).astype(np.float32)
+        qv = q.astype(np.float32)
+        if self.metric == "cosine":
+            qv = qv / (np.linalg.norm(qv) + 1e-30)
+            mat = mat / (np.linalg.norm(mat, axis=1, keepdims=True) + 1e-30)
+            return mat @ qv - 1.0  # the reference's COS convention: -(1 - cos)
+        if self.metric == "l2sq":
+            d = mat - qv[None, :]
+            return -np.sum(d * d, axis=1)
+        return mat @ qv
+
+    def search(self, queries: Sequence[tuple[Any, int, Any]]):
+        if not queries:
+            return []
+        if not self.vecs:
+            return [() for _ in queries]
+        self._maybe_train()
+        self._flush_assign()
+        out = []
+        for q, k, flt in queries:
+            if int(k) <= 0:
+                out.append(())
+                continue
+            qv = _as_vector(q)
+            if self.centroids is None:
+                cand = list(self.vecs.keys())  # exact below min_train
+            else:
+                qs = self._space(qv[None, :]).astype(np.float32)
+                c32 = self.centroids.astype(np.float32)
+                d = np.sum(c32 * c32, axis=1) - 2.0 * (qs @ c32.T)[0]
+                n_probe = self.n_probe or max(1, int(round(math.sqrt(len(c32)))))
+                n_probe = min(n_probe, len(c32))
+                probes = np.argpartition(d, n_probe - 1)[:n_probe]
+                cand = [key for c in probes.tolist() for key in self.lists.get(c, ())]
+                if not cand:
+                    cand = list(self.vecs.keys())
+            scores = self._score(qv, cand)
+            order = np.argsort(-scores, kind="stable")
+            pred = compile_filter(flt) if flt else None
+            matches = []
+            for j in order.tolist():
+                key = cand[j]
+                if pred is not None and not pred(self.metadata.get(key)):
+                    continue
+                matches.append((key, float(scores[j])))
                 if len(matches) >= int(k):
                     break
             out.append(tuple(matches))

@@ -6,10 +6,10 @@ LshKnn:262 + factories:407).
 Every dense index is the same machine: a device-resident corpus searched
 by exact top-k (``TpuDenseKnnIndex``; on CUDA the hand-written block top-k
 kernel). ``USearchKnn`` / ``BruteForceKnn`` keep the reference's parameter
-surfaces and lower to it; they take ``device=`` (default ``"cuda"``).
-``LshKnn`` and ``IvfKnn`` (and their factories) are not ported and raise
-``NotImplementedError`` (ROADMAP [index-kinds]), as does ``mesh=``
-([mesh])."""
+surfaces and lower to it. ``LshKnn`` keeps candidate-bucketing semantics
+with its projections on the device (``LshKnnIndex``); ``IvfKnn`` is the
+two-level IVF tier (``IvfKnnIndex``). Every index and factory takes
+``device=`` (default ``"cuda"``). ``mesh=`` raises (ROADMAP [mesh])."""
 
 from __future__ import annotations
 
@@ -18,8 +18,12 @@ from enum import Enum
 from typing import Any
 
 from pathway_tpu_torch.internals.expression import ColumnExpression, ColumnReference
-from pathway_tpu_torch._unported import INDEX_KINDS, MESH, unported
-from pathway_tpu_torch.stdlib.indexing._index_impls import TpuDenseKnnIndex
+from pathway_tpu_torch._unported import MESH, unported
+from pathway_tpu_torch.stdlib.indexing._index_impls import (
+    IvfKnnIndex,
+    LshKnnIndex,
+    TpuDenseKnnIndex,
+)
 from pathway_tpu_torch.stdlib.indexing.data_index import EngineInnerIndex
 from pathway_tpu_torch.stdlib.indexing.retrievers import InnerIndexFactory
 
@@ -144,6 +148,41 @@ class USearchKnn(TpuKnn):
         )
 
 
+class LshKnn(EngineInnerIndex):
+    """LSH-bucketed approximate KNN (reference:
+    stdlib/indexing/nearest_neighbors.py:262); the projections run on
+    ``device``."""
+
+    def __init__(
+        self,
+        data_column: ColumnReference,
+        metadata_column: ColumnExpression | None = None,
+        *,
+        dimensions: int,
+        n_or: int = 20,
+        n_and: int = 10,
+        bucket_length: float = 10.0,
+        distance_type: str = "euclidean",
+        embedder: Any = None,
+        device: str = "cuda",
+    ):
+        metric = "cosine" if str(distance_type) == "cosine" else "l2sq"
+        super().__init__(
+            data_column,
+            metadata_column,
+            index_factory=lambda: LshKnnIndex(
+                dimensions=dimensions,
+                n_or=n_or,
+                n_and=n_and,
+                bucket_length=bucket_length,
+                metric=metric,
+                device=device,
+            ),
+            embedder=embedder,
+        )
+        self.device = device
+
+
 # --- factories (reference: nearest_neighbors.py:407+) -----------------------
 
 
@@ -167,6 +206,23 @@ class TpuKnnFactory(InnerIndexFactory):
             mesh=self.mesh,
             device=self.device,
         )
+
+
+def _probe_dimensions(embedder) -> int:
+    """Dimensionality of an embedder (the reference's factories defer
+    dimensions to the embedder). API embedders expose
+    ``get_embedding_dimension()``; plain functions and UDF wrappers are
+    called on a sample input, awaiting coroutines."""
+    getter = getattr(embedder, "get_embedding_dimension", None)
+    if callable(getter):
+        return int(getter())
+    fn = getattr(embedder, "__wrapped__", embedder)
+    out = fn(".")
+    if hasattr(out, "__await__"):
+        import asyncio
+
+        out = asyncio.run(out)
+    return len(out)
 
 
 def _check_factory_args(dimensions, embedder) -> None:
@@ -229,25 +285,97 @@ class UsearchKnnFactory(InnerIndexFactory):
         )
 
 
-class _Unported:
-    """An index kind of the reference that the port does not carry yet:
-    constructing it raises, naming its ROADMAP tag."""
+@dataclass(kw_only=True)
+class LshKnnFactory(InnerIndexFactory):
+    dimensions: int | None = None
+    n_or: int = 20
+    n_and: int = 10
+    bucket_length: float = 10.0
+    distance_type: str = "euclidean"
+    embedder: Any = None
+    device: str = "cuda"
 
-    def __init__(self, *args: Any, **kwargs: Any):
-        raise unported(type(self).__name__, INDEX_KINDS)
+    def __post_init__(self):
+        _check_factory_args(self.dimensions, self.embedder)
+
+    def build_inner_index(self, data_column, metadata_column=None):
+        if self.dimensions is None:
+            # LSH needs the projections' width up front; probe the embedder
+            # (the dense indexes infer it at the first row instead)
+            self.dimensions = _probe_dimensions(self.embedder)
+        return LshKnn(
+            data_column,
+            metadata_column,
+            dimensions=self.dimensions,
+            n_or=self.n_or,
+            n_and=self.n_and,
+            bucket_length=self.bucket_length,
+            distance_type=self.distance_type,
+            embedder=self.embedder,
+            device=self.device,
+        )
 
 
-class LshKnn(_Unported):
-    """LSH-bucketed approximate KNN (reference: nearest_neighbors.py:262)."""
+class IvfKnn(EngineInnerIndex):
+    """Two-level IVF index: coarse quantization by matmul, exact fine
+    scoring — the sub-linear tier (design note: ``ops/ivf.py``; reference
+    counterpart: usearch HNSW, src/external_integration/
+    usearch_integration.rs:20). Training and assignment run on ``device``."""
+
+    def __init__(
+        self,
+        data_column: ColumnReference,
+        metadata_column: ColumnExpression | None = None,
+        *,
+        dimensions: int | None = None,
+        metric: Any = None,
+        n_clusters: int | None = None,
+        n_probe: int | None = None,
+        min_train: int = 4096,
+        embedder: Any = None,
+        device: str = "cuda",
+    ):
+        metric_s = _metric_name(metric)
+        super().__init__(
+            data_column,
+            metadata_column,
+            index_factory=lambda: IvfKnnIndex(
+                dimensions=dimensions,
+                metric=metric_s,
+                n_clusters=n_clusters,
+                n_probe=n_probe,
+                min_train=min_train,
+                device=device,
+            ),
+            embedder=embedder,
+        )
+        self.dimensions = dimensions
+        self.metric = metric_s
+        self.device = device
 
 
-class LshKnnFactory(_Unported):
-    pass
+@dataclass(kw_only=True)
+class IvfKnnFactory(InnerIndexFactory):
+    dimensions: int | None = None
+    metric: Any = None
+    n_clusters: int | None = None
+    n_probe: int | None = None
+    min_train: int = 4096
+    embedder: Any = None
+    device: str = "cuda"
 
+    def __post_init__(self):
+        _check_factory_args(self.dimensions, self.embedder)
 
-class IvfKnn(_Unported):
-    """Two-level IVF index (reference counterpart: usearch HNSW)."""
-
-
-class IvfKnnFactory(_Unported):
-    pass
+    def build_inner_index(self, data_column, metadata_column=None):
+        return IvfKnn(
+            data_column,
+            metadata_column,
+            dimensions=self.dimensions,
+            metric=self.metric,
+            n_clusters=self.n_clusters,
+            n_probe=self.n_probe,
+            min_train=self.min_train,
+            embedder=self.embedder,
+            device=self.device,
+        )

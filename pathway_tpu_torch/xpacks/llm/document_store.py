@@ -1,11 +1,12 @@
 """The port's own copy of ``pathway_tpu/xpacks/llm/document_store.py``:
 ``DocumentStore``, the ``VectorStoreServer`` pipeline over any retriever
-factory. It shares the store's parse/split pipeline, and so also counts
+factory — the dense ones (``BruteForceKnnFactory``, ``UsearchKnnFactory``,
+``TpuKnnFactory``), ``LshKnnFactory``, ``IvfKnnFactory``,
+``TantivyBM25Factory`` and ``HybridIndexFactory`` over any of them; each
+index factory that places data has its own ``device=``. It shares the
+store's parse/split pipeline, and so also counts
 ``pathway_vector_store_chunks_total`` and records ``vector_store.chunk``
-spans, which the JAX package's copy of the pipeline does not. The port's factories are the dense ones
-(``BruteForceKnnFactory``, ``UsearchKnnFactory``, ``TpuKnnFactory``), each
-with its own ``device=``; the BM25 and hybrid factories raise naming
-ROADMAP [index-kinds] when they are built."""
+spans, which the JAX package's copy of the pipeline does not."""
 
 from __future__ import annotations
 

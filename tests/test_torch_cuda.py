@@ -607,3 +607,55 @@ def test_persisted_index_on_the_card_restores_and_replies_as_before(dev, fresh_g
     for j in before:
         assert after[j][0] == before[j][0]
         np.testing.assert_allclose(after[j][1], before[j][1], atol=1e-5, rtol=0)
+
+
+# --- the other index kinds' device ops (plain torch, no hand kernel) -----------------
+
+
+@pytest.mark.parametrize("op", ["segment_sum", "segment_mean", "segment_max", "segment_min", "segment_count",
+                                "lsh_buckets", "assign_clusters", "ivf_fine"])
+def test_index_kind_device_op_on_the_card_matches_cpu(dev, op):
+    """Each device op under the IVF/LSH/segment indexes on the card against
+    the same call on the CPU: ints and ids exactly (small-integer LSH inputs
+    keep every f32 projection exact; the IVF data have clear margins), float
+    sums and means within 1e-5 of the segment's sum (mean) of |v| (the
+    card's atomics add in another order), IVF scores within 1e-5."""
+    from pathway_tpu_torch.ops import ivf, lsh, segment
+
+    rng = np.random.default_rng(0)
+    if op.startswith("segment"):
+        ids = torch.from_numpy(rng.integers(-3, 260, size=50_000).astype(np.int32))
+        ids[ids == 17] = 18  # an empty segment
+        for vals in (torch.from_numpy(rng.normal(size=50_000).astype(np.float32)),
+                     torch.from_numpy(rng.integers(-500, 500, size=50_000).astype(np.int32))):
+            args = (ids, 256) if op == "segment_count" else (vals, ids, 256)
+            cpu = getattr(segment, op)(*args)
+            card = getattr(segment, op)(*(a.to(dev) if torch.is_tensor(a) else a for a in args)).cpu()
+            if cpu.is_floating_point() and op in ("segment_sum", "segment_mean"):
+                scale = getattr(segment, op)(vals.abs(), ids, 256).clamp(min=1.0)
+                assert ((card - cpu).abs() <= 1e-5 * scale).all()
+            else:
+                assert torch.equal(card, cpu)
+    elif op == "lsh_buckets":
+        x = torch.from_numpy(rng.integers(-9, 10, size=(4096, 64)).astype(np.float32))
+        planes = torch.from_numpy(rng.integers(-3, 4, size=(20, 10, 64)).astype(np.float32))
+        offsets = torch.from_numpy(rng.integers(0, 8, size=(20, 10)).astype(np.float32))
+        cpu = lsh.lsh_buckets(x, planes, offsets, 8.0)
+        card = lsh.lsh_buckets(x.to(dev), planes.to(dev), offsets.to(dev), 8.0).cpu()
+        assert torch.equal(card, cpu)
+    elif op == "assign_clusters":
+        centers = rng.normal(size=(64, 32)).astype(np.float32) * 5
+        x = centers[rng.integers(0, 64, size=20_000)] + 0.05 * rng.normal(size=(20_000, 32)).astype(np.float32)
+        np.testing.assert_array_equal(ivf.assign_clusters(x, centers, device=dev),
+                                      ivf.assign_clusters(x, centers, device="cpu"))
+    else:
+        centers = rng.normal(size=(40, 32)).astype(np.float32)
+        corpus = centers[rng.integers(0, 40, size=8000)] + 0.35 * rng.normal(size=(8000, 32)).astype(np.float32)
+        on_card = ivf.IvfDeviceIndex(corpus, n_probe=6, spill=2, device=dev)
+        on_cpu = ivf.IvfDeviceIndex(corpus, n_probe=6, spill=2, device="cpu")
+        np.testing.assert_array_equal(on_card.order, on_cpu.order)
+        for q in corpus[:8] + 0.1:
+            s_card, i_card = on_card.query(q, 10)
+            s_cpu, i_cpu = on_cpu.query(q, 10)
+            np.testing.assert_array_equal(i_card, i_cpu)
+            np.testing.assert_allclose(s_card, s_cpu, atol=1e-5, rtol=0)

@@ -70,13 +70,25 @@ from pathway_tpu_torch.generate import DecodeScheduler, GenerateConfig
 from pathway_tpu_torch.xpacks.llm.decoder import DecoderConfig, empty_pools
 import numpy as np
 import pathway_tpu_torch as pw
-from pathway_tpu_torch.stdlib.indexing import DataIndex, TpuKnn
+from pathway_tpu_torch.stdlib.indexing import DataIndex, IvfKnn, LshKnn, TpuKnn
+from pathway_tpu_torch.stdlib.indexing._index_impls import IvfKnnIndex, LshKnnIndex
+from pathway_tpu_torch.ops.ivf import IvfDeviceIndex, assign_clusters
+from pathway_tpu_torch.ops.lsh import make_projections
 
 
-def _knn_pipeline_on_default_device():
+def _knn_pipeline_on_default_device(inner=TpuKnn):
+    pw.internals.parse_graph.G.clear()
     docs = pw.debug.table_from_rows(pw.schema_from_types(v=np.ndarray), [(np.ones(4),)])
-    index = DataIndex(docs, TpuKnn(docs.v, dimensions=4))
+    index = DataIndex(docs, inner(docs.v, dimensions=4))
     res = index.query_as_of_now(docs.v, number_of_matches=1).select(r=pw.right.v)
+    pw.io.subscribe(res, on_change=lambda **kw: None)
+    pw.run()
+
+
+def _ml_knn_index_on_default_device():
+    pw.internals.parse_graph.G.clear()
+    docs = pw.debug.table_from_rows(pw.schema_from_types(v=np.ndarray), [(np.ones(4),)])
+    res = pw.stdlib.ml.KNNIndex(docs.v, docs, n_dimensions=4).get_nearest_items(docs.v, k=1)
     pw.io.subscribe(res, on_change=lambda **kw: None)
     pw.run()
 
@@ -95,6 +107,14 @@ for make in (
     lambda: DecodeScheduler(GenerateConfig(kernel="ref")),
     lambda: empty_pools(DecoderConfig(), 4),
     _knn_pipeline_on_default_device,
+    lambda: _knn_pipeline_on_default_device(LshKnn),
+    lambda: _knn_pipeline_on_default_device(IvfKnn),
+    _ml_knn_index_on_default_device,
+    lambda: LshKnnIndex(dimensions=4),
+    lambda: IvfKnnIndex(dimensions=4),
+    lambda: IvfDeviceIndex(np.ones((16, 4), np.float32)),
+    lambda: assign_clusters(np.ones((2, 4), np.float32), np.ones((1, 4), np.float32)),
+    lambda: make_projections(4, 2, 2, 1.0),
 ):
     try:
         make()
@@ -187,6 +207,19 @@ ENGINE_MODULES = [
     "pathway_tpu_torch.stdlib.indexing.nearest_neighbors",
     "pathway_tpu_torch.stdlib.indexing.retrievers",
     "pathway_tpu_torch.xpacks.llm.embedders",
+    # the other index kinds and their device ops
+    "pathway_tpu_torch.ops.ivf",
+    "pathway_tpu_torch.ops.lsh",
+    "pathway_tpu_torch.ops.segment",
+    "pathway_tpu_torch.stdlib",
+    "pathway_tpu_torch.stdlib.indexing._index_impls",
+    "pathway_tpu_torch.stdlib.indexing.bm25",
+    "pathway_tpu_torch.stdlib.indexing.full_text_document_index",
+    "pathway_tpu_torch.stdlib.indexing.hybrid_index",
+    "pathway_tpu_torch.stdlib.indexing.vector_document_index",
+    "pathway_tpu_torch.stdlib.ml",
+    "pathway_tpu_torch.stdlib.ml.index",
+    "pathway_tpu_torch.stdlib.ml.utils",
 ]
 
 # the RAG product layer: each imports with pandas and the clients blocked

@@ -1,10 +1,12 @@
 """Every reference hook the port does not carry yet raises
 ``NotImplementedError`` naming its ROADMAP tag, instead of running
 without it: compiled ticks, engine shards, the multi-process engine (DCN),
-replication, ``mesh=``, and the LSH / IVF / BM25 / hybrid indexes, the
-temporal operators and the ``.dt`` namespace, the service connectors, and
-the replicated read plane (``ReplicaServer``,
-``FailoverRouter``, ``ResultCache`` and the ``/generate`` route)."""
+replication, ``mesh=``, the temporal operators and the ``.dt`` namespace,
+the service connectors, the replicated read plane (``ReplicaServer``,
+``FailoverRouter``, ``ResultCache`` and the ``/generate`` route), every root
+name of the reference the port lacks (``pw.iterate``, ``pw.sql``,
+``pw.temporal``, …) and every ``pw.stdlib.<name>`` it lacks, each naming its
+tag."""
 
 import numpy as np
 import pytest
@@ -79,12 +81,6 @@ def test_tpu_knn_mesh_raises():
 @pytest.mark.parametrize(
     "make,item",
     [
-        (lambda t: indexing.LshKnn(t.a, dimensions=4), r"\[index-kinds\]"),
-        (lambda t: indexing.LshKnnFactory(dimensions=4), r"\[index-kinds\]"),
-        (lambda t: indexing.IvfKnn(t.a, dimensions=4), r"\[index-kinds\]"),
-        (lambda t: indexing.IvfKnnFactory(dimensions=4), r"\[index-kinds\]"),
-        (lambda t: indexing.TantivyBM25(t.b), r"\[index-kinds\]"),
-        (lambda t: indexing.HybridIndex([]), r"\[index-kinds\]"),
         (lambda t: t.windowby(t.a, window=None), r"\[temporal\]"),
         (lambda t: t.interval_join(t, t.a, t.a, None), r"\[temporal\]"),
         (lambda t: t.diff(t.a, t.b), r"\[temporal\]"),
@@ -94,7 +90,6 @@ def test_tpu_knn_mesh_raises():
         (lambda t: pw.run(with_http_server=True), r"\[observability\]"),
     ],
     ids=[
-        "LshKnn", "LshKnnFactory", "IvfKnn", "IvfKnnFactory", "TantivyBM25", "HybridIndex",
         "windowby", "interval_join", "diff", "dt_namespace", "io.csv", "http_server",
     ],
 )
@@ -116,3 +111,47 @@ def test_generate_route_raises():
 
     with pytest.raises(NotImplementedError, match=r"\[replication\].*/generate|/generate.*\[replication\]"):
         attach_generate(object())
+
+
+def _missing(ref_names, port_module):
+    return sorted(n for n in ref_names if n not in port_module.__all__ and n not in ("ml",))
+
+
+ROOT_MISSING = _missing(__import__("pathway_tpu").__all__, pw)
+STDLIB_MISSING = _missing(__import__("pathway_tpu.stdlib").stdlib.__all__, pw.stdlib)
+
+
+@pytest.mark.parametrize("name", ROOT_MISSING)
+def test_reference_root_name_raises_with_its_tag(name):
+    from pathway_tpu_torch._unported import ROOT_NAMES
+
+    with pytest.raises(NotImplementedError, match=r"\[[a-z-]+\]") as e:
+        getattr(pw, name)
+    assert ROOT_NAMES[name].split()[0] in str(e.value) and f"pw.{name}" in str(e.value)
+
+
+@pytest.mark.parametrize("name", STDLIB_MISSING)
+def test_reference_stdlib_name_raises_with_its_tag(name):
+    from pathway_tpu_torch._unported import STDLIB_NAMES
+
+    with pytest.raises(NotImplementedError, match=r"\[[a-z-]+\]") as e:
+        getattr(pw.stdlib, name)
+    assert STDLIB_NAMES[name].split()[0] in str(e.value)
+
+
+def test_root_name_tags_and_unknown_names():
+    assert "[core-api]" in str(pytest.raises(NotImplementedError, getattr, pw, "iterate").value)
+    assert "[core-api]" in str(pytest.raises(NotImplementedError, getattr, pw, "sql").value)
+    assert "[core-api]" in str(pytest.raises(NotImplementedError, getattr, pw, "transformer").value)
+    assert "[temporal]" in str(pytest.raises(NotImplementedError, getattr, pw, "temporal").value)
+    with pytest.raises(AttributeError):
+        pw.no_such_name
+    with pytest.raises(AttributeError):
+        pw.stdlib.no_such_name
+    assert len(ROOT_MISSING) >= 30 and len(STDLIB_MISSING) == 7
+
+
+@pytest.mark.parametrize("name", ["classifiers", "smart_table_ops", "hmm", "datasets"])
+def test_ml_rest_raises_with_its_tag(name):
+    with pytest.raises(NotImplementedError, match=r"\[ml-rest\]"):
+        getattr(pw.stdlib.ml, name)

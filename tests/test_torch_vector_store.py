@@ -352,13 +352,6 @@ def test_document_store_equals_reference(embedders):
     assert _final(ref, "parsed") == _final(got, "parsed")
 
 
-@pytest.mark.parametrize("factory", ["TantivyBM25Factory", "HybridIndexFactory"])
-def test_bm25_or_hybrid_document_store_raises(factory):
-    docs = tpw.debug.table_from_rows(_doc_schema(tpw), _docs(n=4))
-    with pytest.raises(NotImplementedError, match=r"\[index-kinds\]"):
-        tds.DocumentStore(docs, retriever_factory=getattr(tidx, factory)())
-
-
 def test_store_device_defaults_to_cuda(embedders):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
