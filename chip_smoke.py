@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from csrc/ (nvcc, sm_90a, one process per
-source, all started together), then runs eleven phases, printing one JSON
+source, all started together), then runs twelve phases, printing one JSON
 object per phase:
 
 1. device         — nvidia-smi name/power limit, toolchain versions, build seconds.
@@ -115,10 +115,11 @@ object per phase:
                     replays the log tail (batch 9), seeks the scanner, reads
                     batch 10 again, answers one query (time to the first
                     correct reply), ingests the 6 remaining batches, answers
-                    64 B = 1 and 8 B = 16 queries (the vector store phase's
-                    texts), then 4 writes of 64 documents each followed by a
-                    query for one of them, then the 64 B = 1 texts again.
-                    Restart 2 adds no file and asks the 64 again. Checked:
+                    16 B = 1 (cut from 64) and 8 B = 16 queries (the vector
+                    store phase's texts), then 2 writes (cut from 4) of 64
+                    documents, each followed by a query for one of them,
+                    then the 16 B = 1 texts again. Restart 2 adds no file
+                    and asks the 16 again. Checked:
                     exit 23; restored from a snapshot with a non-empty
                     replayed tail, then none; the index holds each chunk of
                     the 32,768 documents exactly once (its keys against the
@@ -140,7 +141,7 @@ object per phase:
                     (a) DocumentStore over HybridIndexFactory([TantivyBM25Factory(),
                     BruteForceKnnFactory(the phase-3 embedder, device="cuda")]):
                     the vector store phase's documents (16 commits of 2048,
-                    Utf8Parser, TokenCountSplitter(20, 60)), 64 B = 1 and 8
+                    Utf8Parser, TokenCountSplitter(20, 60)), 64 B = 1 and 4
                     B = 16 queries (k = 10), then 4 live writes of 64
                     documents, each followed by a query for one of them.
                     Checked: every reply against a direct computation — the
@@ -155,7 +156,7 @@ object per phase:
                     probes) through the engine: bench.py's accelerator IVF
                     mixture (1,000,000 x 384 f32, 2000 centres, noise 0.35,
                     default_rng(7)) in commits of 65,536 via pw.io.python,
-                    then 64 B = 1 and 8 B = 16 queries (k = 10); the index
+                    then 64 B = 1 and 4 B = 16 queries (k = 10); the index
                     trains once. Checked: every score is its row's cosine - 1
                     (numpy, 1e-5), replies descend, every key's cluster is
                     among the query's probes (numpy, from the index's
@@ -164,7 +165,7 @@ object per phase:
                     bench.py's shape (n_probe None, spill 2, its 50 queries):
                     recall@10 >= 0.95, no duplicate id in a reply. (d) DataIndex
                     over LshKnn(dimensions=384, device="cuda") at the reference
-                    defaults over the mixture's first 65,536 rows (cut: one
+                    defaults over the mixture's first 32,768 rows (cut: one
                     device call and one sync per upserted row), 16 queries:
                     the card's bucket ids equal the CPU's but within 1e-4 x
                     bucket_length of a cell edge, every key shares a bucket
@@ -174,7 +175,31 @@ object per phase:
                     max per batch size, update-to-visible, BM25 ms per query,
                     RRF us per tick, IVF train / assign s, recall, per-row LSH
                     upsert us, and each device op's ms against its bound.
-9. generation     — ask -> retrieve -> generate: 24 asks are embedded and
+9. components     — a live semantic-components pipeline as a user writes it:
+                    16,384 seeded documents in 2,048 families of 8 (each
+                    variant drops, swaps or replaces 2 words of the one
+                    before) arrive through pw.io.python in one commit, the
+                    phase-3 embedder embeds them, DataIndex over
+                    TpuKnn(device="cuda") holds them, and every document asks
+                    the live index (query, not query_as_of_now) for its 9
+                    nearest neighbours, so every corpus change answers all the
+                    standing queries again in one block_topk batch; pairs
+                    scoring at least -0.08 (cosine 0.92), self-pairs dropped,
+                    are edges; pw.iterate propagates the minimum label to a
+                    fixpoint; pw.sql("SELECT label, COUNT(*) AS size FROM
+                    comps GROUP BY label") counts each component. Then 8
+                    commits of 256 new documents and 128 deletions (the middle
+                    variants of 64 families), each one tick. Checked after
+                    every commit: the labels equal scipy's connected
+                    components over the replies the engine emitted
+                    (pw.io.subscribe), the sizes equal a bincount of the
+                    labels, every reply equals block_topk's plain version on
+                    the card over the index's rows (up to near ties), one
+                    launch per commit, some deletion splits a family. Prints
+                    the seconds to the first fixpoint, the depths iterate
+                    reached, update-to-visible p50 / max, the engine's
+                    seconds per operator type, and the launches per shape.
+10. generation    — ask -> retrieve -> generate: 24 asks are embedded and
                     retrieved (k = 3) on the phase-3 index, each grounded prompt
                     goes to one DecodeScheduler(GenerateConfig()) at the decoder's
                     serving defaults (dim 128, 2 layers, 4 heads, head_dim 32,
@@ -184,7 +209,7 @@ object per phase:
                     back to empty, launches == decode steps x layers, the same
                     tokens from a kernel="ref" scheduler, and the logits of one
                     recorded step, kernel against plain.
-10. durability    — the same 24 prompts at the same width, with snapshots.
+11. durability    — the same 24 prompts at the same width, with snapshots.
                     A child process (this script with --kill-child) runs them
                     with PATHWAY_GENERATE_SNAPSHOT_EVERY=8, a store in a temp
                     dir and PATHWAY_FAULTS="kill=decode:150"; it must exit 23
@@ -201,7 +226,7 @@ object per phase:
                     segments per snapshot). Tokens are compared exactly; a
                     difference passes only at a near tie: the uninterrupted
                     run's top-2 logit margin there below GEN_LOGIT_TOL.
-11. kernels       — per kernel and per path shape: launches on its path, ms
+12. kernels       — per kernel and per path shape: launches on its path, ms
                     (CUDA events) and device ms (torch.profiler), its plain
                     version's ms, the bound and what sets it, the bytes it must
                     move, and the ms of the library call(s) computing the same
@@ -213,7 +238,8 @@ object per phase:
                     phase's 24 asks padded to 32) and every (B, k) the rest
                     phase launched, on its corpus, B = 1 and 16 on the
                     persistence phase's restored corpus and on the hybrid
-                    store's dense corpus, and B = 16 on the 1M IVF ground truth;
+                    store's dense corpus, B = 16 on the 1M IVF ground truth,
+                    and every (B, k = 9) of the components phase on its corpus;
                     paged_attention: the
                     recorded decode step and a long context, each with its
                     split count S.
@@ -293,7 +319,12 @@ REST_QOS = {"max_batch_size": 16, "max_wait_ms": 5.0, "max_queue": 64}
 # the head of tick 10 leaves generation 1 (batches 1-8), a log tail
 # (batch 9) and one batch drained but never logged (batch 10).
 PERSIST_KILL_TICK = 10
-PERSIST_LIVE_WRITES = 4  # writes of VS_LIVE_DOCS documents, each then queried
+# B = 1 queries per group, cut from the vector store phase's 64 to keep the
+# smoke under 900 s: every query tick counts toward the snapshot cadence
+PERSIST_B1 = 16
+# writes of VS_LIVE_DOCS documents, each then queried; cut from 4 to keep
+# the smoke under 900 s (each write's commit takes ≈11 s with persistence)
+PERSIST_LIVE_WRITES = 2
 PERSIST_CAPACITY = 80 * 1024  # index rows reserved: 78,185 chunks + the live writes'
 # a reply of a restart against the never-killed vector store phase's reply
 # to the same text: the same corpus and query vector, but the document
@@ -328,7 +359,9 @@ FAULT_EXIT = 23  # the fault plan's exit code
 # phase's documents; IvfKnn, IvfDeviceIndex and LshKnn over bench.py's
 # accelerator IVF mixture; the segment ops
 IK_B1 = 64
-IK_B16 = 8
+# cut from 8 to keep the smoke under 900 s: the IVF part scores each
+# query on the host, ≈8 s a B = 16 tick
+IK_B16 = 4
 IK_LIVE_WRITES = 4
 RRF_K = 60.0  # HybridIndexFactory's default
 IK_IVF_ROWS = 1_000_000
@@ -339,7 +372,7 @@ IK_RECALL = 0.95  # the reference's bar (tests/test_ivf.py)
 # IVF scores (cos - 1 in f32) against numpy's f64; LSH scores -|q - v|^2
 # in f32 against f64, relative
 IK_SCORE_TOL = 1e-5
-IK_LSH_ROWS = 1 << 16  # cut from 1M: LshKnnIndex syncs with the host once per upserted row
+IK_LSH_ROWS = 1 << 15  # cut from 1M: LshKnnIndex syncs with the host once per upserted row
 IK_LSH_QUERIES = 16
 # of bucket_length: a projection this near a cell edge may round to either
 # cell between the card's and the CPU's f32 sums
@@ -2291,10 +2324,10 @@ def persistence(dev, smi: str, vs_phase: dict, vs_data: dict, corpus: tuple) -> 
     but never logged. Restart 1: a fresh graph over the same store
     restores the snapshot, replays the tail, seeks the scanner past the
     logged files, re-reads batch 10; one query is answered (time to the
-    first correct reply), the remaining 6 batches arrive, then 64 B = 1
-    and 8 B = 16 queries (the vector store phase's texts) and 4 live
+    first correct reply), the remaining 6 batches arrive, then PERSIST_B1
+    B = 1 and 8 B = 16 queries (the vector store phase's texts) and 2 live
     writes of 64 documents, each followed by a query that must find one
-    at rank 1. Restart 2 adds no file: the 64 B = 1 queries again, and
+    at rank 1. Restart 2 adds no file: the B = 1 queries again, and
     no document chunk may reach the embedder."""
     import pathway_tpu_torch as pw
     from pathway_tpu_torch.internals import parse_graph
@@ -2324,6 +2357,7 @@ def persistence(dev, smi: str, vs_phase: dict, vs_data: dict, corpus: tuple) -> 
     want = expected_chunk_keys(folder, range(VS_DOCS), chunks_of)
     check(len(want) == int(upto[VS_DOCS - 1]), "the host's chunk keys collide")
     by_text = vs_data["replies_by_text"]
+    b1_texts = by_text["B=1"][:PERSIST_B1]
     tracer = get_tracer()
     check(tracer.enabled, "tracing is off (PATHWAY_TRACING=0): the corpus upload is read from its span")
     bt.block_topk.launches = 0
@@ -2400,7 +2434,7 @@ def persistence(dev, smi: str, vs_phase: dict, vs_data: dict, corpus: tuple) -> 
             def b1(group: str) -> None:
                 nonlocal qid
                 groups[group] = []
-                for text, _r in by_text["B=1"]:
+                for text, _r in b1_texts:
                     ask(qs, [(qid, text)])
                     groups[group].append((qid, text))
                     qid += 1
@@ -2516,7 +2550,7 @@ def persistence(dev, smi: str, vs_phase: dict, vs_data: dict, corpus: tuple) -> 
     n_asked2 = len(r2["groups"]["B=1 final"])
     check(r2["embedded"] == n_asked2, f"restart 2 embedded {r2['embedded']} texts for {n_asked2} queries: "
           "a document chunk went through the embedder again")
-    want_shapes = {(1, K): 1 + 3 * VS_B1_TICKS + PERSIST_LIVE_WRITES, (16, K): VS_B16_TICKS}
+    want_shapes = {(1, K): 1 + 3 * PERSIST_B1 + PERSIST_LIVE_WRITES, (16, K): VS_B16_TICKS}
     check(shapes == want_shapes, f"block_topk launches by shape {shapes}, searches {want_shapes}")
 
     def lat(r, rows):
@@ -3086,7 +3120,7 @@ def timed(obj, name: str, into: list, scale: float = 1.0) -> None:
 def ivf_engine(dev, mix: dict, truth: np.ndarray) -> dict:
     """(b) DataIndex over IvfKnn(device="cuda") at 1M x 384 through the
     engine: the mixture in commits of 65,536 via pw.io.python, then 64 B = 1
-    and 8 B = 16 queries (the index trains once, at the first); checked
+    and 4 B = 16 queries (the index trains once, at the first); checked
     against numpy and the exact top-10."""
     from pathway_tpu_torch.stdlib.indexing import IvfKnn
 
@@ -3181,7 +3215,7 @@ def ivf_device(dev, mix: dict, truth: np.ndarray) -> tuple[dict, object]:
 
 def lsh_index(dev, mix: dict) -> tuple[dict, object]:
     """(d) DataIndex over LshKnn(dimensions=384, device="cuda") at the
-    reference defaults over the mixture's first 65,536 rows (one commit),
+    reference defaults over the mixture's first 32,768 rows (one commit),
     then 16 queries at B = 1, each near one of those rows."""
     from pathway_tpu_torch.ops.lsh import lsh_buckets
     from pathway_tpu_torch.stdlib.indexing import LshKnn
@@ -3360,7 +3394,306 @@ def index_kinds(dev, smi: str, rate: float) -> tuple[dict, dict]:
     return phase, {"hybrid": hybrid_data, "ground_truth": gt}
 
 
-# --- phase 9: generation ------------------------------------------------------
+# --- phase 9: components ------------------------------------------------------
+
+CC_FAMILIES = 2048
+CC_FAMILY = 8  # near-duplicate variants per family
+CC_WORDS = 24  # words of a family's first variant
+CC_EDITS = 2  # drops, swaps or substitutions from one variant to the next
+CC_K = 9  # neighbours per document, itself included
+# score = cosine - 1: the full-width seeded encoder puts neighbouring
+# variants of a family above this and unrelated documents below it
+CC_THRESHOLD = -0.08
+CC_COMMITS = 8
+CC_INSERTS = 256  # per commit: 32 new families
+CC_DELETES = 128  # per commit: variants 3 and 4 of 64 families
+
+
+def cc_family_docs(rng: np.random.Generator, vocab: np.ndarray, families: int, first: int) -> list[tuple[int, str]]:
+    """Families of CC_FAMILY variants: each variant drops, swaps or replaces
+    CC_EDITS words of the one before, so a family drifts along a chain."""
+    out = []
+    for f in range(families):
+        words = list(rng.choice(vocab, size=CC_WORDS))
+        for v in range(CC_FAMILY):
+            out.append((first + f * CC_FAMILY + v, " ".join(words)))
+            words = list(words)
+            for _ in range(CC_EDITS):
+                r = rng.random()
+                if r < 1 / 3 and len(words) > 2:
+                    del words[int(rng.integers(len(words)))]
+                elif r < 2 / 3:
+                    i, j = rng.integers(len(words), size=2)
+                    words[i], words[j] = words[j], words[i]
+                else:
+                    words[int(rng.integers(len(words)))] = str(rng.choice(vocab))
+    return out
+
+
+def cc_components(pw, edges):
+    """Minimum-label propagation to a fixpoint with pw.iterate: each
+    vertex's label becomes the least vertex id it reaches. Each vertex
+    links to itself, so a step's minimum keeps its own label; a link's join
+    row keeps the link's id (no new keys inside the body)."""
+    both = edges.select(a=edges.u, b=edges.w).concat_reindex(edges.select(a=edges.w, b=edges.u))
+    verts = both.groupby(both.a).reduce(v=both.a)
+    links = both.concat_reindex(verts.select(a=verts.v, b=verts.v))
+    labels0 = verts.select(verts.v, label=verts.v)
+
+    def step(labels):
+        nb = links.join(labels, links.a == labels.v, id=links.id).select(v=links.b, label=labels.label)
+        return nb.groupby(nb.v).reduce(nb.v, label=pw.reducers.min(nb.label))
+
+    return pw.iterate(step, labels=labels0)
+
+
+def components(dev, smi: str) -> tuple[dict, dict]:
+    """A live semantic-components pipeline as a user writes it: documents
+    stream in through pw.io.python, the full-width embedder UDF embeds them,
+    DataIndex over TpuKnn(device=dev) holds them, and every document asks
+    the live index (query, not query_as_of_now) for its CC_K nearest
+    neighbours, so all the standing queries are answered again in one
+    block_topk batch whenever the corpus changes. The pairs scoring at
+    least CC_THRESHOLD (self-pairs dropped) are a graph's edges, pw.iterate
+    labels its connected components, pw.sql counts their sizes. One commit
+    of every family, then CC_COMMITS commits of CC_INSERTS new documents
+    and CC_DELETES deletions, each one tick. After every commit: the
+    labels equal scipy's connected components over the replies the engine
+    emitted (captured with pw.io.subscribe), the sizes equal a bincount of
+    those labels, and every reply equals block_topk's plain version on the
+    device over the index's own rows, up to near ties."""
+    import scipy.sparse as sp
+    from scipy.sparse.csgraph import connected_components
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.engine.index_node import ExternalIndexExec
+    from pathway_tpu_torch.internals import parse_graph
+    from pathway_tpu_torch.internals.api import ref_scalar
+    from pathway_tpu_torch.internals.iterate import IterateExec
+    from pathway_tpu_torch.ops import block_topk as bt
+    from pathway_tpu_torch.ops.block_topk import block_topk_ref
+    from pathway_tpu_torch.ops.knn import stable_topk
+    from pathway_tpu_torch.stdlib.indexing import DataIndex, TpuKnn
+    from pathway_tpu_torch.xpacks.llm.embedders import SentenceTransformerEmbedder
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 11)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    vocab = np.array(["".join(rng.choice(letters, size=int(rng.integers(3, 9)))) for _ in range(20000)])
+    n_docs = CC_FAMILIES * CC_FAMILY
+    per_commit = CC_INSERTS // CC_FAMILY
+    initial = cc_family_docs(rng, vocab, CC_FAMILIES, 0)
+    inserts = [cc_family_docs(rng, vocab, per_commit, n_docs + c * CC_INSERTS) for c in range(CC_COMMITS)]
+    # deletions: variants 3 and 4 of CC_DELETES / 2 initial families per commit,
+    # which cuts a family's chain in the middle
+    doomed = rng.permutation(CC_FAMILIES)[: CC_COMMITS * CC_DELETES // 2].reshape(CC_COMMITS, -1)
+    text_of = dict(initial + [d for ins in inserts for d in ins])
+    key_doc = {int(ref_scalar(d)): d for d in text_of}
+
+    parse_graph.G.clear()
+    bt.block_topk.launches = 0
+    bt.block_topk.shapes.clear()
+    torch.cuda.reset_peak_memory_stats()
+
+    class DocSchema(pw.Schema):
+        doc: int = pw.column_definition(primary_key=True)
+        text: str
+
+    failure: list[BaseException] = []
+    pair_state: dict[int, tuple] = {}
+    label_state: dict[int, tuple] = {}
+    size_state: dict[int, tuple] = {}
+
+    def keep(state, cols):
+        def on_change(key, row, time, is_addition):
+            if is_addition:
+                state[int(key)] = tuple(row[c] for c in cols)
+            elif state.get(int(key)) == tuple(row[c] for c in cols):
+                del state[int(key)]
+
+        return on_change
+
+    record: dict = {"update_s": [], "depths": [], "ops": [], "near_ties": 0, "replies_exact": 0,
+                    "replies": 0, "splits": 0, "components": [], "edges": []}
+
+    class DocSubject(pw.io.python.ConnectorSubject):
+        def run(self):
+            try:
+                drive(self)
+            except BaseException as e:  # noqa: BLE001 — re-raised after pw.run
+                failure.append(e)
+
+    def commit(subject) -> float:
+        rt = parse_graph.G.runtime
+        goal = rt.stats.ticks + 1
+        since = dict(rt.stats.node_ns)
+        t0 = time.perf_counter()
+        subject.commit()
+        wait_until(lambda: rt.stats.ticks >= goal, "a components commit's tick", timeout=600.0)
+        dt_s = time.perf_counter() - t0
+        record["ops"].append(operator_s(rt, since))
+        ex = next(e for e in rt.execs.values() if isinstance(e, IterateExec))
+        record["depths"].append((ex._final_depth or 0) + 1)
+        return dt_s
+
+    def plain_replies(live: list[int]) -> dict[int, list[tuple[int, float]]]:
+        """Each live document's CC_K neighbours by block_topk's plain
+        version on the device, over the engine index's own rows."""
+        ix = next(e.index for e in parse_graph.G.runtime.execs.values() if isinstance(e, ExternalIndexExec))
+        prep, _c2, valid = ix.corpus.prepared_arrays("cosine", bf16=False)
+        # a deletion that left its row valid would be a neighbour on both sides
+        check(int(valid.sum()) == len(live), f"the index holds {int(valid.sum())} valid rows, {len(live)} live")
+        slots = torch.tensor([ix.corpus.slot_of[int(ref_scalar(d))] for d in live], device=prep.device)
+        out = {}
+        for lo in range(0, len(live), 4096):
+            q = prep[slots[lo:lo + 4096]]
+            sc, ixs = block_topk_ref(q, prep, valid, CC_K)
+            scores, pos = stable_topk(sc.reshape(len(q), -1), CC_K)
+            idx = torch.gather(ixs.reshape(len(q), -1), 1, pos).cpu().numpy()
+            scores = scores.double().cpu().numpy() - 1.0
+            for r, d in enumerate(live[lo:lo + 4096]):
+                out[d] = [(key_doc[ix.corpus.key_of[int(s)]], float(v)) for s, v in zip(idx[r], scores[r])]
+        record["corpus_rows"] = int(prep.shape[0])
+        return out
+
+    def verify(live: set[int], stage: str) -> None:
+        replies: dict[int, list[tuple[int, float]]] = {}
+        for u, w, s in pair_state.values():
+            replies.setdefault(u, []).append((w, s))
+        check(set(replies) == live, f"{stage}: replies for {len(replies)} documents, {len(live)} live")
+        dead = {w for _u, w, _s in pair_state.values()} - live
+        check(not dead, f"{stage}: {len(dead)} deleted documents are still neighbours in the replies")
+        plain = plain_replies(sorted(live))
+        for u, got in replies.items():
+            got = tuple(sorted(got, key=lambda p: -p[1]))
+            want = tuple(plain[u])
+            check(same_up_to_near_ties(got, want, F32_TOL),
+                  f"{stage}: document {u}'s reply {got} differs from the plain top-k {want}")
+            record["replies_exact"] += [d for d, _s in got] == [d for d, _s in want]
+            record["replies"] += 1
+        uw = np.array([(u, w) for u, w, s in pair_state.values() if s >= CC_THRESHOLD and u != w], dtype=np.int64)
+        n = max(text_of) + 1
+        _, comp = connected_components(sp.coo_matrix((np.ones(len(uw)), (uw[:, 0], uw[:, 1])), shape=(n, n)),
+                                       directed=False)
+        verts = np.unique(uw)
+        least: dict[int, int] = {}
+        for v in verts.tolist():  # ascending: the first vertex of a component is its label
+            least.setdefault(int(comp[v]), v)
+        want_labels = {v: least[int(comp[v])] for v in verts.tolist()}
+        got_labels = {v: lab for v, lab in label_state.values()}
+        check(got_labels == want_labels, f"{stage}: component labels differ from scipy's "
+              f"({sum(got_labels.get(v) != l for v, l in want_labels.items())} of {len(want_labels)})")
+        counts = np.bincount(np.array(list(want_labels.values()), dtype=np.int64))
+        want_sizes = {lab: int(c) for lab, c in enumerate(counts.tolist()) if c}
+        check(dict(size_state.values()) == want_sizes, f"{stage}: SQL sizes differ from the labels' bincount")
+        record["components"].append(len(want_sizes))
+        record["edges"].append(len(uw) // 2)
+
+    def family_parts(vs: list[int]) -> int:
+        """How many components hold the vertices vs (an isolated one, which
+        no edge reaches, is a component of its own)."""
+        label_of = {v: lab for v, lab in label_state.values()}
+        return len({label_of.get(v, ("alone", v)) for v in vs})
+
+    def drive(subject) -> None:
+        for d, text in initial:
+            subject.next(doc=d, text=text)
+        first_s = commit(subject)
+        record["first_fixpoint_s"] = first_s
+        live = {d for d, _t in initial}
+        t0 = time.perf_counter()
+        verify(live, "initial")
+        record["verify_s"] = [time.perf_counter() - t0]
+        for c in range(CC_COMMITS):
+            for d, text in inserts[c]:
+                subject.next(doc=d, text=text)
+            gone = [int(f) * CC_FAMILY + v for f in doomed[c] for v in (3, 4)]
+            for d in gone:
+                subject._remove(ref_scalar(d), {"doc": d, "text": text_of[d]})
+            # the survivors of each family losing its middle: one component
+            # before the commit, several after it is a split
+            kept = [[int(f) * CC_FAMILY + v for v in (0, 1, 2, 5, 6, 7)] for f in doomed[c]]
+            before = [family_parts(vs) for vs in kept]
+            record["update_s"].append(commit(subject))
+            live = (live | {d for d, _t in inserts[c]}) - set(gone)
+            t0 = time.perf_counter()
+            verify(live, f"commit {c + 1}")
+            record["verify_s"].append(time.perf_counter() - t0)
+            record["splits"] += sum(b == 1 and family_parts(vs) > 1 for b, vs in zip(before, kept))
+        record["live"] = len(live)
+
+    emb = SentenceTransformerEmbedder(device=dev)
+    docs = pw.io.python.read(DocSubject(), schema=DocSchema, autocommit_duration_ms=None)
+    docs = docs.with_columns(vec=emb(pw.this.text))
+    knn = TpuKnn(docs.vec, dimensions=emb.runtime.dim,
+                 reserved_space=n_docs + CC_COMMITS * CC_INSERTS, device=dev)
+    index = DataIndex(docs, knn)
+    hits = index.query(docs.vec, number_of_matches=CC_K, collapse_rows=False)
+    pairs = hits.select(u=pw.left.doc, w=pw.right.doc, score=pw.right._pw_index_reply_score)
+    edges = pairs.filter((pairs.score >= CC_THRESHOLD) & (pairs.u != pairs.w))
+    comps = cc_components(pw, edges)
+    sizes = pw.sql("SELECT label, COUNT(*) AS size FROM comps GROUP BY label", comps=comps)
+    pw.io.subscribe(pairs, on_change=keep(pair_state, ("u", "w", "score")))
+    pw.io.subscribe(comps, on_change=keep(label_state, ("v", "label")))
+    pw.io.subscribe(sizes, on_change=keep(size_state, ("label", "size")))
+    pw.run()  # raises if an operator recorded an error (a kernel failure included)
+    if failure:
+        raise failure[0]
+    launches = bt.block_topk.launches
+    shapes = dict(bt.block_topk.shapes)
+    rt = parse_graph.G.last_runtime
+    check(rt.stats.ticks == CC_COMMITS + 2, f"{rt.stats.ticks} ticks for {CC_COMMITS + 1} commits")
+    # one search of every standing query per commit, all of them in one batch
+    check(launches == CC_COMMITS + 1, f"{launches} block_topk launches for {CC_COMMITS + 1} commits")
+    check(emb.runtime.device.type == "cuda", f"the embedder ran on {emb.runtime.device}")
+    check(record["splits"] > 0, "no deletion split a family's component")
+    upd = [s * 1e3 for s in record["update_s"]]
+    ex = next(e for e in rt.execs.values() if isinstance(e, IterateExec))
+    phase = {
+        "phase": "components",
+        "nvidia_smi": smi,
+        "docs": n_docs,
+        "families": CC_FAMILIES,
+        "family_size": CC_FAMILY,
+        "k": CC_K,
+        "threshold": CC_THRESHOLD,
+        "commits": {"initial": n_docs, "updates": CC_COMMITS, "inserts": CC_INSERTS, "deletes": CC_DELETES},
+        "first_fixpoint_s": record["first_fixpoint_s"],
+        "first_tick_operator_s": record["ops"][0],
+        "update_tick_operator_s_p50_commit": record["ops"][1 + CC_COMMITS // 2],
+        "iterate_depths_by_commit": record["depths"],
+        "iterate_depths_max": max(record["depths"]),
+        "iterate_depth_runtimes_kept": len(ex._depths),
+        "update_to_visible_ms": {"p50": float(np.percentile(upd, 50)), "max": float(np.max(upd)), "n": len(upd)},
+        "components_by_commit": record["components"],
+        "edges_by_commit": record["edges"],
+        "families_split_by_deletes": record["splits"],
+        "replies_compared": record["replies"],
+        "replies_keys_equal_plain": record["replies_exact"],
+        "verify_s": record["verify_s"],
+        "live_docs": record["live"],
+        "ticks": rt.stats.ticks,
+        "block_topk_launches": launches,
+        "block_topk_launches_by_shape": {f"B={b},k={k}": n for (b, k), n in sorted(shapes.items())},
+        "embedder_device": str(emb.runtime.device),
+        "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    ix = next(e.index for e in rt.execs.values() if isinstance(e, ExternalIndexExec))
+    prep, _c2, valid = ix.corpus.prepared_arrays("cosine", bf16=False)
+    # the batch each shape saw: every live document's own row, zero-padded
+    # to the index's power-of-two batch as its search pads it
+    live_rows = prep[torch.tensor(sorted(ix.corpus.slot_of.values()), device=prep.device)]
+    queries = {}
+    for b, _k in shapes:
+        q = torch.zeros(b, prep.shape[1], dtype=prep.dtype, device=prep.device)
+        q[: min(b, len(live_rows))] = live_rows[:b]
+        queries[b] = q
+    parse_graph.G.clear()
+    return phase, {"prep": prep, "valid": valid, "queries": queries, "launches": launches, "shapes": shapes}
+
+
+# --- phase 10: generation -----------------------------------------------------
 
 
 class StepRecorder:
@@ -3633,7 +3966,7 @@ def generation(dev, main: dict) -> tuple[dict, dict]:
     }
 
 
-# --- phase 10: durability ------------------------------------------------------
+# --- phase 11: durability -----------------------------------------------------
 
 
 def kill_child(prompts_path: str) -> int:
@@ -3983,11 +4316,11 @@ def durability(dev, gen: dict) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-# --- phase 11: kernel times ---------------------------------------------------
+# --- phase 12: kernel times ---------------------------------------------------
 
 
-def kernel_times(main: dict, eng: dict, vs: dict, rest: dict, persist: dict, ik: dict, gen: dict,
-                 rate: float, rate_src: str) -> list[dict]:
+def kernel_times(main: dict, eng: dict, vs: dict, rest: dict, persist: dict, ik: dict, cc: dict,
+                 gen: dict, rate: float, rate_src: str) -> list[dict]:
     from pathway_tpu_torch.ops import block_topk as bt
     from pathway_tpu_torch.ops.knn import BLK, _normalize
 
@@ -4022,6 +4355,10 @@ def kernel_times(main: dict, eng: dict, vs: dict, rest: dict, persist: dict, ik:
         # the concurrent ungated ticks after the index's pad ladder
         (b, k, rest["queries"][b], n, "rest", (rest["prep"], rest["valid"]))
         for (b, k), n in sorted(rest["shapes"].items())
+    ] + [
+        # every standing query of the components phase in one batch
+        (b, k, cc["queries"][b], n, "components", (cc["prep"], cc["valid"]))
+        for (b, k), n in sorted(cc["shapes"].items())
     ]
     per_batch = []
     for bs, k, q, path_launches, path, (prep, valid) in path_shapes:
@@ -4081,6 +4418,8 @@ def kernel_times(main: dict, eng: dict, vs: dict, rest: dict, persist: dict, ik:
         "index_kinds_launches": hyb["launches"],
         "index_kinds_launches_by_shape": {f"B={b},k={k}": n for (b, k), n in sorted(hyb["shapes"].items())},
         "ivf_ground_truth_launches_by_shape": {f"B={b},k={k}": n for (b, k), n in sorted(gt["shapes"].items())},
+        "components_launches": cc["launches"],
+        "components_launches_by_shape": {f"B={b},k={k}": n for (b, k), n in sorted(cc["shapes"].items())},
         "max_abs_err": max(p["max_abs_err"] for p in per_batch),
         "ms": head["ms"],
         "plain_ms": head["plain_ms"],
@@ -4224,11 +4563,13 @@ def main() -> int:
     del corpus
     phase, ik_data = index_kinds(dev, smi, rate)
     emit(phase)
+    phase, cc_data = components(dev, smi)
+    emit(phase)
     phase, gen_data = generation(dev, main_data)
     emit(phase)
     emit(durability(dev, gen_data))
-    kernels = kernel_times(main_data, engine_data, vs_data, rest_data, persist_data, ik_data, gen_data,
-                           rate, rate_src) + [
+    kernels = kernel_times(main_data, engine_data, vs_data, rest_data, persist_data, ik_data, cc_data,
+                           gen_data, rate, rate_src) + [
         paged_kernel_times(gen_data, rate, rate_src)
     ]
     emit({"phase": "kernels", "kernels": kernels})

@@ -7,7 +7,10 @@ What is ported: the incremental dataflow engine and its Table API
 (``import pathway_tpu_torch as pw``: ``pw.Table``, ``pw.Schema``,
 ``pw.this``, ``pw.reducers``, ``pw.udf``, ``pw.io.python``,
 ``pw.io.subscribe``, the file connectors ``pw.io.fs``/``csv``/``jsonlines``/
-``plaintext``/``null``, ``pw.debug``, ``pw.run``, ``pw.persistence``),
+``plaintext``/``null``, ``pw.debug``, ``pw.run``, ``pw.persistence``,
+``pw.iterate``, ``pw.sql``, the row transformers, ``pw.AsyncTransformer``,
+``pw.pandas_transformer``, ``pw.udfs``, ``pw.universes`` and
+``pw.stdlib.utils``),
 live-RAG retrieval (embedder UDF → ``DataIndex`` → dense top-k, or the
 IVF, LSH, BM25 and hybrid indexes; ``pw.stdlib.ml.KNNIndex``), and
 generation serving.
@@ -26,7 +29,7 @@ feature that is not ported raises ``NotImplementedError`` naming its
 from __future__ import annotations
 
 import pathway_tpu_torch.reducers as reducers
-from pathway_tpu_torch import debug, io
+from pathway_tpu_torch import debug, io, udfs
 from pathway_tpu_torch._device import resolve_device
 from pathway_tpu_torch._unported import ROOT_NAMES, unported
 from pathway_tpu_torch.internals import (
@@ -85,8 +88,23 @@ from pathway_tpu_torch.internals import (
     wrap_py_object,
 )
 from pathway_tpu_torch.internals.custom_reducers import BaseCustomAccumulator
+from pathway_tpu_torch.internals.iterate import iterate, iterate_universe
 from pathway_tpu_torch.internals.joins import OuterJoinResult
+from pathway_tpu_torch.internals.row_transformer import (
+    ClassArg,
+    attribute,
+    input_attribute,
+    input_method,
+    method,
+    output_attribute,
+    transformer,
+)
+from pathway_tpu_torch.internals.sql import sql
+from pathway_tpu_torch.internals.table_slice import TableSlice
 import pathway_tpu_torch.persistence as persistence
+import pathway_tpu_torch.universes as universes
+from pathway_tpu_torch.stdlib.utils.async_transformer import AsyncTransformer
+from pathway_tpu_torch.stdlib.utils.pandas_transformer import pandas_transformer
 
 
 def __getattr__(name: str):
@@ -99,7 +117,7 @@ def __getattr__(name: str):
         from pathway_tpu_torch.internals import datetime_types
 
         return datetime_types.Duration
-    if name in ("indexing", "ml"):
+    if name in ("indexing", "ml", "utils"):
         module = importlib.import_module(f"pathway_tpu_torch.stdlib.{name}")
     elif name in ("stdlib", "xpacks"):
         module = importlib.import_module(f"pathway_tpu_torch.{name}")
@@ -111,6 +129,34 @@ def __getattr__(name: str):
     return module
 
 
+def set_license_key(key: str | None) -> None:
+    """No-op: this framework has no license gating (reference:
+    src/engine/license.rs — intentionally not reproduced)."""
+
+
+def set_monitoring_config(*, server_endpoint: str | None = None, **kwargs) -> None:
+    from pathway_tpu_torch.internals import config
+
+    config.pathway_config.monitoring_server = server_endpoint
+
+
+def enable_interactive_mode() -> None:
+    """Compatibility no-op, as in the reference (``pw.live``/``LiveTable``
+    are not ported yet and raise naming their tag)."""
+
+
+def table_transformer(*args, **kwargs):
+    """Decorator marking a function as a table→table transformer
+    (reference: internals/table_transformer.py). Pass-through."""
+
+    def wrap(fn):
+        return fn
+
+    if args and callable(args[0]):
+        return args[0]
+    return wrap
+
+
 __all__ = [
     "__version__",
     "resolve_device",
@@ -118,8 +164,28 @@ __all__ = [
     "io",
     "indexing",
     "ml",
+    "utils",
+    "udfs",
+    "universes",
     "xpacks",
     "reducers",
+    "iterate",
+    "iterate_universe",
+    "sql",
+    "AsyncTransformer",
+    "pandas_transformer",
+    "ClassArg",
+    "attribute",
+    "input_attribute",
+    "input_method",
+    "method",
+    "output_attribute",
+    "transformer",
+    "TableSlice",
+    "set_license_key",
+    "set_monitoring_config",
+    "enable_interactive_mode",
+    "table_transformer",
     "apply",
     "apply_async",
     "apply_with_type",

@@ -15,6 +15,9 @@ OBSERVABILITY = "[observability] (the rest of observability)"
 ML_REST = "[ml-rest] (the LSH classifiers, the fuzzy join, hmm)"
 STDLIB_REST = "[stdlib-rest] (graphs, viz)"
 
+# subpackages of the reference the port lacks, with their item
+PACKAGE_NAMES = {"analysis": OBSERVABILITY, "autoscale": MESH, "parallel": MESH}
+
 # ``pw.stdlib.<name>`` the port lacks (each is a root name too)
 STDLIB_NAMES = {
     "graphs": STDLIB_REST,
@@ -23,24 +26,17 @@ STDLIB_NAMES = {
     "stateful": TEMPORAL,
     "statistical": TEMPORAL,
     "temporal": TEMPORAL,
-    "utils": CORE_API,
 }
 
 # root names of the reference the port lacks, each with its item
 ROOT_NAMES = {
     **STDLIB_NAMES,
     **dict.fromkeys(
-        (
-            "iterate", "iterate_universe", "transformer", "ClassArg", "attribute",
-            "input_attribute", "input_method", "method", "output_attribute", "sql",
-            "AsyncTransformer", "pandas_transformer", "LiveTable", "live", "load_yaml",
-            "udfs", "universes", "demo", "set_license_key", "set_monitoring_config",
-            "enable_interactive_mode", "table_transformer", "TableSlice",
-        ),
+        ("LiveTable", "live", "load_yaml", "demo"),
         CORE_API,
     ),
     **dict.fromkeys(("AsofJoinResult", "IntervalJoinResult", "WindowJoinResult"), TEMPORAL),
-    "analysis": OBSERVABILITY,
+    **PACKAGE_NAMES,
 }
 
 
@@ -49,3 +45,16 @@ def unported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to pathway_tpu_torch yet (ROADMAP {item})"
     )
+
+
+def package_getattr(package: str, names: dict[str, str]):
+    """A package's module ``__getattr__``: each reference name in ``names``
+    (name -> item) raises naming its item; any other name stays an
+    ``AttributeError``."""
+
+    def __getattr__(name: str):
+        if name in names:
+            raise unported(f"{package}.{name}", names[name])
+        raise AttributeError(f"module {package!r} has no attribute {name!r}")
+
+    return __getattr__

@@ -6,7 +6,8 @@ __init__.py:207-709) that the port's tests and users need —
 ``assert_table_equality[_wo_index]``, copied as they are.
 
 Not ported: the pandas surfaces (``table_from_pandas``, ``table_to_pandas``,
-parquet), ``StreamGenerator`` and the trace/diagnose helpers. Capture with
+parquet), ``StreamGenerator`` and the trace helpers (each raises naming
+[core-api]), and ``diagnose`` (it raises naming [observability]). Capture with
 ``persistence_config`` restores and records through the persistence glue, as
 in the reference. The module imports no pandas."""
 
@@ -21,9 +22,24 @@ from pathway_tpu_torch.engine.batch import DiffBatch
 from pathway_tpu_torch.engine.nodes import InputNode, OutputNode
 from pathway_tpu_torch.engine.runtime import Runtime, StaticSource
 from pathway_tpu_torch.internals import dtype as dt
-from pathway_tpu_torch.internals.api import Pointer, ref_scalar
+from pathway_tpu_torch._unported import CORE_API, OBSERVABILITY, package_getattr
+from pathway_tpu_torch.internals.api import Pointer, ref_scalar, sequential_key
 from pathway_tpu_torch.internals.table import Table
 from pathway_tpu_torch.internals.universe import Universe
+
+__getattr__ = package_getattr(
+    "pw.debug",
+    {
+        **dict.fromkeys(
+            (
+                "StreamGenerator", "table_from_pandas", "table_to_pandas",
+                "table_from_parquet", "table_to_parquet", "trace", "trace_tree",
+            ),
+            CORE_API,
+        ),
+        "diagnose": OBSERVABILITY,
+    },
+)
 
 
 # debug fixtures with IDENTICAL key sets share one Universe object, so

@@ -10,8 +10,9 @@ decodes it now owns, token streams continuing as they would have.
 
 Not ported: a destination given as a ``(host, port)`` ferry endpoint needs
 ``elastic/ferry.py`` and the wire it rides (``parallel/wire.py``,
-``parallel/host_exchange.py``); it raises ``NotImplementedError`` (ROADMAP
-§0) instead of writing anything.
+``parallel/host_exchange.py``); it raises ``NotImplementedError`` naming
+[mesh] instead of writing anything. ``transfer_id=`` is accepted as in the
+reference; it names only ferry transfers, so local destinations ignore it.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from typing import Any
 
 import numpy as np
 
+from pathway_tpu_torch._unported import MESH, unported
 from pathway_tpu_torch.elastic.handover import HandoverError
 from pathway_tpu_torch.engine.sharded import shard_of
 from pathway_tpu_torch.generate.kv_cache import KvLedger, seq_jk
@@ -48,7 +50,12 @@ def split_ledger(led: KvLedger, n_new: int) -> list[KvLedger]:
     return parts
 
 
-def split_kv_store(src_root: str, destinations: list[Any]) -> dict:
+def split_kv_store(
+    src_root: str,
+    destinations: list[Any],
+    *,
+    transfer_id: str | None = None,
+) -> dict:
     """Re-partition a generation snapshot directory into per-owner stores
     (index = new shard). Each destination is a local directory path.
     Raises ``HandoverError`` when ``src_root`` holds no snapshot, and
@@ -57,9 +64,8 @@ def split_kv_store(src_root: str, destinations: list[Any]) -> dict:
     None and ``bytes_ferried`` 0 for local destinations)."""
     remote = [d for d in destinations if isinstance(d, (tuple, list))]
     if remote:
-        raise NotImplementedError(
-            f"ferry destinations {remote} need elastic/ferry.py, which is "
-            "not ported yet (ROADMAP.md §0); pass local directories"
+        raise unported(
+            f"split_kv_store to ferry destinations {remote} (elastic/ferry.py)", MESH
         )
     led = KvLedger.restore(src_root)
     if led is None:

@@ -11,10 +11,9 @@
   page reclaim, every step through the hand-written paged-attention kernel
   on the card, periodic and on-demand snapshots, restore after a kill, and
   the reference's metrics, spans, memory ledger, roofline and fault hook;
-* :mod:`~pathway_tpu_torch.generate.serving` — ``assemble_prompt`` and the
-  ``/generate`` route name.
-
-Not ported yet: ``attach_generate`` (the route on a ``ReplicaServer``).
+* :mod:`~pathway_tpu_torch.generate.serving` — ``assemble_prompt``, the
+  ``/generate`` route name and ``attach_generate``, which raises naming
+  [replication] (the route mounts on a ``ReplicaServer``, not ported yet).
 """
 
 from pathway_tpu_torch.generate.kv_cache import NULL_PAGE, KvLedger, PagePool
@@ -23,7 +22,7 @@ from pathway_tpu_torch.generate.scheduler import (
     GenerateConfig,
     GenerationRequest,
 )
-from pathway_tpu_torch.generate.serving import assemble_prompt
+from pathway_tpu_torch.generate.serving import assemble_prompt, attach_generate
 
 __all__ = [
     "NULL_PAGE",
@@ -33,4 +32,5 @@ __all__ = [
     "GenerateConfig",
     "GenerationRequest",
     "assemble_prompt",
+    "attach_generate",
 ]

@@ -1,7 +1,8 @@
 """The Table API and the values it carries — counterpart of
 ``pathway_tpu/internals/__init__.py``, exporting the same names for what is
-ported (the interactive ``LiveTable``, ``iterate``, SQL, row transformers
-and the YAML loader are not)."""
+ported (the interactive ``LiveTable`` and the YAML loader are not;
+``iterate``, SQL and the row transformers are modules of their own here as
+in the reference)."""
 
 from pathway_tpu_torch.internals import dtype
 from pathway_tpu_torch.internals.api import (

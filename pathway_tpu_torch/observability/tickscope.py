@@ -545,6 +545,13 @@ def recorder() -> TickScope | None:
     return _last_recorder() if _last_recorder is not None else None
 
 
+def publish_recorder(scope: TickScope | None) -> None:
+    """Make ``scope`` the one ``recorder()`` returns again (a nested
+    runtime, such as an iterate depth's, hands it back to the outer one)."""
+    global _last_recorder
+    _last_recorder = weakref.ref(scope) if scope is not None else None
+
+
 # ---------------------------------------------------------------------------
 # memory ledger
 

@@ -49,6 +49,7 @@ import numpy as np
 import torch
 
 from pathway_tpu_torch._device import resolve_device
+from pathway_tpu_torch._unported import MESH, unported
 from pathway_tpu_torch.ops import block_topk as bt
 from pathway_tpu_torch.ops.ivf import assign_clusters, train_centroids
 from pathway_tpu_torch.ops.lsh import lsh_buckets, make_projections
@@ -73,9 +74,13 @@ class TpuDenseKnnIndex:
         dimensions: int | None = None,
         metric: str = "cosine",
         reserved_space: int = 1024,
+        mesh: Any = None,
+        axis: str = "data",
         kernel: str = "auto",
         device: str | torch.device = "cuda",
     ):
+        if mesh is not None:
+            raise unported("TpuDenseKnnIndex(mesh=...) (a sharded corpus)", MESH)
         self.dim = dimensions
         self.metric = metric
         self.reserved = reserved_space

@@ -22,6 +22,7 @@ not ported yet.
 from __future__ import annotations
 
 import math
+from typing import Any
 
 import numpy as np
 import torch
@@ -29,6 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from pathway_tpu_torch._device import resolve_device
+from pathway_tpu_torch._unported import MESH, unported
 from pathway_tpu_torch.xpacks.llm import _flax_init
 
 
@@ -178,11 +180,15 @@ class EncoderRuntime:
         heads: int = 6,
         max_len: int = 512,
         seed: int = 0,
+        mesh: Any = None,
+        axis: str = "data",
         cross_encoder: bool = False,
         model_path: str | None = None,
         param_dtype: torch.dtype | None = None,
         device: str | torch.device = "cuda",
     ):
+        if mesh is not None:
+            raise unported("EncoderRuntime(mesh=...) (data-parallel batches)", MESH)
         self.device = resolve_device(device)
         self.max_len = max_len
         self.pretrained = False

@@ -4,7 +4,8 @@
 As in the reference, both are pw ``UDF``s: ``emb(table.text)`` is a column
 expression, and the engine feeds whole ticks to the batched path
 (``embed_batch``, chunks of at most ``batch_size``). Same constructor
-arguments (less the mesh), tokenizer priority (HF tokenizer when one is
+arguments (``mesh=`` raises [mesh]; other extra keywords are ignored, as
+in the reference), tokenizer priority (HF tokenizer when one is
 cached locally → WordPiece over a local vocab.txt → hashing) and checkpoint
 fallback as the JAX class. Each device batch records the JAX class's
 ``pathway_embed_batch_seconds``/``_docs_total``/``_docs_per_sec_per_chip``
@@ -26,6 +27,7 @@ from typing import Any, Sequence
 import numpy as np
 import torch
 
+from pathway_tpu_torch._unported import MESH, unported
 from pathway_tpu_torch.internals import expression as expr_mod
 from pathway_tpu_torch.internals.udfs import UDF
 from pathway_tpu_torch.observability import REGISTRY
@@ -69,8 +71,14 @@ class SentenceTransformerEmbedder(BaseEmbedder):
         depth: int = 6,
         heads: int = 6,
         max_len: int = 512,
+        mesh: Any = None,
         batch_size: int = 1024,
+        **init_kwargs,
     ):
+        # extra keywords (``trust_remote_code=`` and the like) are accepted
+        # and ignored, as in the reference
+        if mesh is not None:
+            raise unported("SentenceTransformerEmbedder(mesh=...)", MESH)
         model_dir = _find_model_dir(model)
         model_path = None
         if model_dir is not None and os.path.exists(

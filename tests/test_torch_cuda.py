@@ -659,3 +659,72 @@ def test_index_kind_device_op_on_the_card_matches_cpu(dev, op):
             s_cpu, i_cpu = on_cpu.query(q, 10)
             np.testing.assert_array_equal(i_card, i_cpu)
             np.testing.assert_allclose(s_card, s_cpu, atol=1e-5, rtol=0)
+
+
+# --- the components pipeline: live kNN graph -> pw.iterate -> pw.sql -----------
+
+
+def _components_run(device, seed=0, families=40, size=6, dim=48):
+    """Seeded clustered vectors as documents (families at t=2 and t=4, the
+    middle two of some families deleted at t=6); every document asks the
+    live index for its 7 nearest; pairs scoring at least -0.5 are edges;
+    labels and sizes per time."""
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.stdlib.indexing import DataIndex, TpuKnn
+    from torch_parity import components
+
+    rng = np.random.default_rng(seed)
+    centres = rng.standard_normal((families, dim)).astype(np.float32)
+    rows = []
+    for f in range(families):
+        for v in range(size):
+            vec = centres[f] + 0.05 * rng.standard_normal(dim).astype(np.float32) * (1 + v)
+            t = 2 if f < families * 3 // 4 else 4
+            rows.append((f * size + v, vec, t, 1))
+            if f % 5 == 0 and v in (2, 3):
+                rows.append((f * size + v, vec, 6, -1))
+
+    class Doc(pw.Schema):
+        doc: int = pw.column_definition(primary_key=True)
+        vec: np.ndarray
+
+    docs = pw.debug.table_from_rows(Doc, rows, is_stream=True)
+    index = DataIndex(docs, TpuKnn(docs.vec, dimensions=dim, device=device))
+    hits = index.query(docs.vec, number_of_matches=7, collapse_rows=False)
+    pairs = hits.select(u=pw.left.doc, w=pw.right.doc, score=pw.right._pw_index_reply_score)
+    edges = pairs.filter((pairs.score >= -0.5) & (pairs.u != pairs.w))
+    comps = components(pw, edges)
+    sizes = pw.sql("SELECT label, COUNT(*) AS size FROM comps GROUP BY label", comps=comps)
+    out = {"edges": [], "comps": [], "sizes": []}
+    for name, t in (("edges", edges.select(edges.u, edges.w)), ("comps", comps), ("sizes", sizes)):
+        pw.io.subscribe(t, on_change=lambda key, row, time, is_addition, name=name:
+                        out[name].append((time, is_addition, int(key), tuple(sorted(row.items())))))
+    pw.run()
+    return {k: sorted(v) for k, v in out.items()}
+
+
+def test_components_pipeline_on_the_card_matches_cpu_and_scipy(dev, fresh_graph):
+    import scipy.sparse as sp
+    from scipy.sparse.csgraph import connected_components
+
+    from pathway_tpu_torch.internals import parse_graph
+    from pathway_tpu_torch.ops import block_topk as bt
+
+    before = bt.block_topk.launches
+    got = _components_run("cuda")
+    assert bt.block_topk.launches >= before + 3  # one live search per tick
+    parse_graph.G.clear()
+    assert got == _components_run("cpu")
+    state: dict = {}
+    for t in sorted({e[0] for e in got["edges"]}):
+        for _t, add, k, row in (e for e in got["edges"] if e[0] == t):
+            state.pop(k, None) if not add else state.__setitem__(k, dict(row))
+        labels = {}
+        for _t, add, k, row in (e for e in got["comps"] if e[0] <= t):
+            labels.pop(k, None) if not add else labels.__setitem__(k, dict(row))
+        uw = np.array([(e["u"], e["w"]) for e in state.values()])
+        _, lab = connected_components(sp.coo_matrix((np.ones(len(uw)), (uw[:, 0], uw[:, 1]))), directed=False)
+        least = {}
+        for v in np.unique(uw).tolist():
+            least.setdefault(lab[v], v)
+        assert {r["v"]: r["label"] for r in labels.values()} == {v: least[lab[v]] for v in np.unique(uw).tolist()}

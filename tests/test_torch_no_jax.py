@@ -12,7 +12,12 @@ import with the clients blocked as well, and a port server started with
 either. The persistence glue, its stores and the file connectors import
 with ``pandas`` and ``fsspec`` blocked, and a persisted ``pw.io.fs`` run
 stops and restores from its store without loading either (``fsspec`` is
-imported only when an ``FsspecStore`` is built). Without a card, an entry point left on its default device raises
+imported only when an ``FsspecStore`` is built). The rest of the Table API
+(``iterate``, ``sql``, the row transformers, ``AsyncTransformer``,
+``pandas_transformer``, ``pw.stdlib.utils``, ``pw.udfs``, ``pw.universes``)
+imports with ``pandas`` blocked, and a pipeline over all of them but
+``pandas_transformer`` runs without loading it; ``pandas_transformer``
+needs pandas only when its operator runs. Without a card, an entry point left on its default device raises
 instead of falling back to the CPU."""
 
 import ast
@@ -276,6 +281,87 @@ PERSISTENCE_MODULES = [
     "pathway_tpu_torch.io.plaintext",
 ]
 
+# the rest of the Table API: each imports with pandas blocked
+CORE_API_MODULES = [
+    "pathway_tpu_torch.internals.arg_tuple",
+    "pathway_tpu_torch.internals.iterate",
+    "pathway_tpu_torch.internals.row_transformer",
+    "pathway_tpu_torch.internals.sql",
+    "pathway_tpu_torch.stdlib.utils",
+    "pathway_tpu_torch.stdlib.utils.async_transformer",
+    "pathway_tpu_torch.stdlib.utils.col",
+    "pathway_tpu_torch.stdlib.utils.filtering",
+    "pathway_tpu_torch.stdlib.utils.pandas_transformer",
+    "pathway_tpu_torch.udfs",
+    "pathway_tpu_torch.universes",
+]
+
+_CORE_API_RUN = """
+import asyncio, sys
+for name in {blocked!r}:
+    sys.modules[name] = None
+import pathway_tpu_torch as pw
+
+edges = pw.debug.table_from_markdown("u | w\\n1 | 2\\n2 | 3\\n7 | 8")
+both = edges.select(a=edges.u, b=edges.w).concat_reindex(edges.select(a=edges.w, b=edges.u))
+labels0 = both.groupby(both.a).reduce(v=both.a, label=both.a)
+
+def step(labels):
+    nb = both.join(labels, both.a == labels.v).select(v=both.b, label=labels.label)
+    cand = nb.concat_reindex(labels.select(labels.v, labels.label))
+    return cand.groupby(cand.v).reduce(cand.v, label=pw.reducers.min(cand.label))
+
+comps = pw.iterate(step, labels=labels0)
+sizes = pw.sql("SELECT label, COUNT(*) AS size FROM c GROUP BY label", c=comps)
+
+@pw.transformer
+class double:
+    class table(pw.ClassArg):
+        size = pw.input_attribute()
+
+        @pw.output_attribute
+        def twice(self) -> int:
+            return 2 * self.size
+
+class Out(pw.Schema):
+    ret: int
+
+class Inc(pw.AsyncTransformer, output_schema=Out):
+    async def invoke(self, label, size) -> dict:
+        return {{"ret": label + size}}
+
+best = pw.utils.filtering.argmax_rows(sizes, what=sizes.size)
+res = {{}}
+for name, t in [("sizes", sizes), ("twice", double(sizes.select(sizes.size)).table),
+                ("inc", Inc(input_table=sizes).successful), ("best", best)]:
+    pw.io.subscribe(t, on_change=lambda key, row, time, is_addition, name=name:
+                    res.setdefault(name, []).append(tuple(sorted(row.items()))))
+pw.run()
+assert sorted(res["sizes"]) == [(("label", 1), ("size", 3)), (("label", 7), ("size", 2))], res
+assert sorted(res["twice"]) == [(("twice", 4),), (("twice", 6),)], res
+assert sorted(res["inc"]) == [(("ret", 4),), (("ret", 9),)] and len(res["best"]) == 1, res
+pw.internals.parse_graph.G.clear()
+
+class O(pw.Schema):
+    x: int
+
+@pw.pandas_transformer(output_schema=O)
+def f(df):
+    return df
+
+edges = pw.debug.table_from_markdown("u | w\\n1 | 2")
+pw.io.subscribe(f(edges.select(x=edges.u)), on_change=lambda **kw: None)
+try:
+    pw.run()
+except ImportError:
+    pass
+else:
+    raise AssertionError("pandas_transformer ran without pandas")
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in {blocked!r} and sys.modules[m])
+assert not leaked, leaked
+print("ok")
+"""
+
 _PERSISTED_RUN = """
 import json, os, sys, tempfile, threading, time
 for name in {blocked!r}:
@@ -430,6 +516,31 @@ def persistence_imported_with_fsspec_blocked():
 @pytest.mark.parametrize("mod", PERSISTENCE_MODULES)
 def test_persistence_module_imports_without_jax_pandas_or_fsspec(persistence_imported_with_fsspec_blocked, mod):
     assert mod in persistence_imported_with_fsspec_blocked
+
+
+@pytest.fixture(scope="module")
+def core_api_imported_with_pandas_blocked():
+    r = _run(_IMPORT_EACH, blocked=BLOCKED_WITH_PANDAS, mods=CORE_API_MODULES)
+    assert r.returncode == 0, r.stderr
+    return set(json.loads(r.stdout.strip().splitlines()[-1]))
+
+
+@pytest.mark.parametrize("mod", CORE_API_MODULES)
+def test_core_api_module_imports_without_jax_or_pandas(core_api_imported_with_pandas_blocked, mod):
+    assert mod in core_api_imported_with_pandas_blocked
+
+
+def test_stdlib_utils_import_loads_no_pandas():
+    code = "import sys\nimport pathway_tpu_torch.stdlib.utils\nprint('pandas' in sys.modules)"
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip().splitlines()[-1] == "False"
+
+
+def test_core_api_pipeline_runs_with_pandas_blocked():
+    r = _run(_CORE_API_RUN, blocked=BLOCKED_WITH_PANDAS)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip().endswith("ok")
 
 
 def test_persisted_fs_run_restores_with_pandas_and_fsspec_blocked():

@@ -575,6 +575,132 @@ def test_pickles_cross_packages_both_ways():
     assert b"pathway_tpu_torch" not in _pickle.dumps(obj)
 
 
+
+# --- iterate and AsyncTransformer state across a restart -----------------------
+
+_COMPONENTS_CHILD = textwrap.dedent(
+    """
+    import importlib, sys
+    sys.path.insert(0, sys.argv[4])
+    from torch_parity import components
+    pw = importlib.import_module(sys.argv[1])
+    class E(pw.Schema):
+        u: int
+        w: int
+    edges = pw.io.fs.read(sys.argv[2], format="json", schema=E, mode="streaming")
+    pw.io.jsonlines.write(components(pw, edges), sys.argv[3])
+    cfg = pw.persistence.Config.simple_config(
+        pw.persistence.Backend.filesystem(sys.argv[5]), snapshot_every=1
+    )
+    pw.run(persistence_config=cfg, autocommit_duration_ms=20)
+    """
+)
+
+
+@pytest.mark.parametrize("writer,reader", [("port", "port"), ("jax", "port"), ("port", "jax")])
+def test_iterate_killed_and_restored_across_packages(tmp_path, writer, reader):
+    """A components pipeline (``pw.iterate`` over the edges of ``pw.io.fs``)
+    runs in a child process under ``writer`` and is SIGKILLed once its
+    labels are out and committed; ``reader`` restores its store (the
+    iterate exec's ``states``/``emitted``, then a reseed of the depth
+    runtimes), replays nothing, and labels the new edges as a run that
+    never stopped would."""
+    from torch_parity import components
+
+    tests_dir = os.path.dirname(os.path.abspath(__file__))
+    input_dir, pdir = tmp_path / "in", tmp_path / "pstorage"
+    input_dir.mkdir()
+    _write_rows(input_dir / "f1.jsonl", [{"u": 0, "w": 1}, {"u": 1, "w": 2}, {"u": 3, "w": 4},
+                                         {"u": 10, "w": 11}])
+    first = {(v,): (lab,) for v, lab in [(0, 0), (1, 0), (2, 0), (3, 3), (4, 3), (10, 10), (11, 10)]}
+    pkgs = {"jax": "pathway_tpu", "port": "pathway_tpu_torch"}
+    env = dict(os.environ, PYTHONPATH=REPO, PATHWAY_COMPILED_TICK="0", JAX_PLATFORMS="cpu")
+    env.pop("PATHWAY_FAULTS", None)
+    child = subprocess.Popen(
+        [sys.executable, "-c", _COMPONENTS_CHILD, pkgs[writer], str(input_dir), str(tmp_path / "a.jsonl"),
+         tests_dir, str(pdir)],
+        env=env, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+    )
+    try:
+        deadline = time.time() + 90
+        while time.time() < deadline and _final_rows(tmp_path / "a.jsonl", ["v"]) != first:
+            assert child.poll() is None, child.stderr.read()[-3000:]
+            time.sleep(0.05)
+        assert _final_rows(tmp_path / "a.jsonl", ["v"]) == first
+        time.sleep(1.0)  # the tick's commit follows its output
+    finally:
+        child.kill()
+        child.wait(timeout=30)
+    _write_rows(input_dir / "f2.jsonl", [{"u": 2, "w": 3}, {"u": 11, "w": 12}, {"u": 20, "w": 21}])
+    pw = PACKAGES[reader]
+    pw.internals.parse_graph.G.clear()
+
+    class E(pw.Schema):
+        u: int
+        w: int
+
+    edges = pw.io.fs.read(str(input_dir), format="json", schema=E, mode="streaming")
+    pw.io.jsonlines.write(components(pw, edges), str(tmp_path / "b.jsonl"))
+    cfg = pw.persistence.Config.simple_config(pw.persistence.Backend.filesystem(str(pdir)), snapshot_every=1)
+    want = {(v,): (lab,) for v, lab in [(0, 0), (1, 0), (2, 0), (3, 0), (4, 0), (10, 10), (11, 10),
+                                         (12, 10), (20, 20), (21, 20)]}
+    assert _run_until(
+        pw, cfg, lambda: _final_rows(tmp_path / "b.jsonl", ["v"], _final_rows(tmp_path / "a.jsonl", ["v"])) == want
+    )
+    drv = pw.internals.parse_graph.G.last_runtime.persistence_driver
+    assert drv.restored_from_snapshot and drv.replayed_events == 0
+
+
+@pytest.mark.parametrize("writer,reader", [("jax", "port"), ("port", "jax")])
+def test_async_transformer_failed_instances_restore_across_packages(tmp_path, writer, reader):
+    """An ``AsyncTransformer`` whose instance 1 failed in the first run
+    keeps it failed after a restore in the other package: a new row of
+    instance 1 is failed, a new row of instance 2 succeeds."""
+    input_dir, pdir = tmp_path / "in", tmp_path / "pstorage"
+    input_dir.mkdir()
+
+    def build(pw, out):
+        class S(pw.Schema):
+            value: int
+            group: int
+
+        class Out(pw.Schema):
+            ret: int
+
+        class Flaky(pw.AsyncTransformer, output_schema=Out):
+            async def invoke(self, value, group) -> dict:
+                if value % 7 == 0:
+                    raise RuntimeError("boom")
+                return {"ret": value * 10}
+
+        rows = pw.io.fs.read(str(input_dir), format="json", schema=S, mode="streaming")
+        fin = Flaky(input_table=rows, instance=rows.group).finished
+        pw.io.jsonlines.write(fin.select(fin.ret, status=fin._async_status, value=rows.value), str(out))
+
+    def statuses(*paths):
+        state = {}
+        for path in paths:
+            state = _final_rows(path, ["value"], state)
+        return sorted(state.values(), key=repr)
+
+    _write_rows(input_dir / "f1.jsonl", [{"value": 14, "group": 1}, {"value": 2, "group": 2}])
+    first = [(None, "-FAILURE-"), (20, "-SUCCESS-")]  # (ret, status) of each value
+    pw = PACKAGES[writer]
+    pw.internals.parse_graph.G.clear()
+    build(pw, tmp_path / "a.jsonl")
+    cfg = pw.persistence.Config.simple_config(pw.persistence.Backend.filesystem(str(pdir)), snapshot_every=1)
+    assert _run_until(pw, cfg, lambda: statuses(tmp_path / "a.jsonl") == sorted(first, key=repr))
+    _write_rows(input_dir / "f2.jsonl", [{"value": 3, "group": 1}, {"value": 4, "group": 2}])
+    pw = PACKAGES[reader]
+    pw.internals.parse_graph.G.clear()
+    build(pw, tmp_path / "b.jsonl")
+    cfg = pw.persistence.Config.simple_config(pw.persistence.Backend.filesystem(str(pdir)), snapshot_every=1)
+    want = sorted(first + [(None, "-FAILURE-"), (40, "-SUCCESS-")], key=repr)
+    assert _run_until(pw, cfg, lambda: statuses(tmp_path / "a.jsonl", tmp_path / "b.jsonl") == want)
+    drv = pw.internals.parse_graph.G.last_runtime.persistence_driver
+    assert drv.restored_from_snapshot and drv.replayed_events == 0
+
+
 # --- a VectorStoreServer over pw.io.fs, killed and restarted -----------------
 
 _VS_WORDS = [f"w{i}" for i in range(300)]

@@ -1,0 +1,80 @@
+"""Constructors and functions of the port take the reference's keywords.
+
+``EncoderRuntime``, ``SentenceTransformerEmbedder`` and
+``TpuDenseKnnIndex`` take ``mesh=``/``axis=`` where the reference does:
+``mesh=None`` builds as if it were left out, and a mesh that is set raises
+``NotImplementedError`` naming [mesh] (the port has one card). The embedder
+takes extra keywords and ignores them, as the reference does.
+``split_kv_store`` takes ``transfer_id=`` and splits a store as the
+reference does. Embeddings are compared exactly within the port; the split
+counts across the packages exactly."""
+
+import inspect
+
+import numpy as np
+import pytest
+
+from pathway_tpu.elastic.kv import split_kv_store as jax_split_kv_store
+from pathway_tpu.stdlib.indexing._index_impls import TpuDenseKnnIndex as JaxIndex
+from pathway_tpu.xpacks.llm._encoder import EncoderRuntime as JaxRuntime
+from pathway_tpu.xpacks.llm.embedders import SentenceTransformerEmbedder as JaxEmbedder
+from pathway_tpu_torch.elastic.kv import split_kv_store
+from pathway_tpu_torch.generate.kv_cache import KvLedger
+from pathway_tpu_torch.stdlib.indexing._index_impls import TpuDenseKnnIndex
+from pathway_tpu_torch.xpacks.llm._encoder import EncoderRuntime
+from pathway_tpu_torch.xpacks.llm.embedders import SentenceTransformerEmbedder
+
+SMALL = dict(dim=8, depth=1, heads=2, max_len=16)
+CONSTRUCTORS = [
+    (EncoderRuntime, JaxRuntime, dict(vocab_size=50, **SMALL)),
+    (SentenceTransformerEmbedder, JaxEmbedder, SMALL),
+    (TpuDenseKnnIndex, JaxIndex, dict(dimensions=8)),
+]
+IDS = ["EncoderRuntime", "SentenceTransformerEmbedder", "TpuDenseKnnIndex"]
+
+
+def _names(cls):
+    return [p for p in inspect.signature(cls).parameters if p != "device"]
+
+
+@pytest.mark.parametrize("port,ref,kw", CONSTRUCTORS, ids=IDS)
+def test_constructor_takes_the_reference_parameters(port, ref, kw):
+    # the port adds only ``device=``; the names and their order are the
+    # reference's (the JAX index's ``kernel`` values differ: xla/pallas)
+    assert _names(port) == _names(ref)
+
+
+@pytest.mark.parametrize("port,ref,kw", CONSTRUCTORS, ids=IDS)
+def test_constructor_mesh_none_builds_and_a_mesh_raises(port, ref, kw):
+    port(mesh=None, axis="data", device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match=r"\[mesh\]"):
+        port(mesh=object(), device="cpu", **kw)
+
+
+def test_embedder_ignores_extra_init_kwargs():
+    JaxEmbedder(trust_remote_code=True, **SMALL)  # the reference builds
+    plain = SentenceTransformerEmbedder(device="cpu", **SMALL)
+    extra = SentenceTransformerEmbedder(device="cpu", trust_remote_code=True, revision="main", **SMALL)
+    texts = ["a seeded sentence", "another one"]
+    np.testing.assert_array_equal(
+        np.stack(plain.embed_batch(texts)), np.stack(extra.embed_batch(texts))
+    )
+
+
+def test_split_kv_store_takes_transfer_id_like_the_reference(tmp_path):
+    led = KvLedger()
+    for seq_id in range(1, 9):
+        led.put_seq(seq_id, {"seq_id": seq_id})
+    src = str(tmp_path / "src")
+    led.snapshot(src)
+    results = {}
+    for name, split in (("jax", jax_split_kv_store), ("torch", split_kv_store)):
+        dests = [str(tmp_path / f"{name}-{i}") for i in range(3)]
+        stats = split(src, dests, transfer_id="kv-move-1")
+        results[name] = (
+            stats["n_new"], stats["total_seqs"], stats["bytes_ferried"],
+            [d["seqs"] for d in stats["destinations"]],
+            [sorted(KvLedger.restore(d).live_seqs()) for d in dests],
+        )
+    assert results["torch"] == results["jax"]
+    assert results["torch"][1] == 8 and results["torch"][2] == 0

@@ -4,9 +4,16 @@ without it: compiled ticks, engine shards, the multi-process engine (DCN),
 replication, ``mesh=``, the temporal operators and the ``.dt`` namespace,
 the service connectors, the replicated read plane (``ReplicaServer``,
 ``FailoverRouter``, ``ResultCache`` and the ``/generate`` route), every root
-name of the reference the port lacks (``pw.iterate``, ``pw.sql``,
+name of the reference the port lacks (``pw.LiveTable``, ``pw.demo``,
 ``pw.temporal``, …) and every ``pw.stdlib.<name>`` it lacks, each naming its
-tag."""
+tag. Every public name of every package ``__init__`` of the reference
+resolves in the port or raises naming a tag, and the root names that the
+port carries now resolve to counterparts with the reference's signatures."""
+
+import importlib
+import inspect
+import types
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -140,15 +147,126 @@ def test_reference_stdlib_name_raises_with_its_tag(name):
 
 
 def test_root_name_tags_and_unknown_names():
-    assert "[core-api]" in str(pytest.raises(NotImplementedError, getattr, pw, "iterate").value)
-    assert "[core-api]" in str(pytest.raises(NotImplementedError, getattr, pw, "sql").value)
-    assert "[core-api]" in str(pytest.raises(NotImplementedError, getattr, pw, "transformer").value)
+    assert "[core-api]" in str(pytest.raises(NotImplementedError, getattr, pw, "LiveTable").value)
+    assert "[core-api]" in str(pytest.raises(NotImplementedError, getattr, pw, "load_yaml").value)
+    assert "[core-api]" in str(pytest.raises(NotImplementedError, getattr, pw, "demo").value)
+    assert "[stdlib-rest]" in str(pytest.raises(NotImplementedError, getattr, pw, "graphs").value)
     assert "[temporal]" in str(pytest.raises(NotImplementedError, getattr, pw, "temporal").value)
+    assert callable(pw.iterate) and callable(pw.sql) and callable(pw.transformer)
     with pytest.raises(AttributeError):
         pw.no_such_name
     with pytest.raises(AttributeError):
         pw.stdlib.no_such_name
-    assert len(ROOT_MISSING) >= 30 and len(STDLIB_MISSING) == 7
+    assert len(ROOT_MISSING) == 12 and len(STDLIB_MISSING) == 6
+
+
+# root names (and ``pw.stdlib.utils``) that raised [core-api] until the
+# port carried them: each resolves to a counterpart with the reference's
+# signature. The reference's root ``TableSlice`` is an empty placeholder
+# class; the port exports the class that ``Table.slice`` returns, so it is
+# held against that class of the reference.
+PORTED_ROOT = [
+    "iterate", "iterate_universe", "transformer", "ClassArg", "attribute",
+    "input_attribute", "input_method", "method", "output_attribute", "sql",
+    "AsyncTransformer", "pandas_transformer", "udfs", "universes",
+    "set_license_key", "set_monitoring_config", "enable_interactive_mode",
+    "table_transformer", "TableSlice", "utils",
+]
+REFERENCE_COUNTERPART = {"TableSlice": ("pathway_tpu.internals.table_slice", "TableSlice")}
+
+
+def _params(obj):
+    return [(p.name, p.kind, repr(p.default)) for p in inspect.signature(obj).parameters.values()]
+
+
+def _same_api(ref, port, where):
+    if isinstance(ref, types.ModuleType):
+        assert isinstance(port, types.ModuleType), where
+        names = getattr(ref, "__all__", None) or [
+            n for n, v in vars(ref).items()
+            if not n.startswith("_") and callable(v) and v.__module__ == ref.__name__
+        ]
+        assert names, where
+        for n in names:
+            _same_api(getattr(ref, n), getattr(port, n), f"{where}.{n}")
+        return
+    assert callable(port) and isinstance(port, type) == isinstance(ref, type), where
+    if callable(ref):
+        assert _params(port) == _params(ref), where
+
+
+@pytest.mark.parametrize("name", PORTED_ROOT)
+def test_ported_root_name_has_the_reference_signature(name):
+    import pathway_tpu as jpw
+
+    assert name in pw.__all__ and name not in ROOT_MISSING
+    if name in REFERENCE_COUNTERPART:
+        module, attr = REFERENCE_COUNTERPART[name]
+        ref = getattr(importlib.import_module(module), attr)
+    else:
+        ref = getattr(jpw, name)
+    _same_api(ref, getattr(pw, name), f"pw.{name}")
+    if name == "utils":
+        assert pw.stdlib.utils is pw.utils
+
+
+# every package ``__init__`` of the reference, found on disk
+REF_ROOT = Path(__file__).resolve().parent.parent / "pathway_tpu"
+REF_PACKAGES = sorted(
+    ".".join(("pathway_tpu",) + init.parent.relative_to(REF_ROOT).parts)
+    for init in REF_ROOT.rglob("__init__.py")
+)
+RENAMES = {"pallas_topk": "block_topk", "jax_metrics": "torch_metrics"}
+
+
+def _tags():
+    from pathway_tpu_torch import _unported
+
+    return [v.split()[0] for k, v in vars(_unported).items() if k.isupper() and isinstance(v, str)]
+
+
+def _public_names(module):
+    """``__all__``, else the objects of the reference the package binds
+    (its own classes and functions and their re-exports; no submodules,
+    no ``typing``/numpy helpers)."""
+    names = getattr(module, "__all__", None)
+    if names is not None:
+        return list(names)
+    return [
+        n for n, v in vars(module).items()
+        if not n.startswith("_") and not isinstance(v, types.ModuleType)
+        and str(getattr(v, "__module__", "")).startswith("pathway_tpu")
+    ]
+
+
+def _assert_raises_with_tag(fn, what):
+    with pytest.raises(NotImplementedError) as e:
+        fn()
+    assert any(tag in str(e.value) for tag in _tags()), (what, str(e.value))
+
+
+@pytest.mark.parametrize("package", REF_PACKAGES)
+def test_reference_package_names_resolve_or_raise_with_a_tag(package):
+    ref = importlib.import_module(package)
+    parts = ("pathway_tpu_torch" + package[len("pathway_tpu"):]).split(".")
+    for depth in range(len(parts), 0, -1):
+        try:
+            port = importlib.import_module(".".join(parts[:depth]))
+            break
+        except ModuleNotFoundError:
+            continue
+    if depth < len(parts):
+        # the port lacks the package: its nearest parent raises for it
+        _assert_raises_with_tag(lambda: getattr(port, parts[depth]), package)
+        return
+    for name in _public_names(ref):
+        ported = name
+        for old, new in RENAMES.items():
+            ported = ported.replace(old, new)
+        try:
+            getattr(port, ported)
+        except NotImplementedError as e:
+            assert any(tag in str(e) for tag in _tags()), (package, name, str(e))
 
 
 @pytest.mark.parametrize("name", ["classifiers", "smart_table_ops", "hmm", "datasets"])
