@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from csrc/ (nvcc, sm_90a, one process per
-source, all started together), then runs twelve phases, printing one JSON
+source, all started together), then runs thirteen phases, printing one JSON
 object per phase:
 
 1. device         — nvidia-smi name/power limit, toolchain versions, build seconds.
@@ -199,7 +199,33 @@ object per phase:
                     the seconds to the first fixpoint, the depths iterate
                     reached, update-to-visible p50 / max, the engine's
                     seconds per operator type, and the launches per shape.
-10. generation    — ask -> retrieve -> generate: 24 asks are embedded and
+10. live classify — a live document classifier as a user writes it
+                    (``lc_pipeline``): 32,768 seeded documents with one of 8
+                    labels (70% of each one's 16-48 words from its label's
+                    64-word slice of the vocabulary) are written as a CSV and
+                    streamed in by pw.demo.replay_csv(input_rate=0); the
+                    phase-3 embedder embeds them; knn_lsh_classifier_train(
+                    type="cosine", device="cuda") indexes them through
+                    KNNIndex and block_topk; 2,048 held-out queries arrive
+                    from pw.debug.StreamGenerator in 128 batches of 16, are
+                    embedded the same way and labelled by the model (k = 3)
+                    and by knn_lsh_classify with a separate label table
+                    (topic-<label>); pw.live watches the predictions and a
+                    subscriber records the update stream (no check runs
+                    inside it); the run ends with wait() and snapshot().
+                    Checked: one prediction per query; every label and topic
+                    equals the majority over block_topk's plain version's
+                    top-3 on each index's own prepared corpus and valid rows
+                    (a difference only at a near tie at rank 3); 32,768 valid
+                    rows per index, on the card; the embedder on the card;
+                    launches on every reported shape; the subscriber's final
+                    state equals snapshot(); the run did not fail; accuracy
+                    above twice chance. Prints the phase's seconds, the
+                    training embed docs/s, seconds from pw.live to the final
+                    snapshot, accuracy, the update stream's rows (every
+                    standing query answered again as the corpus grew),
+                    launches per shape and peak memory.
+11. generation    — ask -> retrieve -> generate: 24 asks are embedded and
                     retrieved (k = 3) on the phase-3 index, each grounded prompt
                     goes to one DecodeScheduler(GenerateConfig()) at the decoder's
                     serving defaults (dim 128, 2 layers, 4 heads, head_dim 32,
@@ -209,7 +235,7 @@ object per phase:
                     back to empty, launches == decode steps x layers, the same
                     tokens from a kernel="ref" scheduler, and the logits of one
                     recorded step, kernel against plain.
-11. durability    — the same 24 prompts at the same width, with snapshots.
+12. durability    — the same 24 prompts at the same width, with snapshots.
                     A child process (this script with --kill-child) runs them
                     with PATHWAY_GENERATE_SNAPSHOT_EVERY=8, a store in a temp
                     dir and PATHWAY_FAULTS="kill=decode:150"; it must exit 23
@@ -226,7 +252,7 @@ object per phase:
                     segments per snapshot). Tokens are compared exactly; a
                     difference passes only at a near tie: the uninterrupted
                     run's top-2 logit margin there below GEN_LOGIT_TOL.
-12. kernels       — per kernel and per path shape: launches on its path, ms
+13. kernels       — per kernel and per path shape: launches on its path, ms
                     (CUDA events) and device ms (torch.profiler), its plain
                     version's ms, the bound and what sets it, the bytes it must
                     move, and the ms of the library call(s) computing the same
@@ -239,7 +265,9 @@ object per phase:
                     phase launched, on its corpus, B = 1 and 16 on the
                     persistence phase's restored corpus and on the hybrid
                     store's dense corpus, B = 16 on the 1M IVF ground truth,
-                    and every (B, k = 9) of the components phase on its corpus;
+                    every (B, k = 9) of the components phase on its corpus
+                    and every (B, k = 3) of the live classify phase on its
+                    corpus;
                     paged_attention: the
                     recorded decode step and a long context, each with its
                     split count S.
@@ -3693,7 +3721,255 @@ def components(dev, smi: str) -> tuple[dict, dict]:
     return phase, {"prep": prep, "valid": valid, "queries": queries, "launches": launches, "shapes": shapes}
 
 
-# --- phase 10: generation -----------------------------------------------------
+# --- phase 10: live classify --------------------------------------------------
+
+LC_DOCS = 32768
+LC_QUERIES = 2048
+LC_BATCH = 16  # StreamGenerator batches: 128 of 16 queries
+LC_LABELS = 8
+LC_K = 3
+LC_LABEL_WORDS = 64  # each label's own slice of the vocabulary
+LC_SHARED_WORDS = 2000  # words every label draws from
+LC_OWN = 0.7  # the share of a document's words from its label's slice
+LC_WAIT_S = 600.0
+
+
+def lc_docs(seed: int, n: int, first: int = 0) -> list[tuple[int, int, str]]:
+    """n labelled documents (id, label, text) of 16-48 words: each word is
+    from the label's own slice of a seeded vocabulary with probability
+    LC_OWN, else from the shared slice, so labels are separable by cosine.
+    The vocabulary is the same for every seed."""
+    vrng = np.random.default_rng(SEED + 12)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    vocab = np.array(["".join(vrng.choice(letters, size=int(vrng.integers(4, 10))))
+                      for _ in range(LC_LABELS * LC_LABEL_WORDS + LC_SHARED_WORDS)])
+    shared = vocab[LC_LABELS * LC_LABEL_WORDS:]
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        label = int(rng.integers(LC_LABELS))
+        own = vocab[label * LC_LABEL_WORDS:(label + 1) * LC_LABEL_WORDS]
+        size = int(rng.integers(16, 49))
+        mine = rng.random(size) < LC_OWN
+        words = np.where(mine, rng.choice(own, size=size), rng.choice(shared, size=size))
+        out.append((first + i, label, " ".join(words)))
+    return out
+
+
+def lc_write_csv(path: str, docs: list[tuple[int, int, str]]) -> None:
+    import csv
+
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["doc", "label", "text"])
+        w.writerows(docs)
+
+
+def lc_majority(labels):
+    """The classifier's vote (stdlib/ml/classifiers ``majority``): the most
+    frequent label, a tie going to the largest ``str``."""
+    if not labels:
+        return None
+    counts = Counter(labels)
+    return max(counts.items(), key=lambda kv: (kv[1], str(kv[0])))[0]
+
+
+def lc_pipeline(pw, csv_path: str, queries: list[tuple[int, int, str]], emb, dim: int, device: str):
+    """A live document classifier as a user writes it: pw.demo.replay_csv
+    streams the labelled documents in, ``emb`` embeds them, the kNN
+    classifier trains on them (cosine, so the index searches with
+    block_topk), and queries arriving from pw.debug.StreamGenerator in
+    batches of LC_BATCH are labelled by the majority of their LC_K nearest
+    documents, once by the trained model and once by knn_lsh_classify with
+    a separate label table (``topic-<label>``). Returns the table pw.live
+    watches: each query's id, vector and both labels."""
+    from importlib import import_module
+
+    classifiers = import_module(pw.__name__ + ".stdlib.ml.classifiers")
+
+    class Doc(pw.Schema):
+        doc: int = pw.column_definition(primary_key=True)
+        label: int
+        text: str
+
+    class Query(pw.Schema):
+        query: int
+        text: str
+
+    train = pw.demo.replay_csv(csv_path, schema=Doc, input_rate=0)
+    vectors = train.select(train.label, data=emb(train.text))
+    model = classifiers.knn_lsh_classifier_train(vectors, type="cosine", d=dim, device=device)
+    batches = [[{"query": q, "text": t} for q, _label, t in queries[i:i + LC_BATCH]]
+               for i in range(0, len(queries), LC_BATCH)]
+    asked = pw.debug.StreamGenerator().table_from_list_of_batches(batches, Query)
+    qv = asked.select(asked.query, data=emb(asked.text))
+    pred = model(qv, k=LC_K)
+    topics = train.select(label=pw.apply(lambda label: f"topic-{label}", train.label))
+    named = classifiers.knn_lsh_classify(model, topics, qv, LC_K)
+    return qv.select(qv.query, qv.data, predicted=pred.predicted_label, topic=named.predicted_label)
+
+
+def live_classify(dev, smi: str) -> tuple[dict, dict]:
+    """A live document classifier on the card, as a user writes it: the
+    labelled documents stream in through pw.demo.replay_csv, the full-width
+    embedder embeds them, knn_lsh_classifier_train(type="cosine",
+    device=dev) indexes them through KNNIndex and block_topk, and queries
+    from pw.debug.StreamGenerator are labelled by the trained model and by
+    knn_lsh_classify with a separate label table; pw.live watches the
+    predictions while the run goes on (``lc_pipeline``). A subscriber only
+    records; every check runs after ``wait()``, which raises what the run's
+    thread raised. Checked: one prediction per query; each label (and each
+    topic) equals the majority over block_topk's plain version's top
+    LC_K on each index's own prepared corpus and valid rows, a difference
+    allowed only at a near tie at rank LC_K; each index holds LC_DOCS
+    valid rows on the card; the embedder on the card; launches on every
+    reported shape; the subscriber's final state equals the snapshot; the
+    run did not fail; accuracy against the true labels above twice chance."""
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.engine.index_node import ExternalIndexExec
+    from pathway_tpu_torch.engine.nodes import InputNode
+    from pathway_tpu_torch.internals import parse_graph
+    from pathway_tpu_torch.internals.api import ref_scalar
+    from pathway_tpu_torch.ops import block_topk as bt
+    from pathway_tpu_torch.ops.block_topk import block_topk_ref
+    from pathway_tpu_torch.ops.knn import _normalize, stable_topk
+    from pathway_tpu_torch.xpacks.llm.embedders import SentenceTransformerEmbedder
+
+    t_phase = time.perf_counter()
+    docs = lc_docs(SEED + 13, LC_DOCS)
+    queries = lc_docs(SEED + 14, LC_QUERIES, first=LC_DOCS)
+    label_of_key = {int(ref_scalar(d)): label for d, label, _t in docs}
+    truth = {q: label for q, label, _t in queries}
+    workdir = tempfile.mkdtemp(prefix="live_classify_")
+    csv_path = os.path.join(workdir, "train.csv")
+    lc_write_csv(csv_path, docs)
+
+    parse_graph.G.clear()
+    emb = SentenceTransformerEmbedder(device=dev)
+    out = lc_pipeline(pw, csv_path, queries, emb, emb.runtime.dim, dev.type)
+    bt.block_topk.launches = 0
+    bt.block_topk.shapes.clear()
+    torch.cuda.reset_peak_memory_stats()
+    events: list[tuple[float, int, bool, int]] = []
+    state: dict[int, tuple] = {}
+
+    def follow(key, row, t, is_addition):
+        # records only: no check runs inside a subscriber
+        events.append((time.perf_counter(), t, is_addition, row["query"]))
+        vals = (row["query"], row["predicted"], row["topic"])
+        if is_addition:
+            state[int(key)] = vals
+        elif state.get(int(key)) == vals:
+            del state[int(key)]
+
+    t_live = time.perf_counter()
+    lt = pw.live(out)
+    lt.subscribe(follow)
+    finished = lt.wait(LC_WAIT_S)  # raises what the run's thread raised
+    check(finished, f"the live run did not finish in {LC_WAIT_S} s")
+    check(not lt.failed, f"the live run failed: {lt.error!r}")
+    _frontier, rows = lt.snapshot()
+    launches, shapes = bt.block_topk.launches, dict(bt.block_topk.shapes)
+    rt = lt._runtime
+
+    check(len(rows) == LC_QUERIES and {r[0] for r in rows.values()} == set(truth),
+          f"{len(rows)} predictions for {LC_QUERIES} queries")
+    check(state == {int(k): (r[0], r[2], r[3]) for k, r in rows.items()},
+          "the subscriber's final state differs from snapshot()")
+    check(emb.runtime.device.type == "cuda", f"the embedder ran on {emb.runtime.device}")
+    indexes = [e.index for e in rt.execs.values() if isinstance(e, ExternalIndexExec)]
+    check(len(indexes) == 2, f"{len(indexes)} indexes, not the model's and the label table's")
+    order = sorted(rows)
+    qv = _normalize(torch.tensor(np.stack([np.asarray(rows[k][1], dtype=np.float32) for k in order]),
+                                 device=dev))
+    near_ties, plain = 0, {}
+    for which, ix in zip(("predicted", "topic"), indexes):
+        prep, _c2, valid = ix.corpus.prepared_arrays("cosine", bf16=False)
+        check(prep.device.type == "cuda", f"the {which} index's corpus is on {prep.device}")
+        check(int(valid.sum()) == LC_DOCS, f"the {which} index holds {int(valid.sum())} valid rows")
+        keys_ref, scores_ref = [], []
+        for lo in range(0, len(order), 512):
+            q = qv[lo:lo + 512].to(prep.dtype)
+            sc, ixs = block_topk_ref(q, prep, valid, LC_K + 1)
+            s, pos = stable_topk(sc.reshape(len(q), -1), LC_K + 1)
+            slots = torch.gather(ixs.reshape(len(q), -1), 1, pos).cpu().numpy()
+            keys_ref += [[ix.corpus.key_of[int(x)] for x in r] for r in slots]
+            scores_ref += s.double().cpu().numpy().tolist()
+        plain[which] = keys_ref
+        # one index's labels are ints, the other's topic-<int>: the model
+        # labels by the first, knn_lsh_classify by the second
+        col = 2 if which == "predicted" else 3
+        for k, keys, s in zip(order, keys_ref, scores_ref):
+            want = lc_majority([label_of_key[x] for x in keys[:LC_K]])
+            if which == "topic":
+                want = f"topic-{want}"
+            if rows[k][col] != want:
+                check(abs(s[LC_K - 1] - s[LC_K]) <= F32_TOL,
+                      f"query {rows[k][0]}: {which} {rows[k][col]!r}, the plain top-{LC_K} votes {want!r}")
+                near_ties += 1
+    check(plain["predicted"] == plain["topic"], "the two indexes' plain top-k differ")
+    check(launches > 0 and all(n > 0 for n in shapes.values()), f"block_topk launches {shapes}")
+    ready_s = time.perf_counter() - t_live
+    accuracy = float(np.mean([rows[k][2] == truth[rows[k][0]] for k in order]))
+    check(accuracy > 2.0 / LC_LABELS, f"accuracy {accuracy} is not above twice chance")
+
+    # the update stream: every standing query answered again as the corpus grew
+    retracted = {q for _w, _t, add, q in events if not add}
+    times = sorted({t for _w, t, _a, _q in events})
+    first_seen = {}
+    for wall, _t, add, q in events:
+        if add:
+            first_seen.setdefault(q, wall)
+    # the training documents' embedder: the node that makes (label, data)
+    # from the rows pw.demo reads
+    embed = [n for n in rt.order if list(n.column_names) == ["label", "data"]
+             and any(isinstance(i, InputNode) for i in n.inputs)]
+    check(len(embed) == 1, f"{len(embed)} nodes embed the training documents")
+    train_embed_s = rt.stats.node_ns.get(embed[0].id, 0) / 1e9
+    phase = {
+        "phase": "live classify",
+        "nvidia_smi": smi,
+        "docs": LC_DOCS,
+        "queries": LC_QUERIES,
+        "query_batches": LC_QUERIES // LC_BATCH,
+        "labels": LC_LABELS,
+        "k": LC_K,
+        "accuracy": accuracy,
+        "near_ties": near_ties,
+        "live_to_final_snapshot_s": ready_s,
+        "train_embed_s": train_embed_s,
+        "embed_docs_per_s": LC_DOCS / train_embed_s,
+        "updates": {
+            "rows": len(events),
+            "insertions": sum(1 for e in events if e[2]),
+            "retractions": len(events) - sum(1 for e in events if e[2]),
+            "queries_answered_again": len(retracted),
+            "logical_times": len(times),
+            "first_prediction_s": min(first_seen.values()) - t_live if first_seen else None,
+        },
+        "ticks": rt.stats.ticks,
+        "operator_s": operator_s(rt),
+        "block_topk_launches": launches,
+        "block_topk_launches_by_shape": {f"B={b},k={k}": n for (b, k), n in sorted(shapes.items())},
+        "embedder_device": str(emb.runtime.device),
+        "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    lt.stop()
+    prep, _c2, valid = indexes[0].corpus.prepared_arrays("cosine", bf16=False)
+    batch = {}
+    for b, _k in shapes:
+        # the batch each shape saw: the standing queries, zero-padded to the
+        # index's power-of-two batch as its search pads it
+        q = torch.zeros(b, prep.shape[1], dtype=prep.dtype, device=prep.device)
+        q[: min(b, len(qv))] = qv[:b].to(prep.dtype)
+        batch[b] = q
+    shutil.rmtree(workdir, ignore_errors=True)
+    parse_graph.G.clear()
+    return phase, {"prep": prep, "valid": valid, "queries": batch, "launches": launches, "shapes": shapes}
+
+
+# --- phase 11: generation -----------------------------------------------------
 
 
 class StepRecorder:
@@ -3966,7 +4242,7 @@ def generation(dev, main: dict) -> tuple[dict, dict]:
     }
 
 
-# --- phase 11: durability -----------------------------------------------------
+# --- phase 12: durability -----------------------------------------------------
 
 
 def kill_child(prompts_path: str) -> int:
@@ -4316,11 +4592,11 @@ def durability(dev, gen: dict) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-# --- phase 12: kernel times ---------------------------------------------------
+# --- phase 13: kernel times ---------------------------------------------------
 
 
 def kernel_times(main: dict, eng: dict, vs: dict, rest: dict, persist: dict, ik: dict, cc: dict,
-                 gen: dict, rate: float, rate_src: str) -> list[dict]:
+                 lc: dict, gen: dict, rate: float, rate_src: str) -> list[dict]:
     from pathway_tpu_torch.ops import block_topk as bt
     from pathway_tpu_torch.ops.knn import BLK, _normalize
 
@@ -4359,6 +4635,10 @@ def kernel_times(main: dict, eng: dict, vs: dict, rest: dict, persist: dict, ik:
         # every standing query of the components phase in one batch
         (b, k, cc["queries"][b], n, "components", (cc["prep"], cc["valid"]))
         for (b, k), n in sorted(cc["shapes"].items())
+    ] + [
+        # the live classifier's standing queries, per index
+        (b, k, lc["queries"][b], n, "live classify", (lc["prep"], lc["valid"]))
+        for (b, k), n in sorted(lc["shapes"].items())
     ]
     per_batch = []
     for bs, k, q, path_launches, path, (prep, valid) in path_shapes:
@@ -4420,6 +4700,8 @@ def kernel_times(main: dict, eng: dict, vs: dict, rest: dict, persist: dict, ik:
         "ivf_ground_truth_launches_by_shape": {f"B={b},k={k}": n for (b, k), n in sorted(gt["shapes"].items())},
         "components_launches": cc["launches"],
         "components_launches_by_shape": {f"B={b},k={k}": n for (b, k), n in sorted(cc["shapes"].items())},
+        "live_classify_launches": lc["launches"],
+        "live_classify_launches_by_shape": {f"B={b},k={k}": n for (b, k), n in sorted(lc["shapes"].items())},
         "max_abs_err": max(p["max_abs_err"] for p in per_batch),
         "ms": head["ms"],
         "plain_ms": head["plain_ms"],
@@ -4565,11 +4847,13 @@ def main() -> int:
     emit(phase)
     phase, cc_data = components(dev, smi)
     emit(phase)
+    phase, lc_data = live_classify(dev, smi)
+    emit(phase)
     phase, gen_data = generation(dev, main_data)
     emit(phase)
     emit(durability(dev, gen_data))
     kernels = kernel_times(main_data, engine_data, vs_data, rest_data, persist_data, ik_data, cc_data,
-                           gen_data, rate, rate_src) + [
+                           lc_data, gen_data, rate, rate_src) + [
         paged_kernel_times(gen_data, rate, rate_src)
     ]
     emit({"phase": "kernels", "kernels": kernels})

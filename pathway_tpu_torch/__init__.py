@@ -9,10 +9,12 @@ What is ported: the incremental dataflow engine and its Table API
 ``pw.io.subscribe``, the file connectors ``pw.io.fs``/``csv``/``jsonlines``/
 ``plaintext``/``null``, ``pw.debug``, ``pw.run``, ``pw.persistence``,
 ``pw.iterate``, ``pw.sql``, the row transformers, ``pw.AsyncTransformer``,
-``pw.pandas_transformer``, ``pw.udfs``, ``pw.universes`` and
-``pw.stdlib.utils``),
+``pw.pandas_transformer``, ``pw.udfs``, ``pw.universes``,
+``pw.stdlib.utils``, ``pw.live``/``pw.LiveTable``, ``pw.demo`` and
+``pw.load_yaml``),
 live-RAG retrieval (embedder UDF → ``DataIndex`` → dense top-k, or the
-IVF, LSH, BM25 and hybrid indexes; ``pw.stdlib.ml.KNNIndex``), and
+IVF, LSH, BM25 and hybrid indexes; ``pw.stdlib.ml.KNNIndex`` with the kNN
+classifiers, LSH clustering, the fuzzy join, ``hmm`` and ``datasets``), and
 generation serving.
 
 Modules keep the JAX package's paths and public names so each counterpart is
@@ -29,7 +31,7 @@ feature that is not ported raises ``NotImplementedError`` naming its
 from __future__ import annotations
 
 import pathway_tpu_torch.reducers as reducers
-from pathway_tpu_torch import debug, io, udfs
+from pathway_tpu_torch import debug, demo, io, udfs
 from pathway_tpu_torch._device import resolve_device
 from pathway_tpu_torch._unported import ROOT_NAMES, unported
 from pathway_tpu_torch.internals import (
@@ -88,6 +90,7 @@ from pathway_tpu_torch.internals import (
     wrap_py_object,
 )
 from pathway_tpu_torch.internals.custom_reducers import BaseCustomAccumulator
+from pathway_tpu_torch.internals.interactive import LiveTable, live
 from pathway_tpu_torch.internals.iterate import iterate, iterate_universe
 from pathway_tpu_torch.internals.joins import OuterJoinResult
 from pathway_tpu_torch.internals.row_transformer import (
@@ -101,6 +104,7 @@ from pathway_tpu_torch.internals.row_transformer import (
 )
 from pathway_tpu_torch.internals.sql import sql
 from pathway_tpu_torch.internals.table_slice import TableSlice
+from pathway_tpu_torch.internals.yaml_loader import load_yaml
 import pathway_tpu_torch.persistence as persistence
 import pathway_tpu_torch.universes as universes
 from pathway_tpu_torch.stdlib.utils.async_transformer import AsyncTransformer
@@ -141,8 +145,8 @@ def set_monitoring_config(*, server_endpoint: str | None = None, **kwargs) -> No
 
 
 def enable_interactive_mode() -> None:
-    """Compatibility no-op, as in the reference (``pw.live``/``LiveTable``
-    are not ported yet and raise naming their tag)."""
+    """Compatibility no-op, as in the reference: ``pw.live``/``LiveTable``
+    work without prior opt-in."""
 
 
 def table_transformer(*args, **kwargs):
@@ -161,6 +165,7 @@ __all__ = [
     "__version__",
     "resolve_device",
     "debug",
+    "demo",
     "io",
     "indexing",
     "ml",
@@ -185,6 +190,9 @@ __all__ = [
     "set_license_key",
     "set_monitoring_config",
     "enable_interactive_mode",
+    "LiveTable",
+    "live",
+    "load_yaml",
     "table_transformer",
     "apply",
     "apply_async",

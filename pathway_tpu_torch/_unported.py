@@ -6,13 +6,11 @@ behaviour."""
 from __future__ import annotations
 
 COMPILED_TICKS = "[compiled-ticks] (compiled ticks)"
-CORE_API = "[core-api] (the rest of the Table API)"
 MESH = "[mesh] (multi-device: engine mesh, DCN, sharded top-k)"
 REPLICATION = "[replication] (parallel/replicate.py and the replica)"
 TEMPORAL = "[temporal] (temporal nodes and windows)"
 CONNECTORS = "[connectors] (service connectors)"
 OBSERVABILITY = "[observability] (the rest of observability)"
-ML_REST = "[ml-rest] (the LSH classifiers, the fuzzy join, hmm)"
 STDLIB_REST = "[stdlib-rest] (graphs, viz)"
 
 # subpackages of the reference the port lacks, with their item
@@ -31,10 +29,6 @@ STDLIB_NAMES = {
 # root names of the reference the port lacks, each with its item
 ROOT_NAMES = {
     **STDLIB_NAMES,
-    **dict.fromkeys(
-        ("LiveTable", "live", "load_yaml", "demo"),
-        CORE_API,
-    ),
     **dict.fromkeys(("AsofJoinResult", "IntervalJoinResult", "WindowJoinResult"), TEMPORAL),
     **PACKAGE_NAMES,
 }

@@ -1,15 +1,17 @@
-"""pw.debug — static fixtures and capture-based output: the subset of
-``pathway_tpu/debug/__init__.py`` (reference: python/pathway/debug/
-__init__.py:207-709) that the port's tests and users need —
-``table_from_markdown`` (with ``__time__``/``__diff__``), ``table_from_rows``,
-``table_to_dicts``, ``compute_and_print[_update_stream]`` and
-``assert_table_equality[_wo_index]``, copied as they are.
+"""pw.debug — static fixtures and capture-based output: the port's own copy
+of ``pathway_tpu/debug/__init__.py`` (reference: python/pathway/debug/
+__init__.py:207-709) — ``table_from_markdown`` (with ``__time__``/
+``__diff__``), ``table_from_rows``, ``table_from_pandas``,
+``table_from_parquet``, ``StreamGenerator``, ``table_to_dicts``,
+``table_to_pandas``, ``table_to_parquet``,
+``compute_and_print[_update_stream]``, ``assert_table_equality[_wo_index]``
+and ``trace``/``trace_tree`` over the port's tracer, copied as they are.
 
-Not ported: the pandas surfaces (``table_from_pandas``, ``table_to_pandas``,
-parquet), ``StreamGenerator`` and the trace helpers (each raises naming
-[core-api]), and ``diagnose`` (it raises naming [observability]). Capture with
+Not ported: ``diagnose`` (it raises naming [observability]). Capture with
 ``persistence_config`` restores and records through the persistence glue, as
-in the reference. The module imports no pandas."""
+in the reference. The module imports no pandas: the pandas and parquet
+functions and ``StreamGenerator``'s pandas and markdown methods import it
+(and pyarrow, through pandas) when called."""
 
 from __future__ import annotations
 
@@ -22,24 +24,12 @@ from pathway_tpu_torch.engine.batch import DiffBatch
 from pathway_tpu_torch.engine.nodes import InputNode, OutputNode
 from pathway_tpu_torch.engine.runtime import Runtime, StaticSource
 from pathway_tpu_torch.internals import dtype as dt
-from pathway_tpu_torch._unported import CORE_API, OBSERVABILITY, package_getattr
+from pathway_tpu_torch._unported import OBSERVABILITY, package_getattr
 from pathway_tpu_torch.internals.api import Pointer, ref_scalar, sequential_key
 from pathway_tpu_torch.internals.table import Table
 from pathway_tpu_torch.internals.universe import Universe
 
-__getattr__ = package_getattr(
-    "pw.debug",
-    {
-        **dict.fromkeys(
-            (
-                "StreamGenerator", "table_from_pandas", "table_to_pandas",
-                "table_from_parquet", "table_to_parquet", "trace", "trace_tree",
-            ),
-            CORE_API,
-        ),
-        "diagnose": OBSERVABILITY,
-    },
-)
+__getattr__ = package_getattr("pw.debug", {"diagnose": OBSERVABILITY})
 
 
 # debug fixtures with IDENTICAL key sets share one Universe object, so
@@ -308,6 +298,57 @@ def table_from_rows(
     )
 
 
+def table_from_pandas(
+    df: Any,
+    id_from: Sequence[str] | None = None,
+    unsafe_trusted_ids: bool = False,
+    schema: Any = None,
+) -> Table:
+    col_names = [c for c in df.columns if c not in ("__time__", "__diff__")]
+    if id_from is None and schema is not None:
+        # schema primary keys drive row identity, as in table_from_rows
+        pk = schema.primary_key_columns()
+        if pk:
+            id_from = list(pk)
+    coercers = (
+        _schema_coercers(schema, col_names) if schema is not None else None
+    )
+    events: dict[int, list] = {}
+    for i, (idx, row) in enumerate(df.iterrows()):
+        t = int(row["__time__"]) if "__time__" in df.columns else 0
+        d = int(row["__diff__"]) if "__diff__" in df.columns else 1
+        vals = tuple(_np_unbox(row[c]) for c in col_names)
+        if coercers is not None:
+            vals = tuple(c(v) for c, v in zip(coercers, vals))
+        if id_from:
+            key = int(ref_scalar(*[vals[col_names.index(c)] for c in id_from]))
+        else:
+            # reference: keys come from the dataframe INDEX via ref_scalar
+            key = int(ref_scalar(_np_unbox(idx)))
+        events.setdefault(t, []).append((key, d, vals))
+    if schema is not None:
+        dtypes = {n: schema.dtypes()[n] for n in col_names}
+    else:
+        dtypes = {
+            n: _dtype_for([e[2][i] for evs in events.values() for e in evs])
+            for i, n in enumerate(col_names)
+        }
+    source = _RowsSource(col_names, sorted(events.items()))
+    node = InputNode(source, col_names)
+    return Table._from_node(node, dtypes, Universe())
+
+
+def _np_unbox(v: Any) -> Any:
+    if isinstance(v, np.generic):
+        return v.item()
+    # a pandas Timestamp, recognised without importing pandas
+    if type(v).__name__ == "Timestamp" and v.tzinfo is not None:
+        # aware values are stored normalized to UTC (reference: DateTimeUtc
+        # is chrono Utc; offsets survive only in formatting)
+        return v.tz_convert("UTC")
+    return v
+
+
 def _schema_coercers(schema: Any, col_names: Sequence[str]) -> list:
     """Per-column input coercion to the declared dtype: raw dicts/lists
     (and any datetimes inside them) become normalized Json, ints promote
@@ -477,6 +518,189 @@ def table_to_dicts(table: Table, persistence_config: Any = None):
     keys, cols = cap.column_dicts()
     columns = {n: cols.get(n, {}) for n in col_names}
     return keys, columns
+
+
+def table_from_parquet(
+    path: Any,
+    id_from: Sequence[str] | None = None,
+    unsafe_trusted_ids: bool = False,
+    **kwargs: Any,
+) -> Table:
+    """Parquet file -> table via pandas (reference: debug/__init__.py:458)."""
+    import pandas as pd
+
+    return table_from_pandas(
+        pd.read_parquet(path),
+        id_from=id_from,
+        unsafe_trusted_ids=unsafe_trusted_ids,
+    )
+
+
+def table_to_parquet(table: Table, filename: Any) -> None:
+    """Run the graph, write the table to a Parquet file (reference:
+    debug/__init__.py:475)."""
+    df = table_to_pandas(table, include_id=False)
+    df.to_parquet(filename)
+
+
+class StreamGenerator:
+    """Explicitly-timestamped test streams (reference: debug/__init__.py:
+    490). The reference routes events through persistence replay; the
+    microbatch engine's sources take timestamped events directly, so
+    persistence_config() returns None and the tables stream on pw.run."""
+
+    def _table_from_dict(self, batches: dict, schema: Any) -> Table:
+        """batches: {time: {worker: [(diff, key, [values...]), ...]}} —
+        worker ids collapse onto the single logical worker."""
+        col_names = list(schema.column_names())
+        return self._from_batches(batches, col_names, dict(schema.dtypes()))
+
+    @staticmethod
+    def _from_batches(batches: dict, col_names: list, dtypes: dict) -> Table:
+        # reference semantics (debug/__init__.py:536-541): if ANY
+        # timestamp is odd, ALL are doubled, preserving relative order
+        if any(int(t) % 2 == 1 for t in batches):
+            import warnings
+
+            warnings.warn(
+                "timestamps are required to be even; all timestamps will "
+                "be doubled"
+            )
+            batches = {2 * int(t): v for t, v in batches.items()}
+        events: dict[int, list] = {}
+        for t, by_worker in batches.items():
+            for _worker, changes in by_worker.items():
+                for diff, key, values in changes:
+                    events.setdefault(int(t), []).append(
+                        (int(key), int(diff), tuple(values))
+                    )
+        source = _RowsSource(col_names, sorted(events.items()))
+        node = InputNode(source, col_names)
+        return Table._from_node(node, dtypes, Universe())
+
+    def table_from_list_of_batches_by_workers(
+        self, batches: list[dict[int, list[dict]]], schema: Any, **kw: Any
+    ) -> Table:
+        counter = iter(range(10**9))
+        as_dict: dict[int, dict[int, list]] = {}
+        for i, batch in enumerate(batches):
+            t = 2 * (i + 1)
+            as_dict[t] = {
+                w: [
+                    (
+                        1,
+                        int(ref_scalar(next(counter))),
+                        [row[n] for n in schema.column_names()],
+                    )
+                    for row in rows
+                ]
+                for w, rows in batch.items()
+            }
+        return self._table_from_dict(as_dict, schema)
+
+    def table_from_list_of_batches(
+        self, batches: list[list[dict]], schema: Any, **kw: Any
+    ) -> Table:
+        return self.table_from_list_of_batches_by_workers(
+            [{0: batch} for batch in batches], schema
+        )
+
+    def table_from_pandas(
+        self,
+        df: Any,
+        id_from: list[str] | None = None,
+        unsafe_trusted_ids: bool = False,
+        schema: Any = None,
+        **kw: Any,
+    ) -> Table:
+        """`_time` / `_worker` / `_diff` columns control batching, exactly
+        as in the reference. A non-default DataFrame index provides the
+        row ids (hash of the index value), letting retractions target
+        earlier insertions."""
+        import pandas as pd
+
+        df = df.copy()
+        for col, default in (("_time", 2), ("_worker", 0), ("_diff", 1)):
+            if col not in df:
+                df[col] = [default] * len(df)
+        value_cols = [
+            c for c in df.columns if c not in ("_time", "_worker", "_diff")
+        ]
+        explicit_ids = not isinstance(df.index, pd.RangeIndex)
+        if id_from is None and schema is not None and not explicit_ids:
+            # schema primary keys fill in only when the index carries no
+            # explicit ids (explicit ids win, like table_from_markdown)
+            id_from = schema.primary_key_columns()
+        if schema is None:
+            dtypes = {
+                n: _dtype_for([_np_unbox(v) for v in df[n]])
+                for n in value_cols
+            }
+        else:
+            dtypes = {n: schema.dtypes()[n] for n in value_cols}
+        batches: dict[int, dict[int, list]] = {}
+        for i in range(len(df)):
+            row = df.iloc[i]
+            vals = [_np_unbox(row[c]) for c in value_cols]
+            if id_from:
+                key = int(
+                    ref_scalar(*[vals[value_cols.index(c)] for c in id_from])
+                )
+            elif explicit_ids:
+                key = int(ref_scalar(_np_unbox(df.index[i])))
+            else:
+                key = int(ref_scalar(i))
+            t = int(row["_time"])
+            batches.setdefault(t, {}).setdefault(int(row["_worker"]), []).append(
+                (int(row["_diff"]), key, vals)
+            )
+        return self._from_batches(batches, value_cols, dtypes)
+
+    def table_from_markdown(
+        self,
+        table: str,
+        id_from: list[str] | None = None,
+        unsafe_trusted_ids: bool = False,
+        schema: Any = None,
+        **kw: Any,
+    ) -> Table:
+        # parse into a DataFrame and route through table_from_pandas so
+        # _time/_worker/_diff handling, odd-timestamp doubling and
+        # explicit-id semantics match the reference's single code path
+        import pandas as pd
+
+        header, data, raw_ids = _split_markdown(table)
+        ids = (
+            [_parse_value(x) for x in raw_ids] if raw_ids is not None else None
+        )
+        parsed = [[_parse_value(c) for c in row] for row in data]
+        df = pd.DataFrame(parsed, columns=header, dtype=object)
+        if ids is not None:
+            df.index = ids
+        return self.table_from_pandas(
+            df, id_from, unsafe_trusted_ids, schema
+        )
+
+    def persistence_config(self):
+        """The microbatch engine feeds StreamGenerator tables directly —
+        no persistence replay needed; safe to pass to pw.run."""
+        return None
+
+
+def table_to_pandas(table: Table, include_id: bool = True):
+    import pandas as pd
+
+    cap = _run_capture([table])[0]
+    col_names = table.column_names()
+    data = {n: [] for n in col_names}
+    index = []
+    for k, vals in cap.rows.items():
+        index.append(Pointer(k))
+        for n, v in zip(col_names, vals):
+            data[n].append(v)
+    if include_id:
+        return pd.DataFrame(data, index=index)
+    return pd.DataFrame(data)
 
 
 def _fmt_value(v: Any) -> str:
@@ -651,3 +875,47 @@ def _compute_tables(*tables: Table):
         )
     return captures
 
+
+def trace(seconds: float | None = None, path: Any = None) -> dict:
+    """Notebook entry point for the Trace Weaver
+    (pathway_tpu_torch/observability/tracing.py): return the recorded span ring
+    as a Chrome trace-event document — the same body the monitoring
+    server serves at ``/debug/trace``. Pass ``path`` to also write it to
+    a file you can drag into Perfetto (ui.perfetto.dev)."""
+    import json as _json
+
+    from pathway_tpu_torch.observability.tracing import get_tracer
+
+    doc = get_tracer().chrome_trace(seconds=seconds)
+    if path is not None:
+        with open(path, "w") as f:
+            _json.dump(doc, f)
+    return doc
+
+
+def trace_tree(
+    trace_id: str | None = None, seconds: float | None = None
+) -> str:
+    """Human-readable parent/child breakdown of one trace (default: the
+    most recently finished root span's trace). Prints and returns it."""
+    from pathway_tpu_torch.observability.tracing import get_tracer
+
+    tracer = get_tracer()
+    if trace_id is None:
+        recs = tracer.spans(seconds)
+        span_ids = {r.span_id for r in recs}
+        # local roots: no parent, OR a parent that lives outside this
+        # ring (a request that joined a caller's trace via traceparent)
+        roots = [
+            r
+            for r in recs
+            if r.parent_id is None or r.parent_id not in span_ids
+        ]
+        if not roots:
+            out = "(no root spans recorded)"
+            print(out)
+            return out
+        trace_id = roots[-1].trace_id
+    out = tracer.format_tree(trace_id, seconds)
+    print(out)
+    return out

@@ -728,3 +728,85 @@ def test_components_pipeline_on_the_card_matches_cpu_and_scipy(dev, fresh_graph)
         for v in np.unique(uw).tolist():
             least.setdefault(lab[v], v)
         assert {r["v"]: r["label"] for r in labels.values()} == {v: least[lab[v]] for v in np.unique(uw).tolist()}
+
+
+def _classifier_run(device):
+    """A cosine kNN classifier (``pw.stdlib.ml.classifiers``) over seeded
+    clusters whose top-k sets are clear of near ties; queries in three
+    ticks; pw.live's final snapshot as {key: label}."""
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.stdlib.ml.classifiers import knn_lsh_classifier_train
+
+    rng = np.random.default_rng(21)
+    dim, labels = 64, 6
+    centres = rng.standard_normal((labels, dim)).astype(np.float32)
+    lab = rng.integers(labels, size=2000)
+    train = centres[lab] + 0.6 * rng.standard_normal((2000, dim)).astype(np.float32)
+    qlab = rng.integers(labels, size=48)
+    queries = centres[qlab] + 0.6 * rng.standard_normal((48, dim)).astype(np.float32)
+
+    class Doc(pw.Schema):
+        doc: int = pw.column_definition(primary_key=True)
+        data: np.ndarray
+        label: int
+
+    class Q(pw.Schema):
+        q: int = pw.column_definition(primary_key=True)
+        data: np.ndarray
+
+    docs = pw.debug.table_from_rows(Doc, [(i, v, int(lb)) for i, (v, lb) in enumerate(zip(train, lab))])
+    asked = pw.debug.table_from_rows(Q, [(1000 + i, v, 2 + 2 * (i % 3), 1) for i, v in enumerate(queries)],
+                                     is_stream=True)
+    model = knn_lsh_classifier_train(docs, type="cosine", d=dim, device=device)
+    lt = pw.live(model(asked, k=5))
+    assert lt.wait(300) and not lt.failed
+    _f, rows = lt.snapshot()
+    lt.stop()
+    return {k: v[0] for k, v in rows.items()}, qlab
+
+
+def test_knn_classifier_on_the_card_labels_as_on_cpu(dev, fresh_graph):
+    from pathway_tpu_torch.internals import parse_graph
+    from pathway_tpu_torch.ops import block_topk as bt
+
+    before = bt.block_topk.launches
+    got, qlab = _classifier_run("cuda")
+    assert bt.block_topk.launches > before  # cosine searches with the kernel
+    parse_graph.G.clear()
+    want, _ = _classifier_run("cpu")
+    assert got == want and len(got) == len(qlab)
+
+
+def test_live_table_over_a_cuda_index_follows_each_tick(dev, fresh_graph):
+    """pw.live over a DataIndex on the card: the run's thread builds and
+    launches the kernel; the subscriber's final state equals the
+    snapshot, which equals the CPU run's."""
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.internals import parse_graph
+    from pathway_tpu_torch.stdlib.indexing import DataIndex, TpuKnn
+
+    def run(device):
+        rng = np.random.default_rng(5)
+        vecs = rng.standard_normal((300, 32)).astype(np.float32)
+
+        class Doc(pw.Schema):
+            doc: int = pw.column_definition(primary_key=True)
+            vec: np.ndarray
+
+        docs = pw.debug.table_from_rows(Doc, [(i, v, 2 + 2 * (i % 4), 1) for i, v in enumerate(vecs)],
+                                        is_stream=True)
+        index = DataIndex(docs, TpuKnn(docs.vec, dimensions=32, device=device))
+        hits = index.query(docs.vec, number_of_matches=3, collapse_rows=False)
+        lt = pw.live(hits.select(u=pw.left.doc, w=pw.right.doc))
+        state = {}
+        lt.subscribe(lambda k, row, t, add: state.__setitem__(int(k), (row["u"], row["w"])) if add
+                     else state.pop(int(k), None))
+        assert lt.wait(300) and not lt.failed
+        _f, rows = lt.snapshot()
+        lt.stop()
+        assert state == {int(k): v for k, v in rows.items()}
+        return sorted(rows.values())
+
+    got = run("cuda")
+    parse_graph.G.clear()
+    assert got == run("cpu") and len(got) == 300 * 3

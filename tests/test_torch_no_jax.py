@@ -41,6 +41,8 @@ CLIENTS = (
 )
 BLOCKED_WITH_CLIENTS = BLOCKED_WITH_PANDAS + CLIENTS
 BLOCKED_WITH_FSSPEC = BLOCKED_WITH_PANDAS + ("fsspec",)
+# packages the last slice imports only inside the calls that need them
+BLOCKED_WITH_ML = BLOCKED_WITH_PANDAS + ("yaml", "pyarrow", "sklearn")
 # modules that may import pandas at module level: none (the ``.dt``
 # namespace, the reference's one such module, is not ported)
 PANDAS_MODULES: set[str] = set()
@@ -296,6 +298,68 @@ CORE_API_MODULES = [
     "pathway_tpu_torch.universes",
 ]
 
+# ``pw.live``, ``pw.demo``, ``pw.load_yaml``, the rest of ``pw.debug`` and
+# the rest of ``pw.stdlib.ml``: each imports with pandas, yaml, pyarrow and
+# sklearn blocked
+ML_REST_MODULES = [
+    "pathway_tpu_torch.debug",
+    "pathway_tpu_torch.demo",
+    "pathway_tpu_torch.internals.interactive",
+    "pathway_tpu_torch.internals.yaml_loader",
+    "pathway_tpu_torch.stdlib.ml",
+    "pathway_tpu_torch.stdlib.ml.classifiers",
+    "pathway_tpu_torch.stdlib.ml.classifiers._clustering_via_lsh",
+    "pathway_tpu_torch.stdlib.ml.classifiers._lsh",
+    "pathway_tpu_torch.stdlib.ml.datasets",
+    "pathway_tpu_torch.stdlib.ml.datasets.classification",
+    "pathway_tpu_torch.stdlib.ml.hmm",
+    "pathway_tpu_torch.stdlib.ml.smart_table_ops",
+    "pathway_tpu_torch.stdlib.ml.smart_table_ops._fuzzy_join",
+]
+
+_LIVE_CLASSIFY_RUN = """
+import csv, sys, tempfile
+for name in {blocked!r}:
+    sys.modules[name] = None
+import numpy as np
+import pathway_tpu_torch as pw
+from pathway_tpu_torch.stdlib.ml.classifiers import knn_lsh_classifier_train
+from pathway_tpu_torch.stdlib.ml.smart_table_ops import fuzzy_self_match
+
+path = tempfile.mkdtemp() + "/train.csv"
+with open(path, "w", newline="") as f:
+    w = csv.writer(f)
+    w.writerow(["doc", "label", "x", "y"])
+    w.writerows([(i, "east" if i % 2 else "west", (1.0 if i % 2 else -1.0) + i / 100, i / 50) for i in range(20)])
+
+class Doc(pw.Schema):
+    doc: int = pw.column_definition(primary_key=True)
+    label: str
+    x: float
+    y: float
+
+class Query(pw.Schema):
+    x: float
+    y: float
+
+train = pw.demo.replay_csv(path, schema=Doc, input_rate=0)
+vectors = train.select(train.label, data=pw.apply(lambda x, y: np.array([x, y]), train.x, train.y))
+model = knn_lsh_classifier_train(vectors, type="cosine", d=2, device="cpu")
+asked = pw.debug.StreamGenerator().table_from_list_of_batches([[{{"x": 2.0, "y": 0.1}}], [{{"x": -2.0, "y": 0.1}}]], Query)
+pred = model(asked.select(data=pw.apply(lambda x, y: np.array([x, y]), asked.x, asked.y)), k=3)
+lt = pw.live(pred)
+assert lt.wait(60) and not lt.failed
+assert sorted(v[0] for v in lt.snapshot()[1].values()) == ["east", "west"], lt.snapshot()
+lt.stop()
+pw.internals.parse_graph.G.clear()
+names = pw.debug.table_from_markdown("name\\nann lee\\nlee ann\\nbob")
+_k, cols = pw.debug.table_to_dicts(fuzzy_self_match(names.name))
+assert len(cols["left"]) == 1, cols
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in {blocked!r} and sys.modules[m])
+assert not leaked, leaked
+print("ok")
+"""
+
 _CORE_API_RUN = """
 import asyncio, sys
 for name in {blocked!r}:
@@ -528,6 +592,24 @@ def core_api_imported_with_pandas_blocked():
 @pytest.mark.parametrize("mod", CORE_API_MODULES)
 def test_core_api_module_imports_without_jax_or_pandas(core_api_imported_with_pandas_blocked, mod):
     assert mod in core_api_imported_with_pandas_blocked
+
+
+@pytest.fixture(scope="module")
+def ml_rest_imported_with_ml_blocked():
+    r = _run(_IMPORT_EACH, blocked=BLOCKED_WITH_ML, mods=ML_REST_MODULES)
+    assert r.returncode == 0, r.stderr
+    return set(json.loads(r.stdout.strip().splitlines()[-1]))
+
+
+@pytest.mark.parametrize("mod", ML_REST_MODULES)
+def test_ml_rest_module_imports_without_jax_pandas_yaml_pyarrow_or_sklearn(ml_rest_imported_with_ml_blocked, mod):
+    assert mod in ml_rest_imported_with_ml_blocked
+
+
+def test_live_classifier_runs_with_pandas_yaml_pyarrow_and_sklearn_blocked():
+    r = _run(_LIVE_CLASSIFY_RUN, blocked=BLOCKED_WITH_ML)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip().endswith("ok")
 
 
 def test_stdlib_utils_import_loads_no_pandas():
