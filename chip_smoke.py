@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from csrc/ (nvcc, sm_90a, one process per
-source, all started together), then runs thirteen phases, printing one JSON
+source, all started together), then runs fourteen phases, printing one JSON
 object per phase:
 
 1. device         — nvidia-smi name/power limit, toolchain versions, build seconds.
@@ -225,7 +225,27 @@ object per phase:
                     snapshot, accuracy, the update stream's rows (every
                     standing query answered again as the corpus grew),
                     launches per shape and peak memory.
-11. generation    — ask -> retrieve -> generate: 24 asks are embedded and
+11. replication   — the replicated read plane: this process is the writer (a
+                    persisted DataIndex over TpuKnn(device="cuda") fed the
+                    vector store phase's ~80k chunk vectors in 16 commits,
+                    PATHWAY_REPL_PORT=0), two
+                    ``python -m pathway_tpu_torch.serving.replica`` children
+                    on the card hydrate from its store and follow the delta
+                    stream (replica 1 with PATHWAY_GENERATE=1), and an
+                    in-process FailoverRouter with PATHWAY_ROUTER_CACHE=1
+                    fronts them. Checked: 33 encoder queries through each
+                    replica and the router against the writer's plain
+                    dense_topk (keys up to near ties, scores within
+                    REPL_TOL), a fault-killed replica 0 under 16 clients (only
+                    200/429/503, none past its deadline) and its re-admission
+                    only once ready, 2 live writes at rank 1, cache hits with
+                    no replica hop and an evicting write, greedy /generate
+                    through a router equal to an in-process scheduler. Prints
+                    hydrate s, replication lag, reply p50 direct and through
+                    the router, update-to-visible, failover statuses and
+                    retries, re-admission s, cache hit p50, /generate TTFT and
+                    tokens/s, each child's launches per shape and peak memory.
+12. generation    — ask -> retrieve -> generate: 24 asks are embedded and
                     retrieved (k = 3) on the phase-3 index, each grounded prompt
                     goes to one DecodeScheduler(GenerateConfig()) at the decoder's
                     serving defaults (dim 128, 2 layers, 4 heads, head_dim 32,
@@ -235,7 +255,7 @@ object per phase:
                     back to empty, launches == decode steps x layers, the same
                     tokens from a kernel="ref" scheduler, and the logits of one
                     recorded step, kernel against plain.
-12. durability    — the same 24 prompts at the same width, with snapshots.
+13. durability    — the same 24 prompts at the same width, with snapshots.
                     A child process (this script with --kill-child) runs them
                     with PATHWAY_GENERATE_SNAPSHOT_EVERY=8, a store in a temp
                     dir and PATHWAY_FAULTS="kill=decode:150"; it must exit 23
@@ -252,7 +272,7 @@ object per phase:
                     segments per snapshot). Tokens are compared exactly; a
                     difference passes only at a near tie: the uninterrupted
                     run's top-2 logit margin there below GEN_LOGIT_TOL.
-13. kernels       — per kernel and per path shape: launches on its path, ms
+14. kernels       — per kernel and per path shape: launches on its path, ms
                     (CUDA events) and device ms (torch.profiler), its plain
                     version's ms, the bound and what sets it, the bytes it must
                     move, and the ms of the library call(s) computing the same
@@ -267,10 +287,11 @@ object per phase:
                     store's dense corpus, B = 16 on the 1M IVF ground truth,
                     every (B, k = 9) of the components phase on its corpus
                     and every (B, k = 3) of the live classify phase on its
-                    corpus;
+                    corpus, and every (B, k) the replica children launched,
+                    on the writer's corpus;
                     paged_attention: the
                     recorded decode step and a long context, each with its
-                    split count S.
+                    split count S (and the replica's /generate launches).
 
 Then, on lines of their own, the kernels table, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failed check raises: the script exits
@@ -347,9 +368,10 @@ REST_QOS = {"max_batch_size": 16, "max_wait_ms": 5.0, "max_queue": 64}
 # the head of tick 10 leaves generation 1 (batches 1-8), a log tail
 # (batch 9) and one batch drained but never logged (batch 10).
 PERSIST_KILL_TICK = 10
-# B = 1 queries per group, cut from the vector store phase's 64 to keep the
-# smoke under 900 s: every query tick counts toward the snapshot cadence
-PERSIST_B1 = 16
+# B = 1 queries per group, cut from the vector store phase's 64 (to 16,
+# then to 8 beside the replication phase) to keep the smoke under 900 s:
+# every query tick counts toward the snapshot cadence
+PERSIST_B1 = 8
 # writes of VS_LIVE_DOCS documents, each then queried; cut from 4 to keep
 # the smoke under 900 s (each write's commit takes ≈11 s with persistence)
 PERSIST_LIVE_WRITES = 2
@@ -407,6 +429,24 @@ IK_LSH_QUERIES = 16
 LSH_EDGE = 1e-4
 IK_SEG_VALUES = 1 << 20
 IK_SEG_SEGMENTS = 4096
+# the replication phase: this process writes the vector store phase's
+# corpus through a persisted DataIndex with the delta stream armed; two
+# replica processes on the card serve it behind a FailoverRouter
+REPL_COMMITS = 16  # the snapshot generation the replicas hydrate lands at the last
+REPL_LIVE_WRITES = 2
+REPL_LIVE_ROWS = 64
+REPL_CLIENTS = 16
+REPL_EACH = 64  # requests per client while replica 0 dies
+REPL_CACHE_REPEATS = 16
+REPL_ASKS = 4
+REPL_GEN_TOKENS = 16
+REPL_DEADLINE_MS = 20_000
+# replica scores (the kernel, f32) against the writer's plain dense_topk
+# (one f32 matmul) on the same vectors: the D products summed in another
+# order, |score| <= 2, as in kernel parity
+REPL_TOL = 1e-5
+REPL_ENV = ("PATHWAY_DCN_SECRET", "PATHWAY_REPL_PORT", "PATHWAY_REPLICA_DIM",
+            "PATHWAY_ROUTER_CACHE", "PATHWAY_ROUTER_CACHE_WRITER")
 PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}  # dense, H100 SXM
 
 
@@ -3969,7 +4009,550 @@ def live_classify(dev, smi: str) -> tuple[dict, dict]:
     return phase, {"prep": prep, "valid": valid, "queries": batch, "launches": launches, "shapes": shapes}
 
 
-# --- phase 11: generation -----------------------------------------------------
+# --- phase 11: replication ----------------------------------------------------
+
+
+class ReplicaChild:
+    """One ``python -m pathway_tpu_torch.serving.replica`` process on the
+    card, its output read by a thread: ``ready`` (the HTTP port) once it
+    prints REPLICA-READY."""
+
+    def __init__(self, env: dict):
+        import queue
+
+        self.started = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "pathway_tpu_torch.serving.replica"],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            cwd=str(Path(__file__).resolve().parent),
+        )
+        self.lines: list[str] = []
+        self.events: queue.Queue = queue.Queue()
+
+        def read() -> None:
+            for ln in self.proc.stdout:
+                self.lines.append(ln.rstrip("\n"))
+                if ln.startswith("REPLICA-"):
+                    self.events.put(ln.strip())
+
+        self.reader = threading.Thread(target=read, daemon=True)
+        self.reader.start()
+
+    def ready(self, timeout: float = 180.0) -> tuple[int, float]:
+        """The child's HTTP port and the seconds from spawn to READY."""
+        import queue
+
+        try:
+            ln = self.events.get(timeout=timeout)
+        except queue.Empty:
+            raise AssertionError(f"a replica never became ready: {self.tail()}") from None
+        check(ln.startswith("REPLICA-READY "), f"a replica answered {ln!r}: {self.tail()}")
+        return int(ln.split()[1]), time.perf_counter() - self.started
+
+    def tail(self) -> str:
+        return " | ".join(self.lines[-12:])
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.terminate()
+        try:
+            self.proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait()
+        self.reader.join(timeout=10)
+
+
+def http_json(port: int, method: str, target: str, body: dict | None = None,
+              headers: dict | None = None, timeout: float = 60.0) -> tuple[int, dict, object]:
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request(method, target, body=None if body is None else json.dumps(body),
+                     headers={"content-type": "application/json", **(headers or {})})
+        resp = conn.getresponse()
+        raw = resp.read()
+        hdrs = {k.lower(): v for k, v in resp.getheaders()}
+        data = json.loads(raw) if hdrs.get("content-type", "").startswith("application/json") else raw
+        return resp.status, hdrs, data
+    finally:
+        conn.close()
+
+
+def stream_generate(port: int, body: dict) -> dict:
+    """POST /generate with ``stream: true``, reading the NDJSON lines as
+    they arrive: time to the first token line, tokens, seconds."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    try:
+        t0 = time.perf_counter()
+        conn.request("POST", "/generate", body=json.dumps(body), headers={"content-type": "application/json"})
+        resp = conn.getresponse()
+        check(resp.status == 200, f"streamed /generate answered {resp.status}")
+        ttft, last = None, {}
+        for raw in iter(resp.readline, b""):
+            last = json.loads(raw)
+            if "token" in last and ttft is None:
+                ttft = (time.perf_counter() - t0) * 1e3
+        check(last.get("done") and "error" not in last, f"the stream ended {last}")
+        return {"ttft_ms": ttft, "tokens": last["token_count"], "s": time.perf_counter() - t0}
+    finally:
+        conn.close()
+
+
+def replication(dev, smi: str, vs_data: dict) -> tuple[dict, dict]:
+    """The replicated read plane on the card (``parallel/replicate.py``,
+    ``serving/replica.py``, ``serving/router.py``, ``serving/result_cache.py``,
+    ``generate/serving.py``). The WRITER is this process: a DataIndex over
+    TpuKnn(device=dev) at D = 384 fed the vector store phase's corpus (its
+    normalized chunk vectors, in REPL_COMMITS commits) with
+    pw.run(persistence_config=...) into a temp store and PATHWAY_REPL_PORT=0.
+    Two REPLICAS are ``python -m pathway_tpu_torch.serving.replica``
+    children on the card (PATHWAY_REPLICA_DEVICE=cuda) that hydrate from
+    that store and follow the delta stream; replica 1 also serves
+    /generate at GenerateConfig()'s width. A FailoverRouter with
+    PATHWAY_ROUTER_CACHE=1 (its cache on the writer's stream) is in this
+    process. Checked: (1) every replica and the router answer the encoder
+    queries with keys equal to the writer's plain dense_topk on the same
+    corpus up to near ties and scores within REPL_TOL; (2) after each of
+    REPL_LIVE_WRITES writes a new chunk is rank 1 through both replicas and
+    the router; (3) under REPL_CLIENTS concurrent clients replica 0 dies by
+    PATHWAY_FAULTS=kill=replica:0,tick:T (exit 23) and every request gets
+    200, 503 or 429 inside its deadline; its restart is re-admitted only
+    once its health says ready and caught up; (4) a repeated query is a
+    cache hit with no replica hop; a write entering its top-k evicts it and
+    the next reply equals a replica's; (5) greedy /generate asks through a
+    router equal an in-process DecodeScheduler's tokens on the same
+    retrieved matches and seed."""
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.engine.index_node import ExternalIndexExec
+    from pathway_tpu_torch.generate import DecodeScheduler, GenerateConfig, GenerationRequest
+    from pathway_tpu_torch.generate.serving import assemble_prompt
+    from pathway_tpu_torch.internals import parse_graph
+    from pathway_tpu_torch.observability import REGISTRY
+    from pathway_tpu_torch.ops.knn import dense_topk
+    from pathway_tpu_torch.parallel import replicate
+    from pathway_tpu_torch.persistence.backends import FilesystemStore
+    from pathway_tpu_torch.serving.replica import hydrate_index_state
+    from pathway_tpu_torch.serving.router import FailoverRouter
+    from pathway_tpu_torch.stdlib.indexing import DataIndex, TpuKnn
+    from pathway_tpu_torch.xpacks.llm.decoder import encode_text
+
+    t_phase = time.perf_counter()
+    vecs = vs_data["prep"][vs_data["valid"]].float().cpu().numpy()
+    n = vecs.shape[0]
+    enc = torch.cat([vs_data["queries"][1], vs_data["queries"][16], vs_data["queries"]["filtered"]])
+    queries = enc.float().cpu().numpy()
+    rng = np.random.default_rng(SEED + 41)
+    fresh = rng.normal(size=(REPL_LIVE_WRITES * REPL_LIVE_ROWS + 1, DIM)).astype(np.float32)
+    fresh /= np.linalg.norm(fresh, axis=1, keepdims=True)
+    capacity = -(-(n + REPL_LIVE_WRITES * REPL_LIVE_ROWS + 64) // 1024) * 1024
+    workdir = tempfile.mkdtemp(prefix="pw-repl-")
+    store = os.path.join(workdir, "pstorage")
+    saved_env = {k: os.environ.get(k) for k in REPL_ENV}
+    os.environ.update({
+        "PATHWAY_DCN_SECRET": os.urandom(16).hex(), "PATHWAY_REPL_PORT": "0",
+        "PATHWAY_REPLICA_DIM": str(DIM),
+    })
+    replicate.reset_publisher()
+    parse_graph.G.clear()
+    children: list[ReplicaChild] = []
+    router = gen_router = sched = clients = None
+    kernels: list[dict] = []
+    replica_rows: set[int] = set()
+    finished = threading.Event()
+
+    class DocSchema(pw.Schema):
+        doc_id: int = pw.column_definition(primary_key=True)
+        vec: np.ndarray
+
+    class Idle(pw.io.python.ConnectorSubject):
+        def run(self):
+            finished.wait()
+
+    docs_subject, q_subject = Idle(), Idle()
+    docs = pw.io.python.read(docs_subject, schema=DocSchema, autocommit_duration_ms=None)
+    qs = pw.io.python.read(q_subject, schema=DocSchema, autocommit_duration_ms=None)
+    index = DataIndex(docs, TpuKnn(docs.vec, dimensions=DIM, reserved_space=capacity, device=dev))
+    pw.io.null.write(index.query_as_of_now(qs.vec, number_of_matches=K).select(d=pw.right.doc_id))
+    cfg = pw.persistence.Config.simple_config(pw.persistence.Backend.filesystem(store),
+                                              snapshot_every=REPL_COMMITS)
+    failure: list[BaseException] = []
+
+    def run() -> None:
+        try:
+            pw.run(persistence_config=cfg)
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            failure.append(e)
+
+    run_thread = threading.Thread(target=run, daemon=True)
+    run_thread.start()
+    wait_until(lambda: parse_graph.G.runtime is not None or failure, "the writer's runtime")
+    check(not failure, f"the writer failed: {failure}")
+    rt = parse_graph.G.runtime
+    n_commits = [rt.stats.ticks]
+
+    def commit(rows: list[tuple[int, np.ndarray]]) -> float:
+        """One commit of rows (one tick); returns the commit's stamp."""
+        for doc_id, v in rows:
+            docs_subject.next(doc_id=doc_id, vec=v)
+        t0 = time.perf_counter()
+        docs_subject.commit()
+        n_commits[0] += 1
+        wait_until(lambda: rt.stats.ticks >= n_commits[0] or failure, "a writer tick")
+        check(not failure, f"the writer failed: {failure}")
+        return t0
+
+    try:
+        t0 = time.perf_counter()
+        for part in np.array_split(np.arange(n), REPL_COMMITS):
+            commit([(int(i), vecs[i]) for i in part])
+        ingest_s = time.perf_counter() - t0
+        pub = replicate.publisher()
+        check(pub is not None and pub.newest_tick() >= 0, "PATHWAY_REPL_PORT armed no delta publisher")
+        got = None
+
+        def snapshot_done() -> bool:
+            nonlocal got
+            got = hydrate_index_state(FilesystemStore(store))
+            return got is not None
+
+        wait_until(snapshot_done, "the writer's first snapshot generation", timeout=120)
+        wix = next(ex.index for ex in rt.execs.values() if isinstance(ex, ExternalIndexExec))
+        check(len(wix) == n, f"the writer's index holds {len(wix)} rows, not {n}")
+        snap_tick = got[1]
+        # ring entries at or after the snapshot tick: each replica applies
+        # them at subscription, so its T-th applied tick is the next write
+        backlog = sum(1 for t, _b in list(pub._ring) if t >= snap_tick)
+
+        def plain(qv: np.ndarray, k: int) -> list[tuple]:
+            """The writer's corpus through ops/knn.py's plain dense_topk."""
+            c = wix.corpus
+            host = torch.from_numpy(c.host).to(dev)
+            valid = torch.from_numpy(c.valid_host).to(dev)
+            s, ix = dense_topk(torch.from_numpy(np.atleast_2d(qv)).to(dev), host, valid, k,
+                               metric="cosine", bf16=False)
+            s, ix = (s.double() - 1.0).cpu().numpy(), ix.cpu().numpy()
+            return [tuple((c.key_of[int(j)], float(x)) for x, j in zip(sr, jr) if j >= 0)
+                    for sr, jr in zip(s, ix)]
+
+        ports = [free_port(), free_port()]
+        base_env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [str(Path(__file__).resolve().parent)] + [p for p in [os.environ.get("PYTHONPATH")] if p]),
+            PATHWAY_REPLICA_STORE=store, PATHWAY_REPL_PORT=str(pub.port),
+            PATHWAY_REPLICA_DEVICE=dev.type, PATHWAY_REPLICA_DIM=str(DIM))
+        base_env.pop("PATHWAY_FAULTS", None)
+        envs = [
+            dict(base_env, PATHWAY_REPLICA_ID="0", PATHWAY_REPLICA_HTTP_PORT=str(ports[0]),
+                 PATHWAY_FAULTS=f"kill=replica:0,tick:{backlog + 1}"),
+            dict(base_env, PATHWAY_REPLICA_ID="1", PATHWAY_REPLICA_HTTP_PORT=str(ports[1]),
+                 PATHWAY_GENERATE="1"),
+        ]
+        t0 = time.perf_counter()
+        children = [ReplicaChild(e) for e in envs]
+        spawn_to_ready = []
+        for ch, port in zip(children, ports):
+            got_port, secs = ch.ready()
+            check(got_port == port, f"a replica bound {got_port}, not {port}")
+            spawn_to_ready.append(secs)
+        health = [http_json(p, "GET", "/replica/health")[2] for p in ports]
+        wait_until(lambda: all(http_json(p, "GET", "/replica/health")[2]["ready"] for p in ports),
+                   "the replicas to catch up", timeout=120)
+        caught_up_s = time.perf_counter() - t0
+        check(all(h["hydrated_gen"] >= 0 for h in health), f"a replica did not hydrate: {health}")
+        check(all(h["corpus_docs"] == n for h in health), f"replica corpora {[h['corpus_docs'] for h in health]}")
+        hydrate_s = [float(ln.split("=", 1)[1]) for ch in children for ln in ch.lines
+                     if ln.startswith("replica hydrate_s=")]
+
+        os.environ.update({"PATHWAY_ROUTER_CACHE": "1",
+                           "PATHWAY_ROUTER_CACHE_WRITER": f"127.0.0.1:{pub.port}"})
+        router = FailoverRouter([f"http://127.0.0.1:{p}" for p in ports], health_interval_ms=100).start()
+        check(router.cache is not None, "PATHWAY_ROUTER_CACHE=1 built no result cache")
+        wait_until(lambda: all(ep.ready for ep in router.endpoints) and router.cache.applied_tick >= 0,
+                   "the router to admit both replicas", timeout=60)
+        clients = RestClients()
+
+        def req(rid, vec, k=K, target="/query", extra=None):
+            return [rid, "POST", target, json.dumps({"vec": [float(x) for x in vec], "k": k, **(extra or {})}),
+                    {"content-type": "application/json", "x-pathway-deadline-ms": str(REPL_DEADLINE_MS)}]
+
+        def matches(rep) -> tuple:
+            return tuple((int(a), float(b)) for a, b in rep[3]["matches"])
+
+        # (1) reads: each replica directly, then through the router (misses
+        # that prime the cache), then the same bodies again (hits)
+        want = plain(queries, K)
+        exact, lat = {}, {}
+        for name, port in (("replica0", ports[0]), ("replica1", ports[1]), ("router", router.port),
+                           ("router_cache_hit", router.port)):
+            reps = clients.run(port, [[req(i, q) for i, q in enumerate(queries)]])
+            reps.sort(key=lambda r: r[0])
+            check(all(r[1] == 200 for r in reps), f"{name}: statuses {[r[1] for r in reps]}")
+            for r in reps:
+                check(same_up_to_near_ties(matches(r), want[r[0]], REPL_TOL),
+                      f"{name}: query {r[0]} answered {matches(r)[:3]}, plain {want[r[0]][:3]}")
+            exact[name] = sum(1 for r in reps if [m[0] for m in matches(r)] == [m[0] for m in want[r[0]]])
+            lat[name] = [(r[5] - r[4]) * 1e3 for r in reps]
+            if name == "router_cache_hit":
+                check(all(r[2].get("x-pathway-cache") == "hit" for r in reps), "a repeated read missed the cache")
+        kernels_before_kill = http_json(ports[0], "GET", "/replica/kernels")[2]
+        # (3) failover: clients load the router; the next tick kills replica 0
+        retries0 = series(REGISTRY.render(), "pathway_router_retries_total")
+        lists = [[req(c * REPL_EACH + i, queries[(c * REPL_EACH + i) % len(queries)])
+                  for i in range(REPL_EACH)] for c in range(REPL_CLIENTS)]
+        clients.start(router.port, lists)
+        t_kill = time.monotonic()
+        commit([(n, fresh[-1])])
+        rc0 = children[0].proc.wait(timeout=60)
+        t_dead = time.monotonic()
+        reps = clients.finish()
+        check(rc0 == FAULT_EXIT, f"replica 0 exited {rc0}, not {FAULT_EXIT}: {children[0].tail()}")
+        statuses = Counter(r[1] for r in reps)
+        check(set(statuses) <= {200, 429, 503}, f"failover statuses {dict(statuses)}")
+        over = [r for r in reps if (r[5] - r[4]) * 1e3 > REPL_DEADLINE_MS + 1000]
+        check(not over, f"{len(over)} requests outlived their deadline")
+        served_by = Counter(r[2].get("x-pathway-replica") for r in reps if r[1] == 200)
+        retries = series(REGISTRY.render(), "pathway_router_retries_total") - retries0
+        wait_until(lambda: router.endpoints[0].ejected, "the router to eject replica 0", timeout=30)
+        # its restart on the same port, without the fault: re-admitted only
+        # once its health says ready and caught up
+        t_restart = time.perf_counter()
+        children[0] = ReplicaChild({k: v for k, v in envs[0].items() if k != "PATHWAY_FAULTS"})
+        children[0].ready()
+        readmit = None
+        while readmit is None:
+            check(time.perf_counter() - t_restart < 120, "replica 0 was never re-admitted")
+            if not router.endpoints[0].ejected:
+                h = http_json(ports[0], "GET", "/replica/health")[2]
+                check(h["ready"] and h["applied_tick"] >= pub.newest_tick(),
+                      f"replica 0 re-admitted before it was ready: {h}")
+                readmit = time.perf_counter() - t_restart
+            time.sleep(0.01)
+        # the restarted process's first search pays its CUDA context and
+        # the corpus upload: measured here, not inside update-to-visible
+        t1 = time.perf_counter()
+        check(http_json(ports[0], "POST", "/query", {"vec": queries[0].tolist(), "k": K})[0] == 200,
+              "the restarted replica 0 did not answer")
+        first_read_ms = (time.perf_counter() - t1) * 1e3
+        # (2) live writes: a new chunk at rank 1 through both replicas and
+        # the router; the stream's lag from publish to each replica's
+        # applied tick
+        published: dict[int, float] = {}
+        publish = pub.publish
+
+        def stamped(tick, batches):
+            published.setdefault(tick, time.monotonic())
+            publish(tick, batches)
+
+        pub.publish = stamped
+        update_ms, lag_ms = [], []
+
+        def follow():
+            """Poll both replicas' health from before the next commit until
+            each shows a tick past the writer's newest now; join() adds
+            publish -> first poll showing it, per replica, to lag_ms."""
+            prev, done = pub.newest_tick(), {}
+
+            def poll() -> None:
+                t_end = time.perf_counter() + 60
+                while len(done) < 2 and time.perf_counter() < t_end:
+                    for port in ports:
+                        if port not in done and http_json(port, "GET", "/replica/health")[2]["applied_tick"] > prev:
+                            done[port] = time.monotonic()
+
+            th = threading.Thread(target=poll)
+            th.start()
+
+            def join() -> None:
+                th.join(timeout=90)
+                check(len(done) == 2, "a replica never applied the writer's tick")
+                lag_ms.extend((t - published[pub.newest_tick()]) * 1e3 for t in done.values())
+
+            return join
+
+        for w in range(REPL_LIVE_WRITES):
+            rows = [(n + 1 + w * REPL_LIVE_ROWS + j, fresh[w * REPL_LIVE_ROWS + j]) for j in range(REPL_LIVE_ROWS)]
+            probe = rows[REPL_LIVE_ROWS // 2][1]
+            joined = follow()
+            t0 = commit(rows)
+            pkey = plain(probe, 1)[0][0][0]
+            seen: dict[int, float] = {}
+            while len(seen) < 2:
+                for port in ports:
+                    if port not in seen:
+                        st, _h, body = http_json(port, "POST", "/query", {"vec": probe.tolist(), "k": K})
+                        if st == 200 and body["matches"] and int(body["matches"][0][0]) == pkey:
+                            seen[port] = (time.perf_counter() - t0) * 1e3
+                check(time.perf_counter() - t0 < 60, "a live write never became visible at a replica")
+            update_ms.append(max(seen.values()))
+            joined()
+            st, _h, body = http_json(router.port, "POST", "/query", {"vec": probe.tolist(), "k": K})
+            check(st == 200 and int(body["matches"][0][0]) == pkey and abs(body["matches"][0][1]) <= REPL_TOL,
+                  f"write {w}: the router answered {st} {body}")
+        # (4) the result cache: a hit is no replica hop; a write into the
+        # entry's top-k evicts it; the next reply equals a replica's
+        cache = router.cache
+        qbody = {"vec": [float(x) for x in queries[0]], "k": K}
+        st, _h, first = http_json(router.port, "POST", "/query", qbody)
+        check(st == 200, f"the cache's first read answered {st}")
+        before = [http_json(p, "GET", "/metrics")[2] for p in ports]
+        hits_before = series(REGISTRY.render(), "pathway_router_requests_total", replica="cache")
+        hit_ms = []
+        for _ in range(REPL_CACHE_REPEATS):
+            t1 = time.perf_counter()
+            st, h2, again = http_json(router.port, "POST", "/query", qbody)
+            hit_ms.append((time.perf_counter() - t1) * 1e3)
+            check(st == 200 and h2.get("x-pathway-cache") == "hit" and again == first, "a repeat missed the cache")
+        after = [http_json(p, "GET", "/metrics")[2] for p in ports]
+        hops = sum(series(a.decode(), "pathway_replica_requests_total") -
+                   series(b.decode(), "pathway_replica_requests_total") for a, b in zip(after, before))
+        check(hops == 0, f"cache hits made {hops} replica hops")
+        hits = series(REGISTRY.render(), "pathway_router_requests_total", replica="cache") - hits_before
+        check(hits == REPL_CACHE_REPEATS, f"{hits} cache hits counted, {REPL_CACHE_REPEATS} asked")
+        entries = len(cache)
+        qn = (queries[0] / np.linalg.norm(queries[0])).astype(np.float32)
+        joined = follow()
+        t0 = commit([(n + 1 + REPL_LIVE_WRITES * REPL_LIVE_ROWS, qn)])
+        wait_until(lambda: len(cache) < entries, "the cache to evict the covering entry", timeout=30)
+        evict_ms = (time.perf_counter() - t0) * 1e3
+        joined()
+        st, h3, after_write = http_json(router.port, "POST", "/query", qbody)
+        check(st == 200 and h3.get("x-pathway-cache") != "hit", "the evicted entry still answered")
+        st, _h, direct = http_json(ports[1], "POST", "/query", qbody)
+        check(after_write == direct, "the reply after eviction differs from a replica's")
+        check(abs(after_write["matches"][0][1]) <= REPL_TOL, "the written chunk is not rank 1 after eviction")
+        pub.publish = publish
+        # (5) /generate on replica 1: streamed for TTFT, then greedy asks
+        # through a router against an in-process scheduler
+        ttft, tok_s = [], []
+        for i in range(REPL_ASKS):
+            got_s = stream_generate(ports[1], {"prompt": f"ask {i} about the corpus", "vec": queries[i].tolist(),
+                                               "k": 3, "max_tokens": REPL_GEN_TOKENS, "seed": i, "stream": True})
+            ttft.append(got_s["ttft_ms"])
+            tok_s.append(got_s["tokens"] / got_s["s"])
+        gen_router = FailoverRouter([f"http://127.0.0.1:{ports[1]}"], health_interval_ms=100, cache=None).start()
+        wait_until(lambda: gen_router.endpoints[0].ready, "the generation router", timeout=60)
+        sched = DecodeScheduler(GenerateConfig(), replica_label="repl-ref", device=dev)
+        gen_equal, gen_ms = 0, []
+        for i in range(REPL_ASKS):
+            prompt = f"ask {i} about the corpus"
+            t1 = time.perf_counter()
+            st, _h, body = http_json(gen_router.port, "POST", "/generate",
+                                     {"prompt": prompt, "vec": queries[i].tolist(), "k": 3,
+                                      "max_tokens": REPL_GEN_TOKENS, "seed": i},
+                                     headers={"x-pathway-deadline-ms": str(REPL_DEADLINE_MS)})
+            gen_ms.append((time.perf_counter() - t1) * 1e3)
+            check(st == 200, f"/generate through the router answered {st}: {body}")
+            retrieved = tuple((int(a), float(b)) for a, b in body["retrieved"])
+            check(same_up_to_near_ties(retrieved, plain(queries[i], 3)[0], REPL_TOL),
+                  f"ask {i} retrieved {retrieved}")
+            tokens = encode_text(assemble_prompt(prompt, body["retrieved"]))
+            ref = GenerationRequest(f"ref-{i}", tokens[: sched.config.max_len - REPL_GEN_TOKENS],
+                                    deadline=time.monotonic() + 120, max_new_tokens=REPL_GEN_TOKENS, seed=i)
+            sched.submit(ref)
+            res = ref.wait(120)
+            check(res is not None and res["status"] == 200, f"the in-process scheduler answered {res}")
+            check(res["tokens"] == body["tokens"], f"ask {i}: /generate {body['tokens']}, in process {res['tokens']}")
+            gen_equal += 1
+        kernels = [kernels_before_kill] + [http_json(p, "GET", "/replica/kernels")[2] for p in ports]
+        # the rows each replica's kernel scans: its corpus grows by
+        # doubling from the index's reservation as hydration re-upserts
+        replica_rows = {h["corpus_bytes"] // (DIM * 4 + 1)
+                        for h in (http_json(p, "GET", "/replica/health")[2] for p in ports)}
+        check(len(replica_rows) == 1, f"the replicas hold corpora of {replica_rows} rows")
+        if dev.type == "cuda":
+            # each child searched through the kernel, and replica 1's
+            # /generate decoded through the paged kernel
+            check(all(kern["block_topk"] > 0 for kern in kernels), f"a replica never launched block_topk: {kernels}")
+            check(kernels[2]["paged_attention"] > 0, "/generate on replica 1 never launched paged_attention")
+        phase = {
+            "phase": "replication",
+            "nvidia_smi": smi,
+            "rows": n,
+            "ingest_s": ingest_s,
+            "snapshot_tick": snap_tick,
+            "ring_backlog_at_subscribe": backlog,
+            "spawn_to_ready_s": spawn_to_ready,
+            "spawn_to_caught_up_s": caught_up_s,
+            "hydrate_s": hydrate_s,
+            "replication_lag_ms": {"p50": float(np.percentile(lag_ms, 50)), "max": float(np.max(lag_ms)),
+                                   "n": len(lag_ms)},
+            "reply_p50_ms": {k: float(np.percentile(v, 50)) for k, v in lat.items()},
+            "reply_max_ms": {k: float(np.max(v)) for k, v in lat.items()},
+            "router_overhead_p50_ms": float(np.percentile(lat["router"], 50) -
+                                            np.percentile(lat["replica1"], 50)),
+            "keys_equal_plain": exact,
+            "queries": len(queries),
+            "update_to_visible_ms": update_ms,
+            "cache_hit_p50_ms": float(np.percentile(hit_ms, 50)),
+            "cache_evict_ms": evict_ms,
+            "failover": {
+                "requests": len(reps), "status_counts": {str(k): v for k, v in statuses.items()},
+                "served_by": dict(served_by), "router_retries": retries,
+                "kill_s_after_load_start": t_dead - t_kill,
+                "load_s": max(r[5] for r in reps) - min(r[4] for r in reps),
+                "kill_inside_load": t_dead < max(r[5] for r in reps),
+                "readmit_s": readmit,
+                "restarted_first_read_ms": first_read_ms,
+            },
+            "generate": {"asks": REPL_ASKS, "tokens_equal_in_process": gen_equal,
+                         "ttft_p50_ms": float(np.percentile(ttft, 50)),
+                         "tokens_per_s_p50": float(np.percentile(tok_s, 50)),
+                         "through_router_p50_ms": float(np.percentile(gen_ms, 50))},
+            "replica_kernels": kernels,
+            "replica_corpus_rows": min(replica_rows),
+            "peak_allocated_bytes": {"writer": torch.cuda.max_memory_allocated() if dev.type == "cuda" else None,
+                                     "replicas": [k.get("peak_allocated_bytes") for k in kernels]},
+            "phase_s": time.perf_counter() - t_phase,
+        }
+    finally:
+        for ch in children:
+            ch.stop()
+        for r in (router, gen_router):
+            if r is not None:
+                r.stop()
+        if sched is not None:
+            sched.stop()
+        if clients is not None:
+            clients.close()
+        finished.set()
+        if parse_graph.G.runtime is not None:
+            parse_graph.G.runtime.stop()
+        run_thread.join(timeout=60)
+        replicate.reset_publisher()
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(workdir, ignore_errors=True)
+        parse_graph.G.clear()
+    # the writer's corpus padded with invalid rows to the replicas' size:
+    # the shape the replicas' launches had
+    wprep, _c2, wvalid = wix.corpus.prepared_arrays("cosine", bf16=False)
+    rows = max(min(replica_rows), wprep.shape[0])
+    prep = torch.zeros(rows, DIM, dtype=wprep.dtype, device=wprep.device)
+    valid = torch.zeros(rows, dtype=torch.bool, device=wprep.device)
+    prep[: wprep.shape[0]], valid[: wprep.shape[0]] = wprep, wvalid
+    shapes: Counter = Counter()
+    for kern in kernels:
+        for shape, cnt in kern["block_topk_by_shape"].items():
+            b, k = (int(x.split("=")[1]) for x in shape.split(","))
+            shapes[(b, k)] += cnt
+    batch = {}
+    for b, _k in shapes:
+        # the batch each shape saw: an encoder query, zero-padded to the
+        # index's power-of-two batch as its search pads it
+        q = torch.zeros(b, DIM, dtype=prep.dtype, device=prep.device)
+        q[0] = torch.from_numpy(queries[0]).to(prep.device, prep.dtype)
+        batch[b] = q
+    return phase, {"prep": prep, "valid": valid, "shapes": shapes, "queries": batch,
+                   "paged_launches": sum(kern["paged_attention"] for kern in kernels)}
+
+
+# --- phase 12: generation -----------------------------------------------------
 
 
 class StepRecorder:
@@ -4242,7 +4825,7 @@ def generation(dev, main: dict) -> tuple[dict, dict]:
     }
 
 
-# --- phase 12: durability -----------------------------------------------------
+# --- phase 13: durability -----------------------------------------------------
 
 
 def kill_child(prompts_path: str) -> int:
@@ -4592,11 +5175,11 @@ def durability(dev, gen: dict) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-# --- phase 13: kernel times ---------------------------------------------------
+# --- phase 14: kernel times ---------------------------------------------------
 
 
 def kernel_times(main: dict, eng: dict, vs: dict, rest: dict, persist: dict, ik: dict, cc: dict,
-                 lc: dict, gen: dict, rate: float, rate_src: str) -> list[dict]:
+                 lc: dict, rep: dict, gen: dict, rate: float, rate_src: str) -> list[dict]:
     from pathway_tpu_torch.ops import block_topk as bt
     from pathway_tpu_torch.ops.knn import BLK, _normalize
 
@@ -4639,6 +5222,11 @@ def kernel_times(main: dict, eng: dict, vs: dict, rest: dict, persist: dict, ik:
         # the live classifier's standing queries, per index
         (b, k, lc["queries"][b], n, "live classify", (lc["prep"], lc["valid"]))
         for (b, k), n in sorted(lc["shapes"].items())
+    ] + [
+        # the replica children's reads (k = 10) and /generate's retrieval
+        # (k = 3), each one search on the writer's corpus
+        (b, k, rep["queries"][b], n, "replication (replica processes)", (rep["prep"], rep["valid"]))
+        for (b, k), n in sorted(rep["shapes"].items())
     ]
     per_batch = []
     for bs, k, q, path_launches, path, (prep, valid) in path_shapes:
@@ -4702,6 +5290,8 @@ def kernel_times(main: dict, eng: dict, vs: dict, rest: dict, persist: dict, ik:
         "components_launches_by_shape": {f"B={b},k={k}": n for (b, k), n in sorted(cc["shapes"].items())},
         "live_classify_launches": lc["launches"],
         "live_classify_launches_by_shape": {f"B={b},k={k}": n for (b, k), n in sorted(lc["shapes"].items())},
+        "replication_launches": sum(rep["shapes"].values()),
+        "replication_launches_by_shape": {f"B={b},k={k}": n for (b, k), n in sorted(rep["shapes"].items())},
         "max_abs_err": max(p["max_abs_err"] for p in per_batch),
         "ms": head["ms"],
         "plain_ms": head["plain_ms"],
@@ -4761,7 +5351,7 @@ def paged_shape_times(label: str, q, k, v, pt, sl, sm_scale: float, rate: float)
     }
 
 
-def paged_kernel_times(gen: dict, rate: float, rate_src: str) -> dict:
+def paged_kernel_times(gen: dict, rep: dict, rate: float, rate_src: str) -> dict:
     q, k, v, pt, sl = layer_inputs(gen["step"])
     shapes = [paged_shape_times("main path (recorded step, layer 0)", q, k, v, pt, sl, 1.0, rate)]
     # long context: 32 sequences of 2048 tokens over 4096 scattered pages
@@ -4782,6 +5372,7 @@ def paged_kernel_times(gen: dict, rate: float, rate_src: str) -> dict:
         "source": "pathway_tpu_torch/csrc/paged_attention.cu",
         "replaces": "pathway_tpu/ops/paged_attention.py:118",
         "launches": gen["launches"],
+        "replication_launches": rep["paged_launches"],
         "max_abs_err": max(s["max_abs_err"] for s in shapes),
         "ms": head["ms"],
         "plain_ms": head["plain_ms"],
@@ -4849,12 +5440,14 @@ def main() -> int:
     emit(phase)
     phase, lc_data = live_classify(dev, smi)
     emit(phase)
+    phase, repl_data = replication(dev, smi, vs_data)
+    emit(phase)
     phase, gen_data = generation(dev, main_data)
     emit(phase)
     emit(durability(dev, gen_data))
     kernels = kernel_times(main_data, engine_data, vs_data, rest_data, persist_data, ik_data, cc_data,
-                           lc_data, gen_data, rate, rate_src) + [
-        paged_kernel_times(gen_data, rate, rate_src)
+                           lc_data, repl_data, gen_data, rate, rate_src) + [
+        paged_kernel_times(gen_data, repl_data, rate, rate_src)
     ]
     emit({"phase": "kernels", "kernels": kernels})
     detail = ("per_batch", "per_shape")

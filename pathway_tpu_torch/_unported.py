@@ -7,14 +7,14 @@ from __future__ import annotations
 
 COMPILED_TICKS = "[compiled-ticks] (compiled ticks)"
 MESH = "[mesh] (multi-device: engine mesh, DCN, sharded top-k)"
-REPLICATION = "[replication] (parallel/replicate.py and the replica)"
+REPLICATION = "[replication] (parallel/standby.py and parallel/supervisor.py)"
 TEMPORAL = "[temporal] (temporal nodes and windows)"
 CONNECTORS = "[connectors] (service connectors)"
 OBSERVABILITY = "[observability] (the rest of observability)"
 STDLIB_REST = "[stdlib-rest] (graphs, viz)"
 
 # subpackages of the reference the port lacks, with their item
-PACKAGE_NAMES = {"analysis": OBSERVABILITY, "autoscale": MESH, "parallel": MESH}
+PACKAGE_NAMES = {"analysis": OBSERVABILITY, "autoscale": MESH}
 
 # ``pw.stdlib.<name>`` the port lacks (each is a root name too)
 STDLIB_NAMES = {

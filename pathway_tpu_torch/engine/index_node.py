@@ -13,18 +13,18 @@ The serving hooks are the reference's: the exec registers with
 engine recovers, and a query whose REST deadline expired
 (``serving/deadline.py``) answers empty without a device search.
 
-Not ported: the replication writer (``PATHWAY_REPL_PORT`` raises,
-ROADMAP [replication]) and the multi-process exec (the runtime raises
-for a process group, [mesh]).
+With ``PATHWAY_REPL_PORT`` set the process is the replication writer: the
+exec publishes each tick's consolidated corpus deltas (an empty marker on
+an idle tick) to ``parallel/replicate.py``'s delta stream, as the
+reference does. Not ported: the multi-process exec (the runtime raises for
+a process group, [mesh]).
 """
 
 from __future__ import annotations
 
-import os
 from typing import Any, Protocol, Sequence
 
-from pathway_tpu_torch._unported import REPLICATION, unported
-from pathway_tpu_torch.engine.batch import DiffBatch
+from pathway_tpu_torch.engine.batch import END_OF_TIME, DiffBatch
 from pathway_tpu_torch.engine.nodes import Node, NodeExec
 from pathway_tpu_torch.internals.api import Pointer
 from pathway_tpu_torch.internals.errors import record_error
@@ -111,12 +111,13 @@ class ExternalIndexExec(NodeExec):
 
         self._degrade = _degrade
         _degrade.register_index_reader(self)
-        # Replica Shield: the reference streams every tick's corpus deltas
-        # to read replicas when PATHWAY_REPL_PORT is set
-        # (parallel/replicate.py); the port has no delta stream yet, so a
-        # writer that asks for one raises instead of serving no replica
-        if os.environ.get("PATHWAY_REPL_PORT"):
-            raise unported("replication (PATHWAY_REPL_PORT)", REPLICATION)
+        # Replica Shield: when this process is the replication WRITER
+        # (PATHWAY_REPL_PORT set), every tick's consolidated corpus
+        # deltas stream to the read replicas (parallel/replicate.py);
+        # the resolved None costs one attribute check per tick otherwise
+        from pathway_tpu_torch.parallel import replicate as _replicate
+
+        self._repl = _replicate.publisher()
 
     def state_dict(self) -> dict:
         # indexes holding device arrays expose their own host-side snapshot;
@@ -183,6 +184,7 @@ class ExternalIndexExec(NodeExec):
         # (replay ticks rebuild state while the REST handler reads it):
         # the shared guard serializes them. Uncontended cost is one
         # RLock acquire per tick.
+        repl_rows: list[tuple[int, int, tuple]] = []
         with self._degrade.index_guard:
             for b in inputs[0]:
                 for k, d, vals in b.iter_rows():
@@ -198,12 +200,31 @@ class ExternalIndexExec(NodeExec):
                             self.index.upsert(k, vals[self.d_data], meta)
                         except Exception as exc:
                             record_error(exc, str(node))
-                            continue
+                            continue  # a row the writer's index rejected
+                            # must not reach the replicas either
+                        if self._repl is not None:
+                            repl_rows.append((k, 1, (vals[self.d_data], meta)))
                     else:
                         self.index.remove(k)
+                        if self._repl is not None:
+                            repl_rows.append((k, -1, (None, None)))
         # the engine is ticking this node: whatever the corpus now holds
         # is as fresh as the stream — restart the staleness clock
         self._degrade.mark_fresh()
+        if self._repl is not None and t < END_OF_TIME:
+            # consolidated per-tick deltas to the read replicas; idle
+            # ticks publish an empty marker so replica freshness tracks
+            # the writer's tick cadence, not just corpus churn
+            from pathway_tpu_torch.parallel.replicate import consolidate_rows
+
+            batches = []
+            if repl_rows:
+                batches.append(
+                    DiffBatch.from_rows(
+                        consolidate_rows(repl_rows), ("_data", "_meta")
+                    )
+                )
+            self._repl.publish(t, batches)
         # Surge Gate deadline propagation: queries whose REST deadline
         # already expired answer empty WITHOUT a device search — the
         # client got its 504, so the top-k would burn a batch slot for a

@@ -11,9 +11,9 @@
   page reclaim, every step through the hand-written paged-attention kernel
   on the card, periodic and on-demand snapshots, restore after a kill, and
   the reference's metrics, spans, memory ledger, roofline and fault hook;
-* :mod:`~pathway_tpu_torch.generate.serving` — ``assemble_prompt``, the
-  ``/generate`` route name and ``attach_generate``, which raises naming
-  [replication] (the route mounts on a ``ReplicaServer``, not ported yet).
+* :mod:`~pathway_tpu_torch.generate.serving` — ``attach_generate``, which
+  mounts the ``/generate`` route (ask -> retrieve -> generate, JSON or
+  streamed NDJSON) on a ``ReplicaServer``, and ``assemble_prompt``.
 """
 
 from pathway_tpu_torch.generate.kv_cache import NULL_PAGE, KvLedger, PagePool
@@ -21,6 +21,7 @@ from pathway_tpu_torch.generate.scheduler import (
     DecodeScheduler,
     GenerateConfig,
     GenerationRequest,
+    generate_enabled_via_env,
 )
 from pathway_tpu_torch.generate.serving import assemble_prompt, attach_generate
 
@@ -33,4 +34,5 @@ __all__ = [
     "GenerationRequest",
     "assemble_prompt",
     "attach_generate",
+    "generate_enabled_via_env",
 ]

@@ -46,8 +46,8 @@ with ``.cpu()``, which is where each step synchronises with the card;
 ``step_seconds`` keeps the wall time of recent steps, measured across that
 sync.
 
-Not ported yet: ``generate_enabled_via_env`` and the ``/generate`` route on a
-replica (``attach_generate``), which need the replica server.
+``generate_enabled_via_env`` (``PATHWAY_GENERATE=1``) arms the stage on a
+read replica; ``generate/serving.py`` mounts the ``/generate`` route.
 """
 
 from __future__ import annotations
@@ -76,6 +76,17 @@ from pathway_tpu_torch.serving.config import QoSConfig
 _ENV_PREFIX = "PATHWAY_GENERATE_"
 DEFAULT_PAGES = 64
 KERNELS = ("auto", "ref", "cuda")
+
+
+def generate_enabled_via_env() -> bool:
+    """``PATHWAY_GENERATE=1`` arms the generation stage on a replica
+    (serving/replica.py main) — off keeps the read plane byte-identical
+    to the pre-generation topology."""
+    return os.environ.get("PATHWAY_GENERATE", "0").lower() in (
+        "1",
+        "true",
+        "yes",
+    )
 
 
 def _env_int(name: str, default: int) -> int:

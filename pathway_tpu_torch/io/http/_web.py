@@ -7,10 +7,19 @@ What it speaks: a request line and headers, a body sent with
 ``Content-Length`` or ``Transfer-Encoding: chunked``, keep-alive (HTTP/1.1
 by default, HTTP/1.0 on request), routing by path and method with
 aiohttp's replies for an unknown path (404) and a known path with another
-method (405 and ``Allow``), and HEAD on GET routes added with ``add_get``. ``Application.serve`` runs on the caller's event loop
-until its stop event is set; then the listener closes at once (the port is
-free again), idle keep-alive connections close, handlers still running get
-``shutdown_timeout`` seconds to answer, and the rest are cancelled.
+method (405 and ``Allow``), and HEAD on GET routes added with ``add_get``.
+A catch-all route (``add_route("*", CATCH_ALL, handler)``, the reference's
+``add_route("*", "/{tail:.*}")``) answers every path and method that no
+exact route takes. A handler returns a ``Response`` (sent with
+``Content-Length``) or a ``StreamResponse`` it wrote itself: ``prepare``
+sends the head with ``Transfer-Encoding: chunked`` (HTTP/1.1; an HTTP/1.0
+peer gets the raw body and a close), ``write`` sends one chunk and waits for
+the socket, ``write_eof`` sends the last chunk. ``Application.serve`` runs
+on the caller's event loop until its stop event is set (``on_bound`` gets
+the bound port, which ``port=0`` leaves to the system); then the listener
+closes at once (the port is free again), idle keep-alive connections close,
+handlers still running get ``shutdown_timeout`` seconds to answer, and the
+rest are cancelled. The client side is ``_web_client.py``.
 """
 
 from __future__ import annotations
@@ -25,6 +34,7 @@ from urllib.parse import parse_qsl, unquote, urlsplit
 
 _SERVER = "pathway_tpu_torch"
 _MAX_BODY = 1 << 26
+CATCH_ALL = "/{tail:.*}"
 _log = logging.getLogger(__name__)
 
 
@@ -68,6 +78,8 @@ class Request:
         for name, value in parse_qsl(parts.query, keep_blank_values=True):
             self.query.setdefault(name, value)
         self._body = body
+        self._writer: asyncio.StreamWriter | None = None  # for a StreamResponse
+        self._streamed = False  # a StreamResponse sent its head
 
     @property
     def keep_alive(self) -> bool:
@@ -88,6 +100,9 @@ class Request:
         """The body parsed as JSON; ``ValueError`` when it is not."""
         return _json.loads(await self.text())
 
+    async def read(self) -> bytes:
+        return self._body
+
 
 class Response:
     def __init__(
@@ -101,6 +116,68 @@ class Response:
         self.status = status
         self.headers: dict[str, str] = dict(headers or {})
         self.content_type = content_type
+
+
+class StreamResponse:
+    """A response the handler writes itself, in chunks (see the module
+    docstring). Returned from the handler once written; a handler that
+    returns before ``write_eof`` gets the last chunk sent for it."""
+
+    def __init__(self, status: int = 200, headers: Mapping[str, str] | None = None):
+        self.status = status
+        self.headers: dict[str, str] = dict(headers or {})
+        self._request: Request | None = None
+        self._chunked = True
+        self._eof = False
+
+    @property
+    def prepared(self) -> bool:
+        return self._request is not None
+
+    async def prepare(self, request: Request) -> None:
+        writer = request._writer
+        if writer is None:
+            raise RuntimeError("request is not bound to a connection")
+        self._request = request
+        request._streamed = True
+        self._chunked = request.version == "HTTP/1.1"
+        head = [f"HTTP/1.1 {self.status} {HTTPStatus(self.status).phrase}"]
+        names = {name.lower() for name in self.headers}
+        for name, value in self.headers.items():
+            head.append(f"{name}: {value}")
+        if "content-type" not in names:
+            head.append("Content-Type: application/octet-stream")
+        if self._chunked:
+            head.append("Transfer-Encoding: chunked")
+        else:
+            head.append("Connection: close")
+        head.append(f"Date: {formatdate(usegmt=True)}")
+        head.append(f"Server: {_SERVER}")
+        writer.write(("\r\n".join(head) + "\r\n\r\n").encode("latin-1"))
+        await writer.drain()
+
+    async def write(self, data: bytes) -> None:
+        if self._request is None or self._eof:
+            raise RuntimeError("write before prepare or after write_eof")
+        if not data:
+            return
+        writer = self._request._writer
+        assert writer is not None
+        if self._chunked:
+            writer.write(f"{len(data):x}\r\n".encode() + data + b"\r\n")
+        else:
+            writer.write(data)
+        await writer.drain()
+
+    async def write_eof(self) -> None:
+        if self._request is None or self._eof:
+            return
+        self._eof = True
+        writer = self._request._writer
+        assert writer is not None
+        if self._chunked:
+            writer.write(b"0\r\n\r\n")
+        await writer.drain()
 
 
 def json_response(
@@ -119,11 +196,11 @@ def _text_response(status: int, headers: Mapping[str, str] | None = None) -> Res
     return Response(f"{status}: {phrase}".encode(), status=status, headers=headers)
 
 
-Handler = Callable[[Request], Awaitable[Response]]
+Handler = Callable[[Request], Awaitable["Response | StreamResponse"]]
 
 
 class Application:
-    """Routes by exact path, then by method."""
+    """Routes by exact path, then by method; then the catch-all route."""
 
     def __init__(self, shutdown_timeout: float = 1.0):
         self.shutdown_timeout = shutdown_timeout
@@ -139,9 +216,18 @@ class Application:
         self.add_route("GET", path, handler)
         self.add_route("HEAD", path, handler)
 
-    async def serve(self, host: str, port: int, stop: asyncio.Event) -> None:
-        """Listen on ``host:port`` until ``stop`` is set, then shut down."""
+    async def serve(
+        self,
+        host: str,
+        port: int,
+        stop: asyncio.Event,
+        on_bound: Callable[[int], None] | None = None,
+    ) -> None:
+        """Listen on ``host:port`` until ``stop`` is set, then shut down;
+        ``on_bound(port)`` runs once the listener is bound."""
         server = await asyncio.start_server(self._connection, host, port)
+        if on_bound is not None:
+            on_bound(server.sockets[0].getsockname()[1])
         try:
             await stop.wait()
         finally:
@@ -173,11 +259,22 @@ class Application:
                 if request is None:
                     return
                 self._busy.add(task)
+                request._writer = writer
                 try:
                     response = await self._dispatch(request)
-                    keep = request.keep_alive and not self._closing
-                    _write_response(writer, request, response, keep)
-                    await writer.drain()
+                    if isinstance(response, StreamResponse):
+                        if not response.prepared:
+                            await response.prepare(request)
+                        await response.write_eof()
+                        keep = response._chunked and request.keep_alive and not self._closing
+                    elif request._streamed:
+                        # the handler failed after its stream's head went
+                        # out: no second head can follow, so cut the body
+                        keep = False
+                    else:
+                        keep = request.keep_alive and not self._closing
+                        _write_response(writer, request, response, keep)
+                        await writer.drain()
                 finally:
                     self._busy.discard(task)
                 if not keep:
@@ -193,17 +290,19 @@ class Application:
         finally:
             writer.close()
 
-    async def _dispatch(self, request: Request) -> Response:
-        methods = self._routes.get(request.path)
+    async def _dispatch(self, request: Request) -> Response | StreamResponse:
+        methods = self._routes.get(request.path) or self._routes.get(CATCH_ALL)
         if methods is None:
             return _text_response(404)
-        handler = methods.get(request.method)
+        handler = methods.get(request.method) or methods.get("*")
         if handler is None:
             return _text_response(405, {"Allow": ",".join(sorted(methods))})
         try:
             return await handler(request)
         except asyncio.CancelledError:
             raise
+        except (ConnectionError, asyncio.IncompleteReadError):
+            raise  # the peer went away mid-stream: close the connection
         except Exception:
             _log.exception("handler of %s %s failed", request.method, request.path)
             return _text_response(500)

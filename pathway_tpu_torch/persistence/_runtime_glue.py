@@ -6,9 +6,11 @@ packages share by the JAX package's module paths and maps them back on load.
 
 The multi-process branches of the reference (the host mesh's group-safe
 snapshot points, the two-phase generation commit, the retained generations
-and the lockstep replay) come with ROADMAP [mesh], and the replication
-publisher's floor with [replication]: the port's runtime has neither, so
-the single-process path below is all of it.
+and the lockstep replay) come with ROADMAP [mesh]: the port's runtime has
+none of them, so the single-process path below is all of it. A restarted
+replication writer floors its delta publisher at the restored state's time,
+as the reference does; ``state_key``/``segment_key`` name the blobs an
+out-of-process reader (a read replica's hydration) loads.
 
 Persistence engine glue: input event logs + offsets + resume, a re-design
 of upstream Pathway's persistence split
@@ -133,6 +135,19 @@ def resume_point(store: Any) -> dict:
             json.loads(marker.decode()).get("time", -1)
         )
     return out
+
+
+def state_key(gen: int, ident) -> str:
+    """Store key of one node's per-generation state blob — the layout
+    contract shared with every out-of-process reader of a writer's
+    store (replica hydration)."""
+    return PersistenceDriver._state_key(gen, ident)
+
+
+def segment_key(ident, name: str, epoch: str, seg_id: int) -> str:
+    """Store key of one content-addressed arrangement segment file —
+    same cross-module contract as :func:`state_key`."""
+    return PersistenceDriver._segment_key(ident, name, epoch, seg_id)
 
 
 def effective_persistent_id(node: InputNode, ordinal: int) -> str:
@@ -670,6 +685,18 @@ class PersistenceDriver:
         if snap:
             state_time = self._restore_operators(snap)
         self.restore_seconds = time.monotonic() - t0
+        # Replica Shield: a restarted WRITER restored the index at
+        # state_time — ticks at or before it are not in the (fresh)
+        # delta ring, only in the snapshot generation; tell the
+        # publisher before replay re-publishes the log tail, so replica
+        # subscriptions from older ticks resync instead of silently
+        # missing the gap
+        if state_time >= 0:
+            from pathway_tpu_torch.parallel import replicate
+
+            pub = replicate.publisher()
+            if pub is not None:
+                pub.set_floor(state_time)
         need_emit = any(
             getattr(ex, "_restore_emit", None)
             for ex in self.runtime.execs.values()

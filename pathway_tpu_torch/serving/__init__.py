@@ -1,6 +1,7 @@
 """Surge Gate: the serving QoS subsystem — dynamic micro-batching,
 deadline-aware admission control and graceful overload/drain for the
-REST serving path (counterpart of ``pathway_tpu/serving``).
+REST serving path, and the replicated read plane's replica, failover
+router and result cache (counterpart of ``pathway_tpu/serving``).
 
 Layering: ``io/http`` (ingress) builds a ``SurgeGate`` per endpoint when
 ``rest_connector(..., qos=QoSConfig(...))`` is passed (or
@@ -12,7 +13,6 @@ before it reaches the device search. The generation scheduler uses the
 safe to import from the engine layer.
 """
 
-from pathway_tpu_torch._unported import REPLICATION, unported
 from pathway_tpu_torch.serving.admission import (
     AdmissionController,
     DeadlineExceeded,
@@ -40,20 +40,24 @@ from pathway_tpu_torch.serving.tenancy import (
     tenancy_enabled_via_env,
 )
 
-# the reference resolves these lazily from serving/{replica,router,
-# result_cache}.py; the replicated read plane is not ported, so asking
-# for one raises naming its ROADMAP item
+# Replica Shield (serving/replica.py, serving/router.py) is NOT eagerly
+# imported: the replica/router roles pull the replication wire and the
+# HTTP client, which the engine layer (which imports this package on
+# every run) never needs.  They resolve lazily, as in the reference.
 _LAZY = {
-    "ReplicaServer": "serving/replica.py",
-    "FailoverRouter": "serving/router.py",
-    "ResultCache": "serving/result_cache.py",
+    "ReplicaServer": ("pathway_tpu_torch.serving.replica", "ReplicaServer"),
+    "FailoverRouter": ("pathway_tpu_torch.serving.router", "FailoverRouter"),
+    "ResultCache": ("pathway_tpu_torch.serving.result_cache", "ResultCache"),
 }
 
 
 def __getattr__(name: str):
-    if name in _LAZY:
-        raise unported(f"serving.{name} ({_LAZY[name]})", REPLICATION)
-    raise AttributeError(name)
+    target = _LAZY.get(name)
+    if target is None:
+        raise AttributeError(name)
+    import importlib
+
+    return getattr(importlib.import_module(target[0]), target[1])
 
 
 __all__ = [

@@ -1,9 +1,11 @@
 """Own copy of ``pathway_tpu/testing/faults.py``: the same ``PATHWAY_FAULTS``
 grammar and exit code 23. The whole grammar parses; of the hooks, the port
 calls ``on_tick`` (the engine's runtime), ``before_meta_commit`` and
-``wrap_store`` (the persistence glue) and ``on_decode_step``
-(``generate/scheduler.py``) — the replica, ferry and wire hooks wait for
-those modules' slices.
+``wrap_store`` (the persistence glue), ``on_decode_step``
+(``generate/scheduler.py``), ``on_writer_tick`` and ``on_wire_send`` for
+``ch:repl`` (``parallel/replicate.py``'s publisher and sender loop) and
+``on_replica_tick`` (``serving/replica.py``) — the ferry hook waits for the
+mesh's slice.
 
 Fault Forge — deterministic, seeded fault injection for chaos tests.
 

@@ -810,3 +810,117 @@ def test_live_table_over_a_cuda_index_follows_each_tick(dev, fresh_graph):
     got = run("cuda")
     parse_graph.G.clear()
     assert got == run("cpu") and len(got) == 300 * 3
+
+
+def _replica_child(env_extra: dict):
+    """``python -m pathway_tpu_torch.serving.replica`` on the card; returns
+    the process and its HTTP port once it prints REPLICA-READY."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent.parent
+    env = dict(os.environ, PYTHONPATH=str(root), PATHWAY_REPLICA_DEVICE="cuda", **env_extra)
+    proc = subprocess.Popen([sys.executable, "-m", "pathway_tpu_torch.serving.replica"], env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, cwd=str(root))
+    lines = []
+    for ln in proc.stdout:
+        lines.append(ln)
+        if ln.startswith("REPLICA-READY "):
+            return proc, int(ln.split()[1])
+    raise AssertionError("the replica never became ready: " + "".join(lines[-20:]))
+
+
+def test_replica_child_on_the_card_answers_as_block_topk_ref(dev, monkeypatch):
+    """A replica process on the card follows an in-process delta stream and
+    answers ``vec`` reads with the keys and scores of ``block_topk_ref``
+    over the same corpus, merged as the index merges (scores within 1e-5:
+    the kernel and the plain matmul sum the 64 products in another order)."""
+    import http.client
+    import json
+
+    from pathway_tpu_torch.engine.batch import DiffBatch
+    from pathway_tpu_torch.ops import block_topk as bt
+    from pathway_tpu_torch.ops.knn import _normalize, stable_topk
+    from pathway_tpu_torch.parallel.replicate import DeltaStreamServer
+
+    monkeypatch.setenv("PATHWAY_DCN_SECRET", "card-replica-test")
+    rng = np.random.default_rng(7)
+    n, d, k = 3000, 64, 5
+    vecs = rng.standard_normal((n, d)).astype(np.float32)
+    keys = [10_000 + i for i in range(n)]
+    srv = DeltaStreamServer(0)
+    srv.publish(0, [DiffBatch.from_rows([(key, 1, (v, None)) for key, v in zip(keys, vecs)], ("_data", "_meta"))])
+    proc, port = _replica_child({"PATHWAY_REPL_PORT": str(srv.port), "PATHWAY_REPLICA_DIM": str(d)})
+    try:
+        prep = torch.zeros(4096, d, device=dev)
+        prep[:n] = _normalize(torch.from_numpy(vecs).to(dev))
+        valid = torch.zeros(4096, dtype=torch.bool, device=dev)
+        valid[:n] = True
+        queries = rng.standard_normal((6, d)).astype(np.float32)
+        sc, ix = bt.block_topk_ref(_normalize(torch.from_numpy(queries).to(dev)), prep, valid, k)
+        s, pos = stable_topk(sc.reshape(len(queries), -1), k)
+        idx = torch.gather(ix.reshape(len(queries), -1), 1, pos)
+        for qi, q in enumerate(queries):
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+            conn.request("POST", "/query", json.dumps({"vec": q.tolist(), "k": k}),
+                         {"content-type": "application/json"})
+            resp = conn.getresponse()
+            body = json.loads(resp.read())
+            conn.close()
+            assert resp.status == 200
+            got = body["matches"]
+            assert [m[0] for m in got] == [keys[int(j)] for j in idx[qi]]
+            assert np.allclose([m[1] for m in got], (s[qi].double() - 1.0).cpu().numpy(), atol=1e-5)
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        conn.request("GET", "/replica/kernels")
+        launched = json.loads(conn.getresponse().read())
+        conn.close()
+        assert launched["block_topk_by_shape"] == {f"B=1,k={k}": len(queries)}
+    finally:
+        proc.terminate()
+        proc.wait(timeout=60)
+        srv.close()
+
+
+_BUILD_AND_LAUNCH = """
+import sys
+from pathlib import Path
+import torch
+from pathway_tpu_torch import _build
+from pathway_tpu_torch.ops import block_topk as bt
+_build.BUILD_DIR = Path(sys.argv[1])
+g = torch.Generator(device="cuda").manual_seed(3)
+c = torch.randint(-2, 3, (2048, 384), generator=g, device="cuda").float()
+q = c[:4].clone()
+valid = torch.ones(2048, dtype=torch.bool, device="cuda")
+sc, ix = bt.block_topk(q, c, valid, 10)
+sr, ir = bt.block_topk_ref(q, c, valid, 10)
+assert torch.equal(sc, sr) and torch.equal(ix, ir)
+print("LAUNCHED", bt.block_topk.launches)
+"""
+
+
+def test_two_processes_build_the_kernel_concurrently(dev, tmp_path):
+    """Two processes that find no library start their nvcc together into
+    one build directory: each compiles to its own temporary file and
+    renames it into place, so both load a whole ``.so`` and launch, and a
+    third process loads the one left on disk without building."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent.parent
+    build = tmp_path / "build"
+    procs = [subprocess.Popen([sys.executable, "-c", _BUILD_AND_LAUNCH, str(build)], cwd=str(root),
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for _ in range(2)]
+    outs = [p.communicate(timeout=600)[0] for p in procs]
+    assert all(p.returncode == 0 and "LAUNCHED 1" in o for p, o in zip(procs, outs)), outs
+    libs = sorted(build.glob("libblock_topk-*.so"))
+    assert len(libs) == 1 and not list(build.glob("*.tmp"))
+    third = subprocess.run([sys.executable, "-c", _BUILD_AND_LAUNCH + "from pathway_tpu_torch._build import stats\n"
+                            "assert stats['builds'] == 0, stats\n", str(build)],
+                           cwd=str(root), capture_output=True, text=True, timeout=600)
+    assert third.returncode == 0, third.stdout + third.stderr

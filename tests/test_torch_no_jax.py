@@ -9,7 +9,10 @@ card's machine has none of them, and no port module imports one at module
 level. The REST connector and the Surge Gate (``io/http``, ``serving``)
 import with the clients blocked as well, and a port server started with
 ``aiohttp`` and ``requests`` blocked answers over HTTP without loading
-either. The persistence glue, its stores and the file connectors import
+either. So do the replicated read plane's modules (``parallel``, the
+replica, the router, the result cache, ``/generate``), which import
+neither anywhere, and a writer's stream, a replica and a router with its
+cache answer with both blocked. The persistence glue, its stores and the file connectors import
 with ``pandas`` and ``fsspec`` blocked, and a persisted ``pw.io.fs`` run
 stops and restores from its store without loading either (``fsspec`` is
 imported only when an ``FsspecStore`` is built). The rest of the Table API
@@ -81,6 +84,7 @@ from pathway_tpu_torch.stdlib.indexing import DataIndex, IvfKnn, LshKnn, TpuKnn
 from pathway_tpu_torch.stdlib.indexing._index_impls import IvfKnnIndex, LshKnnIndex
 from pathway_tpu_torch.ops.ivf import IvfDeviceIndex, assign_clusters
 from pathway_tpu_torch.ops.lsh import make_projections
+from pathway_tpu_torch.serving.replica import ReplicaServer
 
 
 def _knn_pipeline_on_default_device(inner=TpuKnn):
@@ -122,6 +126,7 @@ for make in (
     lambda: IvfDeviceIndex(np.ones((16, 4), np.float32)),
     lambda: assign_clusters(np.ones((2, 4), np.float32), np.ones((1, 4), np.float32)),
     lambda: make_projections(4, 2, 2, 1.0),
+    lambda: ReplicaServer(replica_id=0, index_factory=dict),
 ):
     try:
         make()
@@ -265,6 +270,23 @@ REST_MODULES = [
     "pathway_tpu_torch.serving.metrics",
     "pathway_tpu_torch.serving.tenancy",
     "pathway_tpu_torch.xpacks.llm.servers",
+]
+
+# the replicated read plane: each imports with pandas and the clients
+# (aiohttp, requests) blocked — its HTTP server and client are the
+# standard library's
+REPLICATION_MODULES = [
+    "pathway_tpu_torch.io.http._web_client",
+    "pathway_tpu_torch.parallel",
+    "pathway_tpu_torch.parallel.host_exchange",
+    "pathway_tpu_torch.parallel.wire",
+    "pathway_tpu_torch.parallel.replicate",
+    "pathway_tpu_torch.parallel.standby",
+    "pathway_tpu_torch.parallel.supervisor",
+    "pathway_tpu_torch.serving.replica",  # python -m pathway_tpu_torch.serving.replica
+    "pathway_tpu_torch.serving.router",
+    "pathway_tpu_torch.serving.result_cache",
+    "pathway_tpu_torch.generate.serving",
 ]
 
 # persistence and the file connectors: each imports with pandas and fsspec
@@ -506,6 +528,44 @@ print("ok")
 """
 
 
+_PLANE_WITHOUT_CLIENTS = """
+import http.client, json, os, sys
+for name in {blocked!r}:
+    sys.modules[name] = None
+os.environ["PATHWAY_DCN_SECRET"] = "no-clients"
+import numpy as np
+from pathway_tpu_torch.engine.batch import DiffBatch
+from pathway_tpu_torch.parallel.replicate import DeltaStreamServer
+from pathway_tpu_torch.serving import FailoverRouter, ReplicaServer, ResultCache
+from pathway_tpu_torch.stdlib.indexing._index_impls import TpuDenseKnnIndex
+
+srv = DeltaStreamServer(0)
+vecs = np.eye(4, dtype=np.float32)
+srv.publish(0, [DiffBatch.from_rows([(k, 1, (vecs[k], None)) for k in range(4)], ("_data", "_meta"))])
+rep = ReplicaServer(replica_id=0, index_factory=lambda: TpuDenseKnnIndex(dimensions=4, device="cpu"),
+                    writer_port=srv.port, dim=4, device="cpu").start()
+cache = ResultCache(dim=4)
+cache.attach_stream("127.0.0.1", srv.port)
+router = FailoverRouter(["http://127.0.0.1:%d" % rep.http_port], health_interval_ms=50, cache=cache).start()
+import time
+t_end = time.time() + 30
+while not (rep.ready and router.endpoints[0].ready) and time.time() < t_end:
+    time.sleep(0.02)
+answers = []
+for _ in range(2):
+    c = http.client.HTTPConnection("127.0.0.1", router.port, timeout=10)
+    c.request("POST", "/query", body=json.dumps({{"vec": [0, 1, 0, 0], "k": 1}}))
+    r = c.getresponse()
+    answers.append((r.status, r.getheader("x-pathway-cache"), json.loads(r.read())["matches"][0][0]))
+    c.close()
+assert answers == [(200, None, 1), (200, "hit", 1)], answers
+router.stop(); rep.stop(); srv.close()
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in {blocked!r} and sys.modules[m])
+assert not leaked, leaked
+print("ok")
+"""
+
+
 def _run(code, blocked=BLOCKED, **fmt):
     return subprocess.run(
         [sys.executable, "-c", code.format(blocked=blocked, **fmt)],
@@ -635,6 +695,34 @@ def test_port_server_answers_with_aiohttp_and_requests_blocked():
     r = _run(_SERVE_WITHOUT_CLIENTS, blocked=BLOCKED_WITH_CLIENTS)
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip().endswith("ok")
+
+
+@pytest.fixture(scope="module")
+def replication_imported_with_clients_blocked():
+    r = _run(_IMPORT_EACH, blocked=BLOCKED_WITH_CLIENTS, mods=REPLICATION_MODULES)
+    assert r.returncode == 0, r.stderr
+    return set(json.loads(r.stdout.strip().splitlines()[-1]))
+
+
+@pytest.mark.parametrize("mod", REPLICATION_MODULES)
+def test_replication_module_imports_without_jax_pandas_or_clients(replication_imported_with_clients_blocked, mod):
+    assert mod in replication_imported_with_clients_blocked
+
+
+def test_replicated_plane_serves_with_aiohttp_and_requests_blocked():
+    """A writer's stream, a replica, a router and its result cache answer
+    (a miss, then a hit) without loading aiohttp or requests."""
+    r = _run(_PLANE_WITHOUT_CLIENTS, blocked=BLOCKED_WITH_CLIENTS)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip().endswith("ok")
+
+
+@pytest.mark.parametrize("mod", REPLICATION_MODULES)
+def test_replication_module_imports_neither_aiohttp_nor_requests_anywhere(mod):
+    path = ROOT / (mod.replace(".", "/") + ".py")
+    if not path.exists():
+        path = ROOT / mod.replace(".", "/") / "__init__.py"
+    assert not _imported_roots(path) & {"aiohttp", "requests"}
 
 
 def _module_level_roots(path: Path) -> set[str]:

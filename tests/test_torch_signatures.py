@@ -78,3 +78,69 @@ def test_split_kv_store_takes_transfer_id_like_the_reference(tmp_path):
         )
     assert results["torch"] == results["jax"]
     assert results["torch"][1] == 8 and results["torch"][2] == 0
+
+
+# the replicated read plane: every ported class and function takes the
+# reference's parameters, in its order, with its defaults (the port adds
+# only ``device=``, to ``ReplicaServer``)
+PLANE = [
+    ("parallel.replicate", "DeltaStreamServer"),
+    ("parallel.replicate", "DeltaStreamClient"),
+    ("parallel.replicate", "publisher"),
+    ("parallel.replicate", "reset_publisher"),
+    ("parallel.replicate", "consolidate_rows"),
+    ("parallel.replicate", "shards_env"),
+    ("parallel.replicate", "corpus_shard_of"),
+    ("parallel.replicate", "ring_ticks_env"),
+    ("parallel.wire", "encode_frame"),
+    ("parallel.wire", "decode_frame"),
+    ("parallel.wire", "tap_frame"),
+    ("parallel.wire", "batches_equal"),
+    ("parallel.wire", "pack_uints"),
+    ("parallel.wire", "unpack_uints"),
+    ("serving.replica", "ReplicaServer"),
+    ("serving.replica", "text_vector"),
+    ("serving.replica", "staleness_bound_exceeded"),
+    ("serving.replica", "hydrate_index_state"),
+    ("serving.replica", "default_knn_responder"),
+    ("serving.replica", "main"),
+    ("serving.router", "FailoverRouter"),
+    ("serving.router", "ReplicaEndpoint"),
+    ("serving.router", "merge_topk"),
+    ("serving.router", "validate_shard_map"),
+    ("serving.router", "shard_map_from_env"),
+    ("serving.router", "replicas_from_env"),
+    ("serving.router", "hedge_ms_env"),
+    ("serving.router", "_WfqDispatch"),
+    ("serving.result_cache", "ResultCache"),
+    ("serving.result_cache", "cache_from_env"),
+    ("serving.result_cache", "cache_enabled_via_env"),
+    ("serving.result_cache", "fingerprint"),
+    ("generate.serving", "attach_generate"),
+    ("generate.serving", "assemble_prompt"),
+    ("generate.serving", "is_generate_route"),
+    ("generate.scheduler", "generate_enabled_via_env"),
+    ("persistence._runtime_glue", "state_key"),
+    ("persistence._runtime_glue", "segment_key"),
+]
+
+
+def _plane_params(obj):
+    return [
+        (p.name, p.kind, repr(p.default))
+        for p in inspect.signature(obj).parameters.values()
+        if p.name != "device"
+    ]
+
+
+@pytest.mark.parametrize("module,name", PLANE, ids=[f"{m}.{n}" for m, n in PLANE])
+def test_read_plane_takes_the_reference_parameters(module, name):
+    import importlib
+
+    ref = getattr(importlib.import_module(f"pathway_tpu.{module}"), name)
+    port = getattr(importlib.import_module(f"pathway_tpu_torch.{module}"), name)
+    assert _plane_params(port) == _plane_params(ref)
+    if isinstance(ref, type):
+        public = [n for n, v in vars(ref).items() if callable(v) and not n.startswith("__")]
+        for method in public:
+            assert _plane_params(getattr(port, method)) == _plane_params(getattr(ref, method)), method

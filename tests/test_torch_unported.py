@@ -1,9 +1,10 @@
 """Every reference hook the port does not carry yet raises
 ``NotImplementedError`` naming its ROADMAP tag, instead of running
 without it: compiled ticks, engine shards, the multi-process engine (DCN),
-replication, ``mesh=``, the temporal operators and the ``.dt`` namespace,
-the service connectors, the replicated read plane (``ReplicaServer``,
-``FailoverRouter``, ``ResultCache`` and the ``/generate`` route), every root
+the standby writer and the process-group supervisor of replication, the
+device mesh's names in ``parallel``, ``mesh=``, the temporal operators and
+the ``.dt`` namespace, the service connectors, the observability routes of
+the read plane (501 naming [observability]), every root
 name of the reference the port lacks (``pw.temporal``, ``pw.graphs``, …),
 every ``pw.stdlib.<name>`` it lacks and ``pw.debug.diagnose``, each naming
 its tag. Every public name of every package ``__init__`` of the reference
@@ -60,7 +61,10 @@ ENV_CASES = [
     ({"PATHWAY_COMPILED_TICK": "1"}, _run_simple, r"\[compiled-ticks\]"),
     ({"PATHWAY_ENGINE_SHARDS": "4"}, _run_simple, r"\[mesh\]"),
     ({"PATHWAY_PROCESSES": "2"}, _run_simple, r"\[mesh\]"),  # the DCN engine
-    ({"PATHWAY_REPL_PORT": "18765"}, _index_pipeline, r"\[replication\]"),
+    # the writer's delta stream is ported (PATHWAY_REPL_PORT arms it); the
+    # standby writer that takes over its port is not
+    ({"PATHWAY_REPL_PORT": "18765"}, lambda: importlib.import_module(
+        "pathway_tpu_torch.parallel.standby").main(), r"\[replication\]"),
 ]
 
 
@@ -108,17 +112,82 @@ def test_unported_kind_raises(make, item):
 
 @pytest.mark.parametrize("name", ["ReplicaServer", "FailoverRouter", "ResultCache"])
 def test_replica_plane_names_raise(name):
+    """The read plane's names resolve (lazily, as in the reference) to the
+    ported classes with the reference's signatures; what still raises
+    [replication] is the standby writer and the group supervisor."""
+    import pathway_tpu.serving as jax_serving
     import pathway_tpu_torch.serving as serving
 
-    with pytest.raises(NotImplementedError, match=r"\[replication\]"):
-        getattr(serving, name)
+    port, ref = getattr(serving, name), getattr(jax_serving, name)
+    assert port.__module__.startswith("pathway_tpu_torch.serving.")
+    assert [p for p in _params(port) if p[0] != "device"] == _params(ref)
+    for module, names in (("standby", ("StandbyWriter", "grace_env", "main")),
+                          ("supervisor", ("GroupSupervisor", "max_restarts_env", "main"))):
+        mod = importlib.import_module(f"pathway_tpu_torch.parallel.{module}")
+        for missing in names:
+            with pytest.raises(NotImplementedError, match=r"\[replication\]"):
+                getattr(mod, missing)
 
 
 def test_generate_route_raises():
+    """``attach_generate`` mounts ``/generate`` on a replica (it raised
+    [replication] until the plane was ported); on anything but a replica it
+    fails as the reference's does."""
+    from pathway_tpu.generate.serving import attach_generate as jax_attach
+    from pathway_tpu_torch.generate import GenerateConfig
+    from pathway_tpu_torch.generate.scheduler import DecodeScheduler
     from pathway_tpu_torch.generate.serving import attach_generate
+    from pathway_tpu_torch.serving.replica import ReplicaServer
 
-    with pytest.raises(NotImplementedError, match=r"\[replication\].*/generate|/generate.*\[replication\]"):
-        attach_generate(object())
+    for attach in (jax_attach, attach_generate):
+        with pytest.raises(AttributeError, match="replica_id"):
+            attach(object())
+    srv = ReplicaServer(replica_id=3, index_factory=dict, device="cpu")
+    sched = attach_generate(srv, DecodeScheduler(GenerateConfig(kernel="ref"), device="cpu"))
+    try:
+        assert srv.generate_scheduler is sched and list(srv.extra_post_routes) == ["/generate"]
+    finally:
+        sched.stop()
+
+
+def test_repl_port_arms_the_writers_delta_stream(monkeypatch):
+    """PATHWAY_REPL_PORT no longer raises: the index exec publishes each
+    tick's corpus deltas (the reference's hook)."""
+    from pathway_tpu_torch.parallel import replicate
+
+    monkeypatch.setenv("PATHWAY_DCN_SECRET", "unported-test")
+    monkeypatch.setenv("PATHWAY_REPL_PORT", "0")
+    replicate.reset_publisher()
+    try:
+        _index_pipeline()
+        pub = replicate.publisher()
+        assert pub is not None and pub.newest_tick() >= 0 and pub._ticks_published >= 1
+    finally:
+        replicate.reset_publisher()
+
+
+def test_observability_routes_of_the_plane_answer_501_naming_the_tag():
+    import http.client
+    import json
+
+    from pathway_tpu_torch.serving.replica import ReplicaServer
+    from pathway_tpu_torch.serving.router import FailoverRouter
+
+    rep = ReplicaServer(replica_id=0, index_factory=dict, device="cpu").start()
+    router = FailoverRouter([f"http://127.0.0.1:{rep.http_port}"]).start()
+    try:
+        for port, path in ((rep.http_port, "/debug/signals"), (rep.http_port, "/debug/trace"),
+                           (router.port, "/fleet/metrics"), (router.port, "/fleet/events"),
+                           (router.port, "/fleet/trace")):
+            c = http.client.HTTPConnection("127.0.0.1", port, timeout=10)
+            c.request("GET", path)
+            r = c.getresponse()
+            body = json.loads(r.read())
+            c.close()
+            assert r.status == 501 and "[observability]" in body["error"], path
+    finally:
+        router.stop()
+        rep.stop()
 
 
 def _missing(ref_names, port_module):
