@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from csrc/ (nvcc, sm_90a, one process per
-source, all started together), then runs fourteen phases, printing one JSON
+source, all started together), then runs fifteen phases, printing one JSON
 object per phase:
 
 1. device         — nvidia-smi name/power limit, toolchain versions, build seconds.
@@ -115,11 +115,11 @@ object per phase:
                     replays the log tail (batch 9), seeks the scanner, reads
                     batch 10 again, answers one query (time to the first
                     correct reply), ingests the 6 remaining batches, answers
-                    16 B = 1 (cut from 64) and 8 B = 16 queries (the vector
-                    store phase's texts), then 2 writes (cut from 4) of 64
-                    documents, each followed by a query for one of them,
-                    then the 16 B = 1 texts again. Restart 2 adds no file
-                    and asks the 16 again. Checked:
+                    8 B = 1 (cut from 64) and 8 B = 16 queries (the vector
+                    store phase's texts), then 1 write (cut from 4) of 64
+                    documents, followed by a query for one of them,
+                    then the 8 B = 1 texts again. Restart 2 adds no file
+                    and asks the 8 again. Checked:
                     exit 23; restored from a snapshot with a non-empty
                     replayed tail, then none; the index holds each chunk of
                     the 32,768 documents exactly once (its keys against the
@@ -141,7 +141,7 @@ object per phase:
                     (a) DocumentStore over HybridIndexFactory([TantivyBM25Factory(),
                     BruteForceKnnFactory(the phase-3 embedder, device="cuda")]):
                     the vector store phase's documents (16 commits of 2048,
-                    Utf8Parser, TokenCountSplitter(20, 60)), 64 B = 1 and 4
+                    Utf8Parser, TokenCountSplitter(20, 60)), 32 B = 1 and 2
                     B = 16 queries (k = 10), then 4 live writes of 64
                     documents, each followed by a query for one of them.
                     Checked: every reply against a direct computation — the
@@ -156,7 +156,7 @@ object per phase:
                     probes) through the engine: bench.py's accelerator IVF
                     mixture (1,000,000 x 384 f32, 2000 centres, noise 0.35,
                     default_rng(7)) in commits of 65,536 via pw.io.python,
-                    then 64 B = 1 and 4 B = 16 queries (k = 10); the index
+                    then 32 B = 1 and 2 B = 16 queries (k = 10); the index
                     trains once. Checked: every score is its row's cosine - 1
                     (numpy, 1e-5), replies descend, every key's cluster is
                     among the query's probes (numpy, from the index's
@@ -225,7 +225,36 @@ object per phase:
                     snapshot, accuracy, the update stream's rows (every
                     standing query answered again as the corpus grew),
                     launches per shape and peak memory.
-11. replication   — the replicated read plane: this process is the writer (a
+11. windowed index — a recency-bounded live index as a user writes it
+                    (``wi_pipeline``): 32,768 seeded documents (synthetic_docs)
+                    with an event time rising from 0 to 3600 s with jitter and
+                    one of 64 topics, 2% of them sent back past their window's
+                    cutoff, arrive through pw.io.python in 32 commits of 1024,
+                    one tick each, after one commit of 256 standing queries;
+                    the phase-3 embedder embeds both; windowby(t,
+                    tumbling(600), instance=topic, common_behavior(delay=60,
+                    cutoff=1200, keep_results=False)).reduce(ids=tuple(doc_id))
+                    is flattened and joined back to the embedded documents,
+                    which DataIndex over TpuKnn(device="cuda") holds, so a
+                    document enters the index 60 s after its window starts and
+                    leaves 1200 s after it ends; every query asks the live
+                    index (query, k = 10), answered again on every change in
+                    one block_topk batch (B = 256); on the host, queries
+                    interval_join documents of their topic over
+                    interval(-300, 0), counted per query. Checked after every
+                    commit against ``wi_oracle``, a numpy model of the windows
+                    and the behavior: every reply equals the plain top-10 over
+                    the live documents (an f32 matmul and torch.topk on the
+                    card, up to near ties), the index's valid rows equal the
+                    live count, no reply names a document that is not live,
+                    the interval-join counts equal numpy's; after the run, the
+                    documents that never entered a window are the oracle's
+                    frozen ones; launches at B = 256 only, the embedder on the
+                    card. Prints update-to-visible p50 / max, the first
+                    reply's seconds, the engine's seconds per operator type
+                    (the temporal ones apart), the index's rows by commit,
+                    launches per shape and peak memory.
+12. replication   — the replicated read plane: this process is the writer (a
                     persisted DataIndex over TpuKnn(device="cuda") fed the
                     vector store phase's ~80k chunk vectors in 16 commits,
                     PATHWAY_REPL_PORT=0), two
@@ -245,7 +274,7 @@ object per phase:
                     the router, update-to-visible, failover statuses and
                     retries, re-admission s, cache hit p50, /generate TTFT and
                     tokens/s, each child's launches per shape and peak memory.
-12. generation    — ask -> retrieve -> generate: 24 asks are embedded and
+13. generation    — ask -> retrieve -> generate: 24 asks are embedded and
                     retrieved (k = 3) on the phase-3 index, each grounded prompt
                     goes to one DecodeScheduler(GenerateConfig()) at the decoder's
                     serving defaults (dim 128, 2 layers, 4 heads, head_dim 32,
@@ -255,7 +284,7 @@ object per phase:
                     back to empty, launches == decode steps x layers, the same
                     tokens from a kernel="ref" scheduler, and the logits of one
                     recorded step, kernel against plain.
-13. durability    — the same 24 prompts at the same width, with snapshots.
+14. durability    — the same 24 prompts at the same width, with snapshots.
                     A child process (this script with --kill-child) runs them
                     with PATHWAY_GENERATE_SNAPSHOT_EVERY=8, a store in a temp
                     dir and PATHWAY_FAULTS="kill=decode:150"; it must exit 23
@@ -272,7 +301,7 @@ object per phase:
                     segments per snapshot). Tokens are compared exactly; a
                     difference passes only at a near tie: the uninterrupted
                     run's top-2 logit margin there below GEN_LOGIT_TOL.
-14. kernels       — per kernel and per path shape: launches on its path, ms
+15. kernels       — per kernel and per path shape: launches on its path, ms
                     (CUDA events) and device ms (torch.profiler), its plain
                     version's ms, the bound and what sets it, the bytes it must
                     move, and the ms of the library call(s) computing the same
@@ -287,7 +316,8 @@ object per phase:
                     store's dense corpus, B = 16 on the 1M IVF ground truth,
                     every (B, k = 9) of the components phase on its corpus
                     and every (B, k = 3) of the live classify phase on its
-                    corpus, and every (B, k) the replica children launched,
+                    corpus, B = 256 (k = 10) of the windowed index on its
+                    corpus at the end, and every (B, k) the replica children launched,
                     on the writer's corpus;
                     paged_attention: the
                     recorded decode step and a long context, each with its
@@ -372,9 +402,10 @@ PERSIST_KILL_TICK = 10
 # then to 8 beside the replication phase) to keep the smoke under 900 s:
 # every query tick counts toward the snapshot cadence
 PERSIST_B1 = 8
-# writes of VS_LIVE_DOCS documents, each then queried; cut from 4 to keep
-# the smoke under 900 s (each write's commit takes ≈11 s with persistence)
-PERSIST_LIVE_WRITES = 2
+# writes of VS_LIVE_DOCS documents, each then queried; cut from 4 to 2, then
+# to 1 beside the windowed index phase, to keep the smoke under 950 s (each
+# write's commit takes ≈11 s with persistence)
+PERSIST_LIVE_WRITES = 1
 PERSIST_CAPACITY = 80 * 1024  # index rows reserved: 78,185 chunks + the live writes'
 # a reply of a restart against the never-killed vector store phase's reply
 # to the same text: the same corpus and query vector, but the document
@@ -408,10 +439,12 @@ FAULT_EXIT = 23  # the fault plan's exit code
 # the index kinds phase: a hybrid DocumentStore over the vector store
 # phase's documents; IvfKnn, IvfDeviceIndex and LshKnn over bench.py's
 # accelerator IVF mixture; the segment ops
-IK_B1 = 64
-# cut from 8 to keep the smoke under 900 s: the IVF part scores each
-# query on the host, ≈8 s a B = 16 tick
-IK_B16 = 4
+# cut from 64 beside the windowed index phase to keep the smoke under 950
+# s: the IVF part scores each B = 1 query on the host, ≈0.4 s
+IK_B1 = 32
+# cut from 8 to keep the smoke under 900 s, then to 2 beside the windowed
+# index phase: the IVF part scores each query on the host, ≈6 s a B = 16 tick
+IK_B16 = 2
 IK_LIVE_WRITES = 4
 RRF_K = 60.0  # HybridIndexFactory's default
 IK_IVF_ROWS = 1_000_000
@@ -3187,8 +3220,8 @@ def timed(obj, name: str, into: list, scale: float = 1.0) -> None:
 
 def ivf_engine(dev, mix: dict, truth: np.ndarray) -> dict:
     """(b) DataIndex over IvfKnn(device="cuda") at 1M x 384 through the
-    engine: the mixture in commits of 65,536 via pw.io.python, then 64 B = 1
-    and 4 B = 16 queries (the index trains once, at the first); checked
+    engine: the mixture in commits of 65,536 via pw.io.python, then IK_B1
+    B = 1 and IK_B16 B = 16 queries (the index trains once, at the first); checked
     against numpy and the exact top-10."""
     from pathway_tpu_torch.stdlib.indexing import IvfKnn
 
@@ -4009,7 +4042,334 @@ def live_classify(dev, smi: str) -> tuple[dict, dict]:
     return phase, {"prep": prep, "valid": valid, "queries": batch, "launches": launches, "shapes": shapes}
 
 
-# --- phase 11: replication ----------------------------------------------------
+# --- phase 11: windowed index -------------------------------------------------
+
+WI_DOCS = 32768
+WI_COMMITS = 32  # commits of 1024 documents, one tick each
+WI_TOPICS = 64
+WI_QUERIES = 256  # standing queries, answered again on every change
+WI_K = 10
+WI_SPAN = 3600  # event times 0..WI_SPAN seconds, rising with jitter
+WI_JITTER = 20
+WI_WINDOW = 600  # tumbling windows, one set per topic
+WI_DELAY = 60  # a window becomes visible WI_DELAY after it starts ...
+WI_CUTOFF = 1200  # ... and is retracted WI_CUTOFF after it ends
+WI_LATE = 0.02  # the share of documents that arrive past their window's cutoff
+WI_JOIN = (-300, 0)  # the host leg: a query's topic in the 5 minutes up to its time
+WI_RESERVED = 1 << 15  # the live documents peak past 16,384: the next power of two
+
+
+def wi_stream(seed: int, n: int, commits: int, topics: int, queries: int) -> dict:
+    """A news feed of ``n`` seeded documents in ``commits`` equal commits:
+    event times rising from 0 to WI_SPAN with jitter, a topic each, and a
+    WI_LATE share (drawn from the last third) sent far enough back that
+    the freeze drops them; plus ``queries`` standing queries with a time
+    and a topic. Texts from ``synthetic_docs``."""
+    rng = np.random.default_rng(seed)
+    base = np.arange(n, dtype=np.int64) * WI_SPAN // n
+    t = np.clip(base + rng.integers(-WI_JITTER, WI_JITTER + 1, n), 0, WI_SPAN)
+    late = rng.choice(np.flatnonzero(base >= 2 * WI_SPAN // 3), size=int(round(WI_LATE * n)),
+                      replace=False)
+    # end + cutoff at most base - 200: behind the watermark of the commit before
+    t[late] = base[late] - WI_CUTOFF - WI_WINDOW - 200 - rng.integers(0, 400, len(late))
+    texts = synthetic_docs(n + queries, rng)
+    return {
+        "t": t, "topic": rng.integers(0, topics, n), "late": np.sort(late),
+        "commit": np.arange(n) * commits // n, "commits": commits, "text": texts[:n],
+        "q_t": rng.integers(0, WI_SPAN + 1, queries), "q_topic": rng.integers(0, topics, queries),
+        "q_text": texts[n:],
+    }
+
+
+def wi_oracle(t: np.ndarray, commit: np.ndarray, commits: int) -> tuple[list[np.ndarray], int]:
+    """The live documents after each commit, and how many the freeze
+    dropped, for tumbling(WI_WINDOW) under common_behavior(WI_DELAY,
+    WI_CUTOFF, keep_results=False), written out in numpy from the
+    reference's semantics (stdlib/temporal/temporal_behavior.py:91-135 and
+    the Buffer, Freeze and Forget execs). Each commit is one tick; every
+    watermark is global, over all topics. A document of window [s, e):
+    the freeze drops it if e + cutoff is at most the largest time it let
+    through in earlier ticks; the forget, in a tick that brings rows,
+    retracts every document it holds with e + cutoff at most the largest
+    time of earlier ticks; the buffer holds a document until the largest
+    time it has seen, this tick's included, reaches s + delay."""
+    start = t - t % WI_WINDOW
+    gone_at = start + WI_WINDOW + WI_CUTOFF
+    show_at = start + WI_DELAY
+    frozen = np.zeros(len(t), dtype=bool)
+    passed = np.zeros(len(t), dtype=bool)
+    forgotten = np.zeros(len(t), dtype=bool)
+    released = np.zeros(len(t), dtype=bool)
+    mark = None  # the largest time let through in earlier ticks
+    live = []
+    for c in range(commits):
+        now = commit == c
+        if mark is not None:
+            frozen |= now & (gone_at <= mark)
+        accepted = now & ~frozen
+        if accepted.any():
+            if mark is not None:
+                forgotten |= passed & (gone_at <= mark)
+            passed |= accepted
+            top = int(t[accepted].max())
+            mark = top if mark is None else max(mark, top)
+        if mark is not None:
+            released |= passed & ~forgotten & (show_at <= mark)
+        live.append(np.flatnonzero(released & ~forgotten))
+    return live, int(frozen.sum())
+
+
+def wi_pipeline(pw, docs, queries, emb, dim: int, knn_kw: dict) -> dict:
+    """A recency-bounded live index as a user writes it: ``docs`` (doc_id,
+    t, topic, text) are embedded; tumbling windows of WI_WINDOW per topic
+    under common_behavior(delay=WI_DELAY, cutoff=WI_CUTOFF,
+    keep_results=False) collect their ids; the windows' members, flattened
+    and joined back to the embedded documents, are what DataIndex over
+    TpuKnn holds, so a document enters the index with its window and
+    leaves with it; every query (qid, t, topic, text) asks the live index
+    for its WI_K nearest documents. The host leg counts, per query, the
+    documents of its topic in the WI_JOIN interval before its time
+    (interval_join). Returns the tables: embedded, asked, windows, pairs,
+    counts."""
+    from importlib import import_module
+
+    indexing = import_module(pw.__name__ + ".stdlib.indexing")
+    embedded = docs.select(docs.doc_id, vec=emb(docs.text))
+    windows = docs.windowby(
+        docs.t,
+        window=pw.temporal.tumbling(duration=WI_WINDOW),
+        instance=docs.topic,
+        behavior=pw.temporal.common_behavior(delay=WI_DELAY, cutoff=WI_CUTOFF, keep_results=False),
+    ).reduce(ids=pw.reducers.tuple(pw.this.doc_id), n=pw.reducers.count())
+    members = windows.flatten(windows.ids)
+    live = members.join(embedded, members.ids == embedded.doc_id).select(
+        doc_id=embedded.doc_id, vec=embedded.vec)
+    knn = indexing.TpuKnn(live.vec, dimensions=dim, reserved_space=WI_RESERVED, **knn_kw)
+    asked = queries.select(queries.qid, vec=emb(queries.text))
+    pairs = indexing.DataIndex(live, knn).query(asked.vec, number_of_matches=WI_K, collapse_rows=False).select(
+        qid=pw.left.qid, doc_id=pw.right.doc_id, score=pw.right._pw_index_reply_score)
+    near = queries.interval_join(docs, queries.t, docs.t, pw.temporal.interval(*WI_JOIN),
+                                 queries.topic == docs.topic).select(qid=pw.left.qid)
+    counts = near.groupby(near.qid).reduce(near.qid, n=pw.reducers.count())
+    return {"embedded": embedded, "asked": asked, "windows": windows, "pairs": pairs, "counts": counts}
+
+
+def wi_counts(s: dict, upto: int) -> dict[int, int]:
+    """numpy's interval-join counts over the documents of commits 0..upto:
+    per query, the documents of its topic with q_t + lower <= t <= q_t + upper."""
+    seen = s["commit"] <= upto
+    out = {}
+    for q, (qt, topic) in enumerate(zip(s["q_t"], s["q_topic"])):
+        n = int(np.sum(seen & (s["topic"] == topic) & (s["t"] >= qt + WI_JOIN[0]) & (s["t"] <= qt + WI_JOIN[1])))
+        if n:
+            out[q] = n
+    return out
+
+
+def wi_plain(vecs: np.ndarray, qvecs: dict, live: np.ndarray, dev) -> dict[int, tuple]:
+    """Each query's plain top-WI_K over the live documents' vectors (rows
+    of ``vecs`` by document id): one
+    f32 matmul of the normalized vectors on ``dev`` and torch.topk, scores
+    as the index reports them (cosine - 1)."""
+    if not len(live):
+        return {q: () for q in qvecs}
+    c = torch.tensor(vecs[live], dtype=torch.float32, device=dev)
+    qs = sorted(qvecs)
+    q = torch.tensor(np.stack([qvecs[x] for x in qs]), dtype=torch.float32, device=dev)
+    c = c / c.norm(dim=-1, keepdim=True)
+    q = q / q.norm(dim=-1, keepdim=True)
+    s, ix = torch.topk(q @ c.T, min(WI_K, len(live)), dim=-1)
+    s, ix = (s.double() - 1.0).cpu().numpy(), ix.cpu().numpy()
+    return {x: tuple((int(live[j]), float(v)) for j, v in zip(ix[r], s[r])) for r, x in enumerate(qs)}
+
+
+def windowed_index(dev, smi: str) -> tuple[dict, dict]:
+    """A recency-bounded live retrieval index on the card, as a user writes
+    it (``wi_pipeline``): WI_DOCS seeded documents stream in through
+    pw.io.python in WI_COMMITS commits, one tick each, after one commit of
+    WI_QUERIES standing queries; the full-width embedder embeds both; the
+    windows and the behavior decide which documents the index holds;
+    DataIndex over TpuKnn(device=dev) answers every standing query again
+    on every change, with block_topk. After every commit: every reply
+    equals the plain top-WI_K over the live documents of ``wi_oracle``, up
+    to near ties; the index holds as many valid rows as there are live
+    documents; no reply names a document that is not live; the
+    interval-join counts equal numpy's. After the run: the documents that
+    never entered a window are as many as the oracle's frozen ones."""
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.engine.index_node import ExternalIndexExec
+    from pathway_tpu_torch.internals import parse_graph
+    from pathway_tpu_torch.ops import block_topk as bt
+    from pathway_tpu_torch.xpacks.llm.embedders import SentenceTransformerEmbedder
+
+    _now = time.perf_counter
+    t_phase = _now()
+    s = wi_stream(SEED + 17, WI_DOCS, WI_COMMITS, WI_TOPICS, WI_QUERIES)
+    lives, frozen = wi_oracle(s["t"], s["commit"], WI_COMMITS)
+    parse_graph.G.clear()
+    bt.block_topk.launches = 0
+    bt.block_topk.shapes.clear()
+    torch.cuda.reset_peak_memory_stats()
+
+    class DocSchema(pw.Schema):
+        doc_id: int = pw.column_definition(primary_key=True)
+        t: int
+        topic: int
+        text: str
+
+    class QuerySchema(pw.Schema):
+        qid: int = pw.column_definition(primary_key=True)
+        t: int
+        topic: int
+        text: str
+
+    qvecs: dict[int, np.ndarray] = {}
+    pair_state: dict[int, tuple] = {}
+    count_state: dict[int, int] = {}
+    entered: set[int] = set()
+    record: dict = {"update_s": [], "ops": [], "rows": [], "near_ties": 0, "replies_exact": 0, "replies": 0,
+                    "first_reply": None, "verify_s": 0.0}
+    n_commits = [0]
+
+    def on_vec(into):
+        def on_change(key, row, time, is_addition):
+            if is_addition:
+                into[row["doc_id"] if "doc_id" in row else row["qid"]] = np.asarray(row["vec"], dtype=np.float32)
+
+        return on_change
+
+    def on_pair(key, row, time, is_addition):
+        if record["first_reply"] is None and is_addition and row["doc_id"] is not None:
+            record["first_reply"] = _now()
+        vals = (row["qid"], row["doc_id"], row["score"])
+        if is_addition:
+            pair_state[int(key)] = vals
+        elif pair_state.get(int(key)) == vals:
+            del pair_state[int(key)]
+
+    def on_count(key, row, time, is_addition):
+        if is_addition:
+            count_state[row["qid"]] = row["n"]
+        elif count_state.get(row["qid"]) == row["n"]:
+            del count_state[row["qid"]]
+
+    def on_window(key, row, time, is_addition):
+        if is_addition:
+            entered.update(row["ids"])
+
+    def verify(c: int) -> None:
+        live = lives[c]
+        rt = parse_graph.G.runtime
+        ix = next(e.index for e in rt.execs.values() if isinstance(e, ExternalIndexExec))
+        _prep, _c2, valid = ix.corpus.prepared_arrays("cosine", bf16=False)
+        check(valid.device.type == "cuda", f"the index's corpus is on {valid.device}")
+        check(int(valid.sum()) == len(live),
+              f"commit {c}: the index holds {int(valid.sum())} valid rows, {len(live)} documents are live")
+        record["rows"].append(len(live))
+        replies: dict[int, list] = {q: [] for q in qvecs}
+        for q, d, sc in pair_state.values():
+            if d is not None:  # the row of a query the index could not answer
+                replies[q].append((d, sc))
+        alive = set(live.tolist())
+        dead = {d for q, d, _s in pair_state.values() if d is not None} - alive
+        check(not dead, f"commit {c}: {len(dead)} documents that are not live are in the replies")
+        plain = wi_plain(vecs, qvecs, live, dev)
+        for q, got in replies.items():
+            got = tuple(sorted(got, key=lambda p: (-p[1], p[0])))
+            check(same_up_to_near_ties(got, plain[q], F32_TOL),
+                  f"commit {c}: query {q}'s reply {got} differs from the plain top-{WI_K} {plain[q]}")
+            exact = [d for d, _s in got] == [d for d, _s in plain[q]]
+            record["replies_exact"] += exact
+            record["near_ties"] += not exact
+            record["replies"] += 1
+        check(count_state == wi_counts(s, c), f"commit {c}: the interval-join counts differ from numpy's")
+
+    def drive(subject) -> None:
+        rt = parse_graph.G.runtime
+        for q in range(WI_QUERIES):
+            q_subject.next(qid=q, t=int(s["q_t"][q]), topic=int(s["q_topic"][q]), text=s["q_text"][q])
+        commit_tick(q_subject, lambda: len(qvecs) == WI_QUERIES, "the standing queries' tick", n_commits)
+        for c in range(WI_COMMITS):
+            for i in np.flatnonzero(s["commit"] == c).tolist():
+                subject.next(doc_id=i, t=int(s["t"][i]), topic=int(s["topic"][i]), text=s["text"][i])
+            since = dict(rt.stats.node_ns)
+            t0 = commit_tick(subject, lambda: True, "a document commit's tick", n_commits)
+            record["update_s"].append(_now() - t0)
+            record["ops"].append(operator_s(rt, since))
+            t0 = _now()
+            verify(c)
+            record["verify_s"] += _now() - t0
+
+    Idle, feeder, failure = driven_subjects(pw, drive)
+    q_subject = Idle()
+    t0 = _now()
+    emb = SentenceTransformerEmbedder(device=dev)
+    embedder_init_s = _now() - t0
+    vecs = np.zeros((WI_DOCS, emb.runtime.dim), dtype=np.float32)  # by document id
+    docs = pw.io.python.read(feeder, schema=DocSchema, autocommit_duration_ms=None)
+    queries = pw.io.python.read(q_subject, schema=QuerySchema, autocommit_duration_ms=None)
+    out = wi_pipeline(pw, docs, queries, emb, emb.runtime.dim, {"device": dev.type})
+    pw.io.subscribe(out["embedded"], on_change=on_vec(vecs))
+    pw.io.subscribe(out["asked"], on_change=on_vec(qvecs))
+    pw.io.subscribe(out["pairs"], on_change=on_pair)
+    pw.io.subscribe(out["counts"], on_change=on_count)
+    pw.io.subscribe(out["windows"], on_change=on_window)
+    t_run = _now()
+    pw.run()  # raises if an operator recorded an error (a kernel failure included)
+    run_s = _now() - t_run
+    if failure:
+        raise failure[0]
+    rt = parse_graph.G.last_runtime
+    launches, shapes = bt.block_topk.launches, dict(bt.block_topk.shapes)
+    check(rt.stats.ticks == WI_COMMITS + 2, f"{rt.stats.ticks} ticks for {WI_COMMITS + 1} commits")
+    check(WI_DOCS - len(entered) == frozen,
+          f"{WI_DOCS - len(entered)} documents never entered a window, the oracle froze {frozen}")
+    check(launches >= WI_COMMITS and set(shapes) == {(WI_QUERIES, WI_K)},
+          f"block_topk launches {launches} by shape {shapes}")
+    check(emb.runtime.device.type == "cuda", f"the embedder ran on {emb.runtime.device}")
+    upd = [x * 1e3 for x in record["update_s"]]
+    by_type = operator_s(rt)
+    phase = {
+        "phase": "windowed index",
+        "nvidia_smi": smi,
+        "docs": WI_DOCS,
+        "commits": WI_COMMITS,
+        "topics": WI_TOPICS,
+        "queries": WI_QUERIES,
+        "k": WI_K,
+        "window": {"tumbling": WI_WINDOW, "delay": WI_DELAY, "cutoff": WI_CUTOFF, "keep_results": False},
+        "late_docs": len(s["late"]),
+        "frozen_docs": frozen,
+        "update_to_visible_ms": {"p50": float(np.percentile(upd, 50)), "max": float(np.max(upd)), "n": len(upd)},
+        "first_reply_s": record["first_reply"] - t_run,
+        "operator_s": by_type,
+        "temporal_operator_s": {k: v for k, v in by_type.items()
+                                if k in ("BufferNode", "FreezeNode", "ForgetNode", "IntervalJoinNode")},
+        "update_tick_operator_s_p50_commit": record["ops"][WI_COMMITS // 2],
+        "index_rows_by_commit": record["rows"],
+        "replies_compared": record["replies"],
+        "replies_keys_equal_plain": record["replies_exact"],
+        "near_ties": record["near_ties"],
+        "ticks": rt.stats.ticks,
+        "block_topk_launches": launches,
+        "block_topk_launches_by_shape": {f"B={b},k={k}": n for (b, k), n in sorted(shapes.items())},
+        "embedder_device": str(emb.runtime.device),
+        "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "embedder_init_s": embedder_init_s,
+        "run_s": run_s,
+        "verify_s": record["verify_s"],
+        "phase_s": _now() - t_phase,
+    }
+    ix = next(e.index for e in rt.execs.values() if isinstance(e, ExternalIndexExec))
+    prep, _c2, valid = ix.corpus.prepared_arrays("cosine", bf16=False)
+    qs = torch.tensor(np.stack([qvecs[q] for q in sorted(qvecs)]), device=prep.device)
+    qs = (qs / qs.norm(dim=-1, keepdim=True)).to(prep.dtype)
+    parse_graph.G.clear()
+    return phase, {"prep": prep, "valid": valid, "queries": {WI_QUERIES: qs}, "launches": launches,
+                   "shapes": shapes}
+
+
+# --- phase 12: replication ----------------------------------------------------
 
 
 class ReplicaChild:
@@ -4552,7 +4912,7 @@ def replication(dev, smi: str, vs_data: dict) -> tuple[dict, dict]:
                    "paged_launches": sum(kern["paged_attention"] for kern in kernels)}
 
 
-# --- phase 12: generation -----------------------------------------------------
+# --- phase 13: generation -----------------------------------------------------
 
 
 class StepRecorder:
@@ -4825,7 +5185,7 @@ def generation(dev, main: dict) -> tuple[dict, dict]:
     }
 
 
-# --- phase 13: durability -----------------------------------------------------
+# --- phase 14: durability -----------------------------------------------------
 
 
 def kill_child(prompts_path: str) -> int:
@@ -5175,11 +5535,11 @@ def durability(dev, gen: dict) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-# --- phase 14: kernel times ---------------------------------------------------
+# --- phase 15: kernel times ---------------------------------------------------
 
 
 def kernel_times(main: dict, eng: dict, vs: dict, rest: dict, persist: dict, ik: dict, cc: dict,
-                 lc: dict, rep: dict, gen: dict, rate: float, rate_src: str) -> list[dict]:
+                 lc: dict, wi: dict, rep: dict, gen: dict, rate: float, rate_src: str) -> list[dict]:
     from pathway_tpu_torch.ops import block_topk as bt
     from pathway_tpu_torch.ops.knn import BLK, _normalize
 
@@ -5222,6 +5582,10 @@ def kernel_times(main: dict, eng: dict, vs: dict, rest: dict, persist: dict, ik:
         # the live classifier's standing queries, per index
         (b, k, lc["queries"][b], n, "live classify", (lc["prep"], lc["valid"]))
         for (b, k), n in sorted(lc["shapes"].items())
+    ] + [
+        # the windowed index's standing queries, on its corpus at the end
+        (b, k, wi["queries"][b], n, "windowed index", (wi["prep"], wi["valid"]))
+        for (b, k), n in sorted(wi["shapes"].items())
     ] + [
         # the replica children's reads (k = 10) and /generate's retrieval
         # (k = 3), each one search on the writer's corpus
@@ -5290,6 +5654,8 @@ def kernel_times(main: dict, eng: dict, vs: dict, rest: dict, persist: dict, ik:
         "components_launches_by_shape": {f"B={b},k={k}": n for (b, k), n in sorted(cc["shapes"].items())},
         "live_classify_launches": lc["launches"],
         "live_classify_launches_by_shape": {f"B={b},k={k}": n for (b, k), n in sorted(lc["shapes"].items())},
+        "windowed_index_launches": wi["launches"],
+        "windowed_index_launches_by_shape": {f"B={b},k={k}": n for (b, k), n in sorted(wi["shapes"].items())},
         "replication_launches": sum(rep["shapes"].values()),
         "replication_launches_by_shape": {f"B={b},k={k}": n for (b, k), n in sorted(rep["shapes"].items())},
         "max_abs_err": max(p["max_abs_err"] for p in per_batch),
@@ -5440,13 +5806,15 @@ def main() -> int:
     emit(phase)
     phase, lc_data = live_classify(dev, smi)
     emit(phase)
+    phase, wi_data = windowed_index(dev, smi)
+    emit(phase)
     phase, repl_data = replication(dev, smi, vs_data)
     emit(phase)
     phase, gen_data = generation(dev, main_data)
     emit(phase)
     emit(durability(dev, gen_data))
     kernels = kernel_times(main_data, engine_data, vs_data, rest_data, persist_data, ik_data, cc_data,
-                           lc_data, repl_data, gen_data, rate, rate_src) + [
+                           lc_data, wi_data, repl_data, gen_data, rate, rate_src) + [
         paged_kernel_times(gen_data, repl_data, rate, rate_src)
     ]
     emit({"phase": "kernels", "kernels": kernels})

@@ -10,8 +10,10 @@ What is ported: the incremental dataflow engine and its Table API
 ``plaintext``/``null``, ``pw.debug``, ``pw.run``, ``pw.persistence``,
 ``pw.iterate``, ``pw.sql``, the row transformers, ``pw.AsyncTransformer``,
 ``pw.pandas_transformer``, ``pw.udfs``, ``pw.universes``,
-``pw.stdlib.utils``, ``pw.live``/``pw.LiveTable``, ``pw.demo`` and
-``pw.load_yaml``),
+``pw.stdlib.utils``, ``pw.live``/``pw.LiveTable``, ``pw.demo``,
+``pw.load_yaml``, and the temporal operators: ``pw.temporal`` windows,
+behaviors and interval/asof/window joins, ``.dt``, ``pw.ordered``,
+``pw.stateful`` and ``pw.statistical``),
 live-RAG retrieval (embedder UDF → ``DataIndex`` → dense top-k, or the
 IVF, LSH, BM25 and hybrid indexes; ``pw.stdlib.ml.KNNIndex`` with the kNN
 classifiers, LSH clustering, the fuzzy join, ``hmm`` and ``datasets``), and
@@ -93,6 +95,9 @@ from pathway_tpu_torch.internals.custom_reducers import BaseCustomAccumulator
 from pathway_tpu_torch.internals.interactive import LiveTable, live
 from pathway_tpu_torch.internals.iterate import iterate, iterate_universe
 from pathway_tpu_torch.internals.joins import OuterJoinResult
+from pathway_tpu_torch.stdlib.temporal._asof_join import AsofJoinResult
+from pathway_tpu_torch.stdlib.temporal._interval_join import IntervalJoinResult
+from pathway_tpu_torch.stdlib.temporal._window_join import WindowJoinResult
 from pathway_tpu_torch.internals.row_transformer import (
     ClassArg,
     attribute,
@@ -121,7 +126,7 @@ def __getattr__(name: str):
         from pathway_tpu_torch.internals import datetime_types
 
         return datetime_types.Duration
-    if name in ("indexing", "ml", "utils"):
+    if name in importlib.import_module("pathway_tpu_torch.stdlib").__all__:
         module = importlib.import_module(f"pathway_tpu_torch.stdlib.{name}")
     elif name in ("stdlib", "xpacks"):
         module = importlib.import_module(f"pathway_tpu_torch.{name}")
@@ -169,6 +174,10 @@ __all__ = [
     "io",
     "indexing",
     "ml",
+    "ordered",
+    "stateful",
+    "statistical",
+    "temporal",
     "utils",
     "udfs",
     "universes",
@@ -221,6 +230,9 @@ __all__ = [
     "JoinMode",
     "JoinResult",
     "OuterJoinResult",
+    "AsofJoinResult",
+    "IntervalJoinResult",
+    "WindowJoinResult",
     "Json",
     "MonitoringLevel",
     "PersistenceMode",

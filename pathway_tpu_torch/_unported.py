@@ -8,7 +8,6 @@ from __future__ import annotations
 COMPILED_TICKS = "[compiled-ticks] (compiled ticks)"
 MESH = "[mesh] (multi-device: engine mesh, DCN, sharded top-k)"
 REPLICATION = "[replication] (parallel/standby.py and parallel/supervisor.py)"
-TEMPORAL = "[temporal] (temporal nodes and windows)"
 CONNECTORS = "[connectors] (service connectors)"
 OBSERVABILITY = "[observability] (the rest of observability)"
 STDLIB_REST = "[stdlib-rest] (graphs, viz)"
@@ -20,16 +19,11 @@ PACKAGE_NAMES = {"analysis": OBSERVABILITY, "autoscale": MESH}
 STDLIB_NAMES = {
     "graphs": STDLIB_REST,
     "viz": STDLIB_REST,
-    "ordered": TEMPORAL,
-    "stateful": TEMPORAL,
-    "statistical": TEMPORAL,
-    "temporal": TEMPORAL,
 }
 
 # root names of the reference the port lacks, each with its item
 ROOT_NAMES = {
     **STDLIB_NAMES,
-    **dict.fromkeys(("AsofJoinResult", "IntervalJoinResult", "WindowJoinResult"), TEMPORAL),
     **PACKAGE_NAMES,
 }
 

@@ -619,10 +619,14 @@ def _to_string(v: Any) -> str:
         return "True" if v else "False"
     pd = sys.modules.get("pandas")  # no Timestamp exists unless pandas is loaded
     if pd is not None and isinstance(v, pd.Timestamp):
-        # the reference renders it through the .dt namespace's strftime
-        from pathway_tpu_torch._unported import TEMPORAL, unported
+        # reference rendering (src/engine/time.rs Display): T-separated,
+        # 9-digit nanoseconds, colonless +0000 offset for aware values
+        from pathway_tpu_torch.internals.expressions.date_time import _strftime_one
 
-        raise unported("rendering datetime values", TEMPORAL)
+        fmt = "%Y-%m-%dT%H:%M:%S.%f"
+        if v.tzinfo is not None:
+            fmt += "%z"
+        return _strftime_one(v, fmt)
     return str(v)
 
 

@@ -169,11 +169,10 @@ class ColumnExpression:
 
     @property
     def dt(self):
-        # the reference's namespace is built on pandas, which the card's
-        # machine lacks; it comes with the temporal operators
-        from pathway_tpu_torch._unported import TEMPORAL, unported
+        # its values are pandas Timestamps: CPU-only where pandas is missing
+        from pathway_tpu_torch.internals.expressions.date_time import DateTimeNamespace
 
-        raise unported("the .dt namespace", TEMPORAL)
+        return DateTimeNamespace(self)
 
     @property
     def str(self):

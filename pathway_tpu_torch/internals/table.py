@@ -11,7 +11,6 @@ from __future__ import annotations
 
 from typing import Any, Iterable, Mapping, Sequence
 
-from pathway_tpu_torch._unported import TEMPORAL, unported
 from pathway_tpu_torch.engine import nodes
 from pathway_tpu_torch.engine.expression_eval import InternalColRef
 from pathway_tpu_torch.internals import dtype as dt
@@ -784,7 +783,17 @@ class Table(Joinable):
     def _buffer(self, threshold_column: Any, time_column: Any) -> "Table":
         """Postpone rows until `time_column`'s watermark passes their
         `threshold_column`."""
-        raise unported("Table._buffer", TEMPORAL)
+        from pathway_tpu_torch.engine.nodes import BufferNode
+        from pathway_tpu_torch.stdlib.temporal.temporal_behavior import (
+            _temporal_table,
+        )
+
+        return _temporal_table(
+            self,
+            BufferNode,
+            self._desugar(threshold_column),
+            self._desugar(time_column),
+        )
 
     def _forget(
         self,
@@ -794,12 +803,33 @@ class Table(Joinable):
     ) -> "Table":
         """Retract rows once `time_column`'s watermark passes their
         `threshold_column` — bounds state for cutoff behaviors."""
-        raise unported("Table._forget", TEMPORAL)
+        from pathway_tpu_torch.engine.nodes import ForgetNode
+        from pathway_tpu_torch.stdlib.temporal.temporal_behavior import (
+            _temporal_table,
+        )
+
+        return _temporal_table(
+            self,
+            ForgetNode,
+            self._desugar(threshold_column),
+            self._desugar(time_column),
+            mark_forgetting_records=mark_forgetting_records,
+        )
 
     def _freeze(self, threshold_column: Any, time_column: Any) -> "Table":
         """Drop rows arriving after `time_column`'s watermark passed their
         `threshold_column` (late data)."""
-        raise unported("Table._freeze", TEMPORAL)
+        from pathway_tpu_torch.engine.nodes import FreezeNode
+        from pathway_tpu_torch.stdlib.temporal.temporal_behavior import (
+            _temporal_table,
+        )
+
+        return _temporal_table(
+            self,
+            FreezeNode,
+            self._desugar(threshold_column),
+            self._desugar(time_column),
+        )
 
     def _remove_retractions(self) -> "Table":
         """Pass inserts through and DROP deletions (reference:
@@ -1293,7 +1323,9 @@ class Table(Joinable):
         *values: ColumnReference,
         instance: ColumnExpression | None = None,
     ) -> "Table":
-        raise unported("Table.diff", TEMPORAL)
+        from pathway_tpu_torch.stdlib.ordered import diff as _diff
+
+        return _diff(self, timestamp, *values, instance=instance)
 
     # --- typing ---------------------------------------------------------------
 
@@ -1339,61 +1371,136 @@ class Table(Joinable):
     def windowby(
         self, time_expr, *, window, behavior=None, instance=None, shard=None
     ):
-        raise unported("Table.windowby", TEMPORAL)
+        from pathway_tpu_torch.stdlib.temporal._window import windowby as _impl
+
+        return _impl(
+            self, time_expr, window=window, behavior=behavior,
+            instance=instance, shard=shard,
+        )
 
     def interval_join(
         self, other, self_time, other_time, interval, *on, behavior=None,
         how=None,
     ):
-        raise unported("Table.interval_join", TEMPORAL)
+        from pathway_tpu_torch.internals.joins import JoinMode
+        from pathway_tpu_torch.stdlib.temporal._interval_join import (
+            interval_join as _impl,
+        )
+
+        return _impl(
+            self, other, self_time, other_time, interval, *on,
+            behavior=behavior, how=how if how is not None else JoinMode.INNER,
+        )
 
     def interval_join_inner(self, other, self_time, other_time, interval, *on, **kw):
-        raise unported("Table.interval_join_inner", TEMPORAL)
+        from pathway_tpu_torch.stdlib.temporal._interval_join import (
+            interval_join_inner as _impl,
+        )
+
+        return _impl(self, other, self_time, other_time, interval, *on, **kw)
 
     def interval_join_left(self, other, self_time, other_time, interval, *on, **kw):
-        raise unported("Table.interval_join_left", TEMPORAL)
+        from pathway_tpu_torch.stdlib.temporal._interval_join import (
+            interval_join_left as _impl,
+        )
+
+        return _impl(self, other, self_time, other_time, interval, *on, **kw)
 
     def interval_join_right(self, other, self_time, other_time, interval, *on, **kw):
-        raise unported("Table.interval_join_right", TEMPORAL)
+        from pathway_tpu_torch.stdlib.temporal._interval_join import (
+            interval_join_right as _impl,
+        )
+
+        return _impl(self, other, self_time, other_time, interval, *on, **kw)
 
     def interval_join_outer(self, other, self_time, other_time, interval, *on, **kw):
-        raise unported("Table.interval_join_outer", TEMPORAL)
+        from pathway_tpu_torch.stdlib.temporal._interval_join import (
+            interval_join_outer as _impl,
+        )
+
+        return _impl(self, other, self_time, other_time, interval, *on, **kw)
 
     def window_join(self, other, self_time, other_time, window, *on, **kw):
-        raise unported("Table.window_join", TEMPORAL)
+        from pathway_tpu_torch.stdlib.temporal._window_join import (
+            window_join as _impl,
+        )
+
+        return _impl(self, other, self_time, other_time, window, *on, **kw)
 
     def window_join_inner(self, other, self_time, other_time, window, *on, **kw):
-        raise unported("Table.window_join_inner", TEMPORAL)
+        from pathway_tpu_torch.stdlib.temporal._window_join import (
+            window_join_inner as _impl,
+        )
+
+        return _impl(self, other, self_time, other_time, window, *on, **kw)
 
     def window_join_left(self, other, self_time, other_time, window, *on, **kw):
-        raise unported("Table.window_join_left", TEMPORAL)
+        from pathway_tpu_torch.stdlib.temporal._window_join import (
+            window_join_left as _impl,
+        )
+
+        return _impl(self, other, self_time, other_time, window, *on, **kw)
 
     def window_join_right(self, other, self_time, other_time, window, *on, **kw):
-        raise unported("Table.window_join_right", TEMPORAL)
+        from pathway_tpu_torch.stdlib.temporal._window_join import (
+            window_join_right as _impl,
+        )
+
+        return _impl(self, other, self_time, other_time, window, *on, **kw)
 
     def window_join_outer(self, other, self_time, other_time, window, *on, **kw):
-        raise unported("Table.window_join_outer", TEMPORAL)
+        from pathway_tpu_torch.stdlib.temporal._window_join import (
+            window_join_outer as _impl,
+        )
+
+        return _impl(self, other, self_time, other_time, window, *on, **kw)
 
     def asof_join(self, other, self_time, other_time, *on, **kw):
-        raise unported("Table.asof_join", TEMPORAL)
+        from pathway_tpu_torch.stdlib.temporal._asof_join import asof_join as _impl
+
+        return _impl(self, other, self_time, other_time, *on, **kw)
 
     def asof_join_left(self, other, self_time, other_time, *on, **kw):
-        raise unported("Table.asof_join_left", TEMPORAL)
+        from pathway_tpu_torch.stdlib.temporal._asof_join import (
+            asof_join_left as _impl,
+        )
+
+        return _impl(self, other, self_time, other_time, *on, **kw)
 
     def asof_join_right(self, other, self_time, other_time, *on, **kw):
-        raise unported("Table.asof_join_right", TEMPORAL)
+        from pathway_tpu_torch.stdlib.temporal._asof_join import (
+            asof_join_right as _impl,
+        )
+
+        return _impl(self, other, self_time, other_time, *on, **kw)
 
     def asof_join_outer(self, other, self_time, other_time, *on, **kw):
-        raise unported("Table.asof_join_outer", TEMPORAL)
+        from pathway_tpu_torch.stdlib.temporal._asof_join import (
+            asof_join_outer as _impl,
+        )
+
+        return _impl(self, other, self_time, other_time, *on, **kw)
 
     def asof_now_join(self, other, *on, **kw):
-        raise unported("Table.asof_now_join", TEMPORAL)
+        from pathway_tpu_torch.stdlib.temporal._asof_now_join import (
+            asof_now_join as _impl,
+        )
+
+        return _impl(self, other, *on, **kw)
 
     def asof_now_join_inner(self, other, *on, **kw):
-        raise unported("Table.asof_now_join_inner", TEMPORAL)
+        from pathway_tpu_torch.stdlib.temporal._asof_now_join import (
+            asof_now_join_inner as _impl,
+        )
+
+        return _impl(self, other, *on, **kw)
 
     def asof_now_join_left(self, other, *on, **kw):
-        raise unported("Table.asof_now_join_left", TEMPORAL)
+        from pathway_tpu_torch.stdlib.temporal._asof_now_join import (
+            asof_now_join_left as _impl,
+        )
+
+        return _impl(self, other, *on, **kw)
 
     # --- output helpers -------------------------------------------------------
 

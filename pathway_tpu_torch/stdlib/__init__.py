@@ -1,5 +1,6 @@
 """Standard library of the port — counterpart of ``pathway_tpu/stdlib``:
-``indexing``, ``ml`` and ``utils`` so far, loaded lazily as in the reference. Every
+``indexing``, ``ml``, ``ordered``, ``stateful``, ``statistical``,
+``temporal`` and ``utils`` so far, loaded lazily as in the reference. Every
 other subpackage of the reference raises ``NotImplementedError`` naming its
 ROADMAP item."""
 
@@ -7,7 +8,7 @@ import importlib
 
 from pathway_tpu_torch._unported import STDLIB_NAMES, unported
 
-__all__ = ["indexing", "ml", "utils"]
+__all__ = ["indexing", "ml", "ordered", "stateful", "statistical", "temporal", "utils"]
 
 
 def __getattr__(name: str):

@@ -2,7 +2,9 @@
 plain version ``block_topk_ref`` and the index's default path through it;
 ``paged_attention`` against ``paged_attention_ref``, ``decode_step`` with
 ``kernel="cuda"`` against ``"ref"``, and the decode scheduler's default path
-through the kernel.
+through the kernel; the pipelines of ``chip_smoke.py`` at small sizes, the
+windowed index among them (its replies against the plain top-k over the
+live documents of ``chip_smoke.wi_oracle``).
 
 These tests need an NVIDIA card (marker ``cuda``) and skip without one. On
 the card they run without the JAX package, so this file imports no JAX and
@@ -810,6 +812,85 @@ def test_live_table_over_a_cuda_index_follows_each_tick(dev, fresh_graph):
     got = run("cuda")
     parse_graph.G.clear()
     assert got == run("cpu") and len(got) == 300 * 3
+
+
+# --- the windowed index: windows and a behavior decide what the index holds ---
+
+
+def _windowed_index_run(device):
+    """``chip_smoke.wi_pipeline`` at a small size (768 documents in 8
+    commits, 4 topics, 12 standing queries, a 2-layer 32-wide float32
+    encoder) on ``device``: each part's update stream and the vectors."""
+    import pathway_tpu_torch as pw
+    from chip_smoke import wi_pipeline, wi_stream
+    from pathway_tpu_torch.xpacks.llm.embedders import SentenceTransformerEmbedder
+    from torch_parity import wi_tables
+
+    s = wi_stream(5, 768, 8, 4, 12)
+    emb = SentenceTransformerEmbedder(dim=32, depth=2, heads=2, max_len=64, device=device)
+    emb.runtime.model.dtype = torch.float32
+    docs, queries = wi_tables(pw, s)
+    tables = wi_pipeline(pw, docs, queries, emb, 32, {"device": device})
+    out = {part: [] for part in tables}
+    for part, t in tables.items():
+        pw.io.subscribe(t, on_change=lambda key, row, time, is_addition, into=out[part]:
+                        into.append((time, 1 if is_addition else -1, int(key), dict(row))))
+    pw.run()
+    return s, out
+
+
+def test_windowed_index_on_the_card_matches_the_plain_topk(dev, fresh_graph):
+    """After every commit each standing query's reply equals the plain
+    top-k (an f32 matmul and torch.topk on the card) over the live
+    documents of ``chip_smoke.wi_oracle``, the interval-join counts equal
+    numpy's, and the windows' and counts' streams equal a CPU run's."""
+    from chip_smoke import WI_K, wi_counts, wi_oracle
+    from pathway_tpu_torch.internals import parse_graph
+    from pathway_tpu_torch.ops import block_topk as bt
+
+    before = bt.block_topk.launches
+    s, got = _windowed_index_run("cuda")
+    assert bt.block_topk.launches >= before + s["commits"]  # one search of every query per change
+    lives, _frozen = wi_oracle(s["t"], s["commit"], s["commits"])
+    vecs = {r["doc_id"]: np.asarray(r["vec"], dtype=np.float32) for _t, d, _k, r in got["embedded"] if d > 0}
+    qvecs = {r["qid"]: np.asarray(r["vec"], dtype=np.float32) for _t, d, _k, r in got["asked"] if d > 0}
+    qs = sorted(qvecs)
+    q = torch.tensor(np.stack([qvecs[x] for x in qs]), device=dev)
+    q = q / q.norm(dim=-1, keepdim=True)
+    for c in range(s["commits"]):
+        tick = 2 * c + 4
+        state: dict = {}
+        counts: dict = {}
+        for t, d, k, r in sorted(got["pairs"], key=lambda e: (e[0], e[1])):
+            if t <= tick:
+                if d > 0:
+                    state[k] = (r["qid"], r["doc_id"], r["score"])
+                elif state.get(k) == (r["qid"], r["doc_id"], r["score"]):
+                    del state[k]
+        for t, d, _k, r in sorted(got["counts"], key=lambda e: (e[0], e[1])):
+            if t <= tick:
+                if d > 0:
+                    counts[r["qid"]] = r["n"]
+                elif counts.get(r["qid"]) == r["n"]:
+                    del counts[r["qid"]]
+        assert counts == wi_counts(s, c)
+        live = lives[c]
+        m = torch.tensor(np.stack([vecs[int(x)] for x in live]), device=dev)
+        m = m / m.norm(dim=-1, keepdim=True)
+        sc, ix = torch.topk(q @ m.T, min(WI_K, len(live)), dim=-1)
+        sc, ix = sc.cpu().numpy() - 1.0, ix.cpu().numpy()
+        for r, qq in enumerate(qs):
+            reply = sorted(((dd, ss) for qid, dd, ss in state.values() if qid == qq and dd is not None),
+                           key=lambda p: -p[1])
+            assert [dd for dd, _ss in reply] == [int(live[j]) for j in ix[r]], (c, qq)
+            np.testing.assert_allclose([ss for _dd, ss in reply], sc[r], atol=1e-5, rtol=0)
+    parse_graph.G.clear()
+    _s, cpu = _windowed_index_run("cpu")
+
+    def plain(events):
+        return sorted((t, d, k, tuple(sorted(r.items()))) for t, d, k, r in events)
+
+    assert plain(got["windows"]) == plain(cpu["windows"]) and plain(got["counts"]) == plain(cpu["counts"])
 
 
 def _replica_child(env_extra: dict):

@@ -20,7 +20,11 @@ imported only when an ``FsspecStore`` is built). The rest of the Table API
 ``pandas_transformer``, ``pw.stdlib.utils``, ``pw.udfs``, ``pw.universes``)
 imports with ``pandas`` blocked, and a pipeline over all of them but
 ``pandas_transformer`` runs without loading it; ``pandas_transformer``
-needs pandas only when its operator runs. Without a card, an entry point left on its default device raises
+needs pandas only when its operator runs. The temporal operators
+(``pw.temporal``, ``.dt``, ``pw.ordered``, ``pw.stateful``,
+``pw.statistical``) import with ``pandas`` blocked, and windows under a
+behavior and the interval and asof joins over int times run without
+loading it. Without a card, an entry point left on its default device raises
 instead of falling back to the CPU."""
 
 import ast
@@ -47,7 +51,7 @@ BLOCKED_WITH_FSSPEC = BLOCKED_WITH_PANDAS + ("fsspec",)
 # packages the last slice imports only inside the calls that need them
 BLOCKED_WITH_ML = BLOCKED_WITH_PANDAS + ("yaml", "pyarrow", "sklearn")
 # modules that may import pandas at module level: none (the ``.dt``
-# namespace, the reference's one such module, is not ported)
+# namespace, the reference's one such module, imports it inside its methods)
 PANDAS_MODULES: set[str] = set()
 
 _IMPORT_ALL = """
@@ -338,6 +342,52 @@ ML_REST_MODULES = [
     "pathway_tpu_torch.stdlib.ml.smart_table_ops",
     "pathway_tpu_torch.stdlib.ml.smart_table_ops._fuzzy_join",
 ]
+
+# the temporal operators (``pw.temporal``, ``.dt``, ``pw.ordered``,
+# ``pw.stateful``, ``pw.statistical``): each imports with pandas blocked
+TEMPORAL_MODULES = [
+    "pathway_tpu_torch.engine.temporal_nodes",
+    "pathway_tpu_torch.internals.expressions",
+    "pathway_tpu_torch.internals.expressions.date_time",
+    "pathway_tpu_torch.stdlib.ordered",
+    "pathway_tpu_torch.stdlib.stateful",
+    "pathway_tpu_torch.stdlib.statistical",
+    "pathway_tpu_torch.stdlib.temporal",
+    "pathway_tpu_torch.stdlib.temporal._asof_join",
+    "pathway_tpu_torch.stdlib.temporal._asof_now_join",
+    "pathway_tpu_torch.stdlib.temporal._interval_join",
+    "pathway_tpu_torch.stdlib.temporal._window",
+    "pathway_tpu_torch.stdlib.temporal._window_join",
+    "pathway_tpu_torch.stdlib.temporal.temporal_behavior",
+    "pathway_tpu_torch.stdlib.temporal.time_utils",
+    "pathway_tpu_torch.stdlib.temporal.utils",
+]
+
+# windows under a behavior, an interval join and an asof join over int
+# times: what the card's machine runs, with pandas blocked
+_TEMPORAL_RUN = """
+import sys
+for name in {blocked!r}:
+    sys.modules[name] = None
+import pathway_tpu_torch as pw
+
+t = pw.debug.table_from_markdown(
+    "t | k | v | __time__\\n1 | 0 | 5 | 2\\n3 | 1 | 7 | 2\\n4 | 0 | 1 | 4\\n9 | 1 | 2 | 6\\n12 | 0 | 3 | 8")
+w = t.windowby(t.t, window=pw.temporal.tumbling(duration=4), instance=t.k,
+               behavior=pw.temporal.common_behavior(delay=1, cutoff=6, keep_results=False)
+               ).reduce(pw.this._pw_window_start, n=pw.reducers.count())
+j = t.interval_join(t.copy(), t.t, t.t, pw.temporal.interval(-2, 0)).select(a=pw.left.v, b=pw.right.v)
+a = t.asof_join(t.copy(), t.t, t.t).select(pw.this.t, v=pw.left.v)
+res = {{}}
+for name, table in (("w", w), ("j", j), ("a", a)):
+    pw.io.subscribe(table, on_change=lambda key, row, time, is_addition, name=name:
+                    res.setdefault(name, []).append(is_addition))
+pw.run()
+assert all(res.get(n) for n in "wja"), res
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in {blocked!r} and sys.modules[m])
+assert not leaked, leaked
+print("ok")
+"""
 
 _LIVE_CLASSIFY_RUN = """
 import csv, sys, tempfile
@@ -664,6 +714,24 @@ def ml_rest_imported_with_ml_blocked():
 @pytest.mark.parametrize("mod", ML_REST_MODULES)
 def test_ml_rest_module_imports_without_jax_pandas_yaml_pyarrow_or_sklearn(ml_rest_imported_with_ml_blocked, mod):
     assert mod in ml_rest_imported_with_ml_blocked
+
+
+@pytest.fixture(scope="module")
+def temporal_imported_with_pandas_blocked():
+    r = _run(_IMPORT_EACH, blocked=BLOCKED_WITH_PANDAS, mods=TEMPORAL_MODULES)
+    assert r.returncode == 0, r.stderr
+    return set(json.loads(r.stdout.strip().splitlines()[-1]))
+
+
+@pytest.mark.parametrize("mod", TEMPORAL_MODULES)
+def test_temporal_module_imports_without_jax_or_pandas(temporal_imported_with_pandas_blocked, mod):
+    assert mod in temporal_imported_with_pandas_blocked
+
+
+def test_temporal_pipeline_runs_with_pandas_blocked():
+    r = _run(_TEMPORAL_RUN, blocked=BLOCKED_WITH_PANDAS)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip().endswith("ok")
 
 
 def test_live_classifier_runs_with_pandas_yaml_pyarrow_and_sklearn_blocked():

@@ -4,8 +4,9 @@ package's: the same scripts run under both packages and must give the same
 outputs, stores of the same layout, and the same recovery (restored from a
 snapshot, the same replayed events).
 
-The cases are those of ``tests/test_persistence.py`` that need neither
-[temporal] (windowby) nor [mesh] (a sharded engine), plus: a torn snapshot,
+The cases are those of ``tests/test_persistence.py`` that need no [mesh]
+(a sharded engine), the windowby kill/restart case with its stores
+crossing the packages both ways among them, plus: a torn snapshot,
 record/replay through ``PATHWAY_REPLAY_STORAGE``, debug capture, a small
 ``VectorStoreServer`` over ``pw.io.fs`` killed (``kill=tick:N``, exit 23)
 and restarted, and a store written by each package restored by the other.
@@ -574,6 +575,175 @@ def test_pickles_cross_packages_both_ways():
     assert back[0].value == {"a": [1, 2]} and int(back[1]) == 7
     assert b"pathway_tpu_torch" not in _pickle.dumps(obj)
 
+
+
+# --- windowby + common_behavior across a restart ------------------------------
+
+
+def _build_windows(pw, input_dir, out_path):
+    class NumSchema(pw.Schema):
+        k: str
+        t: int
+        v: int
+
+    rows = pw.io.fs.read(str(input_dir), format="json", schema=NumSchema, mode="streaming")
+    win = rows.windowby(
+        rows.t,
+        window=pw.temporal.tumbling(duration=4),
+        instance=rows.k,
+        behavior=pw.temporal.common_behavior(delay=2, cutoff=100, keep_results=True),
+    ).reduce(
+        k=pw.this._pw_instance,
+        start=pw.this._pw_window_start,
+        cnt=pw.reducers.count(),
+        s=pw.reducers.sum(pw.this.v),
+    )
+    pw.io.jsonlines.write(win, str(out_path))
+
+
+@pytest.mark.parametrize("writer,reader", [("port", "port"), ("jax", "port"), ("port", "jax")])
+def test_windowby_behavior_kill_restart_matches_uninterrupted(tmp_path, writer, reader):
+    """The reference's kill/restart case for windowby + common_behavior
+    (``tests/test_persistence.py``; Buffer and Forget state): run A under
+    ``writer`` is stopped mid-stream with windows still buffered, run B
+    under ``reader`` restores its snapshot, replays nothing, and the merged
+    windows equal those of an uninterrupted run over the same input, the
+    sentinel windows flushed at shutdown included."""
+    f1 = [{"k": "a", "t": t, "v": t} for t in (0, 1, 3, 5, 6)] + [{"k": "b", "t": t, "v": 2 * t} for t in (2, 4, 7)]
+    # phase-2 rows end with a high sentinel time so every earlier window
+    # crosses the behavior's delay threshold deterministically
+    f2 = [{"k": "a", "t": 9, "v": 9}, {"k": "b", "t": 11, "v": 22}, {"k": "a", "t": 40, "v": 0},
+          {"k": "b", "t": 41, "v": 0}]
+
+    # the uninterrupted run over f1 + f2, under the reader
+    ref_dir = tmp_path / "ref_in"
+    ref_dir.mkdir()
+    _write_rows(ref_dir / "f1.jsonl", f1)
+    _write_rows(ref_dir / "f2.jsonl", f2)
+    pw = PACKAGES[reader]
+    pw.internals.parse_graph.G.clear()
+    _build_windows(pw, ref_dir, tmp_path / "ref.jsonl")
+    cfg = pw.persistence.Config.simple_config(
+        pw.persistence.Backend.filesystem(str(tmp_path / "ref_pstorage")), snapshot_every=1)
+    assert _run_until(pw, cfg, lambda: {("a", 8), ("b", 8)} <= set(_final_rows(tmp_path / "ref.jsonl", ["k", "start"])))
+    expected = _final_rows(tmp_path / "ref.jsonl", ["k", "start"])
+    assert expected.get(("a", 0)) == (3, 4)  # t=0,1,3 -> cnt=3 sum=4
+    # the sentinel rows' own windows only flush at shutdown
+    live_expected = {k: v for k, v in expected.items() if k[1] < 40}
+
+    input_dir, pdir = tmp_path / "in", tmp_path / "pstorage"
+    input_dir.mkdir()
+    _write_rows(input_dir / "f1.jsonl", f1)
+    pw = PACKAGES[writer]
+    pw.internals.parse_graph.G.clear()
+    _build_windows(pw, input_dir, tmp_path / "a.jsonl")
+    cfg = pw.persistence.Config.simple_config(pw.persistence.Backend.filesystem(str(pdir)), snapshot_every=1)
+    # stopped mid-stream with windows still buffered
+    assert _run_until(pw, cfg, lambda: len(_final_rows(tmp_path / "a.jsonl", ["k", "start"])) >= 2)
+    assert any(f.startswith("segments/") for f in _store_files(pdir))
+
+    _write_rows(input_dir / "f2.jsonl", f2)
+    pw = PACKAGES[reader]
+    pw.internals.parse_graph.G.clear()
+    _build_windows(pw, input_dir, tmp_path / "b.jsonl")
+    cfg = pw.persistence.Config.simple_config(pw.persistence.Backend.filesystem(str(pdir)), snapshot_every=1)
+
+    def merged():
+        return _final_rows(tmp_path / "b.jsonl", ["k", "start"], _final_rows(tmp_path / "a.jsonl", ["k", "start"]))
+
+    assert _run_until(pw, cfg, lambda: {k: v for k, v in merged().items() if k[1] < 40} == live_expected), (
+        merged(), expected)
+    # after shutdown the sentinel windows flushed too: equal to the
+    # uninterrupted run, bit for bit
+    assert merged() == expected
+    drv = pw.internals.parse_graph.G.last_runtime.persistence_driver
+    assert drv.restored_from_snapshot and drv.replayed_events == 0
+
+
+def _build_temporal(pw, kind, input_dir, out_path, mode="streaming"):
+    """A pipeline over one stream of rows (``side`` 0 or 1, key ``k``,
+    time ``t``, value ``v``) whose state lives in a temporal exec: session
+    windows (``SessionAssignNode``), or an interval or asof join of the
+    two sides (``IntervalJoinNode``, ``AsofJoinNode``); a count and a sum
+    per key."""
+
+    class RowSchema(pw.Schema):
+        side: int
+        k: str
+        t: int
+        v: int
+
+    rows = pw.io.fs.read(str(input_dir), format="json", schema=RowSchema, mode=mode)
+    if kind == "session":
+        out = rows.windowby(rows.t, window=pw.temporal.session(max_gap=2), instance=rows.k).reduce(
+            k=pw.this._pw_instance, start=pw.this._pw_window_start, n=pw.reducers.count(),
+            s=pw.reducers.sum(pw.this.v))
+        pw.io.jsonlines.write(out, str(out_path))
+        return ["k", "start"]
+    left = rows.filter(rows.side == 0)
+    right = rows.filter(rows.side == 1)
+    if kind == "interval_join":
+        pairs = left.interval_join(right, left.t, right.t, pw.temporal.interval(-2, 1), left.k == right.k).select(
+            k=pw.left.k, lt=pw.left.t, v=pw.right.v)
+    else:
+        pairs = left.asof_join(right, left.t, right.t, left.k == right.k, defaults={right.v: 0}).select(
+            k=pw.left.k, lt=pw.left.t, v=pw.right.v)
+    out = pairs.groupby(pairs.k, pairs.lt).reduce(pairs.k, pairs.lt, n=pw.reducers.count(),
+                                                 s=pw.reducers.sum(pairs.v))
+    pw.io.jsonlines.write(out, str(out_path))
+    return ["k", "lt"]
+
+
+def _temporal_rows(seed, n, t0):
+    """Rows with distinct times (``t0`` plus even steps): the row keys of
+    ``pw.io.fs`` depend on the directory, so a tie in time would be broken
+    differently in the uninterrupted run's directory."""
+    rng = np.random.default_rng(seed)
+    return [{"side": int(rng.integers(0, 2)), "k": "ab"[int(rng.integers(0, 2))],
+             "t": t0 + 2 * int(p), "v": int(rng.integers(-5, 9))} for p in rng.permutation(n)]
+
+
+@pytest.mark.parametrize("writer,reader", [("port", "port"), ("jax", "port"), ("port", "jax")])
+@pytest.mark.parametrize("kind", ["session", "interval_join", "asof_join"])
+def test_temporal_exec_state_restores_across_packages(tmp_path, kind, writer, reader):
+    """A temporal exec's state hooks under the persistence glue: run A
+    under ``writer`` over the first file is stopped, run B under
+    ``reader`` restores its snapshot (no replay) and reads the second
+    file; the merged output equals an uninterrupted run's."""
+    f1, f2 = _temporal_rows(7, 24, 0), _temporal_rows(8, 24, 13)  # f2 reaches back into f1's times
+    ref_dir = tmp_path / "ref_in"
+    ref_dir.mkdir()
+    _write_rows(ref_dir / "f1.jsonl", f1)
+    _write_rows(ref_dir / "f2.jsonl", f2)
+    pw = PACKAGES[reader]
+    pw.internals.parse_graph.G.clear()
+    keys = _build_temporal(pw, kind, ref_dir, tmp_path / "ref.jsonl", mode="static")
+    pw.run()
+    expected = _final_rows(tmp_path / "ref.jsonl", keys)
+    assert expected
+
+    input_dir, pdir = tmp_path / "in", tmp_path / "pstorage"
+    input_dir.mkdir()
+    _write_rows(input_dir / "f1.jsonl", f1)
+    pw = PACKAGES[writer]
+    pw.internals.parse_graph.G.clear()
+    _build_temporal(pw, kind, input_dir, tmp_path / "a.jsonl")
+    cfg = pw.persistence.Config.simple_config(pw.persistence.Backend.filesystem(str(pdir)), snapshot_every=1)
+    first = {}
+    assert _run_until(pw, cfg, lambda: bool(first.update(_final_rows(tmp_path / "a.jsonl", keys)) or first))
+    time.sleep(0.3)
+    _write_rows(input_dir / "f2.jsonl", f2)
+    pw = PACKAGES[reader]
+    pw.internals.parse_graph.G.clear()
+    _build_temporal(pw, kind, input_dir, tmp_path / "b.jsonl")
+    cfg = pw.persistence.Config.simple_config(pw.persistence.Backend.filesystem(str(pdir)), snapshot_every=1)
+
+    def merged():
+        return _final_rows(tmp_path / "b.jsonl", keys, _final_rows(tmp_path / "a.jsonl", keys))
+
+    assert _run_until(pw, cfg, lambda: merged() == expected), (merged(), expected)
+    drv = pw.internals.parse_graph.G.last_runtime.persistence_driver
+    assert drv.restored_from_snapshot and drv.replayed_events == 0
 
 
 # --- iterate and AsyncTransformer state across a restart -----------------------

@@ -2,15 +2,16 @@
 ``NotImplementedError`` naming its ROADMAP tag, instead of running
 without it: compiled ticks, engine shards, the multi-process engine (DCN),
 the standby writer and the process-group supervisor of replication, the
-device mesh's names in ``parallel``, ``mesh=``, the temporal operators and
-the ``.dt`` namespace, the service connectors, the observability routes of
-the read plane (501 naming [observability]), every root
-name of the reference the port lacks (``pw.temporal``, ``pw.graphs``, …),
+device mesh's names in ``parallel``, ``mesh=``, the service connectors,
+the observability routes of the read plane (501 naming [observability]),
+every root name of the reference the port lacks (``pw.graphs``,
+``pw.viz``),
 every ``pw.stdlib.<name>`` it lacks and ``pw.debug.diagnose``, each naming
 its tag. Every public name of every package ``__init__`` of the reference
 resolves in the port or raises naming a tag, and the names that the port
-carries now (the root's, ``pw.debug``'s and ``pw.stdlib.ml``'s) resolve to
-counterparts with the reference's signatures."""
+carries now (the root's, ``pw.temporal``'s, ``pw.debug``'s and
+``pw.stdlib.ml``'s) resolve to counterparts with the reference's
+signatures."""
 
 import importlib
 import inspect
@@ -93,19 +94,28 @@ def test_tpu_knn_mesh_raises():
 @pytest.mark.parametrize(
     "make,item",
     [
-        (lambda t: t.windowby(t.a, window=None), r"\[temporal\]"),
-        (lambda t: t.interval_join(t, t.a, t.a, None), r"\[temporal\]"),
-        (lambda t: t.diff(t.a, t.b), r"\[temporal\]"),
-        (lambda t: t.b.dt, r"\[temporal\]"),
+        # the temporal operators are ported ([temporal] is gone): each of
+        # these resolves to the port's own object
+        (lambda t: t.windowby(t.a, window=pw.temporal.tumbling(duration=2)), None),
+        (lambda t: t.interval_join(t.copy(), t.a, t.a, pw.temporal.interval(-1, 1)), None),
+        (lambda t: t.diff(t.a, t.a), None),
+        (lambda t: t.b.dt, None),
         # the file connectors are ported: the case holds a service connector
         (lambda t: pw.io.kafka, r"\[connectors\]"),
         (lambda t: pw.run(with_http_server=True), r"\[observability\]"),
+        (lambda t: pw.stdlib.graphs, r"\[stdlib-rest\]"),
     ],
     ids=[
-        "windowby", "interval_join", "diff", "dt_namespace", "io.csv", "http_server",
+        "windowby", "interval_join", "diff", "dt_namespace", "io.csv", "http_server", "stdlib.graphs",
     ],
 )
 def test_unported_kind_raises(make, item):
+    """A kind the port lacks raises naming its tag; one it carries now
+    (``item`` None) gives the port's own object."""
+    if item is None:
+        got = make(_table())
+        assert type(got).__module__.startswith("pathway_tpu_torch."), type(got)
+        return
     with pytest.raises(NotImplementedError, match=item):
         make(_table())
 
@@ -218,15 +228,18 @@ def test_reference_stdlib_name_raises_with_its_tag(name):
 
 def test_root_name_tags_and_unknown_names():
     assert "[stdlib-rest]" in str(pytest.raises(NotImplementedError, getattr, pw, "graphs").value)
-    assert "[temporal]" in str(pytest.raises(NotImplementedError, getattr, pw, "temporal").value)
+    assert "[stdlib-rest]" in str(pytest.raises(NotImplementedError, getattr, pw.stdlib, "viz").value)
+    # [temporal] is ported: its root names are the port's own
+    assert pw.temporal.__name__ == "pathway_tpu_torch.stdlib.temporal"
+    assert pw.IntervalJoinResult.__module__ == "pathway_tpu_torch.stdlib.temporal._interval_join"
     assert callable(pw.iterate) and callable(pw.sql) and callable(pw.transformer)
     with pytest.raises(AttributeError):
         pw.no_such_name
     with pytest.raises(AttributeError):
         pw.stdlib.no_such_name
     # 12 until LiveTable, load_yaml and demo were ported (``live`` is not in
-    # the reference's ``__all__``)
-    assert len(ROOT_MISSING) == 9 and len(STDLIB_MISSING) == 6
+    # the reference's ``__all__``), 9 until the temporal names were
+    assert len(ROOT_MISSING) == 2 and len(STDLIB_MISSING) == 2
 
 
 # root names (and ``pw.stdlib.utils``) that raised [core-api] until the
@@ -241,6 +254,8 @@ PORTED_ROOT = [
     "AsyncTransformer", "pandas_transformer", "udfs", "universes",
     "set_license_key", "set_monitoring_config", "enable_interactive_mode",
     "table_transformer", "TableSlice", "utils", "LiveTable", "live", "load_yaml", "demo",
+    "temporal", "ordered", "stateful", "statistical", "AsofJoinResult", "IntervalJoinResult",
+    "WindowJoinResult",
 ]
 REFERENCE_COUNTERPART = {"TableSlice": ("pathway_tpu.internals.table_slice", "TableSlice")}
 

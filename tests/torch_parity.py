@@ -1,10 +1,13 @@
 """Helpers shared by the Table-API parity tests of the port
 (``test_torch_iterate.py``, ``test_torch_sql.py``,
 ``test_torch_transformers.py``, ``test_torch_async_transformer.py``,
-``test_torch_persistence.py``, ``test_torch_components.py``): seeded
-``table_from_markdown`` streams, the update stream of a table, recorded
-with ``pw.io.subscribe`` as (time, diff, id, values) events, and connected
-components by ``pw.iterate`` (``chip_smoke.cc_components``)."""
+``test_torch_persistence.py``, ``test_torch_components.py``, the temporal
+ones and ``test_torch_cuda.py``): seeded ``table_from_markdown`` streams,
+the update stream of a table, recorded with ``pw.io.subscribe`` as (time,
+diff, id, values) events, or the exception a package raised instead;
+event times of every kind for the temporal tests; connected components
+by ``pw.iterate`` (``chip_smoke.cc_components``); the windowed-index
+slice's input tables (``wi_tables``). It imports neither package."""
 
 import numpy as np
 
@@ -78,3 +81,96 @@ def markdown(columns, rows):
         cells = [str(x) for x in r[1:]]
         lines.append((f"{r[0]} | " if with_id else "") + " | ".join(cells))
     return "\n".join(lines)
+
+
+def outcomes(packages, build, **run_kwargs):
+    """Like ``streams``, but where a package raises (building the graph or
+    running it) its outcome is the exception's type name, so a refusal
+    compares like a stream does."""
+    out = {}
+    for name, pw in packages.items():
+        pw.internals.parse_graph.G.clear()
+        try:
+            out[name] = stream(pw, build(pw), **run_kwargs)
+        except Exception as e:  # noqa: BLE001 — the outcome compared
+            out[name] = ("raises", type(e).__name__)
+    return out["port"], out["jax"]
+
+
+def assert_outcomes_equal(got, want, tol=FLOAT_TOL):
+    """Both raised the same exception type, or both streams are equal."""
+    if isinstance(want, tuple) or isinstance(got, tuple):
+        assert got == want, (got, want)
+        return
+    assert_streams_equal(got, want, tol)
+
+
+# --- event times of the temporal parity tests ---------------------------------
+# a time is a number of units after 0: an int, a float a quarter past it, or
+# a naive or UTC datetime that many minutes after DT_BASE; the tables carry
+# it as markdown text and ``event_time`` turns it into the column's type
+
+TIME_KINDS = ("int", "float", "naive", "utc")
+DT_BASE = "2023-05-15T10:00:00"
+
+
+def time_cell(kind, x):
+    """Event time ``x`` (an int) as a markdown cell of ``kind``."""
+    import datetime
+
+    if kind == "int":
+        return str(int(x))
+    if kind == "float":
+        return repr(int(x) + 0.25)
+    stamp = (datetime.datetime.fromisoformat(DT_BASE) + datetime.timedelta(minutes=int(x))).isoformat()
+    return stamp if kind == "naive" else stamp + "+02:00"
+
+
+def event_time(table, kind, col="t"):
+    """``table`` with its ``col`` of markdown cells made event times of ``kind``."""
+    if kind in ("int", "float"):
+        return table
+    fmt = "%Y-%m-%dT%H:%M:%S" + ("%z" if kind == "utc" else "")
+    return table.with_columns(**{col: table[col].dt.strptime(fmt)})
+
+
+def span(kind, x):
+    """A duration of ``x`` units in ``kind``'s interval type."""
+    import datetime
+
+    if kind == "int":
+        return int(x)
+    if kind == "float":
+        return float(x)
+    return datetime.timedelta(minutes=x)
+
+
+# --- the windowed-index slice of chip_smoke.py --------------------------------
+
+
+def wi_tables(pw, s):
+    """A ``chip_smoke.wi_stream`` as the tables of ``wi_pipeline``: the
+    standing queries in the first tick (time 2), the documents of commit c
+    in time 2 * c + 4 (``StreamGenerator`` batches)."""
+
+    class Doc(pw.Schema):
+        doc_id: int = pw.column_definition(primary_key=True)
+        t: int
+        topic: int
+        text: str
+
+    class Query(pw.Schema):
+        qid: int = pw.column_definition(primary_key=True)
+        t: int
+        topic: int
+        text: str
+
+    gen = pw.debug.StreamGenerator()
+    asked = [[{"qid": q, "t": int(s["q_t"][q]), "topic": int(s["q_topic"][q]), "text": s["q_text"][q]}
+              for q in range(len(s["q_t"]))]]
+    batches = [[]] + [
+        [{"doc_id": i, "t": int(s["t"][i]), "topic": int(s["topic"][i]), "text": s["text"][i]}
+         for i in np.flatnonzero(s["commit"] == c).tolist()]
+        for c in range(s["commits"])
+    ]
+    return gen.table_from_list_of_batches(batches, Doc), gen.table_from_list_of_batches(asked, Query)
