@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from csrc/ (nvcc, sm_90a, one process per
-source, all started together), then runs fifteen phases, printing one JSON
+source, all started together), then runs sixteen phases, printing one JSON
 object per phase:
 
 1. device         — nvidia-smi name/power limit, toolchain versions, build seconds.
@@ -103,8 +103,9 @@ object per phase:
                     pathway_rest_request_seconds p50, the HTTP overhead over
                     the vector store phase's B = 1 reply, update-to-visible,
                     the 429/503/504 counts and block_topk launches per shape.
-7. persistence    — the vector store phase's 32,768 documents written as files
-                    (tmp + rename) into a folder, 16 batches of 2048, read by
+7. persistence    — the first 12,288 of the vector store phase's documents
+                    (cut from 32,768) written as files (tmp + rename) into a
+                    folder, 16 batches of 768, read by
                     pw.io.fs.read(format="binary", mode="streaming") into
                     VectorStoreServer(device="cuda") with
                     persistence_config=Config.simple_config(Backend.filesystem)
@@ -115,20 +116,23 @@ object per phase:
                     replays the log tail (batch 9), seeks the scanner, reads
                     batch 10 again, answers one query (time to the first
                     correct reply), ingests the 6 remaining batches, answers
-                    8 B = 1 (cut from 64) and 8 B = 16 queries (the vector
-                    store phase's texts), then 1 write (cut from 4) of 64
+                    8 B = 1 (cut from 64) and 3 B = 16 queries (the vector
+                    store phase's texts copied from those documents), then
+                    1 write (cut from 4) of 64
                     documents, followed by a query for one of them,
                     then the 8 B = 1 texts again. Restart 2 adds no file
                     and asks the 8 again. Checked:
                     exit 23; restored from a snapshot with a non-empty
                     replayed tail, then none; the index holds each chunk of
-                    the 32,768 documents exactly once (its keys against the
+                    the 12,288 documents exactly once (its keys against the
                     keys pw.io.fs and the two flattens give each chunk, whose
                     texts are the vector store phase's); every reply against a
                     direct search of a plain-torch copy of the index with the
                     vector the embedder computed for it (up to near ties);
-                    restart 1's replies against the vector store phase's to
-                    the same texts (up to near ties within CROSS_RUN_TOL);
+                    restart 1's replies against the never-killed run's: a
+                    search of the vector store phase's corpus vectors over
+                    the chunks of the same documents (up to near ties within
+                    CROSS_RUN_TOL);
                     restart 2's replies equal restart 1's last ones; restart
                     2 embeds its queries and no document; launches per shape.
                     Prints the kill tick and the files indexed, restore
@@ -141,7 +145,7 @@ object per phase:
                     (a) DocumentStore over HybridIndexFactory([TantivyBM25Factory(),
                     BruteForceKnnFactory(the phase-3 embedder, device="cuda")]):
                     the vector store phase's documents (16 commits of 2048,
-                    Utf8Parser, TokenCountSplitter(20, 60)), 32 B = 1 and 2
+                    Utf8Parser, TokenCountSplitter(20, 60)), 16 B = 1 and 1
                     B = 16 queries (k = 10), then 4 live writes of 64
                     documents, each followed by a query for one of them.
                     Checked: every reply against a direct computation — the
@@ -156,7 +160,7 @@ object per phase:
                     probes) through the engine: bench.py's accelerator IVF
                     mixture (1,000,000 x 384 f32, 2000 centres, noise 0.35,
                     default_rng(7)) in commits of 65,536 via pw.io.python,
-                    then 32 B = 1 and 2 B = 16 queries (k = 10); the index
+                    then 16 B = 1 and 1 B = 16 queries (k = 10); the index
                     trains once. Checked: every score is its row's cosine - 1
                     (numpy, 1e-5), replies descend, every key's cluster is
                     among the query's probes (numpy, from the index's
@@ -254,7 +258,45 @@ object per phase:
                     reply's seconds, the engine's seconds per operator type
                     (the temporal ones apart), the index's rows by commit,
                     launches per shape and peak memory.
-12. replication   — the replicated read plane: this process is the writer (a
+12. cdc index     — a live retrieval index kept in step with a SQL table by
+                    change-data capture, as a user writes it
+                    (``cdc_pipeline``): a SQLite table documents(doc_id
+                    INTEGER PRIMARY KEY, topic INTEGER, body TEXT) of 24,576
+                    seeded documents (synthetic_docs, 64 topics) streamed by
+                    pw.io.sqlite.read(mode="streaming") (it polls PRAGMA
+                    data_version and diffs a whole-table snapshot); the
+                    phase-3 embedder; DataIndex over TpuKnn(device="cuda",
+                    reserved_space=32768); 256 standing queries from
+                    pw.io.python ask the live index (k = 10), answered again
+                    on every change in one block_topk batch (B = 256); the
+                    replies (qid, doc_id, score) go to pw.io.sqlite.write in
+                    a second SQLite file. A writer thread with its own
+                    connection commits 16 transactions, each inserting 512
+                    rows, changing the body of 256 and deleting 256 (the live
+                    rows peak at 28,672); each also goes as Postgres-dialect
+                    Debezium envelopes, one file per transaction, into a
+                    folder that pw.io.debezium.read(input_dir=...) reads in
+                    the same graph (not embedded). Checked after every
+                    transaction: every reply equals the plain top-10 over the
+                    table's rows (an f32 matmul and torch.topk on the card, up
+                    to near ties), no reply names a deleted row, a reply
+                    naming a row edited in that transaction scores it by its
+                    new body's vector, the index's valid rows equal the
+                    table's, and the Debezium table equals the SQLite
+                    reader's, keys included; after the run, the replies read
+                    back from SQLite equal the subscribed ones (__key__, qid,
+                    doc_id; scores within 1e-5) and a static read of the
+                    table equals the streaming table's final state; launches
+                    at B = 256 only, the embedder on the card. Prints
+                    update-to-visible p50 / max (the commit to the end of the
+                    tick that answered every standing query again), the
+                    first reply's seconds, the reader's snapshot-and-diff
+                    seconds per change, the Debezium scan's seconds per file
+                    read, the SQLite writer's seconds per transaction, the
+                    engine's seconds per operator type, the index's rows and
+                    capacity by transaction, launches per shape and peak
+                    memory.
+13. replication   — the replicated read plane: this process is the writer (a
                     persisted DataIndex over TpuKnn(device="cuda") fed the
                     vector store phase's ~80k chunk vectors in 16 commits,
                     PATHWAY_REPL_PORT=0), two
@@ -274,7 +316,7 @@ object per phase:
                     the router, update-to-visible, failover statuses and
                     retries, re-admission s, cache hit p50, /generate TTFT and
                     tokens/s, each child's launches per shape and peak memory.
-13. generation    — ask -> retrieve -> generate: 24 asks are embedded and
+14. generation    — ask -> retrieve -> generate: 24 asks are embedded and
                     retrieved (k = 3) on the phase-3 index, each grounded prompt
                     goes to one DecodeScheduler(GenerateConfig()) at the decoder's
                     serving defaults (dim 128, 2 layers, 4 heads, head_dim 32,
@@ -284,7 +326,7 @@ object per phase:
                     back to empty, launches == decode steps x layers, the same
                     tokens from a kernel="ref" scheduler, and the logits of one
                     recorded step, kernel against plain.
-14. durability    — the same 24 prompts at the same width, with snapshots.
+15. durability    — the same 24 prompts at the same width, with snapshots.
                     A child process (this script with --kill-child) runs them
                     with PATHWAY_GENERATE_SNAPSHOT_EVERY=8, a store in a temp
                     dir and PATHWAY_FAULTS="kill=decode:150"; it must exit 23
@@ -301,7 +343,7 @@ object per phase:
                     segments per snapshot). Tokens are compared exactly; a
                     difference passes only at a near tie: the uninterrupted
                     run's top-2 logit margin there below GEN_LOGIT_TOL.
-15. kernels       — per kernel and per path shape: launches on its path, ms
+16. kernels       — per kernel and per path shape: launches on its path, ms
                     (CUDA events) and device ms (torch.profiler), its plain
                     version's ms, the bound and what sets it, the bytes it must
                     move, and the ms of the library call(s) computing the same
@@ -316,8 +358,9 @@ object per phase:
                     store's dense corpus, B = 16 on the 1M IVF ground truth,
                     every (B, k = 9) of the components phase on its corpus
                     and every (B, k = 3) of the live classify phase on its
-                    corpus, B = 256 (k = 10) of the windowed index on its
-                    corpus at the end, and every (B, k) the replica children launched,
+                    corpus, B = 256 (k = 10) of the windowed index and of the
+                    cdc index, each on its corpus at the end, and every (B,
+                    k) the replica children launched,
                     on the writer's corpus;
                     paged_attention: the
                     recorded decode step and a long context, each with its
@@ -406,7 +449,15 @@ PERSIST_B1 = 8
 # to 1 beside the windowed index phase, to keep the smoke under 950 s (each
 # write's commit takes ≈11 s with persistence)
 PERSIST_LIVE_WRITES = 1
-PERSIST_CAPACITY = 80 * 1024  # index rows reserved: 78,185 chunks + the live writes'
+# the first 3/8 of the vector store phase's documents, in batches of 768:
+# the same 16 batches, the same kill at tick 10, fewer files (cut from
+# 32,768 in batches of 2048 beside the cdc index phase; the scanner copies
+# its offsets per file, so the killed run and restart 1 shrink faster than
+# the corpus)
+PERSIST_DOCS = VS_DOCS * 3 // 8
+PERSIST_COMMIT = 768
+PERSIST_B16_TICKS = 3  # B = 16 ticks of the vector store phase's texts from those documents
+PERSIST_CAPACITY = 30 * 1024  # index rows reserved: 29,122 chunks + the live write's
 # a reply of a restart against the never-killed vector store phase's reply
 # to the same text: the same corpus and query vector, but the document
 # vectors come from other embedder batches (other GEMM shapes in bf16)
@@ -440,11 +491,13 @@ FAULT_EXIT = 23  # the fault plan's exit code
 # phase's documents; IvfKnn, IvfDeviceIndex and LshKnn over bench.py's
 # accelerator IVF mixture; the segment ops
 # cut from 64 beside the windowed index phase to keep the smoke under 950
-# s: the IVF part scores each B = 1 query on the host, ≈0.4 s
-IK_B1 = 32
+# s, then to 16 beside the cdc index phase: the IVF part scores each B = 1
+# query on the host, ≈0.4 s
+IK_B1 = 16
 # cut from 8 to keep the smoke under 900 s, then to 2 beside the windowed
-# index phase: the IVF part scores each query on the host, ≈6 s a B = 16 tick
-IK_B16 = 2
+# index phase and to 1 beside the cdc index phase: the IVF part scores each
+# query on the host, ≈6 s a B = 16 tick
+IK_B16 = 1
 IK_LIVE_WRITES = 4
 RRF_K = 60.0  # HybridIndexFactory's default
 IK_IVF_ROWS = 1_000_000
@@ -1737,7 +1790,10 @@ def vector_store(dev, smi: str) -> tuple[dict, dict]:
     # the never-killed run's replies, by query text, for the persistence phase
     by_text = {g: [(chunks_of[d][0], tuple((r["text"], -r["dist"]) for r in replies[q][1])) for q, d, _f in rows]
                for g, rows in groups.items() if g != "filtered"}
+    # each slot's chunk text: the persistence phase searches this corpus as the never-killed run's
+    slot_texts = [text_of.get(k) for k in record["index"].corpus.keys_for_slots(np.arange(len(valid)))]
     out = {"prep": prep, "valid": valid, "launches": launches, "shapes": shapes, "replies_by_text": by_text,
+           "slot_texts": slot_texts,
            "corpus": (docs, chunks_of, upto),  # the rest and persistence phases serve the same corpus
            "queries": {1: batch(groups["B=1"][:1]), 16: batch(groups["B=16"][:16]),
                        "filtered": batch(groups["filtered"][:16])}}
@@ -2392,8 +2448,8 @@ def persist_child(folder: str, store: str, progress: str) -> int:
                 rt = parse_graph.G.runtime
                 ix = store_index(rt)
                 done = {"graph_s": time.perf_counter() - t_start, "batch_s": [], "start_wall": t_wall}
-                for b in range(VS_DOCS // VS_COMMIT):
-                    lo, hi = b * VS_COMMIT, (b + 1) * VS_COMMIT
+                for b in range(PERSIST_DOCS // PERSIST_COMMIT):
+                    lo, hi = b * PERSIST_COMMIT, (b + 1) * PERSIST_COMMIT
                     t0 = time.perf_counter()
                     write_batch_as_one_tick(rt, folder, docs, range(lo, hi))
                     t1 = time.perf_counter()
@@ -2417,8 +2473,8 @@ def persist_child(folder: str, store: str, progress: str) -> int:
 
 def persistence(dev, smi: str, vs_phase: dict, vs_data: dict, corpus: tuple) -> tuple[dict, dict]:
     """Kill and restart of a persisted VectorStoreServer fed by pw.io.fs.
-    The vector store phase's 32,768 documents go into a folder as files,
-    16 batches of 2048. A child (this script with --persist-child) runs
+    The first PERSIST_DOCS of the vector store phase's documents go into a
+    folder as files, 16 batches of PERSIST_COMMIT. A child (this script with --persist-child) runs
     the graph with PATHWAY_FAULTS=kill=tick:PERSIST_KILL_TICK and must
     exit 23 after batch 9: operator snapshot generation 1 covers batches
     1-8 (snapshot_every 8), the log tail batch 9, batch 10 was drained
@@ -2426,10 +2482,13 @@ def persistence(dev, smi: str, vs_phase: dict, vs_data: dict, corpus: tuple) -> 
     restores the snapshot, replays the tail, seeks the scanner past the
     logged files, re-reads batch 10; one query is answered (time to the
     first correct reply), the remaining 6 batches arrive, then PERSIST_B1
-    B = 1 and 8 B = 16 queries (the vector store phase's texts) and 2 live
-    writes of 64 documents, each followed by a query that must find one
-    at rank 1. Restart 2 adds no file: the B = 1 queries again, and
-    no document chunk may reach the embedder."""
+    B = 1 and PERSIST_B16_TICKS B = 16 queries (the vector store phase's
+    texts copied from those documents) and PERSIST_LIVE_WRITES live writes
+    of 64 documents, each followed by a query that must find one at rank 1.
+    Restart 2 adds no file: the B = 1 queries again, and no document chunk
+    may reach the embedder. Restart 1's replies are held against the
+    never-killed run's: the vector store phase's corpus vectors, searched
+    over the chunks of the same documents."""
     import pathway_tpu_torch as pw
     from pathway_tpu_torch.internals import parse_graph
     from pathway_tpu_torch.observability.tracing import get_tracer
@@ -2443,7 +2502,7 @@ def persistence(dev, smi: str, vs_phase: dict, vs_data: dict, corpus: tuple) -> 
     folder, store, progress = os.path.join(work, "docs"), os.path.join(work, "store"), os.path.join(work, "p.json")
     os.makedirs(folder)
     env = dict(os.environ, PATHWAY_FAULTS=f"kill=tick:{PERSIST_KILL_TICK}")
-    Path(progress).write_text(json.dumps({"upto": [int(u) for u in upto[:VS_DOCS]]}))
+    Path(progress).write_text(json.dumps({"upto": [int(u) for u in upto[:PERSIST_DOCS]]}))
     log = os.path.join(work, "child.log")
     t0, wall0 = time.perf_counter(), time.time()
     with open(log, "w") as out:
@@ -2455,10 +2514,24 @@ def persistence(dev, smi: str, vs_phase: dict, vs_data: dict, corpus: tuple) -> 
     on_disk = sum(len(f) for _r, _d, f in os.walk(folder))
     check(killed["batches"] == PERSIST_KILL_TICK - 1 and killed["ticks"] == PERSIST_KILL_TICK - 1,
           f"the killed run indexed {killed} before the kill at tick {PERSIST_KILL_TICK}")
-    want = expected_chunk_keys(folder, range(VS_DOCS), chunks_of)
-    check(len(want) == int(upto[VS_DOCS - 1]), "the host's chunk keys collide")
-    by_text = vs_data["replies_by_text"]
+    want = expected_chunk_keys(folder, range(PERSIST_DOCS), chunks_of)
+    check(len(want) == int(upto[PERSIST_DOCS - 1]), "the host's chunk keys collide")
+    # the vector store phase's query texts copied from the documents indexed here
+    persisted = {c for d in range(PERSIST_DOCS) for c in chunks_of[d]}
+    by_text = {g: [x for x in rows if x[0] in persisted] for g, rows in vs_data["replies_by_text"].items()}
+    by_text["B=16"] = by_text["B=16"][:16 * PERSIST_B16_TICKS]
+    check(len(by_text["B=1"]) >= PERSIST_B1 and len(by_text["B=16"]) == 16 * PERSIST_B16_TICKS,
+          f"{len(by_text['B=1'])} B = 1 and {len(by_text['B=16'])} B = 16 texts from the persisted documents")
     b1_texts = by_text["B=1"][:PERSIST_B1]
+    # the never-killed run's corpus, restricted to the chunks of those documents
+    vs_prep = vs_data["prep"]
+    vs_live = vs_data["valid"] & torch.tensor([t in persisted for t in vs_data["slot_texts"]], device=dev)
+
+    def never_killed(qvec: np.ndarray) -> tuple:
+        q = torch.tensor(qvec, dtype=torch.float32, device=dev)
+        sc = (vs_prep @ (q / q.norm())).masked_fill_(~vs_live, -float("inf"))
+        v, ix = torch.topk(sc, K)
+        return tuple((vs_data["slot_texts"][j], float(x) - 1.0) for j, x in zip(ix.tolist(), v.double().tolist()))
     tracer = get_tracer()
     check(tracer.enabled, "tracing is off (PATHWAY_TRACING=0): the corpus upload is read from its span")
     bt.block_topk.launches = 0
@@ -2514,7 +2587,7 @@ def persistence(dev, smi: str, vs_phase: dict, vs_data: dict, corpus: tuple) -> 
             qid = restart * 1_000_000  # the query log persists too: fresh keys per run
             if restart == 1:
                 # the unlogged batch is read again, then the first query
-                on_disk_docs = PERSIST_KILL_TICK * VS_COMMIT
+                on_disk_docs = PERSIST_KILL_TICK * PERSIST_COMMIT
                 wait_until(lambda: len(ix) >= upto[on_disk_docs - 1], "the re-read of the unlogged batch")
                 rec["reread_s"] = time.perf_counter() - rec["t_run"]
                 text = by_text["B=1"][0][0]
@@ -2524,10 +2597,10 @@ def persistence(dev, smi: str, vs_phase: dict, vs_data: dict, corpus: tuple) -> 
                 rec["first"] = (qid, text, snapshot_index(ix, dev))
                 qid += 1
                 t0 = time.perf_counter()
-                for lo in range(on_disk_docs, VS_DOCS, VS_COMMIT):
-                    write_batch_as_one_tick(rt, folder, docs, range(lo, lo + VS_COMMIT))
-                    wait_until(lambda: len(ix) >= upto[lo + VS_COMMIT - 1], "a batch in the index")
-                rec["ingest"] = (int(upto[VS_DOCS - 1] - upto[on_disk_docs - 1]), time.perf_counter() - t0)
+                for lo in range(on_disk_docs, PERSIST_DOCS, PERSIST_COMMIT):
+                    write_batch_as_one_tick(rt, folder, docs, range(lo, lo + PERSIST_COMMIT))
+                    wait_until(lambda: len(ix) >= upto[lo + PERSIST_COMMIT - 1], "a batch in the index")
+                rec["ingest"] = (int(upto[PERSIST_DOCS - 1] - upto[on_disk_docs - 1]), time.perf_counter() - t0)
             rec["keys"] = set(ix.keys())
             groups: dict[str, list] = {}
             rec["groups"], rec["ref"] = groups, {}
@@ -2559,7 +2632,9 @@ def persistence(dev, smi: str, vs_phase: dict, vs_data: dict, corpus: tuple) -> 
                     lo = VS_DOCS + t * VS_LIVE_DOCS
                     tc = time.perf_counter()
                     write_docs(folder, docs, range(lo, lo + VS_LIVE_DOCS))
-                    wait_until(lambda: len(ix) >= upto[lo + VS_LIVE_DOCS - 1], "a live write")
+                    # the persisted documents' chunks and the live writes' so far
+                    goal = int(upto[PERSIST_DOCS - 1] + upto[lo + VS_LIVE_DOCS - 1] - upto[VS_DOCS - 1])
+                    wait_until(lambda: len(ix) >= goal, "a live write")
                     target = lo + (t * 7) % VS_LIVE_DOCS
                     ask(qs, [(qid, chunks_of[target][0])])
                     rec["update_ms"].append((rec["replies"][qid][0] - tc) * 1e3)
@@ -2603,7 +2678,7 @@ def persistence(dev, smi: str, vs_phase: dict, vs_data: dict, corpus: tuple) -> 
     d1, d2 = r1["recovery"], r2["recovery"]
     check(d1.restored_from_snapshot and d1.replayed_events > 0,
           f"restart 1: restored {d1.restored_from_snapshot}, {d1.replayed_events} events replayed")
-    check(d1.replayed_ticks == 1 and d1.replayed_rows == VS_COMMIT,
+    check(d1.replayed_ticks == 1 and d1.replayed_rows == PERSIST_COMMIT,
           f"restart 1 replayed {d1.replayed_ticks} ticks, {d1.replayed_rows} rows: batch 9 expected")
     check(d2.restored_from_snapshot and d2.replayed_events == 0,
           f"restart 2: restored {d2.restored_from_snapshot}, {d2.replayed_events} events replayed")
@@ -2613,7 +2688,7 @@ def persistence(dev, smi: str, vs_phase: dict, vs_data: dict, corpus: tuple) -> 
     for r, keys in ((r1, set(want)), (r2, set(text_of))):
         check(r["keys"] == keys, f"the index holds {len(r['keys'])} chunks; "
               f"{len(keys - r['keys'])} missing, {len(r['keys'] - keys)} unexpected")
-    check(Counter(want.values()) == Counter(c for d in range(VS_DOCS) for c in chunks_of[d]),
+    check(Counter(want.values()) == Counter(c for d in range(PERSIST_DOCS) for c in chunks_of[d]),
           "the chunk texts differ from the vector store phase's")
     q1, text, mirror = r1["first"]
     got = r1["replies"][q1][1]
@@ -2621,7 +2696,6 @@ def persistence(dev, smi: str, vs_phase: dict, vs_data: dict, corpus: tuple) -> 
     check(same_up_to_near_ties(got, ref, F32_TOL), "restart 1's first reply differs from direct search")
     del mirror
     exact, cross = {}, {"compared": 0, "keys_equal": 0, "max_score_diff": 0.0}
-    vs_of = {t: rows for g in by_text.values() for t, rows in g}
     for name, r in (("restart 1", r1), ("restart 2", r2)):
         for g, rows in r["groups"].items():
             for q, t in rows:
@@ -2631,7 +2705,7 @@ def persistence(dev, smi: str, vs_phase: dict, vs_data: dict, corpus: tuple) -> 
                 exact[f"{name} {g}"] = exact.get(f"{name} {g}", 0) + ([a for a, _s in got] == [a for a, _s in ref])
                 check(got[0][0] == t, f"{name} {g} query {q} did not find its own chunk first: {got[:1]}")
                 if g in ("B=1", "B=16") and name == "restart 1":  # the never-killed run's corpus
-                    vs = vs_of[t]
+                    vs = never_killed(r["qvec"][t])
                     check(same_up_to_near_ties(got, vs, CROSS_RUN_TOL),
                           f"{name} {g} query {q}: reply differs from the never-killed run's")
                     cross["compared"] += 1
@@ -2651,7 +2725,7 @@ def persistence(dev, smi: str, vs_phase: dict, vs_data: dict, corpus: tuple) -> 
     n_asked2 = len(r2["groups"]["B=1 final"])
     check(r2["embedded"] == n_asked2, f"restart 2 embedded {r2['embedded']} texts for {n_asked2} queries: "
           "a document chunk went through the embedder again")
-    want_shapes = {(1, K): 1 + 3 * PERSIST_B1 + PERSIST_LIVE_WRITES, (16, K): VS_B16_TICKS}
+    want_shapes = {(1, K): 1 + 3 * PERSIST_B1 + PERSIST_LIVE_WRITES, (16, K): PERSIST_B16_TICKS}
     check(shapes == want_shapes, f"block_topk launches by shape {shapes}, searches {want_shapes}")
 
     def lat(r, rows):
@@ -2665,10 +2739,10 @@ def persistence(dev, smi: str, vs_phase: dict, vs_data: dict, corpus: tuple) -> 
     phase = {
         "phase": "persistence",
         "nvidia_smi": smi,
-        "docs": VS_DOCS,
-        "chunks": int(upto[VS_DOCS - 1]),
+        "docs": PERSIST_DOCS,
+        "chunks": int(upto[PERSIST_DOCS - 1]),
         "killed_run": {"kill_tick": PERSIST_KILL_TICK, "exit_code": child.returncode,
-                       "batches_indexed": killed["batches"], "files_indexed": killed["batches"] * VS_COMMIT,
+                       "batches_indexed": killed["batches"], "files_indexed": killed["batches"] * PERSIST_COMMIT,
                        "files_on_disk": on_disk, "s": killed_s, "graph_s": killed["graph_s"],
                        # the child's clock against this one: spawn to its start, last batch to exit
                        "spawn_to_start_s": killed["start_wall"] - wall0, "last_batch_to_exit_s": wall1 - killed["wall"],
@@ -3316,7 +3390,7 @@ def ivf_device(dev, mix: dict, truth: np.ndarray) -> tuple[dict, object]:
 
 def lsh_index(dev, mix: dict) -> tuple[dict, object]:
     """(d) DataIndex over LshKnn(dimensions=384, device="cuda") at the
-    reference defaults over the mixture's first 32,768 rows (one commit),
+    reference defaults over the mixture's first IK_LSH_ROWS rows (one commit),
     then 16 queries at B = 1, each near one of those rows."""
     from pathway_tpu_torch.ops.lsh import lsh_buckets
     from pathway_tpu_torch.stdlib.indexing import LshKnn
@@ -4369,7 +4443,416 @@ def windowed_index(dev, smi: str) -> tuple[dict, dict]:
                    "shapes": shapes}
 
 
-# --- phase 12: replication ----------------------------------------------------
+# --- phase 12: cdc index ------------------------------------------------------
+
+CDC_DOCS = 24576  # rows of the source table before the first transaction
+CDC_TXNS = 16
+CDC_INSERTS = 512  # per transaction
+CDC_EDITS = 256  # rows whose body changes: the old key gets a new vector
+CDC_DELETES = 256
+CDC_TOPICS = 64
+CDC_QUERIES = 256  # standing queries, answered again on every change
+CDC_K = WI_K  # 10: wi_plain's top-k is this phase's plain version too
+CDC_RESERVED = 1 << 15  # the live rows peak at 24,576 + 16 * 256 = 28,672
+CDC_WAIT_S = 120.0
+
+
+def cdc_stream(seed: int, docs: int, txns: int, inserts: int, edits: int, deletes: int, topics: int,
+               queries: int) -> dict:
+    """A seeded table of ``docs`` rows (doc_id -> (topic, body), bodies from
+    ``synthetic_docs``) and ``txns`` transactions, each inserting ``inserts``
+    new rows, changing the body of ``edits`` live rows and deleting
+    ``deletes`` others; ``live`` holds the table after each one. Plus
+    ``queries`` query texts."""
+    rng = np.random.default_rng(seed)
+    texts = synthetic_docs(docs + txns * (inserts + edits) + queries, rng)
+    table = {i: (int(rng.integers(0, topics)), texts[i]) for i in range(docs)}
+    initial, out, lives = dict(table), [], []
+    nxt = docs  # the next unused text, and the next doc_id
+    next_id = docs
+    for _c in range(txns):
+        picked = rng.choice(np.array(sorted(table)), size=edits + deletes, replace=False)
+        txn = {"insert": [], "edit": [], "delete": []}
+        for i in sorted(int(x) for x in picked[:edits]):
+            txn["edit"].append((i, table[i][0], table[i][1], texts[nxt]))
+            table[i] = (table[i][0], texts[nxt])
+            nxt += 1
+        for i in sorted(int(x) for x in picked[edits:]):
+            txn["delete"].append((i, *table.pop(i)))
+        for _j in range(inserts):
+            row = (int(rng.integers(0, topics)), texts[nxt])
+            txn["insert"].append((next_id, *row))
+            table[next_id] = row
+            nxt += 1
+            next_id += 1
+        out.append(txn)
+        lives.append(dict(table))
+    return {"initial": initial, "txns": out, "live": lives, "q_text": texts[-queries:]}
+
+
+def cdc_create(path: str, rows: dict) -> None:
+    """The source table ``documents(doc_id INTEGER PRIMARY KEY, topic
+    INTEGER, body TEXT)`` holding ``rows``."""
+    import sqlite3
+
+    conn = sqlite3.connect(path)
+    with conn:
+        conn.execute("CREATE TABLE documents (doc_id INTEGER PRIMARY KEY, topic INTEGER, body TEXT)")
+        conn.executemany("INSERT INTO documents VALUES (?, ?, ?)", [(i, *r) for i, r in sorted(rows.items())])
+    conn.close()
+
+
+def cdc_apply(conn, txn: dict) -> None:
+    """One transaction of ``cdc_stream`` on the writer's own connection (the
+    reader's ``PRAGMA data_version`` moves only for another connection's
+    commits)."""
+    with conn:
+        conn.executemany("INSERT INTO documents VALUES (?, ?, ?)", txn["insert"])
+        conn.executemany("UPDATE documents SET body = ? WHERE doc_id = ?",
+                         [(new, i) for i, _t, _old, new in txn["edit"]])
+        conn.executemany("DELETE FROM documents WHERE doc_id = ?", [(i,) for i, *_r in txn["delete"]])
+
+
+def debezium_envelopes(rows: dict | None = None, txn: dict | None = None) -> list[str]:
+    """Postgres-dialect Debezium envelopes, one JSON line each: a snapshot
+    read (op "r") of ``rows``, or the changes of one transaction (inserts
+    "c", body changes "u" with before and after, deletes "d")."""
+    def row(i, topic, body):
+        return {"doc_id": i, "topic": topic, "body": body}
+
+    def line(op, before, after):
+        return json.dumps({"payload": {"before": before, "after": after, "op": op}})
+
+    if rows is not None:
+        return [line("r", None, row(i, *r)) for i, r in sorted(rows.items())]
+    return ([line("c", None, row(*r)) for r in txn["insert"]]
+            + [line("u", row(i, t, old), row(i, t, new)) for i, t, old, new in txn["edit"]]
+            + [line("d", row(*r), None) for r in txn["delete"]])
+
+
+def cdc_publish(folder: str, name: str, lines: list[str]) -> None:
+    """A message file written beside the watched folder and renamed into it."""
+    tmp = os.path.join(os.path.dirname(folder), f".{name}.tmp")
+    with open(tmp, "w") as f:
+        f.write("".join(x + "\n" for x in lines))
+    os.replace(tmp, os.path.join(folder, name))
+
+
+def cdc_pipeline(pw, db_path: str, cdc_dir: str, queries, emb, dim: int, knn_kw: dict, reply_db: str) -> dict:
+    """A live retrieval index kept in step with a SQL table, as a user writes
+    it: ``pw.io.sqlite.read`` streams the ``documents`` table's changes, the
+    embedder embeds each body, DataIndex over TpuKnn holds the vectors and
+    every query (qid, text) asks the live index for its CDC_K nearest rows;
+    the replies (qid, doc_id, score) go back into SQL through
+    ``pw.io.sqlite.write``. The table's Debezium change stream in
+    ``cdc_dir`` is read into the same graph (``pw.io.debezium``), not
+    embedded. Returns the tables: docs, embedded, asked, pairs, changes."""
+    from importlib import import_module
+
+    indexing = import_module(pw.__name__ + ".stdlib.indexing")
+
+    class Doc(pw.Schema):
+        doc_id: int = pw.column_definition(primary_key=True)
+        topic: int
+        body: str
+
+    docs = pw.io.sqlite.read(db_path, "documents", schema=Doc, mode="streaming")
+    embedded = docs.select(docs.doc_id, vec=emb(docs.body))
+    knn = indexing.TpuKnn(embedded.vec, dimensions=dim, reserved_space=CDC_RESERVED, **knn_kw)
+    asked = queries.select(queries.qid, vec=emb(queries.text))
+    pairs = indexing.DataIndex(embedded, knn).query(asked.vec, number_of_matches=CDC_K, collapse_rows=False).select(
+        qid=pw.left.qid, doc_id=pw.right.doc_id, score=pw.right._pw_index_reply_score)
+    pw.io.sqlite.write(pairs, reply_db, "replies")
+    changes = pw.io.debezium.read(input_dir=cdc_dir, schema=Doc)
+    return {"docs": docs, "embedded": embedded, "asked": asked, "pairs": pairs, "changes": changes,
+            "schema": Doc}
+
+
+def sqlite_rows(path: str, table: str) -> list[tuple]:
+    import sqlite3
+
+    conn = sqlite3.connect(path)
+    try:
+        return conn.execute(f'SELECT * FROM "{table}"').fetchall()  # noqa: S608
+    finally:
+        conn.close()
+
+
+def signed64(key: int) -> int:
+    """A row key as ``pw.io.sqlite.write`` stores it: SQLite integers are signed."""
+    return key - (1 << 64) if key >= 1 << 63 else key
+
+
+def cdc_index(dev, smi: str) -> tuple[dict, dict]:
+    """A live retrieval index fed by change-data capture, on the card, as a
+    user writes it (``cdc_pipeline``): a SQLite table of CDC_DOCS seeded
+    documents, streamed by ``pw.io.sqlite.read``; the full-width embedder;
+    DataIndex over TpuKnn(device=dev); CDC_QUERIES standing queries from
+    pw.io.python, answered again on every change in one block_topk batch;
+    the replies written back with ``pw.io.sqlite.write``. A writer with its
+    own connection commits CDC_TXNS transactions, and each also goes as
+    Debezium envelopes (one file per transaction) into a folder that
+    ``pw.io.debezium.read`` reads in the same graph. After every
+    transaction: every reply equals the plain top-CDC_K over the live rows
+    (up to near ties), no reply names a deleted row, a reply naming a row
+    edited in it scores the row by its new body's vector, the index holds
+    as many valid rows as the table, and the Debezium table equals the
+    SQLite reader's, keys included. After the run: the replies read back
+    from SQLite equal the subscribed ones, and a static read of the table
+    equals the streaming table's final state."""
+    import sqlite3
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.engine.index_node import ExternalIndexExec
+    from pathway_tpu_torch.internals import parse_graph
+    from pathway_tpu_torch.internals.api import ref_scalar
+    from pathway_tpu_torch.ops import block_topk as bt
+    from pathway_tpu_torch.xpacks.llm.embedders import SentenceTransformerEmbedder
+
+    _now = time.perf_counter
+    t_phase = _now()
+    s = cdc_stream(SEED, CDC_DOCS, CDC_TXNS, CDC_INSERTS, CDC_EDITS, CDC_DELETES, CDC_TOPICS, CDC_QUERIES)
+    work = tempfile.mkdtemp(prefix="pw_cdc_")
+    src_db, reply_db, cdc_dir = (os.path.join(work, n) for n in ("documents.db", "replies.db", "cdc"))
+    os.makedirs(cdc_dir)
+    cdc_create(src_db, s["initial"])
+    cdc_publish(cdc_dir, "000000.jsonl", debezium_envelopes(rows=s["initial"]))
+    parse_graph.G.clear()
+    bt.block_topk.launches = 0
+    bt.block_topk.shapes.clear()
+    torch.cuda.reset_peak_memory_stats()
+
+    class QuerySchema(pw.Schema):
+        qid: int = pw.column_definition(primary_key=True)
+        text: str
+
+    def keyed(rows: dict) -> dict[int, tuple]:
+        return {int(ref_scalar(i)): (i, *r) for i, r in rows.items()}
+
+    lock = threading.Lock()
+    doc_state: dict[int, tuple] = {}
+    cdc_state: dict[int, tuple] = {}
+    pair_state: dict[int, tuple] = {}
+    qvecs: dict[int, np.ndarray] = {}
+    # the state each source's table must reach, and the tick in which it did
+    start = keyed(s["initial"])
+    expect = {"docs": {"rows": start, "tick": None}, "cdc": {"rows": start, "tick": None}}
+    record: dict = {"update_s": [], "ops": [], "rows": [], "capacity": [], "writer_s": [], "near_ties": 0,
+                    "replies_exact": 0, "replies": 0, "edited_in_replies": 0, "first_reply": None,
+                    "verify_s": 0.0, "poll_s": [], "scan_s": []}
+
+    def state_of(into: dict, goal: dict):
+        def on_change(key, row, time, is_addition):
+            vals = (row["doc_id"], row["topic"], row["body"])
+            with lock:
+                if is_addition:
+                    into[int(key)] = vals
+                elif into.get(int(key)) == vals:
+                    del into[int(key)]
+
+        def on_time_end(_t):
+            with lock:
+                if goal["tick"] is None and into == goal["rows"]:
+                    goal["tick"] = parse_graph.G.runtime.stats.ticks  # the tick in progress
+
+        return on_change, on_time_end
+
+    def on_vec(key, row, time, is_addition):
+        if is_addition:  # an edit's new vector, whatever the order of its -1 and +1
+            if "doc_id" in row:
+                vecs[row["doc_id"]] = np.asarray(row["vec"], dtype=np.float32)
+            else:
+                qvecs[row["qid"]] = np.asarray(row["vec"], dtype=np.float32)
+
+    def on_pair(key, row, time, is_addition):
+        if record["first_reply"] is None and is_addition and row["doc_id"] is not None:
+            record["first_reply"] = _now()
+        vals = (row["qid"], row["doc_id"], row["score"])
+        with lock:
+            if is_addition:
+                pair_state[int(key)] = vals
+            elif pair_state.get(int(key)) == vals:
+                del pair_state[int(key)]
+
+    def ended(goal: dict) -> bool:
+        return goal["tick"] is not None and parse_graph.G.runtime.stats.ticks > goal["tick"]
+
+    def verify(c: int, edited: dict) -> None:
+        live = s["live"][c] if c >= 0 else s["initial"]
+        rt = parse_graph.G.runtime
+        ix = next(e.index for e in rt.execs.values() if isinstance(e, ExternalIndexExec))
+        _prep, _c2, valid = ix.corpus.prepared_arrays("cosine", bf16=False)
+        check(valid.device.type == "cuda", f"the index's corpus is on {valid.device}")
+        check(int(valid.sum()) == len(live),
+              f"transaction {c}: the index holds {int(valid.sum())} valid rows, the table {len(live)}")
+        record["rows"].append(len(live))
+        record["capacity"].append(ix.corpus.capacity)
+        with lock:
+            check(doc_state == cdc_state, f"transaction {c}: the Debezium table differs from the SQLite reader's")
+            pairs = list(pair_state.values())
+        replies: dict[int, list] = {q: [] for q in qvecs}
+        for q, d, sc in pairs:
+            check(d is not None, f"transaction {c}: query {q} has no reply")
+            replies[q].append((d, sc))
+        dead = {d for _q, d, _s in pairs} - set(live)
+        check(not dead, f"transaction {c}: {len(dead)} deleted rows are in the replies")
+        plain = wi_plain(vecs, qvecs, np.array(sorted(live)), dev)
+        for q, got in replies.items():
+            got = tuple(sorted(got, key=lambda p: (-p[1], p[0])))
+            check(same_up_to_near_ties(got, plain[q], F32_TOL),
+                  f"transaction {c}: query {q}'s reply {got} differs from the plain top-{CDC_K} {plain[q]}")
+            exact = [d for d, _s in got] == [d for d, _s in plain[q]]
+            record["replies_exact"] += exact
+            record["near_ties"] += not exact
+            record["replies"] += 1
+            qn = qvecs[q] / np.linalg.norm(qvecs[q])
+            for d, sc in got:
+                if d in edited:  # scored by the new body's vector, not the old one's
+                    old, new = (v / np.linalg.norm(v) for v in (edited[d], vecs[d]))
+                    s_old, s_new = float(qn @ old) - 1.0, float(qn @ new) - 1.0
+                    check(abs(sc - s_new) <= F32_TOL and not np.array_equal(old, new),
+                          f"transaction {c}: edited row {d} scores {sc}; its new body {s_new}, its old {s_old}")
+                    record["edited_in_replies"] += 1
+
+    def drive(q_subject) -> None:
+        rt = parse_graph.G.runtime
+        try:
+            for q, text in enumerate(s["q_text"]):
+                q_subject.next(qid=q, text=text)
+            q_subject.commit()
+            wait_until(lambda: len(qvecs) == CDC_QUERIES and all(ended(g) for g in expect.values()),
+                       "the initial table in both sources", CDC_WAIT_S)
+            wait_until(lambda: sum(d is not None for _q, d, _s in list(pair_state.values())) == CDC_QUERIES * CDC_K,
+                       "the standing queries' replies", CDC_WAIT_S)
+            verify(-1, {})
+            writer = sqlite3.connect(src_db)  # the writer's own connection
+            for c, txn in enumerate(s["txns"]):
+                edited = {i: vecs[i].copy() for i, *_r in txn["edit"]}
+                goal = keyed(s["live"][c])
+                with lock:
+                    for g in expect.values():
+                        g.update(rows=goal, tick=None)
+                since = dict(rt.stats.node_ns)
+                t0 = _now()
+                cdc_apply(writer, txn)
+                cdc_publish(cdc_dir, f"{c + 1:06d}.jsonl", debezium_envelopes(txn=txn))
+                # commit -> the end of the tick that answered every standing query again
+                wait_until(lambda: ended(expect["docs"]), f"transaction {c} in the replies", CDC_WAIT_S)
+                record["update_s"].append(_now() - t0)
+                wait_until(lambda: ended(expect["cdc"]), f"transaction {c} in the Debezium table", CDC_WAIT_S)
+                record["ops"].append(operator_s(rt, since))
+                wid = record["writer_node"].id
+                record["writer_s"].append((rt.stats.node_ns.get(wid, 0) - since.get(wid, 0)) / 1e9)
+                t1 = _now()
+                verify(c, edited)
+                record["verify_s"] += _now() - t1
+            writer.close()
+        finally:
+            rt.stop()  # the SQLite and Debezium sources never end on their own
+
+    Idle, feeder, failure = driven_subjects(pw, drive)
+    t0 = _now()
+    emb = SentenceTransformerEmbedder(device=dev)
+    embedder_init_s = _now() - t0
+    vecs = np.zeros((CDC_DOCS + CDC_TXNS * CDC_INSERTS, emb.runtime.dim), dtype=np.float32)  # by doc_id
+    queries = pw.io.python.read(feeder, schema=QuerySchema, autocommit_duration_ms=None)
+    out = cdc_pipeline(pw, src_db, cdc_dir, queries, emb, emb.runtime.dim, {"device": dev.type}, reply_db)
+    record["writer_node"] = parse_graph.G.outputs[-1]  # pw.io.sqlite.write's
+    for table, into, goal in ((out["docs"], doc_state, expect["docs"]), (out["changes"], cdc_state, expect["cdc"])):
+        on_change, on_time_end = state_of(into, goal)
+        pw.io.subscribe(table, on_change=on_change, on_time_end=on_time_end)
+    pw.io.subscribe(out["embedded"], on_change=on_vec)
+    pw.io.subscribe(out["asked"], on_change=on_vec)
+    pw.io.subscribe(out["pairs"], on_change=on_pair)
+    # the host layers of the sources: the reader's snapshot and diff per
+    # change, the Debezium folder scan per file read
+    reader, scanner = out["docs"]._node.source, out["changes"]._node.source
+    poll, scan = reader._poll, scanner._scan
+
+    def timed_poll(conn):
+        sig, t = reader._data_version, _now()
+        poll(conn)
+        if reader._data_version != sig:
+            record["poll_s"].append(_now() - t)
+
+    def timed_scan():
+        n, t = sum(scanner._offsets.values()), _now()
+        scan()
+        if sum(scanner._offsets.values()) != n:
+            record["scan_s"].append(_now() - t)
+
+    reader._poll, scanner._scan = timed_poll, timed_scan
+    t_run = _now()
+    pw.run()  # raises if an operator recorded an error (a kernel failure included)
+    run_s = _now() - t_run
+    if failure:
+        raise failure[0]
+    rt = parse_graph.G.last_runtime
+    launches, shapes = bt.block_topk.launches, dict(bt.block_topk.shapes)
+    check(launches >= CDC_TXNS and set(shapes) == {(CDC_QUERIES, CDC_K)},
+          f"block_topk launches {launches} by shape {shapes}")
+    check(emb.runtime.device.type == "cuda", f"the embedder ran on {emb.runtime.device}")
+    check(len(record["update_s"]) == CDC_TXNS, f"{len(record['update_s'])} of {CDC_TXNS} transactions ran")
+    # the replies as pw.io.sqlite.write left them: __key__ is the row key's signed form
+    written = {key: (q, d, sc) for q, d, sc, key in sqlite_rows(reply_db, "replies")}
+    final = {signed64(k): v for k, v in pair_state.items()}
+    check(set(written) == set(final), f"{len(written)} replies read back from SQLite, {len(final)} subscribed; "
+          f"{len(set(final) - set(written))} missing, {len(set(written) - set(final))} unexpected")
+    check(all(written[k][:2] == v[:2] and abs(written[k][2] - v[2]) <= F32_TOL for k, v in final.items()),
+          "the replies read back from SQLite differ from the subscribed ones")
+    ix = next(e.index for e in rt.execs.values() if isinstance(e, ExternalIndexExec))
+    prep, _c2, valid = ix.corpus.prepared_arrays("cosine", bf16=False)
+    qs = torch.tensor(np.stack([qvecs[q] for q in sorted(qvecs)]), device=prep.device)
+    qs = (qs / qs.norm(dim=-1, keepdim=True)).to(prep.dtype)
+    parse_graph.G.clear()
+    static = pw.io.sqlite.read(src_db, "documents", schema=out["schema"], mode="static")
+    keys, cols = pw.debug.table_to_dicts(static)
+    got = {int(k): (cols["doc_id"][k], cols["topic"][k], cols["body"][k]) for k in keys}
+    check(got == doc_state, f"a static read of the table ({len(got)} rows) differs from the streaming table's "
+          f"final state ({len(doc_state)} rows)")
+    parse_graph.G.clear()
+    upd = [x * 1e3 for x in record["update_s"]]
+    by_type = operator_s(rt)
+    phase = {
+        "phase": "cdc index",
+        "nvidia_smi": smi,
+        "docs": CDC_DOCS,
+        "transactions": CDC_TXNS,
+        "per_transaction": {"inserts": CDC_INSERTS, "edits": CDC_EDITS, "deletes": CDC_DELETES},
+        "queries": CDC_QUERIES,
+        "k": CDC_K,
+        "update_to_visible_ms": {"p50": float(np.percentile(upd, 50)), "max": float(np.max(upd)), "n": len(upd)},
+        "first_reply_s": record["first_reply"] - t_run,
+        "sqlite_poll_s": {"p50": float(np.percentile(record["poll_s"], 50)), "max": float(np.max(record["poll_s"])),
+                          "n": len(record["poll_s"])},
+        "debezium_scan_s": {"p50": float(np.percentile(record["scan_s"], 50)),
+                            "max": float(np.max(record["scan_s"])), "n": len(record["scan_s"])},
+        "sqlite_writer_s_by_transaction": record["writer_s"],
+        "operator_s": by_type,
+        "update_tick_operator_s_p50_transaction": record["ops"][CDC_TXNS // 2],
+        "index_rows_by_transaction": record["rows"],
+        "index_capacity_by_transaction": record["capacity"],
+        "replies_compared": record["replies"],
+        "replies_keys_equal_plain": record["replies_exact"],
+        "near_ties": record["near_ties"],
+        "edited_rows_in_replies": record["edited_in_replies"],
+        "replies_written": len(written),
+        "ticks": rt.stats.ticks,
+        "block_topk_launches": launches,
+        "block_topk_launches_by_shape": {f"B={b},k={k}": n for (b, k), n in sorted(shapes.items())},
+        "embedder_device": str(emb.runtime.device),
+        "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "embedder_init_s": embedder_init_s,
+        "run_s": run_s,
+        "verify_s": record["verify_s"],
+        "phase_s": _now() - t_phase,
+    }
+    shutil.rmtree(work, ignore_errors=True)
+    return phase, {"prep": prep, "valid": valid, "queries": {CDC_QUERIES: qs}, "launches": launches,
+                   "shapes": shapes}
+
+
+# --- phase 13: replication ----------------------------------------------------
 
 
 class ReplicaChild:
@@ -4492,6 +4975,7 @@ def replication(dev, smi: str, vs_data: dict) -> tuple[dict, dict]:
     from pathway_tpu_torch.generate.serving import assemble_prompt
     from pathway_tpu_torch.internals import parse_graph
     from pathway_tpu_torch.observability import REGISTRY
+    from pathway_tpu_torch.xpacks.llm import decoder as dec
     from pathway_tpu_torch.ops.knn import dense_topk
     from pathway_tpu_torch.parallel import replicate
     from pathway_tpu_torch.persistence.backends import FilesystemStore
@@ -4796,26 +5280,30 @@ def replication(dev, smi: str, vs_data: dict) -> tuple[dict, dict]:
         wait_until(lambda: gen_router.endpoints[0].ready, "the generation router", timeout=60)
         sched = DecodeScheduler(GenerateConfig(), replica_label="repl-ref", device=dev)
         gen_equal, gen_ms = 0, []
-        for i in range(REPL_ASKS):
-            prompt = f"ask {i} about the corpus"
-            t1 = time.perf_counter()
-            st, _h, body = http_json(gen_router.port, "POST", "/generate",
-                                     {"prompt": prompt, "vec": queries[i].tolist(), "k": 3,
-                                      "max_tokens": REPL_GEN_TOKENS, "seed": i},
-                                     headers={"x-pathway-deadline-ms": str(REPL_DEADLINE_MS)})
-            gen_ms.append((time.perf_counter() - t1) * 1e3)
-            check(st == 200, f"/generate through the router answered {st}: {body}")
-            retrieved = tuple((int(a), float(b)) for a, b in body["retrieved"])
-            check(same_up_to_near_ties(retrieved, plain(queries[i], 3)[0], REPL_TOL),
-                  f"ask {i} retrieved {retrieved}")
-            tokens = encode_text(assemble_prompt(prompt, body["retrieved"]))
-            ref = GenerationRequest(f"ref-{i}", tokens[: sched.config.max_len - REPL_GEN_TOKENS],
-                                    deadline=time.monotonic() + 120, max_new_tokens=REPL_GEN_TOKENS, seed=i)
-            sched.submit(ref)
-            res = ref.wait(120)
-            check(res is not None and res["status"] == 200, f"the in-process scheduler answered {res}")
-            check(res["tokens"] == body["tokens"], f"ask {i}: /generate {body['tokens']}, in process {res['tokens']}")
-            gen_equal += 1
+        # the same asks decode in process with the same tokens as replica
+        # 1's: one of their steps is the paged kernel's /generate shape
+        with StepRecorder(dec) as recorder:
+            for i in range(REPL_ASKS):
+                prompt = f"ask {i} about the corpus"
+                t1 = time.perf_counter()
+                st, _h, body = http_json(gen_router.port, "POST", "/generate",
+                                         {"prompt": prompt, "vec": queries[i].tolist(), "k": 3,
+                                          "max_tokens": REPL_GEN_TOKENS, "seed": i},
+                                         headers={"x-pathway-deadline-ms": str(REPL_DEADLINE_MS)})
+                gen_ms.append((time.perf_counter() - t1) * 1e3)
+                check(st == 200, f"/generate through the router answered {st}: {body}")
+                retrieved = tuple((int(a), float(b)) for a, b in body["retrieved"])
+                check(same_up_to_near_ties(retrieved, plain(queries[i], 3)[0], REPL_TOL),
+                      f"ask {i} retrieved {retrieved}")
+                tokens = encode_text(assemble_prompt(prompt, body["retrieved"]))
+                ref = GenerationRequest(f"ref-{i}", tokens[: sched.config.max_len - REPL_GEN_TOKENS],
+                                        deadline=time.monotonic() + 120, max_new_tokens=REPL_GEN_TOKENS, seed=i)
+                sched.submit(ref)
+                res = ref.wait(120)
+                check(res is not None and res["status"] == 200, f"the in-process scheduler answered {res}")
+                check(res["tokens"] == body["tokens"], f"ask {i}: /generate {body['tokens']}, in process {res['tokens']}")
+                gen_equal += 1
+        check(recorder.step is not None, f"the in-process asks took {recorder.calls} decode steps")
         kernels = [kernels_before_kill] + [http_json(p, "GET", "/replica/kernels")[2] for p in ports]
         # the rows each replica's kernel scans: its corpus grows by
         # doubling from the index's reservation as hydration re-upserts
@@ -4909,10 +5397,11 @@ def replication(dev, smi: str, vs_data: dict) -> tuple[dict, dict]:
         q[0] = torch.from_numpy(queries[0]).to(prep.device, prep.dtype)
         batch[b] = q
     return phase, {"prep": prep, "valid": valid, "shapes": shapes, "queries": batch,
-                   "paged_launches": sum(kern["paged_attention"] for kern in kernels)}
+                   "paged_launches": sum(kern["paged_attention"] for kern in kernels),
+                   "generate_step": recorder.step}
 
 
-# --- phase 13: generation -----------------------------------------------------
+# --- phase 14: generation -----------------------------------------------------
 
 
 class StepRecorder:
@@ -5185,7 +5674,7 @@ def generation(dev, main: dict) -> tuple[dict, dict]:
     }
 
 
-# --- phase 14: durability -----------------------------------------------------
+# --- phase 15: durability -----------------------------------------------------
 
 
 def kill_child(prompts_path: str) -> int:
@@ -5535,11 +6024,11 @@ def durability(dev, gen: dict) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-# --- phase 15: kernel times ---------------------------------------------------
+# --- phase 16: kernel times ---------------------------------------------------
 
 
 def kernel_times(main: dict, eng: dict, vs: dict, rest: dict, persist: dict, ik: dict, cc: dict,
-                 lc: dict, wi: dict, rep: dict, gen: dict, rate: float, rate_src: str) -> list[dict]:
+                 lc: dict, wi: dict, cdc: dict, rep: dict, gen: dict, rate: float, rate_src: str) -> list[dict]:
     from pathway_tpu_torch.ops import block_topk as bt
     from pathway_tpu_torch.ops.knn import BLK, _normalize
 
@@ -5586,6 +6075,10 @@ def kernel_times(main: dict, eng: dict, vs: dict, rest: dict, persist: dict, ik:
         # the windowed index's standing queries, on its corpus at the end
         (b, k, wi["queries"][b], n, "windowed index", (wi["prep"], wi["valid"]))
         for (b, k), n in sorted(wi["shapes"].items())
+    ] + [
+        # the CDC-fed index's standing queries, on its corpus at the end
+        (b, k, cdc["queries"][b], n, "cdc index", (cdc["prep"], cdc["valid"]))
+        for (b, k), n in sorted(cdc["shapes"].items())
     ] + [
         # the replica children's reads (k = 10) and /generate's retrieval
         # (k = 3), each one search on the writer's corpus
@@ -5656,6 +6149,8 @@ def kernel_times(main: dict, eng: dict, vs: dict, rest: dict, persist: dict, ik:
         "live_classify_launches_by_shape": {f"B={b},k={k}": n for (b, k), n in sorted(lc["shapes"].items())},
         "windowed_index_launches": wi["launches"],
         "windowed_index_launches_by_shape": {f"B={b},k={k}": n for (b, k), n in sorted(wi["shapes"].items())},
+        "cdc_index_launches": cdc["launches"],
+        "cdc_index_launches_by_shape": {f"B={b},k={k}": n for (b, k), n in sorted(cdc["shapes"].items())},
         "replication_launches": sum(rep["shapes"].values()),
         "replication_launches_by_shape": {f"B={b},k={k}": n for (b, k), n in sorted(rep["shapes"].items())},
         "max_abs_err": max(p["max_abs_err"] for p in per_batch),
@@ -5720,6 +6215,9 @@ def paged_shape_times(label: str, q, k, v, pt, sl, sm_scale: float, rate: float)
 def paged_kernel_times(gen: dict, rep: dict, rate: float, rate_src: str) -> dict:
     q, k, v, pt, sl = layer_inputs(gen["step"])
     shapes = [paged_shape_times("main path (recorded step, layer 0)", q, k, v, pt, sl, 1.0, rate)]
+    # /generate on replica 1: the same asks' decode step, recorded in process
+    shapes.append(paged_shape_times("/generate on a replica (recorded step, layer 0)",
+                                    *layer_inputs(rep["generate_step"]), 1.0, rate))
     # long context: 32 sequences of 2048 tokens over 4096 scattered pages
     dev = q.device
     g = torch.Generator(device=dev).manual_seed(SEED + 5)
@@ -5808,13 +6306,15 @@ def main() -> int:
     emit(phase)
     phase, wi_data = windowed_index(dev, smi)
     emit(phase)
+    phase, cdc_data = cdc_index(dev, smi)
+    emit(phase)
     phase, repl_data = replication(dev, smi, vs_data)
     emit(phase)
     phase, gen_data = generation(dev, main_data)
     emit(phase)
     emit(durability(dev, gen_data))
     kernels = kernel_times(main_data, engine_data, vs_data, rest_data, persist_data, ik_data, cc_data,
-                           lc_data, wi_data, repl_data, gen_data, rate, rate_src) + [
+                           lc_data, wi_data, cdc_data, repl_data, gen_data, rate, rate_src) + [
         paged_kernel_times(gen_data, repl_data, rate, rate_src)
     ]
     emit({"phase": "kernels", "kernels": kernels})

@@ -8,7 +8,6 @@ from __future__ import annotations
 COMPILED_TICKS = "[compiled-ticks] (compiled ticks)"
 MESH = "[mesh] (multi-device: engine mesh, DCN, sharded top-k)"
 REPLICATION = "[replication] (parallel/standby.py and parallel/supervisor.py)"
-CONNECTORS = "[connectors] (service connectors)"
 OBSERVABILITY = "[observability] (the rest of observability)"
 STDLIB_REST = "[stdlib-rest] (graphs, viz)"
 

@@ -1,15 +1,44 @@
-"""pw.io — the connectors the port carries: the file connectors ``pw.io.fs``,
-``csv``, ``jsonlines``, ``plaintext`` and ``null`` (with offsets the
-persistence glue seeks), ``pw.io.python`` (a ``ConnectorSubject`` feeding a
-streaming table), ``pw.io.http`` (the REST connector and the HTTP client) and
-``pw.io.subscribe``. Counterpart of ``pathway_tpu/io/__init__.py``; the
-service connectors are not ported (ROADMAP [connectors]) and raise
-``NotImplementedError`` when asked for."""
+"""pw.io — every connector of ``pathway_tpu/io/__init__.py``: the file
+connectors ``pw.io.fs``, ``csv``, ``jsonlines``, ``plaintext`` and ``null``,
+``pw.io.python`` (a ``ConnectorSubject`` feeding a streaming table),
+``pw.io.http`` (the REST connector and the HTTP client), ``pw.io.subscribe``
+and the service connectors (sqlite, debezium, kafka/redpanda, nats,
+postgres, the sinks, s3/minio, deltalake, iceberg and the source readers).
+Each service connector imports its client library, pyarrow or fsspec inside
+the call that needs it, never here."""
 
 from __future__ import annotations
 
-from pathway_tpu_torch._unported import CONNECTORS, unported
-from pathway_tpu_torch.io import csv, fs, http, jsonlines, null, plaintext, python
+from pathway_tpu_torch.io import (
+    airbyte,
+    bigquery,
+    csv,
+    debezium,
+    deltalake,
+    elasticsearch,
+    fs,
+    gdrive,
+    http,
+    iceberg,
+    jsonlines,
+    kafka,
+    logstash,
+    minio,
+    mongodb,
+    nats,
+    null,
+    plaintext,
+    postgres,
+    pubsub,
+    pyfilesystem,
+    python,
+    redpanda,
+    s3,
+    s3_csv,
+    sharepoint,
+    slack,
+    sqlite,
+)
 from pathway_tpu_torch.io._subscribe import (
     OnChangeCallback,
     OnFinishCallback,
@@ -21,25 +50,33 @@ __all__ = [
     "CsvParserSettings",
     "OnChangeCallback",
     "OnFinishCallback",
+    "airbyte",
+    "bigquery",
     "csv",
+    "debezium",
+    "deltalake",
+    "elasticsearch",
     "fs",
+    "gdrive",
     "http",
+    "iceberg",
     "jsonlines",
+    "kafka",
+    "logstash",
+    "minio",
+    "mongodb",
+    "nats",
     "null",
     "plaintext",
+    "postgres",
+    "pubsub",
+    "pyfilesystem",
     "python",
+    "redpanda",
+    "s3",
+    "s3_csv",
+    "sharepoint",
+    "slack",
+    "sqlite",
     "subscribe",
 ]
-
-_REFERENCE_CONNECTORS = {
-    "airbyte", "bigquery", "debezium", "deltalake", "elasticsearch",
-    "gdrive", "iceberg", "kafka", "logstash", "minio", "mongodb", "nats",
-    "postgres", "pubsub", "pyfilesystem", "redpanda", "s3", "s3_csv",
-    "sharepoint", "slack", "sqlite",
-}
-
-
-def __getattr__(name: str):
-    if name in _REFERENCE_CONNECTORS:
-        raise unported(f"pw.io.{name}", CONNECTORS)
-    raise AttributeError(name)

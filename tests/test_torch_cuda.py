@@ -4,7 +4,9 @@ plain version ``block_topk_ref`` and the index's default path through it;
 ``kernel="cuda"`` against ``"ref"``, and the decode scheduler's default path
 through the kernel; the pipelines of ``chip_smoke.py`` at small sizes, the
 windowed index among them (its replies against the plain top-k over the
-live documents of ``chip_smoke.wi_oracle``).
+live documents of ``chip_smoke.wi_oracle``) and the CDC-fed index (a
+SQLite table streamed into ``TpuKnn``, its replies against the plain
+top-k over the table's rows after every transaction).
 
 These tests need an NVIDIA card (marker ``cuda``) and skip without one. On
 the card they run without the JAX package, so this file imports no JAX and
@@ -891,6 +893,51 @@ def test_windowed_index_on_the_card_matches_the_plain_topk(dev, fresh_graph):
         return sorted((t, d, k, tuple(sorted(r.items()))) for t, d, k, r in events)
 
     assert plain(got["windows"]) == plain(cpu["windows"]) and plain(got["counts"]) == plain(cpu["counts"])
+
+
+# --- the CDC-fed index: a SQLite table streamed into TpuKnn on the card ---------
+
+
+def test_cdc_index_on_the_card_matches_the_plain_topk(dev, fresh_graph, tmp_path):
+    """``chip_smoke.cdc_pipeline`` at a small size (320 rows, 4
+    transactions of 24 inserts, 12 body edits and 12 deletes, 6 standing
+    queries, k = 10, a 2-layer 32-wide float32 encoder) with TpuKnn on the
+    card: after the load and every transaction each reply equals the plain
+    top-k (an f32 matmul and torch.topk on the card) over the table's rows,
+    no reply names a deleted row, the Debezium table equals the SQLite
+    reader's; the replies read back from SQLite equal the subscribed ones,
+    and a static read equals the final table."""
+    from chip_smoke import CDC_K, cdc_stream, signed64
+    from torch_parity import cdc_run
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.ops import block_topk as bt
+    from pathway_tpu_torch.xpacks.llm.embedders import SentenceTransformerEmbedder
+
+    s = cdc_stream(7, 320, 4, 24, 12, 12, 5, 6)
+    emb = SentenceTransformerEmbedder(dim=32, depth=2, heads=2, max_len=64, device="cuda")
+    emb.runtime.model.dtype = torch.float32
+    before = bt.block_topk.launches
+    got = cdc_run(pw, str(tmp_path), s, emb, 32, {"device": "cuda"})
+    assert bt.block_topk.launches >= before + len(s["txns"])  # every standing query again per change
+    qs = sorted(got["qvecs"])
+    q = torch.tensor(np.stack([got["qvecs"][x] for x in qs]), dtype=torch.float32, device=dev)
+    q = q / q.norm(dim=-1, keepdim=True)
+    for c, snap in enumerate(got["snaps"]):
+        live = np.array(sorted(s["live"][c - 1] if c else s["initial"]))
+        assert snap["changes"] == snap["docs"] and sorted(r[0] for r in snap["docs"].values()) == live.tolist()
+        m = torch.tensor(np.stack([snap["vecs"][int(i)] for i in live]), dtype=torch.float32, device=dev)
+        m = m / m.norm(dim=-1, keepdim=True)
+        sc, ix = torch.topk(q @ m.T, CDC_K, dim=-1)
+        sc, ix = sc.double().cpu().numpy() - 1.0, ix.cpu().numpy()
+        for r, qq in enumerate(qs):
+            reply = sorted(((d, x) for qid, d, x in snap["pairs"].values() if qid == qq), key=lambda p: -p[1])
+            assert [d for d, _x in reply] == [int(live[j]) for j in ix[r]], (c, qq)
+            np.testing.assert_allclose([x for _d, x in reply], sc[r], atol=1e-5, rtol=0)
+    final = got["snaps"][-1]
+    assert {key: (qq, d, x) for qq, d, x, key in got["written"]} == {
+        signed64(key): v for key, v in final["pairs"].items()}
+    assert got["static"] == final["docs"]
 
 
 def _replica_child(env_extra: dict):

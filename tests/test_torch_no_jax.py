@@ -24,7 +24,12 @@ needs pandas only when its operator runs. The temporal operators
 (``pw.temporal``, ``.dt``, ``pw.ordered``, ``pw.stateful``,
 ``pw.statistical``) import with ``pandas`` blocked, and windows under a
 behavior and the interval and asof joins over int times run without
-loading it. Without a card, an entry point left on its default device raises
+loading it. Every connector of ``pw.io`` imports with pyarrow, fsspec,
+pandas, ``requests`` and every broker, database and cloud client blocked,
+none imports one at module level, and the card's CDC path (a SQLite table
+streamed through the embedder into ``TpuKnn``, the replies written back
+with ``pw.io.sqlite.write``, the Debezium stream read beside it) runs with
+all of them blocked. Without a card, an entry point left on its default device raises
 instead of falling back to the CPU."""
 
 import ast
@@ -50,6 +55,11 @@ BLOCKED_WITH_CLIENTS = BLOCKED_WITH_PANDAS + CLIENTS
 BLOCKED_WITH_FSSPEC = BLOCKED_WITH_PANDAS + ("fsspec",)
 # packages the last slice imports only inside the calls that need them
 BLOCKED_WITH_ML = BLOCKED_WITH_PANDAS + ("yaml", "pyarrow", "sklearn")
+# the clients, lake and object-store libraries the connectors import only
+# inside the calls that need them (the ``google`` namespace is checked in
+# the sources only, as above)
+CONNECTOR_CLIENTS = ("confluent_kafka", "nats", "pymongo", "psycopg2", "psycopg", "googleapiclient", "s3fs", "fs")
+BLOCKED_WITH_CONNECTOR_CLIENTS = BLOCKED_WITH_CLIENTS + ("pyarrow", "fsspec") + CONNECTOR_CLIENTS
 # modules that may import pandas at module level: none (the ``.dt``
 # namespace, the reference's one such module, imports it inside its methods)
 PANDAS_MODULES: set[str] = set()
@@ -308,6 +318,40 @@ PERSISTENCE_MODULES = [
     "pathway_tpu_torch.io.null",
     "pathway_tpu_torch.io.plaintext",
 ]
+
+# every connector of pw.io: each imports with the lake, object-store and
+# service clients blocked
+CONNECTOR_MODULES = ["pathway_tpu_torch.io"] + [
+    f"pathway_tpu_torch.io.{name}" for name in (
+        "airbyte", "bigquery", "debezium", "deltalake", "elasticsearch", "gdrive", "iceberg", "kafka",
+        "logstash", "minio", "mongodb", "nats", "postgres", "pubsub", "pyfilesystem", "redpanda", "s3",
+        "s3_csv", "sharepoint", "slack", "sqlite")
+]
+
+# the card's CDC path at a small size, on the CPU: chip_smoke.cdc_pipeline
+# through tests/torch_parity.cdc_run, with the connector clients blocked
+_CDC_RUN = """
+import sys, tempfile
+for name in {blocked!r}:
+    sys.modules[name] = None
+sys.path.insert(0, "tests")
+import torch
+import pathway_tpu_torch as pw
+from chip_smoke import cdc_stream, signed64
+from pathway_tpu_torch.xpacks.llm.embedders import SentenceTransformerEmbedder
+from torch_parity import cdc_run
+
+s = cdc_stream(3, 64, 2, 8, 4, 4, 3, 3)
+emb = SentenceTransformerEmbedder(dim=16, depth=1, heads=2, max_len=32, device="cpu")
+got = cdc_run(pw, tempfile.mkdtemp(), s, emb, 16, {{"device": "cpu"}})
+final = got["snaps"][-1]
+assert len(got["snaps"]) == 3 and final["changes"] == final["docs"] and got["static"] == final["docs"]
+assert sorted(r[0] for r in final["docs"].values()) == sorted(s["live"][-1])
+assert {{key: (q, d, x) for q, d, x, key in got["written"]}} == {{signed64(k): v for k, v in final["pairs"].items()}}
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in {blocked!r} and sys.modules[m])
+assert not leaked, leaked
+print("ok")
+"""
 
 # the rest of the Table API: each imports with pandas blocked
 CORE_API_MODULES = [
@@ -693,6 +737,24 @@ def test_persistence_module_imports_without_jax_pandas_or_fsspec(persistence_imp
 
 
 @pytest.fixture(scope="module")
+def connectors_imported_with_clients_blocked():
+    r = _run(_IMPORT_EACH, blocked=BLOCKED_WITH_CONNECTOR_CLIENTS, mods=CONNECTOR_MODULES)
+    assert r.returncode == 0, r.stderr
+    return set(json.loads(r.stdout.strip().splitlines()[-1]))
+
+
+@pytest.mark.parametrize("mod", CONNECTOR_MODULES)
+def test_connector_module_imports_without_its_clients(connectors_imported_with_clients_blocked, mod):
+    assert mod in connectors_imported_with_clients_blocked
+
+
+def test_cdc_path_runs_with_the_connector_clients_blocked():
+    r = _run(_CDC_RUN, blocked=BLOCKED_WITH_CONNECTOR_CLIENTS)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip().endswith("ok")
+
+
+@pytest.fixture(scope="module")
 def core_api_imported_with_pandas_blocked():
     r = _run(_IMPORT_EACH, blocked=BLOCKED_WITH_PANDAS, mods=CORE_API_MODULES)
     assert r.returncode == 0, r.stderr
@@ -817,7 +879,7 @@ def test_no_port_module_imports_a_client_at_module_level():
     offenders = {
         str(p.relative_to(ROOT))
         for p in list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-        if _module_level_roots(p) & {*CLIENTS, "google", "fsspec"}
+        if _module_level_roots(p) & {*CLIENTS, *CONNECTOR_CLIENTS, "google", "fsspec", "pyarrow"}
     }
     assert not offenders, offenders
 

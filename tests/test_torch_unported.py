@@ -2,7 +2,7 @@
 ``NotImplementedError`` naming its ROADMAP tag, instead of running
 without it: compiled ticks, engine shards, the multi-process engine (DCN),
 the standby writer and the process-group supervisor of replication, the
-device mesh's names in ``parallel``, ``mesh=``, the service connectors,
+device mesh's names in ``parallel``, ``mesh=``,
 the observability routes of the read plane (501 naming [observability]),
 every root name of the reference the port lacks (``pw.graphs``,
 ``pw.viz``),
@@ -100,8 +100,9 @@ def test_tpu_knn_mesh_raises():
         (lambda t: t.interval_join(t.copy(), t.a, t.a, pw.temporal.interval(-1, 1)), None),
         (lambda t: t.diff(t.a, t.a), None),
         (lambda t: t.b.dt, None),
-        # the file connectors are ported: the case holds a service connector
-        (lambda t: pw.io.kafka, r"\[connectors\]"),
+        # the connectors are ported ([connectors] is gone): a service
+        # connector gives the port's own table
+        (lambda t: pw.io.debezium.read(input_dir="unused", schema=pw.schema_from_types(a=int, b=str)), None),
         (lambda t: pw.run(with_http_server=True), r"\[observability\]"),
         (lambda t: pw.stdlib.graphs, r"\[stdlib-rest\]"),
     ],
@@ -369,6 +370,27 @@ def test_ml_rest_raises_with_its_tag(name):
 
     assert not hasattr(_unported, "ML_REST")
     _same_api(getattr(jpw.stdlib.ml, name), getattr(pw.stdlib.ml, name), f"pw.stdlib.ml.{name}")
+
+
+# the service connectors of ``pw.io`` that raised [connectors] until the port
+# carried them: each is a module with the reference's public names and
+# signatures
+CONNECTORS = [
+    "airbyte", "bigquery", "debezium", "deltalake", "elasticsearch", "gdrive", "iceberg", "kafka",
+    "logstash", "minio", "mongodb", "nats", "postgres", "pubsub", "pyfilesystem", "redpanda", "s3",
+    "s3_csv", "sharepoint", "slack", "sqlite",
+]
+
+
+@pytest.mark.parametrize("name", CONNECTORS)
+def test_ported_connector_has_the_reference_signature(name):
+    import pathway_tpu as jpw
+    from pathway_tpu_torch import _unported
+
+    assert not hasattr(_unported, "CONNECTORS") and name in pw.io.__all__
+    port = getattr(pw.io, name)
+    assert port.__name__ == f"pathway_tpu_torch.io.{name}"
+    _same_api(getattr(jpw.io, name), port, f"pw.io.{name}")
 
 
 # the names ``pw.debug`` raised [core-api] for until the port carried them

@@ -174,3 +174,123 @@ def wi_tables(pw, s):
         for c in range(s["commits"])
     ]
     return gen.table_from_list_of_batches(batches, Doc), gen.table_from_list_of_batches(asked, Query)
+
+
+# --- the cdc-index slice of chip_smoke.py --------------------------------------
+
+
+def cdc_run(pw, workdir, s, emb, dim, knn_kw, timeout=60.0):
+    """``chip_smoke.cdc_pipeline`` over a ``chip_smoke.cdc_stream`` ``s``:
+    the table and its Debezium snapshot are written under ``workdir``, the
+    standing queries come from a static table, a writer thread (its own
+    SQLite connection) commits each transaction and publishes its
+    envelopes. After the initial load and after every transaction, once
+    both sources reached the table's state and that tick ended, it records
+    (the SQLite table's state, the Debezium table's, the replies) as {key:
+    row} dicts, and the vectors by doc_id. Returns those snapshots, the
+    query vectors, the replies read back from SQLite and a static read of
+    the table."""
+    import os
+    import sqlite3
+    import threading
+    import time
+
+    from chip_smoke import (CDC_K, cdc_apply, cdc_create, cdc_pipeline, cdc_publish, debezium_envelopes,
+                            sqlite_rows)
+
+    api = __import__(pw.__name__ + ".internals.api", fromlist=["ref_scalar"])
+    src_db, reply_db, cdc_dir = (os.path.join(workdir, n) for n in ("documents.db", "replies.db", "cdc"))
+    os.makedirs(cdc_dir)
+    cdc_create(src_db, s["initial"])
+    cdc_publish(cdc_dir, "000000.jsonl", debezium_envelopes(rows=s["initial"]))
+
+    class Query(pw.Schema):
+        qid: int = pw.column_definition(primary_key=True)
+        text: str
+
+    queries = pw.debug.table_from_rows(Query, list(enumerate(s["q_text"])))
+    tables = cdc_pipeline(pw, src_db, cdc_dir, queries, emb, dim, knn_kw, reply_db)
+
+    def keyed(rows):
+        return {int(api.ref_scalar(i)): (i, *r) for i, r in rows.items()}
+
+    lock = threading.Lock()
+    states = {"docs": {}, "changes": {}, "pairs": {}}
+    goals = {"docs": {"rows": keyed(s["initial"]), "tick": None},
+             "changes": {"rows": keyed(s["initial"]), "tick": None}}
+    vecs, qvecs, snaps, failure = {}, {}, [], []
+
+    def subscribe(part, values):
+        def on_change(key, row, time, is_addition):
+            vals = values(row)
+            with lock:
+                if is_addition:
+                    states[part][int(key)] = vals
+                elif states[part].get(int(key)) == vals:
+                    del states[part][int(key)]
+
+        def on_time_end(_t):
+            goal = goals.get(part)
+            with lock:
+                if goal is not None and goal["tick"] is None and states[part] == goal["rows"]:
+                    goal["tick"] = pw.internals.parse_graph.G.runtime.stats.ticks
+
+        pw.io.subscribe(tables[part], on_change=on_change, on_time_end=on_time_end)
+
+    for part in ("docs", "changes"):
+        subscribe(part, lambda r: (r["doc_id"], r["topic"], r["body"]))
+    subscribe("pairs", lambda r: (r["qid"], r["doc_id"], r["score"]))
+    pw.io.subscribe(tables["embedded"], on_change=lambda key, row, time, is_addition:
+                    is_addition and vecs.__setitem__(row["doc_id"], np.asarray(row["vec"], dtype=np.float64)))
+    pw.io.subscribe(tables["asked"], on_change=lambda key, row, time, is_addition:
+                    is_addition and qvecs.__setitem__(row["qid"], np.asarray(row["vec"], dtype=np.float64)))
+
+    def wait(cond, what):
+        end = time.time() + timeout
+        while not cond():
+            if time.time() > end:
+                raise AssertionError(f"timed out waiting for {what}")
+            time.sleep(0.005)
+
+    def settled():
+        rt = pw.internals.parse_graph.G.runtime
+        return all(g["tick"] is not None and rt.stats.ticks > g["tick"] for g in goals.values())
+
+    def snapshot():
+        with lock:
+            snaps.append({**{part: dict(state) for part, state in states.items()}, "vecs": dict(vecs)})
+
+    def drive():
+        try:
+            wait(lambda: pw.internals.parse_graph.G.runtime is not None, "the run")
+            n_replies = len(s["q_text"]) * min(CDC_K, len(s["initial"]))
+            wait(lambda: settled() and len(states["pairs"]) == n_replies
+                 and all(v[1] is not None for v in list(states["pairs"].values())), "the initial load")
+            snapshot()
+            writer = sqlite3.connect(src_db)
+            for c, txn in enumerate(s["txns"]):
+                with lock:
+                    for g in goals.values():
+                        g.update(rows=keyed(s["live"][c]), tick=None)
+                cdc_apply(writer, txn)
+                cdc_publish(cdc_dir, f"{c + 1:06d}.jsonl", debezium_envelopes(txn=txn))
+                wait(settled, f"transaction {c}")
+                snapshot()
+            writer.close()
+        except BaseException as e:  # noqa: BLE001 — re-raised after pw.run
+            failure.append(e)
+        finally:
+            rt = pw.internals.parse_graph.G.runtime
+            if rt is not None:
+                rt.stop()  # the SQLite and Debezium sources never end on their own
+
+    threading.Thread(target=drive, daemon=True).start()
+    pw.run()
+    if failure:
+        raise failure[0]
+    written = sqlite_rows(reply_db, "replies")
+    pw.internals.parse_graph.G.clear()
+    static = pw.io.sqlite.read(src_db, "documents", schema=tables["schema"], mode="static")
+    keys, cols = pw.debug.table_to_dicts(static)
+    read = {int(key): (cols["doc_id"][key], cols["topic"][key], cols["body"][key]) for key in keys}
+    return {"snaps": snaps, "qvecs": qvecs, "written": written, "static": read}
