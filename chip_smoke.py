@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from csrc/ (nvcc, sm_90a, one process per
-source, all started together), then runs sixteen phases, printing one JSON
+source, all started together), then runs seventeen phases, printing one JSON
 object per phase:
 
 1. device         — nvidia-smi name/power limit, toolchain versions, build seconds.
@@ -144,8 +144,9 @@ object per phase:
 8. index kinds    — the other index kinds on the card, in four parts.
                     (a) DocumentStore over HybridIndexFactory([TantivyBM25Factory(),
                     BruteForceKnnFactory(the phase-3 embedder, device="cuda")]):
-                    the vector store phase's documents (16 commits of 2048,
-                    Utf8Parser, TokenCountSplitter(20, 60)), 16 B = 1 and 1
+                    the first 16,384 of the vector store phase's documents
+                    (cut from 32,768; 8 commits of 2048, Utf8Parser,
+                    TokenCountSplitter(20, 60)), 16 B = 1 and 1
                     B = 16 queries (k = 10), then 4 live writes of 64
                     documents, each followed by a query for one of them.
                     Checked: every reply against a direct computation — the
@@ -191,9 +192,10 @@ object per phase:
                     scoring at least -0.08 (cosine 0.92), self-pairs dropped,
                     are edges; pw.iterate propagates the minimum label to a
                     fixpoint; pw.sql("SELECT label, COUNT(*) AS size FROM
-                    comps GROUP BY label") counts each component. Then 8
-                    commits of 256 new documents and 128 deletions (the middle
-                    variants of 64 families), each one tick. Checked after
+                    comps GROUP BY label") counts each component. Then 4
+                    commits (cut from 8) of 256 new documents and 128
+                    deletions (the middle variants of 64 families), each
+                    one tick. Checked after
                     every commit: the labels equal scipy's connected
                     components over the replies the engine emitted
                     (pw.io.subscribe), the sizes equal a bincount of the
@@ -296,7 +298,46 @@ object per phase:
                     engine's seconds per operator type, the index's rows and
                     capacity by transaction, launches per shape and peak
                     memory.
-13. replication   — the replicated read plane: this process is the writer (a
+13. compiled ticks — an event feed whose metadata decides what a live RAG
+                    index holds, with PATHWAY_COMPILED_TICK=1 and
+                    PATHWAY_COMPILED_DEVICE=cuda (``ct_chain``): 1,048,576
+                    seeded rows (doc_id, topic, ts, quality, flags, text) in
+                    16 commits of 65,536 through two pw.io.python subjects
+                    (one next() per row, keyed by the native hasher),
+                    concatenated after promise_are_pairwise_disjoint; a
+                    select (a float score and an int bucket) -> a filter on
+                    the flags and the score -> a select runs as one compiled
+                    segment headed by the ConcatNode (torch ops on the card,
+                    one host-to-device and one device-to-host copy a tick),
+                    and groupby(topic).reduce(count, sum, avg) over the
+                    32,768 survivors runs its partials through
+                    semigroup_partials on the card; the survivors' texts
+                    (synthetic_docs; the other rows carry a placeholder) go
+                    through the phase-3 embedder into
+                    TpuKnn(reserved_space=32768), which answers 256 standing
+                    queries (k = 10) again after every commit with
+                    block_topk (B = 256). Checked after every commit: the
+                    chain's rows equal numpy's (keys, diffs and ints exact,
+                    floats within CT_FLOAT_TOL), the groupby's counts and
+                    sums exact and its means within CT_PARTIALS_TOL, every
+                    reply equals the plain top-10 over the survivors so far
+                    (up to near ties), the index's valid rows equal the
+                    survivors so far, the segment compiled every chain tick
+                    on the card with no fallback; the partials ran once a
+                    commit; the native hasher is live and its keys equal
+                    the pure-Python ones. Then the same commits with
+                    PATHWAY_COMPILED_TICK=0 (chain and groupby only, equal
+                    results). Prints the chain's seconds per tick compiled
+                    and interpreted, the compile misses, hits and seconds,
+                    the segment's program and the partials timed alone
+                    (host ms, device and copy ms from torch.profiler, their
+                    bytes bounds at the memory rate and at the host link's
+                    64 GB/s, the interpreter's ms on the same tick), the
+                    feed's next() seconds, update-to-visible p50 / max, the
+                    first reply, ref_scalars_columns rows/s native and pure
+                    Python, the earlier phases' host figures the hasher
+                    should move, launches per shape and peak memory.
+14. replication   — the replicated read plane: this process is the writer (a
                     persisted DataIndex over TpuKnn(device="cuda") fed the
                     vector store phase's ~80k chunk vectors in 16 commits,
                     PATHWAY_REPL_PORT=0), two
@@ -316,7 +357,7 @@ object per phase:
                     the router, update-to-visible, failover statuses and
                     retries, re-admission s, cache hit p50, /generate TTFT and
                     tokens/s, each child's launches per shape and peak memory.
-14. generation    — ask -> retrieve -> generate: 24 asks are embedded and
+15. generation    — ask -> retrieve -> generate: 24 asks are embedded and
                     retrieved (k = 3) on the phase-3 index, each grounded prompt
                     goes to one DecodeScheduler(GenerateConfig()) at the decoder's
                     serving defaults (dim 128, 2 layers, 4 heads, head_dim 32,
@@ -326,7 +367,7 @@ object per phase:
                     back to empty, launches == decode steps x layers, the same
                     tokens from a kernel="ref" scheduler, and the logits of one
                     recorded step, kernel against plain.
-15. durability    — the same 24 prompts at the same width, with snapshots.
+16. durability    — the same 24 prompts at the same width, with snapshots.
                     A child process (this script with --kill-child) runs them
                     with PATHWAY_GENERATE_SNAPSHOT_EVERY=8, a store in a temp
                     dir and PATHWAY_FAULTS="kill=decode:150"; it must exit 23
@@ -343,7 +384,7 @@ object per phase:
                     segments per snapshot). Tokens are compared exactly; a
                     difference passes only at a near tie: the uninterrupted
                     run's top-2 logit margin there below GEN_LOGIT_TOL.
-16. kernels       — per kernel and per path shape: launches on its path, ms
+17. kernels       — per kernel and per path shape: launches on its path, ms
                     (CUDA events) and device ms (torch.profiler), its plain
                     version's ms, the bound and what sets it, the bytes it must
                     move, and the ms of the library call(s) computing the same
@@ -358,8 +399,9 @@ object per phase:
                     store's dense corpus, B = 16 on the 1M IVF ground truth,
                     every (B, k = 9) of the components phase on its corpus
                     and every (B, k = 3) of the live classify phase on its
-                    corpus, B = 256 (k = 10) of the windowed index and of the
-                    cdc index, each on its corpus at the end, and every (B,
+                    corpus, B = 256 (k = 10) of the windowed index, of the
+                    cdc index and of the compiled ticks' index, each on its
+                    corpus at the end, and every (B,
                     k) the replica children launched,
                     on the writer's corpus;
                     paged_attention: the
@@ -499,6 +541,11 @@ IK_B1 = 16
 # query on the host, ≈6 s a B = 16 tick
 IK_B16 = 1
 IK_LIVE_WRITES = 4
+# the hybrid store's documents: the first half of the vector store phase's,
+# cut from all 32,768 beside the compiled ticks phase to keep the smoke
+# under 950 s (BM25 and the embedder scale with the corpus); its dense
+# index keeps the vector store phase's capacity
+IK_HYBRID_DOCS = VS_DOCS // 2
 RRF_K = 60.0  # HybridIndexFactory's default
 IK_IVF_ROWS = 1_000_000
 IK_IVF_CENTRES = 2000
@@ -2863,9 +2910,10 @@ def check_fused(got: list[tuple[int, float]], bm: list, dense: list, dense_score
 
 def hybrid_store(dev) -> tuple[dict, dict]:
     """(a) DocumentStore over HybridIndexFactory([TantivyBM25Factory(),
-    BruteForceKnnFactory(the full-width embedder)]): the vector store
-    phase's documents in 16 commits of 2048, queries at B = 1 and B = 16,
-    live writes each followed by a query for one of their documents."""
+    BruteForceKnnFactory(the full-width embedder)]): the first
+    IK_HYBRID_DOCS of the vector store phase's documents in commits of
+    2048, queries at B = 1 and B = 16, live writes each followed by a query
+    for one of their documents."""
     import pathway_tpu_torch as pw
     from pathway_tpu_torch.engine.index_node import ExternalIndexExec
     from pathway_tpu_torch.internals import parse_graph
@@ -2887,8 +2935,16 @@ def hybrid_store(dev) -> tuple[dict, dict]:
     chunks_of = [[c for c, _m in splitter.split(d)] for d in docs]
     upto = np.cumsum([len(c) for c in chunks_of])
     capacity = -(-int(upto[-1]) // 1024) * 1024  # the vector store phase's
+
+    def chunks_through(i: int) -> int:
+        """Chunks the store holds once document i is in: the first
+        IK_HYBRID_DOCS documents, then the live writes' (ids from VS_DOCS)."""
+        if i < VS_DOCS:
+            return int(upto[i])
+        return int(upto[IK_HYBRID_DOCS - 1] + upto[i] - upto[VS_DOCS - 1])
+
     rng = np.random.default_rng(SEED + 13)
-    qdocs = [int(d) for d in rng.choice(VS_DOCS, size=IK_B1 + 16 * IK_B16, replace=False)]
+    qdocs = [int(d) for d in rng.choice(IK_HYBRID_DOCS, size=IK_B1 + 16 * IK_B16, replace=False)]
     live_targets = [VS_DOCS + t * VS_LIVE_DOCS + (t * 7) % VS_LIVE_DOCS for t in range(IK_LIVE_WRITES)]
     wanted = {chunks_of[d][0] for d in qdocs + live_targets}
 
@@ -3006,7 +3062,7 @@ def hybrid_store(dev) -> tuple[dict, dict]:
 
         bm25.search = timed_search
         stamps["ingest0"] = _now()
-        for lo in range(0, VS_DOCS, VS_COMMIT):
+        for lo in range(0, IK_HYBRID_DOCS, VS_COMMIT):
             for i in range(lo, lo + VS_COMMIT):
                 doc_subject.next(doc_id=i, data=docs[i].encode(), _metadata={"path": doc_path(i)})
             commit(doc_subject, lambda: len(dense_ix) >= upto[lo + VS_COMMIT - 1]
@@ -3032,7 +3088,7 @@ def hybrid_store(dev) -> tuple[dict, dict]:
             lo = VS_DOCS + t * VS_LIVE_DOCS
             for i in range(lo, lo + VS_LIVE_DOCS):
                 doc_subject.next(doc_id=i, data=docs[i].encode(), _metadata={"path": doc_path(i)})
-            tc = commit(doc_subject, lambda: len(dense_ix) >= upto[lo + VS_LIVE_DOCS - 1], "a live write")
+            tc = commit(doc_subject, lambda: len(dense_ix) >= chunks_through(lo + VS_LIVE_DOCS - 1), "a live write")
             ask(qs, [(qid, chunks_of[live_targets[t]][0])])
             record["update_ms"].append((replies[qid][0] - tc) * 1e3)
             record["live"].append((qid, live_targets[t], len(bm25.docs),
@@ -3053,7 +3109,7 @@ def hybrid_store(dev) -> tuple[dict, dict]:
         raise failure[0]
     launches, shapes = bt.block_topk.launches, dict(bt.block_topk.shapes)
     rt = parse_graph.G.last_runtime
-    n_chunks = int(upto[VS_DOCS + IK_LIVE_WRITES * VS_LIVE_DOCS - 1])
+    n_chunks = chunks_through(VS_DOCS + IK_LIVE_WRITES * VS_LIVE_DOCS - 1)
     check(len(text_of) == n_chunks, f"{len(text_of)} chunks indexed, {n_chunks} expected")
     key_of = {(path_of[k], t): k for k, t in text_of.items()}
     check(len(key_of) == len(text_of), "two chunks of one document share a text: replies cannot name them")
@@ -3096,7 +3152,8 @@ def hybrid_store(dev) -> tuple[dict, dict]:
         "chunks": n_chunks,
         "corpus_capacity": capacity,
         "ingest_s": ingest_s,
-        "ingest_chunks_per_s": int(upto[VS_DOCS - 1]) / ingest_s,
+        "ingest_chunks_per_s": int(upto[IK_HYBRID_DOCS - 1]) / ingest_s,
+        "docs": IK_HYBRID_DOCS,
         "reply_ms": {g: lat(rows) for g, rows in record["groups"].items()},
         "update_to_visible_ms": {"p50": float(np.percentile(record["update_ms"], 50)),
                                  "max": float(np.max(record["update_ms"])), "n": len(record["update_ms"])},
@@ -3579,7 +3636,7 @@ CC_K = 9  # neighbours per document, itself included
 # score = cosine - 1: the full-width seeded encoder puts neighbouring
 # variants of a family above this and unrelated documents below it
 CC_THRESHOLD = -0.08
-CC_COMMITS = 8
+CC_COMMITS = 4  # cut from 8 beside the compiled ticks phase to keep the smoke under 950 s
 CC_INSERTS = 256  # per commit: 32 new families
 CC_DELETES = 128  # per commit: variants 3 and 4 of 64 families
 
@@ -4852,7 +4909,533 @@ def cdc_index(dev, smi: str) -> tuple[dict, dict]:
                    "shapes": shapes}
 
 
-# --- phase 13: replication ----------------------------------------------------
+# --- phase 13: compiled ticks -------------------------------------------------
+
+CT_ROWS = 1 << 20
+CT_COMMITS = 16  # one tick each, of CT_ROWS // CT_COMMITS rows, alternating the two subjects
+CT_TOPICS = 64
+CT_SURVIVORS = 1 << 15  # rows that pass the filter in all: the index's reservation
+CT_QUERIES = 256  # standing queries, answered again on every commit
+CT_K = WI_K
+CT_T0 = 1_700_000_000  # event times: one day of seconds from here
+CT_SPAN = 86_400
+CT_TMID = CT_T0 + CT_SPAN // 2
+# the chain's floats against numpy's: the same float64 operations, one per
+# lowered node, so they come out equal; relative, the bound the check holds
+CT_FLOAT_TOL = 1e-12
+# the groupby's float partials: the card adds a group's scores in the order
+# its atomics land, numpy in row order; relative
+CT_PARTIALS_TOL = 1e-9
+CT_WAIT_S = 120.0
+# the card's host link, one direction (PCIe Gen5 x16): the copies' bound
+CT_LINK_BYTES_PER_S = 64e9
+CT_ENV = ("PATHWAY_COMPILED_TICK", "PATHWAY_COMPILED_DEVICE", "PATHWAY_COMPILED_GROUPBY",
+          "PATHWAY_COMPILED_MIN_ROWS")
+
+
+def ct_score(flags: np.ndarray, quality: np.ndarray, ts: np.ndarray) -> np.ndarray:
+    """The chain's score in numpy, operation by operation as ``ct_chain``
+    writes it."""
+    return np.where((flags & 4) == 4, quality * 1.25, quality) - np.abs(ts - CT_TMID).astype(np.float64) * 1e-7
+
+
+def ct_bucket(quality: np.ndarray, topic: np.ndarray) -> np.ndarray:
+    return (quality * 16.0).astype(np.int64) + topic * 16
+
+
+def ct_stream(seed: int, rows: int, commits: int, topics: int, survivors: int, queries: int) -> dict:
+    """A seeded event feed: doc_id (the primary key), topic, ts, quality,
+    flags and text per row; the score threshold that lets exactly
+    ``survivors`` rows through the filter (halfway between two scores);
+    the passing rows carry ``synthetic_docs`` texts, the others a
+    placeholder. Plus ``queries`` query texts."""
+    rng = np.random.default_rng(seed)
+    cols = {
+        "doc_id": np.arange(rows, dtype=np.int64),
+        "topic": rng.integers(0, topics, rows),
+        "ts": CT_T0 + rng.integers(0, CT_SPAN, rows),
+        "quality": rng.random(rows),
+        "flags": rng.integers(0, 16, rows),
+    }
+    score = ct_score(cols["flags"], cols["quality"], cols["ts"])
+    eligible = (cols["flags"] & 3) == 3
+    top = np.sort(score[eligible])[::-1]
+    threshold = float((top[survivors - 1] + top[survivors]) / 2)
+    passed = eligible & (score > threshold)
+    texts = synthetic_docs(survivors + queries, rng)
+    text = np.full(rows, "n/a", dtype=object)
+    text[passed] = texts[:survivors]
+    return {"cols": {**cols, "text": text}, "threshold": threshold, "passed": passed, "score": score,
+            "bucket": ct_bucket(cols["quality"], cols["topic"]),
+            "commit": np.arange(rows) // (rows // commits), "q_text": texts[survivors:]}
+
+
+def ct_chain(pw, a, b, threshold: float) -> dict:
+    """The compiled chain as a user writes it: two feeds of disjoint keys
+    concatenated (``concat`` after ``promise_are_pairwise_disjoint``, so a
+    ConcatNode heads the segment: ``concat_reindex`` would derive Pointer
+    keys), a select computing a float score and an int bucket, a filter on
+    the flags and the score, a select carrying the survivors' columns, and
+    groupby(topic).reduce(count, sum, avg) over them. Returns the tables."""
+    pw.universes.promise_are_pairwise_disjoint(a, b)
+    feed = a.concat(b)
+    scored = feed.select(
+        feed.doc_id, feed.topic, feed.text, feed.flags,
+        score=pw.if_else((feed.flags & 4) == 4, feed.quality * 1.25, feed.quality)
+        - pw.cast(float, abs(feed.ts - CT_TMID)) * 1e-7,
+        bucket=pw.cast(int, feed.quality * 16.0) + feed.topic * 16,
+    )
+    kept = scored.filter(((scored.flags & 3) == 3) & (scored.score > threshold))
+    survivors = kept.select(kept.doc_id, kept.topic, kept.bucket, kept.score, kept.text)
+    stats = survivors.groupby(survivors.topic).reduce(
+        survivors.topic, n=pw.reducers.count(), total=pw.reducers.sum(survivors.bucket),
+        mean=pw.reducers.avg(survivors.score))
+    return {"feed": feed, "scored": scored, "kept": kept, "survivors": survivors, "stats": stats}
+
+
+def ct_expected(s: dict, c: int) -> tuple[dict, dict]:
+    """numpy's survivors of commit ``c`` (doc_id -> (topic, bucket, score,
+    text)) and the groupby over commits 0..c (topic -> (n, total, mean))."""
+    idx = np.flatnonzero(s["passed"])
+    commit, topic = s["commit"][idx], s["cols"]["topic"][idx]
+    now = idx[commit == c]
+    surv = {int(i): (int(s["cols"]["topic"][i]), int(s["bucket"][i]), float(s["score"][i]), s["cols"]["text"][i])
+            for i in now}
+    upto = commit <= c
+    t = topic[upto]
+    n = np.bincount(t, minlength=CT_TOPICS)
+    total = np.zeros(CT_TOPICS, dtype=np.int64)
+    np.add.at(total, t, s["bucket"][idx][upto])
+    sums = np.bincount(t, weights=s["score"][idx][upto], minlength=CT_TOPICS)
+    stats = {int(k): (int(n[k]), int(total[k]), float(sums[k] / n[k])) for k in np.flatnonzero(n)}
+    return surv, stats
+
+
+def ct_feed(s: dict, c: int, subject) -> float:
+    """Push commit ``c``'s rows into ``subject`` (one ``next()`` each); the
+    seconds it took."""
+    t0 = time.perf_counter()
+    lo, hi = np.flatnonzero(s["commit"] == c)[[0, -1]]
+    cols = {k: v[lo:hi + 1].tolist() for k, v in s["cols"].items()}
+    for d, tp, ts, q, f, tx in zip(cols["doc_id"], cols["topic"], cols["ts"], cols["quality"], cols["flags"],
+                                   cols["text"]):
+        subject.next(doc_id=d, topic=tp, ts=ts, quality=q, flags=f, text=tx)
+    return time.perf_counter() - t0
+
+
+def ct_run(pw, s: dict, with_index: bool, emb, dev, on_commit) -> dict:
+    """Build the chain (and, ``with_index``, the live index behind it) in a
+    fresh graph and drive it: the standing queries' commit, then
+    CT_COMMITS commits alternating the two subjects, each one tick;
+    ``on_commit(c, rt, out, record)`` runs after each commit's tick. Returns
+    the tables, the runtime and the record."""
+    from importlib import import_module
+
+    from pathway_tpu_torch.internals import parse_graph
+
+    indexing = import_module(pw.__name__ + ".stdlib.indexing")
+
+    class RowSchema(pw.Schema):
+        doc_id: int = pw.column_definition(primary_key=True)
+        topic: int
+        ts: int
+        quality: float
+        flags: int
+        text: str
+
+    class QuerySchema(pw.Schema):
+        qid: int = pw.column_definition(primary_key=True)
+        text: str
+
+    parse_graph.G.clear()
+    record: dict = {"update_s": [], "next_s": [], "chain_s": [], "ticks_before": 0}
+    n_commits = [0]
+
+    def drive(subject_a) -> None:
+        rt = parse_graph.G.runtime
+        if with_index:
+            for q, text in enumerate(s["q_text"]):
+                q_subject.next(qid=q, text=text)
+            commit_tick(q_subject, lambda: len(record["qvecs"]) == CT_QUERIES, "the standing queries' tick",
+                        n_commits)
+        record["ticks_before"] = rt.stats.ticks
+        chain = [t._node.id for t in (out["feed"], out["scored"], out["kept"], out["survivors"])]
+        for c in range(CT_COMMITS):
+            subject = subject_a if c % 2 == 0 else subject_b
+            record["next_s"].append(ct_feed(s, c, subject))
+            since = dict(rt.stats.node_ns)
+            t0 = commit_tick(subject, lambda: True, f"commit {c}'s tick", n_commits)
+            record["update_s"].append(time.perf_counter() - t0)
+            record["chain_s"].append(sum(rt.stats.node_ns.get(i, 0) - since.get(i, 0) for i in chain) / 1e9)
+            on_commit(c, rt, out, record)
+
+    Idle, feeder, failure = driven_subjects(pw, drive)
+    subject_b, q_subject = Idle(), Idle()
+    a = pw.io.python.read(feeder, schema=RowSchema, autocommit_duration_ms=None)
+    b = pw.io.python.read(subject_b, schema=RowSchema, autocommit_duration_ms=None)
+    out = ct_chain(pw, a, b, s["threshold"])
+    if with_index:
+        record["qvecs"] = {}
+        survivors = out["survivors"]
+        out["embedded"] = survivors.select(survivors.doc_id, vec=emb(survivors.text))
+        knn = indexing.TpuKnn(out["embedded"].vec, dimensions=emb.runtime.dim, reserved_space=CT_SURVIVORS,
+                              device=dev.type)
+        queries = pw.io.python.read(q_subject, schema=QuerySchema, autocommit_duration_ms=None)
+        out["asked"] = queries.select(queries.qid, vec=emb(queries.text))
+        out["pairs"] = indexing.DataIndex(out["embedded"], knn).query(
+            out["asked"].vec, number_of_matches=CT_K, collapse_rows=False).select(
+            qid=pw.left.qid, doc_id=pw.right.doc_id, score=pw.right._pw_index_reply_score)
+    return {"out": out, "record": record, "failure": failure}
+
+
+def compiled_ticks(dev, smi: str, rate: float, earlier: dict) -> tuple[dict, dict]:
+    """Compiled ticks on the card, as a user turns them on
+    (PATHWAY_COMPILED_TICK=1, PATHWAY_COMPILED_DEVICE=cuda): CT_ROWS
+    seeded rows in CT_COMMITS commits through two pw.io.python subjects
+    concatenated into one table; ``ct_chain``'s select -> filter -> select
+    runs as one compiled segment (torch ops on the card) and its groupby's
+    partials through ``semigroup_partials`` on the card; the survivors'
+    texts go through the full-width embedder into TpuKnn(reserved_space=
+    CT_SURVIVORS), which answers CT_QUERIES standing queries again after
+    every commit with block_topk. After every commit: the chain's output
+    equals numpy's (``ct_expected``: keys, diffs and ints exact, floats
+    within CT_FLOAT_TOL), the groupby's ints exact and its means within
+    CT_PARTIALS_TOL, every reply equals the plain top-CT_K over the
+    survivors so far (up to near ties), the index's valid rows equal the
+    survivors so far, and the segment compiled every chain tick with no
+    fallback. Then the same commits with PATHWAY_COMPILED_TICK=0 (the chain
+    and the groupby only) for the interpreter's seconds, and the segment's
+    program and the partials timed alone against their bounds."""
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.engine import compile as ct_compile
+    from pathway_tpu_torch.engine.batch import DiffBatch
+    from pathway_tpu_torch.engine.index_node import ExternalIndexExec
+    from pathway_tpu_torch.internals import api, native, parse_graph
+    from pathway_tpu_torch.observability import REGISTRY
+    from pathway_tpu_torch.ops import block_topk as bt
+    from pathway_tpu_torch.xpacks.llm.embedders import SentenceTransformerEmbedder
+
+    _now = time.perf_counter
+    t_phase = _now()
+    nat = native.get_native()
+    check(nat is not None, f"the native hasher did not build or load: {native.build_log}")
+    s = ct_stream(SEED + 23, CT_ROWS, CT_COMMITS, CT_TOPICS, CT_SURVIVORS, CT_QUERIES)
+    per = CT_ROWS // CT_COMMITS
+    # the feed's row keys, native and pure Python, on one commit
+    ids = s["cols"]["doc_id"][:per]
+    t0 = _now()
+    keys_native = api.ref_scalars_columns([ids], per)
+    native_s = _now() - t0
+    saved_native = api._native_mod
+    api._native_mod = None
+    try:
+        t0 = _now()
+        keys_python = api.ref_scalars_columns([ids], per)
+        python_s = _now() - t0
+    finally:
+        api._native_mod = saved_native
+    check(np.array_equal(keys_native, keys_python), "the native and pure-Python keys of one commit differ")
+    saved_env = {k: os.environ.get(k) for k in CT_ENV}
+    for k in CT_ENV:
+        os.environ.pop(k, None)
+    os.environ.update(PATHWAY_COMPILED_TICK="1", PATHWAY_COMPILED_DEVICE=dev.type)
+    bt.block_topk.launches = 0
+    bt.block_topk.shapes.clear()
+    partial_calls0 = ct_compile.semigroup_partials.calls
+    metrics0 = REGISTRY.render()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = _now()
+    emb = SentenceTransformerEmbedder(device=dev)
+    embedder_init_s = _now() - t0
+    vecs = np.zeros((CT_SURVIVORS, emb.runtime.dim), dtype=np.float32)  # by survivor rank
+    rank_of = {int(d): r for r, d in enumerate(np.flatnonzero(s["passed"]).tolist())}
+    lock = threading.Lock()
+    surv_rows: list = []
+    stat_state: dict[int, tuple] = {}
+    pair_state: dict[int, tuple] = {}
+    checks = {"rows": 0, "floats_bitwise": 0, "replies": 0, "replies_exact": 0, "near_ties": 0,
+              "index_rows": [], "verify_s": 0.0, "first_reply": None}
+
+    def on_surv(key, row, time, is_addition):
+        with lock:
+            surv_rows.append((int(key), is_addition, row["doc_id"], row["topic"], row["bucket"], row["score"],
+                              row["text"]))
+
+    def on_stat(key, row, time, is_addition):
+        vals = (row["n"], row["total"], row["mean"])
+        with lock:
+            if is_addition:
+                stat_state[row["topic"]] = vals
+            elif stat_state.get(row["topic"]) == vals:
+                del stat_state[row["topic"]]
+
+    def on_vec(key, row, time, is_addition):
+        if is_addition:
+            if "doc_id" in row:
+                vecs[rank_of[row["doc_id"]]] = np.asarray(row["vec"], dtype=np.float32)
+            else:
+                run["record"]["qvecs"][row["qid"]] = np.asarray(row["vec"], dtype=np.float32)
+
+    def on_pair(key, row, time, is_addition):
+        if checks["first_reply"] is None and is_addition and row["doc_id"] is not None:
+            checks["first_reply"] = _now()
+        vals = (row["qid"], row["doc_id"], row["score"])
+        with lock:
+            if is_addition:
+                pair_state[int(key)] = vals
+            elif pair_state.get(int(key)) == vals:
+                del pair_state[int(key)]
+
+    def check_chain(c: int, rows: list, stats: dict) -> None:
+        want, want_stats = ct_expected(s, c)
+        check(len(rows) == len(want) and all(add for _k, add, *_r in rows),
+              f"commit {c}: the chain emitted {len(rows)} rows, numpy keeps {len(want)}")
+        for key, _add, d, topic, bucket, score, text in rows:
+            w = want.get(d)
+            check(w is not None and key == int(api.ref_scalar(d)), f"commit {c}: row {d} (key {key}) is not numpy's")
+            check((topic, bucket, text) == (w[0], w[1], w[3]), f"commit {c}: row {d} {(topic, bucket)} vs {w[:2]}")
+            check(abs(score - w[2]) <= CT_FLOAT_TOL * abs(w[2]), f"commit {c}: row {d} scores {score}, numpy {w[2]}")
+            checks["floats_bitwise"] += score == w[2]
+        checks["rows"] += len(rows)
+        check(set(stats) == set(want_stats), f"commit {c}: the groupby's topics differ from numpy's")
+        for t, (n, total, mean) in stats.items():
+            wn, wt, wm = want_stats[t]
+            check((n, total) == (wn, wt), f"commit {c}: topic {t} counts {(n, total)}, numpy {(wn, wt)}")
+            check(abs(mean - wm) <= CT_PARTIALS_TOL * abs(wm), f"commit {c}: topic {t} mean {mean}, numpy {wm}")
+
+    def on_commit(c: int, rt, out, record) -> None:
+        t1 = _now()
+        with lock:
+            rows, stats, pairs = list(surv_rows), dict(stat_state), list(pair_state.values())
+            surv_rows.clear()
+        check_chain(c, rows, stats)
+        seg = rt.compiled_plan.by_tail[out["survivors"]._node.id]
+        check(seg.compiled_ticks == c + 1 and seg.fallback_ticks == 0,
+              f"commit {c}: the segment compiled {seg.compiled_ticks} ticks, fell back {seg.fallback_ticks}")
+        upto = np.flatnonzero(s["passed"] & (s["commit"] <= c))
+        live = np.array([rank_of[int(d)] for d in upto])
+        ix = next(e.index for e in rt.execs.values() if isinstance(e, ExternalIndexExec))
+        _prep, _c2, valid = ix.corpus.prepared_arrays("cosine", bf16=False)
+        check(valid.device.type == "cuda", f"the index's corpus is on {valid.device}")
+        check(int(valid.sum()) == len(live), f"commit {c}: the index holds {int(valid.sum())} rows, {len(live)} survive")
+        checks["index_rows"].append(len(live))
+        qvecs = record["qvecs"]
+        replies: dict[int, list] = {q: [] for q in qvecs}
+        for q, d, sc in pairs:
+            check(d is not None, f"commit {c}: query {q} has no reply")
+            replies[q].append((rank_of[d], sc))
+        plain = wi_plain(vecs, qvecs, live, dev)
+        for q, got in replies.items():
+            got = tuple(sorted(got, key=lambda p: (-p[1], p[0])))
+            check(same_up_to_near_ties(got, plain[q], F32_TOL),
+                  f"commit {c}: query {q}'s reply {got} differs from the plain top-{CT_K} {plain[q]}")
+            exact = [d for d, _s in got] == [d for d, _s in plain[q]]
+            checks["replies_exact"] += exact
+            checks["near_ties"] += not exact
+            checks["replies"] += 1
+        checks["verify_s"] += _now() - t1
+
+    try:
+        run = ct_run(pw, s, True, emb, dev, on_commit)
+        out = run["out"]
+        pw.io.subscribe(out["survivors"], on_change=on_surv)
+        pw.io.subscribe(out["stats"], on_change=on_stat)
+        pw.io.subscribe(out["embedded"], on_change=on_vec)
+        pw.io.subscribe(out["asked"], on_change=on_vec)
+        pw.io.subscribe(out["pairs"], on_change=on_pair)
+        t_run = _now()
+        pw.run()  # raises if an operator recorded an error (a device fault included)
+        run_s = _now() - t_run
+        if run["failure"]:
+            raise run["failure"][0]
+        rt, rec = parse_graph.G.last_runtime, run["record"]
+        launches, shapes = bt.block_topk.launches, dict(bt.block_topk.shapes)
+        partial_calls = ct_compile.semigroup_partials.calls - partial_calls0
+        metrics1 = REGISTRY.render()
+        check(len(rec["update_s"]) == CT_COMMITS, f"{len(rec['update_s'])} of {CT_COMMITS} commits ran")
+        check(rt.stats.ticks == rec["ticks_before"] + CT_COMMITS + 1,
+              f"{rt.stats.ticks - rec['ticks_before']} ticks for {CT_COMMITS} commits")
+        segs = rt.compiled_plan.segments
+        seg = rt.compiled_plan.by_tail[out["survivors"]._node.id]
+        check(seg.concat_head and seg.device.type == "cuda", f"the segment's head {seg.head}, device {seg.device}")
+        check([n.id for n in seg.nodes] == [t._node.id for t in (out["feed"], out["scored"], out["kept"],
+                                                                  out["survivors"])],
+              f"the segment holds {seg.nodes}")
+        check(seg.fallback_ticks == 0 and not seg._journaled_reasons,
+              f"the chain's segment fell back ({seg._journaled_reasons})")
+        seg_ticks = (seg.compiled_ticks, seg.fallback_ticks)  # before the timing below adds its own
+        # every other segment's fallbacks, by reason: DataIndex's query
+        # prep (the query vector passed through and a constant k) plans as
+        # a segment, as in the reference, and can never lower
+        # ("constant-only computation")
+        fallbacks = {r: series(metrics1, "pathway_engine_compile_fallbacks_total", reason=r)
+                     - series(metrics0, "pathway_engine_compile_fallbacks_total", reason=r)
+                     for x in segs for r in x._journaled_reasons}
+        other = [{"nodes": [type(n).__name__ for n in x.nodes], "columns": list(x.tail.column_names),
+                  "compiled_ticks": x.compiled_ticks, "fallback_ticks": x.fallback_ticks,
+                  "reasons": sorted(x._journaled_reasons)} for x in segs if x is not seg]
+        check(partial_calls == CT_COMMITS, f"the groupby's partials ran {partial_calls} times on the card")
+        check(checks["rows"] == CT_SURVIVORS, f"{checks['rows']} rows survived, numpy keeps {CT_SURVIVORS}")
+        check(launches >= CT_COMMITS and set(shapes) == {(CT_QUERIES, CT_K)},
+              f"block_topk launches {launches} by shape {shapes}")
+        check(emb.runtime.device.type == "cuda", f"the embedder ran on {emb.runtime.device}")
+        compiled_stats = dict(stat_state)
+        ix = next(e.index for e in rt.execs.values() if isinstance(e, ExternalIndexExec))
+        prep, _c2, valid = ix.corpus.prepared_arrays("cosine", bf16=False)
+        qvecs = rec["qvecs"]
+        qs = torch.tensor(np.stack([qvecs[q] for q in sorted(qvecs)]), device=prep.device)
+        qs = (qs / qs.norm(dim=-1, keepdim=True)).to(prep.dtype)
+        peak = torch.cuda.max_memory_allocated()
+
+        # the segment's program and the partials alone, on one commit's tick
+        head = {c: s["cols"][c][:per] for c in seg.external_cols}
+        batch = DiffBatch(keys_native, np.ones(per, dtype=np.int64), head)
+        first = np.flatnonzero(s["passed"][:per])
+        topics, codes = np.unique(s["cols"]["topic"][first], return_inverse=True)
+        codes, nu = codes.astype(np.int64), len(topics)
+        p_args = [None, s["bucket"][first], s["score"][first]]
+        p_diffs = np.ones(len(first), dtype=np.int64)
+
+        def host_ms(fn, reps=10) -> float:
+            fn()
+            torch.cuda.synchronize()
+            t0 = _now()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            return (_now() - t0) / reps * 1e3
+
+        def run_seg():
+            return seg._run_compiled(batch)
+
+        seg_ms = host_ms(run_seg)
+        seg_times = device_times(run_seg, reps=10)
+        interp_ms = host_ms(lambda: seg._interpret(0, [[batch], []]), reps=3)
+        part_ms = host_ms(lambda: ct_compile.semigroup_partials(codes, p_diffs, p_args, nu))
+
+        def host_partials():  # GroupByExec's np.add.at path on the same inputs
+            counts = np.zeros(nu, dtype=np.int64)
+            np.add.at(counts, codes, p_diffs)
+            for a in p_args[1:]:
+                part = np.zeros(nu, dtype=a.dtype)
+                np.add.at(part, codes, a * p_diffs)
+
+        host_part_ms = host_ms(host_partials)
+        part_times = device_times(lambda: ct_compile.semigroup_partials(codes, p_diffs, p_args, nu), reps=10)
+        got = seg._run_compiled(batch)[0]
+        check(np.array_equal(got.columns["bucket"], s["bucket"][first])
+              and np.allclose(got.columns["score"], s["score"][first], rtol=CT_FLOAT_TOL, atol=0),
+              "the timed program's output differs from numpy's")
+        prog = next(v for v in seg._cache.values() if v is not seg._FALLBACK)
+        dtypes = {c: head[c].dtype for c in head}
+        in_bytes = per * sum(dtypes[c].itemsize for c in prog.in_cols)
+        out_bytes = per * prog.out_row_bytes
+        nb, gb = ct_compile.row_bucket(len(first)), ct_compile.row_bucket(nu)
+        p_in, p_out = nb * 8 * 4, gb * 8 * 3  # codes, diffs, 2 args; count and 2 partials
+
+        def dev_split(times):
+            """(device ms, copy ms, kernel launches) per call of 10 profiled."""
+            if times is None:
+                return None, None, None
+            copy = sum(ms for k, (_n, ms) in times.items() if "Memcpy" in k) / 10
+            launches = sum(n for k, (n, _ms) in times.items() if "Memcpy" not in k) / 10
+            return sum(ms for _n, ms in times.values()) / 10 - copy, copy, launches
+
+        seg_dev, seg_copy, seg_launches = dev_split(seg_times)
+        part_dev, part_copy, part_launches = dev_split(part_times)
+        device_ops = [
+            {"name": "compiled segment (select -> filter -> select)", "rows": per, "in_cols": prog.in_cols,
+             "ops_per_row": prog.n_ops, "ms": seg_ms, "device_ms": seg_dev, "copy_ms": seg_copy,
+             "launches_per_call": seg_launches,
+             "bytes": in_bytes + out_bytes, "bound_ms": (in_bytes + out_bytes) / rate * 1e3,
+             "copy_bound_ms": (in_bytes + out_bytes) / CT_LINK_BYTES_PER_S * 1e3,
+             "interpreter_ms": interp_ms, "kernels": seg_times},
+            {"name": "semigroup_partials (count, sum, avg)", "rows": len(first), "groups": nu, "ms": part_ms,
+             "device_ms": part_dev, "copy_ms": part_copy, "launches_per_call": part_launches,
+             "interpreter_ms": host_part_ms, "bytes": p_in + p_out,
+             "bound_ms": (p_in + p_out) / rate * 1e3, "copy_bound_ms": (p_in + p_out) / CT_LINK_BYTES_PER_S * 1e3,
+             "kernels": part_times},
+        ]
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    # the same commits on the interpreter: the chain and the groupby only
+    stat_state.clear()
+    surv_rows.clear()
+    interp = ct_run(pw, s, False, None, dev, lambda c, rt, out, record: None)
+    pw.io.subscribe(interp["out"]["survivors"], on_change=on_surv)
+    pw.io.subscribe(interp["out"]["stats"], on_change=on_stat)
+    pw.run()
+    if interp["failure"]:
+        raise interp["failure"][0]
+    check(parse_graph.G.last_runtime.compiled_plan is None, "the interpreted run planned segments")
+    check(len(surv_rows) == CT_SURVIVORS, f"the interpreter kept {len(surv_rows)} rows")
+    check(set(stat_state) == set(compiled_stats) and all(
+        stat_state[t][:2] == compiled_stats[t][:2]
+        and abs(stat_state[t][2] - compiled_stats[t][2]) <= CT_PARTIALS_TOL * abs(compiled_stats[t][2])
+        for t in stat_state), "the interpreted groupby differs from the compiled one")
+    parse_graph.G.clear()
+    upd = [x * 1e3 for x in rec["update_s"]]
+    hits = series(metrics1, "pathway_engine_compile_cache_hits_total") - series(
+        metrics0, "pathway_engine_compile_cache_hits_total")
+    misses = series(metrics1, "pathway_engine_compile_cache_misses_total") - series(
+        metrics0, "pathway_engine_compile_cache_misses_total")
+    lower_s = series(metrics1, "pathway_engine_compile_seconds_sum") - series(
+        metrics0, "pathway_engine_compile_seconds_sum")
+    phase = {
+        "phase": "compiled ticks",
+        "nvidia_smi": smi,
+        "rows": CT_ROWS,
+        "commits": CT_COMMITS,
+        "rows_per_tick": per,
+        "survivors": CT_SURVIVORS,
+        "threshold": s["threshold"],
+        "queries": CT_QUERIES,
+        "k": CT_K,
+        "segment": [type(n).__name__ for n in seg.nodes],
+        "segments": len(segs),
+        "compiled_ticks": seg_ticks[0],
+        "fallback_ticks": seg_ticks[1],
+        "other_segments": other,
+        "fallbacks_by_reason": fallbacks,
+        "compile": {"misses": misses, "hits": hits, "lowering_s": lower_s},
+        "semigroup_partials_calls": partial_calls,
+        "segment_device": str(seg.device),
+        "chain_s_per_tick": {"compiled": rec["chain_s"], "interpreted": interp["record"]["chain_s"]},
+        "chain_ms_p50": {"compiled": float(np.percentile(rec["chain_s"], 50)) * 1e3,
+                         "interpreted": float(np.percentile(interp["record"]["chain_s"], 50)) * 1e3},
+        "device_ops": device_ops,
+        "next_s_per_commit": {"p50": float(np.percentile(rec["next_s"], 50)), "sum": float(np.sum(rec["next_s"]))},
+        "feed_rows_per_s": CT_ROWS / float(np.sum(rec["next_s"])),
+        "update_to_visible_ms": {"p50": float(np.percentile(upd, 50)), "max": float(np.max(upd)), "n": len(upd)},
+        "first_reply_s": checks["first_reply"] - t_run,
+        "ref_scalars_columns_rows_per_s": {"native": per / native_s, "python": per / python_s, "rows": per},
+        "hasher_moves": earlier,
+        "chain_rows_checked": checks["rows"],
+        "chain_floats_bitwise_equal": checks["floats_bitwise"],
+        "replies_compared": checks["replies"],
+        "replies_keys_equal_plain": checks["replies_exact"],
+        "near_ties": checks["near_ties"],
+        "index_rows_by_commit": checks["index_rows"],
+        "operator_s": operator_s(rt),
+        "ticks": rt.stats.ticks,
+        "block_topk_launches": launches,
+        "block_topk_launches_by_shape": {f"B={b},k={k}": n for (b, k), n in sorted(shapes.items())},
+        "embedder_device": str(emb.runtime.device),
+        "peak_allocated_bytes": peak,
+        "embedder_init_s": embedder_init_s,
+        "run_s": run_s,
+        "verify_s": checks["verify_s"],
+        "phase_s": _now() - t_phase,
+    }
+    return phase, {"prep": prep, "valid": valid, "queries": {CT_QUERIES: qs}, "launches": launches,
+                   "shapes": shapes}
+
+
+# --- phase 14: replication ----------------------------------------------------
 
 
 class ReplicaChild:
@@ -5401,7 +5984,7 @@ def replication(dev, smi: str, vs_data: dict) -> tuple[dict, dict]:
                    "generate_step": recorder.step}
 
 
-# --- phase 14: generation -----------------------------------------------------
+# --- phase 15: generation -----------------------------------------------------
 
 
 class StepRecorder:
@@ -5674,7 +6257,7 @@ def generation(dev, main: dict) -> tuple[dict, dict]:
     }
 
 
-# --- phase 15: durability -----------------------------------------------------
+# --- phase 16: durability -----------------------------------------------------
 
 
 def kill_child(prompts_path: str) -> int:
@@ -6024,11 +6607,12 @@ def durability(dev, gen: dict) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-# --- phase 16: kernel times ---------------------------------------------------
+# --- phase 17: kernel times ---------------------------------------------------
 
 
 def kernel_times(main: dict, eng: dict, vs: dict, rest: dict, persist: dict, ik: dict, cc: dict,
-                 lc: dict, wi: dict, cdc: dict, rep: dict, gen: dict, rate: float, rate_src: str) -> list[dict]:
+                 lc: dict, wi: dict, cdc: dict, ct: dict, rep: dict, gen: dict, rate: float,
+                 rate_src: str) -> list[dict]:
     from pathway_tpu_torch.ops import block_topk as bt
     from pathway_tpu_torch.ops.knn import BLK, _normalize
 
@@ -6079,6 +6663,10 @@ def kernel_times(main: dict, eng: dict, vs: dict, rest: dict, persist: dict, ik:
         # the CDC-fed index's standing queries, on its corpus at the end
         (b, k, cdc["queries"][b], n, "cdc index", (cdc["prep"], cdc["valid"]))
         for (b, k), n in sorted(cdc["shapes"].items())
+    ] + [
+        # the live index behind the compiled feed's standing queries
+        (b, k, ct["queries"][b], n, "compiled ticks", (ct["prep"], ct["valid"]))
+        for (b, k), n in sorted(ct["shapes"].items())
     ] + [
         # the replica children's reads (k = 10) and /generate's retrieval
         # (k = 3), each one search on the writer's corpus
@@ -6151,6 +6739,8 @@ def kernel_times(main: dict, eng: dict, vs: dict, rest: dict, persist: dict, ik:
         "windowed_index_launches_by_shape": {f"B={b},k={k}": n for (b, k), n in sorted(wi["shapes"].items())},
         "cdc_index_launches": cdc["launches"],
         "cdc_index_launches_by_shape": {f"B={b},k={k}": n for (b, k), n in sorted(cdc["shapes"].items())},
+        "compiled_ticks_launches": ct["launches"],
+        "compiled_ticks_launches_by_shape": {f"B={b},k={k}": n for (b, k), n in sorted(ct["shapes"].items())},
         "replication_launches": sum(rep["shapes"].values()),
         "replication_launches_by_shape": {f"B={b},k={k}": n for (b, k), n in sorted(rep["shapes"].items())},
         "max_abs_err": max(p["max_abs_err"] for p in per_batch),
@@ -6288,8 +6878,8 @@ def main() -> int:
     emit(kernel_parity(dev))
     phase, main_data = main_path(dev)
     emit(phase)
-    phase, engine_data = engine(dev)
-    emit(phase)
+    eng_phase, engine_data = engine(dev)
+    emit(eng_phase)
     vs_phase, vs_data = vector_store(dev, smi)
     emit(vs_phase)
     corpus = vs_data.pop("corpus")
@@ -6300,13 +6890,24 @@ def main() -> int:
     del corpus
     phase, ik_data = index_kinds(dev, smi, rate)
     emit(phase)
-    phase, cc_data = components(dev, smi)
-    emit(phase)
+    cc_phase, cc_data = components(dev, smi)
+    emit(cc_phase)
     phase, lc_data = live_classify(dev, smi)
     emit(phase)
     phase, wi_data = windowed_index(dev, smi)
     emit(phase)
-    phase, cdc_data = cdc_index(dev, smi)
+    cdc_phase, cdc_data = cdc_index(dev, smi)
+    emit(cdc_phase)
+    # the host figures the native hasher should move, from the phases above
+    hasher = {
+        "engine_ingest_s": eng_phase["ingest_s"],
+        "engine_vector_next_s": eng_phase["vector_next_s"],
+        "engine_operator_s": {k: v for k, v in eng_phase["operator_s"].items()
+                              if k in ("ConcatNode", "ReindexNode", "RowwiseNode")},
+        "components_first_fixpoint_s": cc_phase["first_fixpoint_s"],
+        "cdc_sqlite_poll_s_p50": cdc_phase["sqlite_poll_s"]["p50"],
+    }
+    phase, ct_data = compiled_ticks(dev, smi, rate, hasher)
     emit(phase)
     phase, repl_data = replication(dev, smi, vs_data)
     emit(phase)
@@ -6314,7 +6915,7 @@ def main() -> int:
     emit(phase)
     emit(durability(dev, gen_data))
     kernels = kernel_times(main_data, engine_data, vs_data, rest_data, persist_data, ik_data, cc_data,
-                           lc_data, wi_data, cdc_data, repl_data, gen_data, rate, rate_src) + [
+                           lc_data, wi_data, cdc_data, ct_data, repl_data, gen_data, rate, rate_src) + [
         paged_kernel_times(gen_data, repl_data, rate, rate_src)
     ]
     emit({"phase": "kernels", "kernels": kernels})

@@ -172,6 +172,7 @@ __all__ = [
     "debug",
     "demo",
     "io",
+    "graphs",
     "indexing",
     "ml",
     "ordered",

@@ -5,26 +5,12 @@ behaviour."""
 
 from __future__ import annotations
 
-COMPILED_TICKS = "[compiled-ticks] (compiled ticks)"
 MESH = "[mesh] (multi-device: engine mesh, DCN, sharded top-k)"
 REPLICATION = "[replication] (parallel/standby.py and parallel/supervisor.py)"
 OBSERVABILITY = "[observability] (the rest of observability)"
-STDLIB_REST = "[stdlib-rest] (graphs, viz)"
 
-# subpackages of the reference the port lacks, with their item
-PACKAGE_NAMES = {"analysis": OBSERVABILITY, "autoscale": MESH}
-
-# ``pw.stdlib.<name>`` the port lacks (each is a root name too)
-STDLIB_NAMES = {
-    "graphs": STDLIB_REST,
-    "viz": STDLIB_REST,
-}
-
-# root names of the reference the port lacks, each with its item
-ROOT_NAMES = {
-    **STDLIB_NAMES,
-    **PACKAGE_NAMES,
-}
+# root names of the reference the port lacks (subpackages), each with its item
+ROOT_NAMES = {"analysis": OBSERVABILITY, "autoscale": MESH}
 
 
 def unported(what: str, item: str) -> NotImplementedError:

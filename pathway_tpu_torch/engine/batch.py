@@ -1,7 +1,7 @@
 """Columnar diff batches — the unit of dataflow in the microbatch engine; the
-port's own copy of ``pathway_tpu/engine/batch.py``. ``consolidate`` always
-takes the pure-Python grouping (the reference's native kernel groups by
-the same rule).
+port's own copy of ``pathway_tpu/engine/batch.py``. ``consolidate`` groups
+through the port's native hasher where it builds, else in pure Python by
+the same rule.
 
 A re-design of the reference's rowwise `Collection<S, (Key, Value)>`
 streams (reference: src/engine/dataflow.rs:174-186 `Values`, :526 `Table`):
@@ -179,9 +179,31 @@ class DiffBatch:
             if len(self) == 1 and self.diffs[0] == 0:
                 return self.mask(np.zeros(1, dtype=bool))
             return self
+        from pathway_tpu_torch.internals.native import get_native
+
+        nat = get_native()
         cols = list(self.columns.values())
-        # group by (key, serialized value bytes) — the reference's native
-        # kernel groups by the same rule, and takes this path without it
+        if nat is not None:
+            # native path: group by (key, 64-bit value hash) — the value
+            # hash stands in for full value equality within one batch.
+            # Numeric columns go through tolist() so the C serializer sees
+            # exact PyLong/PyFloat (np scalars would bounce back to python)
+            hash_cols = tuple(
+                c.tolist() if c.dtype != object else c for c in cols
+            )
+            vhashes = nat.hash_columns(hash_cols, len(self))
+            idx_b, diff_b = nat.consolidate(
+                np.ascontiguousarray(self.keys).tobytes(),
+                vhashes,
+                np.ascontiguousarray(self.diffs).tobytes(),
+            )
+            idx = np.frombuffer(idx_b, dtype=np.int64)
+            out = self.take(idx)
+            out.diffs = np.frombuffer(diff_b, dtype=np.int64).copy()
+            return out
+        # pure-python path: the native kernel's grouping rule — (key,
+        # serialized value bytes) — so results do not depend on whether
+        # the library built
         from pathway_tpu_torch.internals.api import _value_bytes
 
         acc: dict[tuple[int, bytes], list] = {}

@@ -281,10 +281,19 @@ class InputExec(NodeExec):
     def __init__(self, node: InputNode):
         super().__init__(node)
         self.pending: list[DiffBatch] = []
+        # Tick Forge typed ingest: resolved once per exec (the flag is
+        # per-run like the compiled plan itself)
+        self._tighten: bool | None = None
 
     def inject(self, batch: DiffBatch) -> None:
-        # the reference tightens batches here for its compiled ticks, which
-        # the port does not carry (the interpreter reads batches as they are)
+        if self._tighten is None:
+            from pathway_tpu_torch.engine.compile import compiled_tick_enabled
+
+            self._tighten = compiled_tick_enabled()
+        if self._tighten:
+            from pathway_tpu_torch.engine.expression_eval import tighten_batch
+
+            batch = tighten_batch(batch)
         self.pending.append(batch)
 
     def process(self, t, inputs):
@@ -535,6 +544,7 @@ class GroupByExec(NodeExec):
         self.ledger = Arrangement(1)
         self._ledgered: set[int] = set()
         self._ledger_enabled = False
+        self._compiled_semigroup: bool | None = None
 
     def enable_state_ledger(self) -> None:
         self._ledger_enabled = True
@@ -736,8 +746,34 @@ class GroupByExec(NodeExec):
 
     def _semigroup_partials(self, codes, diffs, arg_arrays, nu):
         """Per-group (diff counts, weighted sums) for the semigroup
-        reducers by host scatter (np.add.at). The reference's compiled
-        segment_sum twin rides its compiled ticks, not ported here."""
+        reducers.  Host scatter (np.add.at) by default; the device twin
+        (``index_add_`` on the compiled device) runs when compiled ticks
+        and compiled groupby are both on (PATHWAY_COMPILED_GROUPBY —
+        engine/compile.py). A batch the device path refuses
+        (NotCompilable) takes the host path; any other error propagates."""
+        if self._compiled_semigroup is None:
+            from pathway_tpu_torch.engine.compile import (
+                compiled_groupby_enabled,
+                compiled_tick_enabled,
+            )
+
+            self._compiled_semigroup = (
+                compiled_tick_enabled() and compiled_groupby_enabled()
+            )
+        if self._compiled_semigroup:
+            from pathway_tpu_torch.engine.compile import (
+                NotCompilable,
+                semigroup_partials,
+            )
+
+            sem_args = [
+                a if (s.kind in ("sum", "avg")) else None
+                for s, a in zip(self.specs, arg_arrays)
+            ]
+            try:
+                return semigroup_partials(codes, diffs, sem_args, nu)
+            except NotCompilable:
+                pass  # unsupported dtype this batch: host path below
         dcounts = np.zeros(nu, dtype=np.int64)
         np.add.at(dcounts, codes, diffs)
         partials: list[np.ndarray | None] = []

@@ -26,7 +26,7 @@ import threading
 import time as _time
 from typing import Any, Callable, Iterable, Sequence
 
-from pathway_tpu_torch._unported import COMPILED_TICKS, MESH, unported
+from pathway_tpu_torch._unported import MESH, unported
 from pathway_tpu_torch.engine.batch import END_OF_TIME, DiffBatch
 import concurrent.futures as _cf
 
@@ -346,11 +346,25 @@ class Runtime:
         self.execs: dict[int, NodeExec] = {
             node.id: node.make_exec() for node in self.order
         }
-        # Tick Forge (compiled ticks) is not ported: the interpreter runs
-        # every tick, as the reference's PATHWAY_COMPILED_TICK=0 does
-        if os.environ.get("PATHWAY_COMPILED_TICK") == "1":
-            raise unported("compiled ticks (PATHWAY_COMPILED_TICK=1)", COMPILED_TICKS)
+        # Tick Forge: run stateless operator chains as torch programs on
+        # the compiled device (engine/compile.py). Off unless
+        # PATHWAY_COMPILED_TICK=1; then a missing card raises here. Other
+        # planning failures are never fatal — the interpreter path below
+        # is always complete.
+        from pathway_tpu_torch.engine import compile as _compile
+
         self.compiled_plan = None
+        if _compile.compiled_tick_enabled():
+            _compile.compiled_device()
+            try:
+                self.compiled_plan = _compile.plan_segments(self.order, self.execs)
+            except Exception:
+                import logging
+
+                logging.getLogger("pathway_tpu_torch").warning(
+                    "compiled-tick planning failed; running interpreted",
+                    exc_info=True,
+                )
         self.autocommit_ms = autocommit_ms
         self.on_tick = on_tick
         self.current_time = 0
@@ -459,21 +473,41 @@ class Runtime:
     # --- core tick ------------------------------------------------------------
 
     def _process_node(self, node, t, produced, injected, final, stats):
+        runner = None
+        if self.compiled_plan is not None:
+            if node.id in self.compiled_plan.member_ids:
+                # produced inside its segment; the tail emits for it
+                # (members are stateless with no on_end work)
+                produced[node.id] = []
+                return
+            runner = self.compiled_plan.by_tail.get(node.id)
         ex = self.execs[node.id]
         has_injected = (
             isinstance(ex, InputExec) and injected and node.id in injected
         )
         # Tick Scope: entries is None when the recorder is off — that
-        # one check is the entire disabled-path cost. The operator clock
-        # starts BEFORE injection: batch tightening is the single biggest
-        # cost of an ingest tick and it belongs to the InputNode, not to
-        # the unattributed gap between stage sum and tick wall
+        # one check is the entire disabled-path cost. compiled_ticks is
+        # sampled around the call to tag the entry compiled-vs-interpreted
+        # (SegmentRunner only bumps it on a run on the device). The
+        # operator clock starts BEFORE injection: batch tightening is the
+        # single biggest cost of an ingest tick and it belongs to the
+        # InputNode, not to the unattributed gap between stage sum and
+        # tick wall
         ts_entries = self._ts_entries
+        seg_c0 = (
+            runner.compiled_ticks
+            if (ts_entries is not None and runner is not None)
+            else 0
+        )
         t0 = _time.perf_counter_ns()
         if has_injected:
             for b in injected[node.id]:
                 ex.inject(b)
-        inputs = [produced.get(inp.id, []) for inp in node.inputs]
+        inputs = (
+            runner.gather(produced)
+            if runner is not None
+            else [produced.get(inp.id, []) for inp in node.inputs]
+        )
         from pathway_tpu_torch.internals.errors import set_exec_scope
 
         set_exec_scope(getattr(node, "_error_scope", None))
@@ -490,14 +524,22 @@ class Runtime:
         try:
             if span is not None:
                 with span:
-                    out = ex.process(t, inputs)
+                    out = (
+                        runner.process(t, inputs)
+                        if runner is not None
+                        else ex.process(t, inputs)
+                    )
                     if final:
                         out = list(out) + list(ex.on_end())
                     span.set_attribute(
                         "rows", sum(len(b) for b in out)
                     )
             else:
-                out = ex.process(t, inputs)
+                out = (
+                    runner.process(t, inputs)
+                    if runner is not None
+                    else ex.process(t, inputs)
+                )
                 if final:
                     out = list(out) + list(ex.on_end())
         finally:
@@ -517,8 +559,7 @@ class Runtime:
                     self._node_names[node.id], node_ns
                 )
             if ts_entries is not None:
-                # list.append is GIL-atomic — safe from pool threads; the
-                # port runs no compiled segment, so `compiled` is False
+                # list.append is GIL-atomic — safe from pool threads
                 ts_entries.append(
                     (
                         node.id,
@@ -526,7 +567,8 @@ class Runtime:
                         t0 + node_ns,
                         sum(len(b) for b in inputs),
                         nrows,
-                        False,
+                        runner is not None
+                        and runner.compiled_ticks > seg_c0,
                     )
                 )
         if isinstance(ex, InputExec) and nrows:

@@ -1,8 +1,8 @@
 """Low-level value model: keys, pointers, hashing — the port's own copy of
 ``pathway_tpu/internals/api.py``. Keys are bit-identical to the reference's:
-the port always takes the pure-Python blake2b path, which the reference
-keeps byte-identical to its native hasher (building that hasher for the
-port is queued in ROADMAP).
+the port hashes with its own build of the native hasher
+(``internals/native.py``) where it builds, else with the byte-identical
+pure-Python blake2b path.
 
 Analog of the reference engine value model
 (upstream Pathway: src/engine/value.rs:41,207): the reference uses a 128-bit xxh3
@@ -109,26 +109,46 @@ def _value_bytes(v: Any) -> bytes:
     return b"\x0c" + repr(v).encode()
 
 
+_native_mod: Any = None
+_native_checked = False
+
+
+def _get_native():
+    global _native_mod, _native_checked
+    if not _native_checked:
+        _native_checked = True
+        from pathway_tpu_torch.internals.native import get_native
+
+        _native_mod = get_native()
+    return _native_mod
+
+
 def ref_scalar(*values: Any, optional: bool = False) -> Pointer:
     """Derive a stable Pointer from a tuple of values
-    (reference: Key::for_values, src/engine/value.rs:60). The reference
-    uses its native kernel (native/pathway_native.cc) when built; the port
-    always takes the byte-identical pure-Python path (building the native
-    host hasher is queued in ROADMAP)."""
+    (reference: Key::for_values, src/engine/value.rs:60). Uses the native
+    hasher (native/pathway_native.cc) when built; byte-identical fallback."""
+    nat = _get_native()
+    if nat is not None:
+        return Pointer(nat.hash_value(tuple(values)))
     return Pointer(_hash_bytes(_value_bytes(tuple(values))))
 
 
 def ptr_column(keys: np.ndarray) -> tuple:
     """Mark a raw uint64 key array as a Pointer column for
-    ref_scalars_columns (the reference's native kernel serializes it
-    straight from the buffer; the pure-Python path boxes Pointers)."""
+    ref_scalars_columns — the native hasher serializes it straight from the
+    buffer instead of boxing one Pointer object per row."""
     return ("__ptr__", np.ascontiguousarray(keys, dtype=np.uint64))
 
 
 def ref_scalars_columns(columns: list, n: int) -> np.ndarray:
     """Batch key derivation: row i keys as ref_scalar(col0[i], col1[i], ...).
-    Pure Python: one ref_scalar per row, byte-identical to the
-    reference's native batch hasher."""
+    The native path hashes all rows without re-entering the interpreter;
+    int64/float64 numpy columns and ptr_column-marked key arrays serialize
+    directly from their buffers."""
+    nat = _get_native()
+    if nat is not None:
+        raw = nat.hash_columns(tuple(columns), n)
+        return np.frombuffer(raw, dtype=np.uint64).copy()
     cols = [
         [Pointer(int(x)) for x in col[1]]
         if isinstance(col, tuple) and len(col) == 2 and col[0] == "__ptr__"
@@ -155,6 +175,16 @@ def match_keys(
     if not nl or not nr:
         e = np.empty(0, dtype=np.int64)
         return e, e
+    nat = _get_native()
+    if nat is not None and hasattr(nat, "match_fk"):
+        li_b, ri_b = nat.match_fk(
+            np.ascontiguousarray(left, dtype=np.uint64),
+            np.ascontiguousarray(right, dtype=np.uint64),
+        )
+        return (
+            np.frombuffer(li_b, dtype=np.int64),
+            np.frombuffer(ri_b, dtype=np.int64),
+        )
     if right_sorted:
         order_r = None
         r_sorted = right

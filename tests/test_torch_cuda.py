@@ -1052,3 +1052,109 @@ def test_two_processes_build_the_kernel_concurrently(dev, tmp_path):
                             "assert stats['builds'] == 0, stats\n", str(build)],
                            cwd=str(root), capture_output=True, text=True, timeout=600)
     assert third.returncode == 0, third.stdout + third.stderr
+
+
+def _ct_rows(n, seed):
+    rng = np.random.default_rng(seed)
+    return {"doc_id": np.arange(n, dtype=np.int64), "topic": rng.integers(0, 8, n),
+            "ts": 1_700_000_000 + rng.integers(0, 86_400, n), "quality": rng.random(n),
+            "flags": rng.integers(0, 16, n)}
+
+
+def _ct_edges(s):
+    """numpy float64 edge values for the lowered cast: NaN, infinities and
+    out-of-range values go to int64 as numpy gives them."""
+    s["quality"][:6] = [np.nan, np.inf, -np.inf, 1e300, -1e300, 2.0**63]
+    return s
+
+
+def _same_float(g, w, rel) -> bool:
+    g, w = float(g), float(w)
+    return g == w or abs(g - w) <= rel * abs(w) or (np.isnan(g) and np.isnan(w))
+
+
+def _ct_graph(pw, rows):
+    """A compiled chain and a groupby over one pw.debug table; returns the
+    survivors and the groupby as dicts, and the runtime."""
+    import pathway_tpu_torch as tpw
+
+    tpw.internals.parse_graph.G.clear()
+    cols = list(rows)
+    t = pw.debug.table_from_rows(
+        pw.schema_from_types(**{c: (float if c == "quality" else int) for c in cols}),
+        list(zip(*[rows[c].tolist() for c in cols])))
+    scored = t.select(t.doc_id, t.topic, t.flags,
+                      score=pw.if_else((t.flags & 4) == 4, t.quality * 1.25, t.quality)
+                      - pw.cast(float, abs(t.ts - 1_700_043_200)) * 1e-7,
+                      bucket=pw.cast(int, t.quality * 16.0) + t.topic * 16)
+    kept = scored.filter(((scored.flags & 3) == 3) | (scored.score > 0.5))
+    stats = kept.groupby(kept.topic).reduce(kept.topic, n=pw.reducers.count(), total=pw.reducers.sum(kept.bucket),
+                                             mean=pw.reducers.avg(kept.score))
+    _k, surv = pw.debug.table_to_dicts(kept)
+    rt = tpw.internals.parse_graph.G.last_runtime
+    _k, st = pw.debug.table_to_dicts(stats)
+    return surv, st, rt
+
+
+def test_compiled_chain_on_the_card_equals_the_interpreter(dev, fresh_graph, monkeypatch):
+    """The compiled segment on cuda gives the interpreter's rows: keys,
+    ints and bools exactly, floats within 1e-12 (relative); numpy's casts
+    of NaN, infinities and out-of-range floats to int kept; the groupby's
+    partials on the card: counts and sums exact, means within 1e-9."""
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.engine import compile as ct
+
+    rows = _ct_edges(_ct_rows(4096, 0))
+    monkeypatch.setenv("PATHWAY_COMPILED_TICK", "1")
+    monkeypatch.setenv("PATHWAY_COMPILED_DEVICE", "cuda")
+    # the interpreter over the same typed ingest: every tick below the
+    # segment's minimum, the partials on the host
+    monkeypatch.setenv("PATHWAY_COMPILED_MIN_ROWS", str(1 << 30))
+    monkeypatch.setenv("PATHWAY_COMPILED_GROUPBY", "0")
+    want, want_stats, _rt = _ct_graph(pw, rows)
+    monkeypatch.setenv("PATHWAY_COMPILED_MIN_ROWS", "1")
+    monkeypatch.delenv("PATHWAY_COMPILED_GROUPBY")
+    calls = ct.semigroup_partials.calls
+    got, got_stats, rt = _ct_graph(pw, rows)
+    (seg,) = [s for s in rt.compiled_plan.segments if s.compiled_ticks]
+    assert seg.device.type == "cuda" and seg.fallback_ticks == 0
+    assert ct.semigroup_partials.calls > calls
+    assert set(got["score"]) == set(want["score"])
+    for k in want["score"]:
+        assert int(got["bucket"][k]) == int(want["bucket"][k])
+        assert _same_float(got["score"][k], want["score"][k], 1e-12)
+    for k in want_stats["n"]:
+        assert (got_stats["n"][k], got_stats["total"][k]) == (want_stats["n"][k], want_stats["total"][k])
+        assert _same_float(got_stats["mean"][k], want_stats["mean"][k], 1e-9)
+
+
+def test_semigroup_partials_on_the_card_equal_np_add_at(dev, monkeypatch):
+    from pathway_tpu_torch.engine import compile as ct
+
+    monkeypatch.setenv("PATHWAY_COMPILED_DEVICE", "cuda")
+    rng = np.random.default_rng(9)
+    n, nu = 70_000, 300
+    codes = rng.integers(0, nu, n).astype(np.int64)
+    diffs = rng.choice(np.array([-1, 1, 3], dtype=np.int64), n)
+    ints = rng.integers(-(2**40), 2**40, n).astype(np.int64)
+    floats = rng.standard_normal(n)
+    dcounts, (p_none, p_int, p_float) = ct.semigroup_partials(codes, diffs, [None, ints, floats], nu)
+    want_c, want_i, want_f = np.zeros(nu, np.int64), np.zeros(nu, np.int64), np.zeros(nu)
+    np.add.at(want_c, codes, diffs)
+    np.add.at(want_i, codes, ints * diffs)
+    np.add.at(want_f, codes, floats * diffs)
+    assert p_none is None and dcounts.tolist() == want_c.tolist() and p_int.tolist() == want_i.tolist()
+    np.testing.assert_allclose(p_float, want_f, rtol=1e-9, atol=1e-9)
+
+
+def test_native_hasher_is_live_on_the_card_machine():
+    """The port's native hasher builds with the machine's g++ and Python
+    headers and gives the pure-Python keys."""
+    from pathway_tpu_torch.internals import api, native
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    mod = native.get_native()
+    assert mod is not None, native.build_log
+    values = (None, True, 7, 2.5, "x", b"y", (1, "z"), api.Pointer(3))
+    assert int(api.ref_scalar(*values)) == api._hash_bytes(api._value_bytes(values))

@@ -259,11 +259,10 @@ def test_a_depth_that_fails_to_build_republishes_the_outer_recorder(where, monke
     operator's exec or after its own recorder was attached: the error
     reaches pw.run, and the recorder the process publishes is still the
     outer runtime's, not the half-built depth's."""
-    from pathway_tpu_torch._unported import STDLIB_REST, unported
     from pathway_tpu_torch.observability import tickscope
 
     def refuse(*_args):
-        raise unported("a body operator", STDLIB_REST)
+        raise RuntimeError("a body operator refused to build")
 
     def step(iterated):
         out = iterated.select(a=iterated.a)
@@ -284,7 +283,7 @@ def test_a_depth_that_fails_to_build_republishes_the_outer_recorder(where, monke
 
         monkeypatch.setattr(tickscope, "make_recorder", make_recorder)
     res = tpw.iterate(step, iterated=tpw.debug.table_from_markdown("   | a\n 1 | 1"))
-    with pytest.raises(NotImplementedError, match=r"\[stdlib-rest\]"):
+    with pytest.raises(RuntimeError, match="a body operator refused to build"):
         stream(tpw, res)
     assert tickscope.recorder() is port_parse_graph.G.last_runtime._tickscope
 

@@ -1,7 +1,8 @@
 """Row keys across the two packages: the port's ``ref_scalar`` /
-``ref_scalars_columns`` (always the pure-Python blake2b path) must give
-bit-identical keys to the JAX package's (its native hasher where built),
-because every engine parity test compares row ids. Also ``Pointer`` and
+``ref_scalars_columns``, with its native hasher and with the pure-Python
+blake2b path (every case runs under both), must give bit-identical keys
+to the JAX package's (its native hasher where built), because every
+engine parity test compares row ids. Also ``Pointer`` and
 ``with_shard_of``."""
 
 import math
@@ -13,6 +14,17 @@ from pathway_tpu.internals import api as jax_api
 from pathway_tpu.internals.json import Json as JaxJson
 from pathway_tpu_torch.internals import api as port_api
 from pathway_tpu_torch.internals.json import Json as PortJson
+from pathway_tpu_torch.internals.native import get_native
+
+
+@pytest.fixture(autouse=True, params=["native", "python"])
+def hasher(request, monkeypatch):
+    """The port's keys through its native hasher, or the pure-Python path."""
+    mod = get_native() if request.param == "native" else None
+    assert mod is not None or request.param == "python"
+    monkeypatch.setattr(port_api, "_native_mod", mod)
+    monkeypatch.setattr(port_api, "_native_checked", True)
+    return request.param
 
 SCALARS = [
     0, 1, -1, 7, -7, 2**31, -(2**31), 2**62, -(2**62), 2**63 - 1, -(2**63),

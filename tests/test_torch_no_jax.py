@@ -29,8 +29,11 @@ pandas, ``requests`` and every broker, database and cloud client blocked,
 none imports one at module level, and the card's CDC path (a SQLite table
 streamed through the embedder into ``TpuKnn``, the replies written back
 with ``pw.io.sqlite.write``, the Debezium stream read beside it) runs with
-all of them blocked. Without a card, an entry point left on its default device raises
-instead of falling back to the CPU."""
+all of them blocked. The compiled ticks, the native hasher's loader and the
+graphs and viz stdlib import with ``pandas``, ``rich`` and ``bokeh`` blocked,
+and a compiled chain on the CPU, pagerank and ``pw.viz.plot``'s refusal run
+with them blocked. Without a card, an entry point left on its default device
+(compiled ticks included) raises instead of falling back to the CPU."""
 
 import ast
 import json
@@ -60,6 +63,16 @@ BLOCKED_WITH_ML = BLOCKED_WITH_PANDAS + ("yaml", "pyarrow", "sklearn")
 # the sources only, as above)
 CONNECTOR_CLIENTS = ("confluent_kafka", "nats", "pymongo", "psycopg2", "psycopg", "googleapiclient", "s3fs", "fs")
 BLOCKED_WITH_CONNECTOR_CLIENTS = BLOCKED_WITH_CLIENTS + ("pyarrow", "fsspec") + CONNECTOR_CLIENTS
+# the compiled ticks, the native hasher's loader and the graphs and viz
+# stdlib import with pandas, rich and bokeh blocked too (viz imports them
+# inside its functions)
+BLOCKED_WITH_VIZ = BLOCKED_WITH_PANDAS + ("rich", "bokeh")
+COMPILED_MODULES = [
+    "pathway_tpu_torch.engine.compile",
+    "pathway_tpu_torch.internals.native",
+    "pathway_tpu_torch.stdlib.graphs",
+    "pathway_tpu_torch.stdlib.viz",
+]
 # modules that may import pandas at module level: none (the ``.dt``
 # namespace, the reference's one such module, imports it inside its methods)
 PANDAS_MODULES: set[str] = set()
@@ -110,6 +123,19 @@ def _knn_pipeline_on_default_device(inner=TpuKnn):
     pw.run()
 
 
+def _compiled_ticks_on_default_device():
+    import os
+
+    os.environ["PATHWAY_COMPILED_TICK"] = "1"
+    try:
+        pw.internals.parse_graph.G.clear()
+        t = pw.debug.table_from_rows(pw.schema_from_types(a=int), [(1,), (2,)])
+        pw.io.subscribe(t.select(b=t.a * 2), on_change=lambda **kw: None)
+        pw.run()
+    finally:
+        del os.environ["PATHWAY_COMPILED_TICK"]
+
+
 def _ml_knn_index_on_default_device():
     pw.internals.parse_graph.G.clear()
     docs = pw.debug.table_from_rows(pw.schema_from_types(v=np.ndarray), [(np.ones(4),)])
@@ -141,6 +167,7 @@ for make in (
     lambda: assign_clusters(np.ones((2, 4), np.float32), np.ones((1, 4), np.float32)),
     lambda: make_projections(4, 2, 2, 1.0),
     lambda: ReplicaServer(replica_id=0, index_factory=dict),
+    _compiled_ticks_on_default_device,
 ):
     try:
         make()
@@ -748,6 +775,54 @@ def test_connector_module_imports_without_its_clients(connectors_imported_with_c
     assert mod in connectors_imported_with_clients_blocked
 
 
+@pytest.fixture(scope="module")
+def compiled_imported_with_viz_blocked():
+    r = _run(_IMPORT_EACH, blocked=BLOCKED_WITH_VIZ, mods=COMPILED_MODULES)
+    assert r.returncode == 0, r.stderr
+    return set(json.loads(r.stdout.strip().splitlines()[-1]))
+
+
+@pytest.mark.parametrize("mod", COMPILED_MODULES)
+def test_compiled_tick_module_imports_without_jax_pandas_rich_or_bokeh(compiled_imported_with_viz_blocked, mod):
+    assert mod in compiled_imported_with_viz_blocked
+
+
+_COMPILED_RUN = """
+import os, sys
+for name in {blocked!r}:
+    sys.modules[name] = None
+os.environ.update(PATHWAY_COMPILED_TICK="1", PATHWAY_COMPILED_DEVICE="cpu", PATHWAY_COMPILED_MIN_ROWS="1")
+import numpy as np
+import pathway_tpu_torch as pw
+from pathway_tpu_torch.internals import native
+assert native.get_native() is not None, native.build_log
+t = pw.debug.table_from_rows(pw.schema_from_types(a=int, b=float), [(i, i / 2) for i in range(100)])
+out = t.select(x=t.a * 3 + 1, y=t.b - t.a).filter(pw.this.x > 50)
+keys, cols = pw.debug.table_to_dicts(out.groupby(pw.this.x % 2 == 0).reduce(n=pw.reducers.count()))
+rt = pw.internals.parse_graph.G.last_runtime
+assert sum(s.compiled_ticks for s in rt.compiled_plan.segments) == 1
+pw.internals.parse_graph.G.clear()
+edges = pw.debug.T("u | v\\n a | b\\n b | a\\n c | a")
+ranks = pw.debug.table_to_dicts(pw.graphs.pagerank(edges, steps=10))[1]["rank"]
+assert len(ranks) == 3
+try:
+    pw.viz.plot(edges)
+except ImportError as e:
+    assert "bokeh" in str(e)
+else:
+    raise AssertionError("plot ran without bokeh")
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in {blocked!r} and sys.modules[m])
+assert not leaked, leaked
+print("ok")
+"""
+
+
+def test_compiled_path_graphs_and_viz_run_with_pandas_rich_and_bokeh_blocked():
+    r = _run(_COMPILED_RUN, blocked=BLOCKED_WITH_VIZ)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip().endswith("ok")
+
+
 def test_cdc_path_runs_with_the_connector_clients_blocked():
     r = _run(_CDC_RUN, blocked=BLOCKED_WITH_CONNECTOR_CLIENTS)
     assert r.returncode == 0, r.stderr
@@ -879,7 +954,7 @@ def test_no_port_module_imports_a_client_at_module_level():
     offenders = {
         str(p.relative_to(ROOT))
         for p in list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-        if _module_level_roots(p) & {*CLIENTS, *CONNECTOR_CLIENTS, "google", "fsspec", "pyarrow"}
+        if _module_level_roots(p) & {*CLIENTS, *CONNECTOR_CLIENTS, "google", "fsspec", "pyarrow", "rich", "bokeh"}
     }
     assert not offenders, offenders
 

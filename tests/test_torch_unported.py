@@ -1,13 +1,13 @@
 """Every reference hook the port does not carry yet raises
 ``NotImplementedError`` naming its ROADMAP tag, instead of running
-without it: compiled ticks, engine shards, the multi-process engine (DCN),
+without it: engine shards, the multi-process engine (DCN),
 the standby writer and the process-group supervisor of replication, the
 device mesh's names in ``parallel``, ``mesh=``,
 the observability routes of the read plane (501 naming [observability]),
-every root name of the reference the port lacks (``pw.graphs``,
-``pw.viz``),
-every ``pw.stdlib.<name>`` it lacks and ``pw.debug.diagnose``, each naming
-its tag. Every public name of every package ``__init__`` of the reference
+every root name of the reference the port lacks (``pw.analysis``) and
+``pw.debug.diagnose``, each naming its tag. Compiled ticks without a card
+raise the device error; ``pw.graphs``, ``pw.viz`` and every
+``pw.stdlib.<name>`` resolve to the port's own modules. Every public name of every package ``__init__`` of the reference
 resolves in the port or raises naming a tag, and the names that the port
 carries now (the root's, ``pw.temporal``'s, ``pw.debug``'s and
 ``pw.stdlib.ml``'s) resolve to counterparts with the reference's
@@ -59,23 +59,26 @@ def _index_pipeline(**kw):
 
 
 ENV_CASES = [
-    ({"PATHWAY_COMPILED_TICK": "1"}, _run_simple, r"\[compiled-ticks\]"),
-    ({"PATHWAY_ENGINE_SHARDS": "4"}, _run_simple, r"\[mesh\]"),
-    ({"PATHWAY_PROCESSES": "2"}, _run_simple, r"\[mesh\]"),  # the DCN engine
+    # compiled ticks are ported ([compiled-ticks] is gone): they run on
+    # PATHWAY_COMPILED_DEVICE, default cuda, which raises without a card
+    ({"PATHWAY_COMPILED_TICK": "1"}, _run_simple, RuntimeError, r"torch\.cuda\.is_available\(\) is False"),
+    ({"PATHWAY_ENGINE_SHARDS": "4"}, _run_simple, NotImplementedError, r"\[mesh\]"),
+    ({"PATHWAY_PROCESSES": "2"}, _run_simple, NotImplementedError, r"\[mesh\]"),  # the DCN engine
     # the writer's delta stream is ported (PATHWAY_REPL_PORT arms it); the
     # standby writer that takes over its port is not
     ({"PATHWAY_REPL_PORT": "18765"}, lambda: importlib.import_module(
-        "pathway_tpu_torch.parallel.standby").main(), r"\[replication\]"),
+        "pathway_tpu_torch.parallel.standby").main(), NotImplementedError, r"\[replication\]"),
 ]
 
 
 @pytest.mark.parametrize(
-    "env,run,item", ENV_CASES, ids=[next(iter(c[0])) for c in ENV_CASES]
+    "env,run,exc,item", ENV_CASES, ids=[next(iter(c[0])) for c in ENV_CASES]
 )
-def test_env_hook_raises(monkeypatch, env, run, item):
+def test_env_hook_raises(monkeypatch, env, run, exc, item):
+    monkeypatch.delenv("PATHWAY_COMPILED_DEVICE", raising=False)
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(exc, match=item):
         run()
 
 
@@ -104,7 +107,8 @@ def test_tpu_knn_mesh_raises():
         # connector gives the port's own table
         (lambda t: pw.io.debezium.read(input_dir="unused", schema=pw.schema_from_types(a=int, b=str)), None),
         (lambda t: pw.run(with_http_server=True), r"\[observability\]"),
-        (lambda t: pw.stdlib.graphs, r"\[stdlib-rest\]"),
+        # the graphs and viz stdlib are ported ([stdlib-rest] is gone)
+        (lambda t: pw.stdlib.graphs.pagerank(t.select(u=t.b, v=t.b)), None),
     ],
     ids=[
         "windowby", "interval_join", "diff", "dt_namespace", "io.csv", "http_server", "stdlib.graphs",
@@ -218,18 +222,19 @@ def test_reference_root_name_raises_with_its_tag(name):
     assert ROOT_NAMES[name].split()[0] in str(e.value) and f"pw.{name}" in str(e.value)
 
 
-@pytest.mark.parametrize("name", STDLIB_MISSING)
+@pytest.mark.parametrize("name", __import__("pathway_tpu.stdlib").stdlib.__all__)
 def test_reference_stdlib_name_raises_with_its_tag(name):
-    from pathway_tpu_torch._unported import STDLIB_NAMES
-
-    with pytest.raises(NotImplementedError, match=r"\[[a-z-]+\]") as e:
-        getattr(pw.stdlib, name)
-    assert STDLIB_NAMES[name].split()[0] in str(e.value)
+    """Every ``pw.stdlib.<name>`` of the reference resolves to the port's
+    own module: none is left to raise a tag since [stdlib-rest] (graphs,
+    viz) was ported."""
+    assert name not in STDLIB_MISSING
+    assert getattr(pw.stdlib, name).__name__ == f"pathway_tpu_torch.stdlib.{name}"
 
 
 def test_root_name_tags_and_unknown_names():
-    assert "[stdlib-rest]" in str(pytest.raises(NotImplementedError, getattr, pw, "graphs").value)
-    assert "[stdlib-rest]" in str(pytest.raises(NotImplementedError, getattr, pw.stdlib, "viz").value)
+    # [stdlib-rest] is ported: the graphs and viz stdlib are the port's own
+    assert pw.graphs is pw.stdlib.graphs and pw.graphs.__name__ == "pathway_tpu_torch.stdlib.graphs"
+    assert pw.viz is pw.stdlib.viz and pw.viz.__name__ == "pathway_tpu_torch.stdlib.viz"
     # [temporal] is ported: its root names are the port's own
     assert pw.temporal.__name__ == "pathway_tpu_torch.stdlib.temporal"
     assert pw.IntervalJoinResult.__module__ == "pathway_tpu_torch.stdlib.temporal._interval_join"
@@ -239,8 +244,9 @@ def test_root_name_tags_and_unknown_names():
     with pytest.raises(AttributeError):
         pw.stdlib.no_such_name
     # 12 until LiveTable, load_yaml and demo were ported (``live`` is not in
-    # the reference's ``__all__``), 9 until the temporal names were
-    assert len(ROOT_MISSING) == 2 and len(STDLIB_MISSING) == 2
+    # the reference's ``__all__``), 9 until the temporal names were, 2 (and
+    # 2 of the stdlib) until graphs and viz were
+    assert ROOT_MISSING == ["analysis"] and not STDLIB_MISSING
 
 
 # root names (and ``pw.stdlib.utils``) that raised [core-api] until the
@@ -256,7 +262,7 @@ PORTED_ROOT = [
     "set_license_key", "set_monitoring_config", "enable_interactive_mode",
     "table_transformer", "TableSlice", "utils", "LiveTable", "live", "load_yaml", "demo",
     "temporal", "ordered", "stateful", "statistical", "AsofJoinResult", "IntervalJoinResult",
-    "WindowJoinResult",
+    "WindowJoinResult", "graphs",
 ]
 REFERENCE_COUNTERPART = {"TableSlice": ("pathway_tpu.internals.table_slice", "TableSlice")}
 
