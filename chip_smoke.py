@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from csrc/ (nvcc, sm_90a, one process per
-source, all started together), then runs seventeen phases, printing one JSON
+source, all started together), then runs eighteen phases, printing one JSON
 object per phase:
 
 1. device         — nvidia-smi name/power limit, toolchain versions, build seconds.
@@ -103,9 +103,9 @@ object per phase:
                     pathway_rest_request_seconds p50, the HTTP overhead over
                     the vector store phase's B = 1 reply, update-to-visible,
                     the 429/503/504 counts and block_topk launches per shape.
-7. persistence    — the first 12,288 of the vector store phase's documents
+7. persistence    — the first 9,216 of the vector store phase's documents
                     (cut from 32,768) written as files (tmp + rename) into a
-                    folder, 16 batches of 768, read by
+                    folder, 12 batches of 768 (cut from 16), read by
                     pw.io.fs.read(format="binary", mode="streaming") into
                     VectorStoreServer(device="cuda") with
                     persistence_config=Config.simple_config(Backend.filesystem)
@@ -115,8 +115,8 @@ object per phase:
                     Restart 1 restores the operator snapshot (batches 1-8),
                     replays the log tail (batch 9), seeks the scanner, reads
                     batch 10 again, answers one query (time to the first
-                    correct reply), ingests the 6 remaining batches, answers
-                    8 B = 1 (cut from 64) and 3 B = 16 queries (the vector
+                    correct reply), ingests the 2 remaining batches, answers
+                    8 B = 1 (cut from 64) and 2 B = 16 queries (the vector
                     store phase's texts copied from those documents), then
                     1 write (cut from 4) of 64
                     documents, followed by a query for one of them,
@@ -157,12 +157,14 @@ object per phase:
                     near tie is read back from the fused scores and allowed),
                     a copied query finds its chunk first, block_topk launches
                     equal the dense searches per shape. (b) DataIndex over
-                    IvfKnn(device="cuda") at its defaults (1000 clusters, 32
-                    probes) through the engine: bench.py's accelerator IVF
-                    mixture (1,000,000 x 384 f32, 2000 centres, noise 0.35,
-                    default_rng(7)) in commits of 65,536 via pw.io.python,
-                    then 16 B = 1 and 1 B = 16 queries (k = 10); the index
-                    trains once. Checked: every score is its row's cosine - 1
+                    IvfKnn(device="cuda") at its defaults (704 clusters, 27
+                    probes at 500,000 rows) through the engine: the first
+                    500,000 rows of bench.py's accelerator IVF mixture
+                    (1,000,000 x 384 f32, 2000 centres, noise 0.35,
+                    default_rng(7); cut from all of it beside the
+                    observability phase) in commits of 65,536 via
+                    pw.io.python, then 16 B = 1 and 1 B = 16 queries
+                    (k = 10); the index trains once. Checked: every score is its row's cosine - 1
                     (numpy, 1e-5), replies descend, every key's cluster is
                     among the query's probes (numpy, from the index's
                     centroids), recall@10 >= 0.95 against the exact top-10
@@ -352,7 +354,10 @@ object per phase:
                     200/429/503, none past its deadline) and its re-admission
                     only once ready, 2 live writes at rank 1, cache hits with
                     no replica hop and an evicting write, greedy /generate
-                    through a router equal to an in-process scheduler. Prints
+                    through a router equal to an in-process scheduler, the
+                    router's /fleet/metrics, /fleet/events and /fleet/trace
+                    over both live replicas (each replica's series labelled,
+                    both members up) and each replica's /debug/signals. Prints
                     hydrate s, replication lag, reply p50 direct and through
                     the router, update-to-visible, failover statuses and
                     retries, re-admission s, cache hit p50, /generate TTFT and
@@ -384,7 +389,32 @@ object per phase:
                     segments per snapshot). Tokens are compared exactly; a
                     difference passes only at a near tie: the uninterrupted
                     run's top-2 logit margin there below GEN_LOGIT_TOL.
-17. kernels       — per kernel and per path shape: launches on its path, ms
+17. observability — a monitored live index at the main path's width: the
+                    vector store phase's 80,630 chunk vectors with their texts
+                    through pw.io.python in 8 commits and a compiled select ->
+                    filter chain on a seeded quality column
+                    (PATHWAY_COMPILED_TICK=1), 256 new documents through the
+                    full-width embedder, DataIndex over TpuKnn(device="cuda"),
+                    64 B = 1 and 8 B = 16 query ticks; pw.run(with_http_server=
+                    True, diagnostics="warn") with the signal sampler every
+                    200 ms. Checked: every reply against the plain top-10
+                    (kernel="torch") over the live rows; /metrics (ticks, the
+                    knn histogram and counter moved by this phase, the device
+                    memory gauges), /debug/graph (one row per node, the chain's
+                    segment 8 compiled ticks and no fallback), /debug/tick,
+                    /debug/threads, /debug/signals, /debug/profile (block_topk's
+                    kernel in a torch.profiler trace of the B = 16 burst; 409
+                    for a concurrent capture, 400 for seconds=0),
+                    /debug/autoscale (501, [mesh]); pw.debug.diagnose names the
+                    embedder UDF's chain boundary; a faulty graph under
+                    diagnostics="error" is refused before its first tick;
+                    prove_lowering() proves every launch case but the two
+                    planted refusals, the chain's own program among them.
+                    Prints the B = 1 reply p50 with the server and sampler on
+                    and off in one window, the /metrics scrape p50 under load,
+                    the capture's wall seconds, the doctor's ms and
+                    prove_lowering's seconds.
+18. kernels       — per kernel and per path shape: launches on its path, ms
                     (CUDA events) and device ms (torch.profiler), its plain
                     version's ms, the bound and what sets it, the bytes it must
                     move, and the ms of the library call(s) computing the same
@@ -403,7 +433,10 @@ object per phase:
                     cdc index and of the compiled ticks' index, each on its
                     corpus at the end, and every (B,
                     k) the replica children launched,
-                    on the writer's corpus;
+                    on the writer's corpus, and B = 1 and 16 of the
+                    observability phase on its corpus; at every shape the
+                    launch ledger's shared memory (analysis/lowering.py) must
+                    equal what the built kernel launched with;
                     paged_attention: the
                     recorded decode step and a long context, each with its
                     split count S (and the replica's /generate launches).
@@ -491,15 +524,20 @@ PERSIST_B1 = 8
 # to 1 beside the windowed index phase, to keep the smoke under 950 s (each
 # write's commit takes ≈11 s with persistence)
 PERSIST_LIVE_WRITES = 1
-# the first 3/8 of the vector store phase's documents, in batches of 768:
-# the same 16 batches, the same kill at tick 10, fewer files (cut from
-# 32,768 in batches of 2048 beside the cdc index phase; the scanner copies
-# its offsets per file, so the killed run and restart 1 shrink faster than
-# the corpus)
-PERSIST_DOCS = VS_DOCS * 3 // 8
+# the first 12 batches of 768 of the vector store phase's documents: the same
+# kill at tick 10, fewer files (cut from 32,768 in batches of 2048 beside
+# the cdc index phase, then from 16 batches to 12 beside the observability
+# phase; the scanner copies its offsets per file, so the killed run and
+# restart 1 shrink faster than the corpus)
 PERSIST_COMMIT = 768
-PERSIST_B16_TICKS = 3  # B = 16 ticks of the vector store phase's texts from those documents
-PERSIST_CAPACITY = 30 * 1024  # index rows reserved: 29,122 chunks + the live write's
+PERSIST_DOCS = PERSIST_COMMIT * 12
+# B = 16 ticks of the vector store phase's texts from those documents: 2
+# (cut from 3 with the batches: 45 of its B = 16 texts come from the first
+# 9,216 documents)
+PERSIST_B16_TICKS = 2
+# index rows reserved: 21,836 chunks + the live write's; kept at the
+# 12,288 documents' 29,122 + 64 so the kernel's shape (N = 30,720) stays
+PERSIST_CAPACITY = 30 * 1024
 # a reply of a restart against the never-killed vector store phase's reply
 # to the same text: the same corpus and query vector, but the document
 # vectors come from other embedder batches (other GEMM shapes in bf16)
@@ -548,6 +586,10 @@ IK_LIVE_WRITES = 4
 IK_HYBRID_DOCS = VS_DOCS // 2
 RRF_K = 60.0  # HybridIndexFactory's default
 IK_IVF_ROWS = 1_000_000
+# the engine part's rows: the mixture's first half, cut from all of it
+# beside the observability phase to keep the smoke under 950 s (ingest,
+# assignment and scoring scale with the rows)
+IK_IVF_ENGINE_ROWS = IK_IVF_ROWS // 2
 IK_IVF_CENTRES = 2000
 IK_IVF_COMMIT = 1 << 16
 IK_IVF_DEVICE_QUERIES = 50
@@ -2521,14 +2563,14 @@ def persist_child(folder: str, store: str, progress: str) -> int:
 def persistence(dev, smi: str, vs_phase: dict, vs_data: dict, corpus: tuple) -> tuple[dict, dict]:
     """Kill and restart of a persisted VectorStoreServer fed by pw.io.fs.
     The first PERSIST_DOCS of the vector store phase's documents go into a
-    folder as files, 16 batches of PERSIST_COMMIT. A child (this script with --persist-child) runs
+    folder as files, 12 batches of PERSIST_COMMIT. A child (this script with --persist-child) runs
     the graph with PATHWAY_FAULTS=kill=tick:PERSIST_KILL_TICK and must
     exit 23 after batch 9: operator snapshot generation 1 covers batches
     1-8 (snapshot_every 8), the log tail batch 9, batch 10 was drained
     but never logged. Restart 1: a fresh graph over the same store
     restores the snapshot, replays the tail, seeks the scanner past the
     logged files, re-reads batch 10; one query is answered (time to the
-    first correct reply), the remaining 6 batches arrive, then PERSIST_B1
+    first correct reply), the remaining 2 batches arrive, then PERSIST_B1
     B = 1 and PERSIST_B16_TICKS B = 16 queries (the vector store phase's
     texts copied from those documents) and PERSIST_LIVE_WRITES live writes
     of 64 documents, each followed by a query that must find one at rank 1.
@@ -3350,13 +3392,14 @@ def timed(obj, name: str, into: list, scale: float = 1.0) -> None:
 
 
 def ivf_engine(dev, mix: dict, truth: np.ndarray) -> dict:
-    """(b) DataIndex over IvfKnn(device="cuda") at 1M x 384 through the
-    engine: the mixture in commits of 65,536 via pw.io.python, then IK_B1
+    """(b) DataIndex over IvfKnn(device="cuda") through the engine: the
+    mixture's first IK_IVF_ENGINE_ROWS rows in commits of 65,536 via
+    pw.io.python, then IK_B1
     B = 1 and IK_B16 B = 16 queries (the index trains once, at the first); checked
     against numpy and the exact top-10."""
     from pathway_tpu_torch.stdlib.indexing import IvfKnn
 
-    corpus, eq = mix["corpus"], mix["engine_queries"]
+    corpus, eq = mix["corpus"][:IK_IVF_ENGINE_ROWS], mix["engine_queries"]
     n = corpus.shape[0]
     timing: dict[str, list] = {"train_s": [], "assign_s": [], "score_ms": []}
 
@@ -3586,7 +3629,7 @@ def device_ops(dev, mix: dict, ivf_ix, lsh_ix, rate: float) -> tuple[list[dict],
 
 def index_kinds(dev, smi: str, rate: float) -> tuple[dict, dict]:
     """Phase 8: the other index kinds on the card — (a) a hybrid
-    DocumentStore, (b) IvfKnn through the engine at 1M x 384, (c)
+    DocumentStore, (b) IvfKnn through the engine at 500,000 x 384, (c)
     IvfDeviceIndex at bench.py's shape, (d) LshKnn and the segment ops."""
     t_phase = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
@@ -3596,13 +3639,14 @@ def index_kinds(dev, smi: str, rate: float) -> tuple[dict, dict]:
     t0 = time.perf_counter()
     mix = ivf_mixture()
     mixture_s = time.perf_counter() - t0
-    truth, gt = exact_top10(dev, mix["corpus"], np.concatenate([mix["engine_queries"], mix["device_queries"]]))
-    n_eng = len(mix["engine_queries"])
+    # each part's exact top-10 over the rows it indexes
+    eng_truth, _gt = exact_top10(dev, mix["corpus"][:IK_IVF_ENGINE_ROWS], mix["engine_queries"])
+    truth, gt = exact_top10(dev, mix["corpus"], mix["device_queries"])
     t0 = time.perf_counter()
-    ivf = ivf_engine(dev, mix, truth[:n_eng])
+    ivf = ivf_engine(dev, mix, eng_truth)
     ivf["part_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    ivf_dev, ivf_ix = ivf_device(dev, mix, truth[n_eng:])
+    ivf_dev, ivf_ix = ivf_device(dev, mix, truth)
     ivf_dev["part_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     lsh, lsh_ix = lsh_index(dev, mix)
@@ -5431,8 +5475,9 @@ def compiled_ticks(dev, smi: str, rate: float, earlier: dict) -> tuple[dict, dic
         "verify_s": checks["verify_s"],
         "phase_s": _now() - t_phase,
     }
+    # the observability phase embeds with this embedder: no second seeded init
     return phase, {"prep": prep, "valid": valid, "queries": {CT_QUERIES: qs}, "launches": launches,
-                   "shapes": shapes}
+                   "shapes": shapes, "embedder": emb}
 
 
 # --- phase 14: replication ----------------------------------------------------
@@ -5526,6 +5571,43 @@ def stream_generate(port: int, body: dict) -> dict:
         return {"ttft_ms": ttft, "tokens": last["token_count"], "s": time.perf_counter() - t0}
     finally:
         conn.close()
+
+
+def fleet_views(router_port: int, ports: list[int]) -> dict:
+    """The router's /fleet/metrics, /fleet/events and /fleet/trace over
+    both live replicas, and each replica's /debug/signals: every one answers
+    200; the federated exposition parses with each replica's series labelled
+    by its member name and both members up; the merged journal and the
+    stitched trace name both replicas."""
+    from pathway_tpu_torch.observability.exposition import parse_exposition
+    from pathway_tpu_torch.observability.tracing import validate_chrome_trace
+
+    out: dict = {}
+    status, body, ms = get_url(router_port, "/fleet/metrics")
+    check(status == 200, f"/fleet/metrics answered {status}: {body[:200]!r}")
+    fams, errs = parse_exposition(body.decode())
+    check(not errs, f"/fleet/metrics does not parse: {errs[:3]}")
+    up = {s.labels["member"]: s.value for s in fams["pathway_fleet_member_up"].samples}
+    members = sorted(m for m in up if m != "router")
+    check(len(members) == 2 and all(up[m] == 1.0 for m in members), f"fleet members up: {up}")
+    series_by = Counter(s.labels.get("member") for f in fams.values() for s in f.samples)
+    check(all(series_by[m] > 1 for m in members), f"a replica's series are not labelled: {dict(series_by)}")
+    out["metrics"] = {"ms": ms, "families": len(fams), "series_by_member": dict(series_by)}
+    status, body, ms = get_url(router_port, "/fleet/events")
+    check(status == 200 and sorted(json.loads(body)["members"]) == members,
+          f"/fleet/events answered {status}: {body[:200]!r}")
+    out["events"] = {"ms": ms, "events": len(json.loads(body)["events"])}
+    status, body, ms = get_url(router_port, "/fleet/trace")
+    doc = json.loads(body)
+    check(status == 200 and not validate_chrome_trace(doc)
+          and sorted(doc["otherData"]["members"]) == sorted(["router"] + members),
+          f"/fleet/trace answered {status}: {doc.get('otherData')}")
+    out["trace"] = {"ms": ms, "events": len(doc["traceEvents"])}
+    for i, port in enumerate(ports):
+        status, body, _ms = get_url(port, "/debug/signals?series=3")
+        check(status == 200 and json.loads(body)["enabled"], f"replica {i} /debug/signals answered {status}")
+        out[f"replica{i}_signals_samples"] = json.loads(body)["samples"]
+    return out
 
 
 def replication(dev, smi: str, vs_data: dict) -> tuple[dict, dict]:
@@ -5725,6 +5807,7 @@ def replication(dev, smi: str, vs_data: dict) -> tuple[dict, dict]:
             if name == "router_cache_hit":
                 check(all(r[2].get("x-pathway-cache") == "hit" for r in reps), "a repeated read missed the cache")
         kernels_before_kill = http_json(ports[0], "GET", "/replica/kernels")[2]
+        fleet = fleet_views(router.port, ports)
         # (3) failover: clients load the router; the next tick kills replica 0
         retries0 = series(REGISTRY.render(), "pathway_router_retries_total")
         lists = [[req(c * REPL_EACH + i, queries[(c * REPL_EACH + i) % len(queries)])
@@ -5902,6 +5985,7 @@ def replication(dev, smi: str, vs_data: dict) -> tuple[dict, dict]:
             "phase": "replication",
             "nvidia_smi": smi,
             "rows": n,
+            "fleet": fleet,
             "ingest_s": ingest_s,
             "snapshot_tick": snap_tick,
             "ring_backlog_at_subscribe": backlog,
@@ -6607,12 +6691,489 @@ def durability(dev, gen: dict) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-# --- phase 17: kernel times ---------------------------------------------------
+# --- phase 17: observability --------------------------------------------------
+
+OB_COMMITS = 8  # commits of the vector store phase's chunk vectors, one tick each
+OB_NEW_DOCS = 256  # new documents through the embedder, in one commit
+OB_B1 = 64  # B = 1 query ticks, the server and sampler on and off in blocks
+OB_AB_BLOCK = 4  # queries per on/off block
+OB_B16_TICKS = 8  # B = 16 query ticks under the scraper and the profile capture
+OB_B16_SCRAPED = 4  # B = 16 query ticks under the scraper alone, before them
+OB_B16_CONTROL = 4  # B = 16 query ticks with neither, before and again after
+OB_B16_ALL = OB_B16_TICKS + OB_B16_SCRAPED + 2 * OB_B16_CONTROL
+# /metrics is scraped every OB_SCRAPE_S under load: 60 times as often as a
+# common 15 s Prometheus interval, so a burst of a few seconds holds enough
+# scrapes for a p50, and what the replies pay for them bounds a real
+# scraper's cost from above
+OB_SCRAPE_S = 0.25
+OB_PROFILE_S = 1.0
+OB_SIGNALS_MS = 200
+OB_ENV = ("PATHWAY_COMPILED_TICK", "PATHWAY_COMPILED_DEVICE", "PATHWAY_SIGNALS_INTERVAL_MS",
+          "PATHWAY_SIGNALS", "PATHWAY_FLEET_MEMBERS")
+
+
+def ob_quality(n: int) -> np.ndarray:
+    """The seeded quality column the compiled select -> filter chain reads."""
+    return np.random.default_rng(SEED + 61).random(n)
+
+
+def ob_kept(quality: np.ndarray) -> np.ndarray:
+    """numpy's answer to the chain's filter: q2 = quality * 2.0 - 0.5 > 0."""
+    return quality * 2.0 - 0.5 > 0.0
+
+
+def get_url(port: int, target: str, timeout: float = 60.0) -> tuple[int, bytes, float]:
+    """(status, body, wall ms) of one GET on this host."""
+    import urllib.error
+    import urllib.request
+
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{target}", timeout=timeout) as r:
+            status, body = r.status, r.read()
+    except urllib.error.HTTPError as e:
+        status, body = e.code, e.read()
+    return status, body, (time.perf_counter() - t0) * 1e3
+
+
+def observability(dev, smi: str, vs_data: dict, emb) -> tuple[dict, dict]:
+    """The rest of observability on the card, over a monitored live index
+    at the main path's width: the vector store phase's chunk vectors (with
+    their texts) arrive through pw.io.python in OB_COMMITS commits and pass
+    a compiled select -> filter chain on a seeded quality column
+    (PATHWAY_COMPILED_TICK=1 on the card); OB_NEW_DOCS new documents go
+    through the full-width embedder (the compiled ticks phase's); the rows go
+    into DataIndex over TpuKnn(device="cuda"); OB_B1 B = 1 and OB_B16_ALL
+    B = 16 query ticks are embedded by the same UDF. The run is
+    pw.run(with_http_server=True, diagnostics="warn") with the signal
+    sampler every OB_SIGNALS_MS. Checked, each raising: every reply equals the
+    plain top-K (kernel="torch") over the live rows up to near ties; the
+    index holds exactly the rows numpy keeps; /metrics parses, its ticks
+    equal the runtime's, its knn histogram and query counter moved by this
+    phase's query ticks and queries, and its device-memory gauges name the
+    card; /debug/graph has one row per node and the chain's segment tail
+    OB_COMMITS compiled ticks and no fallback; /debug/tick names the last
+    tick's critical path; /debug/threads shows the runtime's thread;
+    /debug/signals has tick_ms and knn_p50_ms points; /debug/profile
+    captures block_topk's kernel on the card during the B = 16 burst, a
+    concurrent capture answers 409 and seconds=0 answers 400;
+    /debug/autoscale answers 501 naming [mesh]; pw.debug.diagnose reports
+    compile-boundary at the embedder's node; a faulty graph under
+    diagnostics="error" raises GraphDoctorError before its first tick;
+    prove_lowering() proves every case but the two planted refusals and
+    holds the chain's own segment program. The B = 1 replies alternate
+    between the server and sampler on and off in blocks of OB_AB_BLOCK; the
+    B = 16 ticks run with neither the scraper nor the capture, under a
+    scraper every OB_SCRAPE_S, under the scraper and the capture, and with
+    neither again, so each block's reply p50 is read against the control."""
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.analysis import GraphDoctorError, lowering
+    from pathway_tpu_torch.engine.compile import row_bucket
+    from pathway_tpu_torch.engine.index_node import ExternalIndexExec
+    from pathway_tpu_torch.internals import api, parse_graph
+    from pathway_tpu_torch.internals.monitoring_server import start_http_server
+    from pathway_tpu_torch.observability import debug, signals
+    from pathway_tpu_torch.observability.exposition import parse_exposition
+    from pathway_tpu_torch.ops import block_topk as bt
+    from pathway_tpu_torch.stdlib.indexing import DataIndex, TpuKnn
+
+    _now = time.perf_counter
+    t_phase = _now()
+    valid_slots = torch.nonzero(vs_data["valid"]).flatten().cpu().numpy()
+    vecs = vs_data["prep"][vs_data["valid"]].float().cpu().numpy()
+    texts = [vs_data["slot_texts"][i] for i in valid_slots]
+    n = len(texts)
+    quality = ob_quality(n)
+    keep = ob_kept(quality)
+    parts = np.array_split(np.arange(n), OB_COMMITS)
+    rng = np.random.default_rng(SEED + 62)
+    news = synthetic_docs(OB_NEW_DOCS, rng)
+    news_q = ob_quality(n + OB_NEW_DOCS)[n:]
+    q_rows = [int(i) for i in rng.choice(n, size=OB_B1 + 16 * OB_B16_ALL, replace=False)]
+    check(all(t is not None for t in texts), "a live slot of the vector store has no text")
+    saved_env = {k: os.environ.get(k) for k in OB_ENV}
+    for k in OB_ENV:
+        os.environ.pop(k, None)
+    os.environ.update(PATHWAY_COMPILED_TICK="1", PATHWAY_COMPILED_DEVICE=dev.type,
+                      PATHWAY_SIGNALS_INTERVAL_MS=str(OB_SIGNALS_MS))
+    signals.reset_sampler()
+    lowering.clear_live_programs()
+    parse_graph.G.clear()
+    bt.block_topk.launches = 0
+    bt.block_topk.shapes.clear()
+
+    class ChunkSchema(pw.Schema):
+        doc_id: int = pw.column_definition(primary_key=True)
+        text: str
+        quality: float
+        vec: np.ndarray
+
+    class NewSchema(pw.Schema):
+        doc_id: int = pw.column_definition(primary_key=True)
+        text: str
+        quality: float
+
+    class QuerySchema(pw.Schema):
+        qid: int = pw.column_definition(primary_key=True)
+        q: str
+
+    finished = threading.Event()
+    failure: list[BaseException] = []
+    record: dict = {"ab": [], "b16": [], "burst_s": Counter(), "scrape_ms": [], "profile": {}}
+
+    class Idle(pw.io.python.ConnectorSubject):
+        def run(self):
+            finished.wait()
+
+    class QuerySubject(pw.io.python.ConnectorSubject):
+        def run(self):
+            try:
+                drive(self)
+            except BaseException as e:  # noqa: BLE001 — re-raised after pw.run
+                failure.append(e)
+            finally:
+                finished.set()
+
+    chunk_subject, new_subject = Idle(), Idle()
+    chunks = pw.io.python.read(chunk_subject, schema=ChunkSchema, autocommit_duration_ms=None)
+    fresh = pw.io.python.read(new_subject, schema=NewSchema, autocommit_duration_ms=None)
+    # the compiled chain: a select computing q2 beside the passed-through
+    # columns, then the filter on it
+    kept = chunks.select(pw.this.doc_id, pw.this.text, pw.this.vec,
+                         q2=pw.this.quality * 2.0 - 0.5).filter(pw.this.q2 > 0.0)
+    # the embedder UDF cuts a chain: the doctor names it
+    embedded = fresh.select(pw.this.doc_id, pw.this.text, vec=emb(pw.this.text),
+                            q2=pw.this.quality * 2.0 - 0.5)
+    pw.universes.promise_are_pairwise_disjoint(kept, embedded)
+    live = kept.concat(embedded)
+    index = DataIndex(live, TpuKnn(live.vec, dimensions=DIM,
+                                   reserved_space=n + OB_NEW_DOCS + 1024, device=dev))
+    queries = pw.io.python.read(QuerySubject(), schema=QuerySchema, autocommit_duration_ms=None)
+    qv = queries.select(qid=pw.this.qid, v=emb(pw.this.q))
+    answers = index.query_as_of_now(qv.v, number_of_matches=K).select(
+        qid=pw.left.qid, ids=pw.right._pw_index_reply_id, scores=pw.right._pw_index_reply_score)
+    replies: dict[int, dict] = {}
+    qvecs: dict[int, np.ndarray] = {}
+    commits: dict[int, float] = {}
+
+    def on_reply(key, row, time, is_addition):
+        if is_addition and row["qid"] not in replies:
+            replies[row["qid"]] = {"t": _now(), "ids": tuple(int(i) for i in row["ids"]),
+                                   "scores": tuple(float(s) for s in row["scores"])}
+
+    def on_query_vec(key, row, time, is_addition):
+        if is_addition:
+            qvecs[row["qid"]] = np.asarray(row["v"], dtype=np.float32)
+
+    pw.io.subscribe(qv, on_change=on_query_vec)
+    pw.io.subscribe(answers, on_change=on_reply)
+    n_commits = [0]
+
+    def commit(subject, cond, what: str) -> None:
+        subject.commit()
+        n_commits[0] += 1
+        goal, rt = n_commits[0], parse_graph.G.runtime
+        wait_until(lambda: cond() and rt.stats.ticks >= goal, what)
+
+    def ask(qs, rows: list[tuple[int, str]]) -> None:
+        for qid, text in rows:
+            qs.next(qid=qid, q=text)
+        t0 = _now()
+        for qid, _t in rows:
+            commits[qid] = t0
+        commit(qs, lambda: all(q in replies for q, _t in rows), "a query's reply")
+
+    def metrics(port: int) -> dict:
+        status, body, _ms = get_url(port, "/metrics")
+        check(status == 200, f"/metrics answered {status}")
+        fams, errs = parse_exposition(body.decode())
+        check(not errs, f"/metrics does not parse: {errs[:3]}")
+        return fams
+
+    def sample_sum(fams: dict, name: str, suffix: str = "", **labels) -> float:
+        fam = fams.get(name)
+        check(fam is not None, f"/metrics has no {name}")
+        return sum(s.value for s in fam.samples if s.name == name + suffix
+                   and all(s.labels.get(k) == v for k, v in labels.items()))
+
+    def drive(qs) -> None:
+        rt = parse_graph.G.runtime
+        ix = record["index"] = next(ex.index for ex in rt.execs.values()
+                                   if isinstance(ex, ExternalIndexExec))
+        srv = rt.http_server
+        check(srv is not None, "pw.run(with_http_server=True) attached no server")
+        port = record["port"] = srv.server_address[1]
+        t0 = _now()
+        for part in parts:
+            for i in part:
+                chunk_subject.next(doc_id=int(i), text=texts[i], quality=float(quality[i]), vec=vecs[i])
+            goal = int(keep[: part[-1] + 1].sum())
+            commit(chunk_subject, lambda: len(ix) >= goal, "a chunk commit")
+        for j, text in enumerate(news):
+            new_subject.next(doc_id=n + j, text=text, quality=float(news_q[j]))
+        goal = int(keep.sum()) + OB_NEW_DOCS
+        commit(new_subject, lambda: len(ix) >= goal, "the embedded documents")
+        record["ingest_s"] = _now() - t0
+        before = metrics(port)
+        record["knn_before"] = (
+            sample_sum(before, "pathway_knn_query_seconds", "_count", index="TpuDenseKnnIndex"),
+            sample_sum(before, "pathway_knn_queries_total", index="TpuDenseKnnIndex"),
+        )
+        # B = 1: the server and the sampler on, then off, in blocks; a
+        # restarted server may bind another port, and the routes follow it
+        qid = 0
+        on = True
+        for i in range(OB_B1):
+            want_on = (i // OB_AB_BLOCK) % 2 == 0
+            if want_on != on:
+                if want_on:
+                    srv = start_http_server(rt)  # re-arms the sampler
+                    check(rt.http_server is srv, "the restarted server is not the runtime's")
+                    port = record["port"] = srv.server_address[1]
+                else:
+                    srv.shutdown()
+                    signals.get_sampler().stop()
+                on = want_on
+            ask(qs, [(qid, texts[q_rows[i]])])
+            record["ab"].append((on, qid))
+            qid += 1
+        if not on:
+            srv = start_http_server(rt)
+            port = record["port"] = srv.server_address[1]
+        record["server"] = srv
+        # the B = 16 ticks: a control block, a block under a /metrics
+        # scraper, the burst under the scraper and a profile capture, and
+        # the control block again
+        stop = threading.Event()
+
+        def burst(label: str, ticks: int) -> None:
+            nonlocal qid
+            t0 = _now()
+            for _t in range(ticks):
+                ask(qs, [(qid + j, texts[q_rows[qid + j]]) for j in range(16)])
+                record["b16"].append((label, qid))
+                qid += 16
+            record["burst_s"][label] += _now() - t0
+
+        def scrape() -> None:
+            while not stop.is_set():
+                status, _body, ms = get_url(port, "/metrics")
+                check(status == 200, f"/metrics answered {status} under load")
+                record["scrape_ms"].append(ms)
+                stop.wait(OB_SCRAPE_S)
+
+        def profile() -> None:
+            t0 = _now()
+            record["profile"]["first"] = get_url(
+                port, f"/debug/profile?seconds={OB_PROFILE_S}&device={dev.type}")
+            record["profile"]["wall_s"] = _now() - t0
+
+        burst("control", OB_B16_CONTROL)
+        scraper = threading.Thread(target=scrape, daemon=True)
+        profiler = threading.Thread(target=profile, daemon=True)
+        scraper.start()
+        burst("scraped", OB_B16_SCRAPED)
+        profiler.start()
+        wait_until(debug._profile_lock.locked, "the profile capture to start", timeout=30.0)
+        record["profile"]["second"] = get_url(port, f"/debug/profile?seconds=1&device={dev.type}")
+        record["profile"]["zero"] = get_url(port, "/debug/profile?seconds=0")
+        burst("captured", OB_B16_TICKS)
+        profiler.join(60)
+        stop.set()
+        scraper.join(60)
+        burst("control", OB_B16_CONTROL)
+        record["queries"] = qid
+        # the routes, once the traffic is over
+        after = metrics(port)
+        record["metrics"] = {
+            "ticks_total": sample_sum(after, "pathway_ticks_total"),
+            "runtime_ticks": rt.stats.ticks,
+            "knn_query_ticks": sample_sum(after, "pathway_knn_query_seconds", "_count",
+                                          index="TpuDenseKnnIndex") - record["knn_before"][0],
+            "knn_queries": sample_sum(after, "pathway_knn_queries_total",
+                                      index="TpuDenseKnnIndex") - record["knn_before"][1],
+            "device_memory": sorted({(s.labels["device"], s.labels["kind"])
+                                     for s in after["pathway_device_memory_bytes"].samples}),
+            "build_backend": sorted({(s.labels["platform"], s.labels["backend"])
+                                     for s in after["pathway_build_info"].samples}),
+        }
+        for route in ("/debug/graph", "/debug/tick", "/debug/threads", "/debug/signals?series=5",
+                      "/debug/autoscale", "/status"):
+            record[route] = get_url(port, route)
+
+    pw_run_t0 = _now()
+    pw.run(with_http_server=True, diagnostics="warn")
+    run_s = _now() - pw_run_t0
+    for k, v in saved_env.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+    if failure:
+        raise failure[0]
+    launches, shapes = bt.block_topk.launches, dict(bt.block_topk.shapes)
+    rt = parse_graph.G.last_runtime
+    ix = record["index"]
+
+    # replies against the plain top-K over the live rows
+    plain = snapshot_index(ix, dev)
+    want_keys = {int(api.ref_scalar(i)) for i in np.flatnonzero(keep)} | {
+        int(api.ref_scalar(n + j)) for j in range(OB_NEW_DOCS)}
+    got_keys = set(int(k) for k in ix.corpus.slot_of)
+    check(got_keys == want_keys, f"the index holds {len(got_keys)} rows, numpy keeps {len(want_keys)}")
+    exact, near = 0, 0
+    before = bt.block_topk.launches, bt.block_topk.shapes.copy()
+    for lo in range(0, record["queries"], 16):
+        qs_ = list(range(lo, min(lo + 16, record["queries"])))
+        ref = plain.search([(qvecs[q], K, None) for q in qs_])
+        for q, r in zip(qs_, ref):
+            got = tuple(zip(replies[q]["ids"], replies[q]["scores"]))
+            want = tuple((int(k), float(s)) for k, s in r)
+            if [k for k, _s in got] == [k for k, _s in want]:
+                exact += 1
+            else:
+                check(same_up_to_near_ties(got, want, 1e-4), f"query {q}: {got} != plain {want}")
+                near += 1
+    bt.block_topk.launches, bt.block_topk.shapes = before
+    # the routes
+    m = record["metrics"]
+    check(m["ticks_total"] == m["runtime_ticks"], f"pathway_ticks_total {m['ticks_total']} != {m['runtime_ticks']}")
+    check(m["knn_query_ticks"] == OB_B1 + OB_B16_ALL,
+          f"pathway_knn_query_seconds counted {m['knn_query_ticks']} query ticks")
+    check(m["knn_queries"] == record["queries"], f"pathway_knn_queries_total moved by {m['knn_queries']}")
+    if dev.type == "cuda":
+        check((f"cuda:{dev.index or 0}", "bytes_limit") in m["device_memory"],
+              f"the device memory gauges do not name the card: {m['device_memory']}")
+        check(m["build_backend"] == [("cuda", torch.cuda.get_device_name(dev))],
+              f"pathway_build_info names {m['build_backend']}")
+    status, body, _ms = record["/debug/graph"]
+    graph = json.loads(body)
+    check(status == 200 and [r["id"] for r in graph] == [nd.id for nd in rt.order],
+          "/debug/graph has not one row per node")
+    chain_seg = rt.compiled_plan.segment_of(kept._node.id)
+    check(chain_seg is not None, "the select -> filter chain is no compiled segment")
+    seg_tail = next((r for r in graph if r["id"] == chain_seg.tail.id), None)
+    check(seg_tail is not None and seg_tail.get("segment_tail"), f"/debug/graph has no tail row: {seg_tail}")
+    check(seg_tail["compiled_ticks"] == OB_COMMITS and seg_tail["fallback_ticks"] == 0,
+          f"the chain's segment: {seg_tail}")
+    status, body, _ms = record["/debug/tick"]
+    tick = json.loads(body)
+    path = (tick.get("last") or {}).get("critical_path") or {}
+    check(status == 200 and path.get("stages"), f"/debug/tick names no critical path: {path}")
+    status, body, _ms = record["/debug/threads"]
+    check(status == 200 and b"'MainThread'" in body, "/debug/threads does not show the runtime's thread")
+    status, body, _ms = record["/debug/signals?series=5"]
+    sig = json.loads(body)
+    check(status == 200 and sig["enabled"] and sig["signals"]["tick_ms"]["n"] > 0
+          and sig["signals"]["knn_p50_ms"]["n"] > 0, f"/debug/signals rings: {sig.get('signals')}")
+    status, body, _ms = record["/debug/autoscale"]
+    check(status == 501 and b"[mesh]" in body, f"/debug/autoscale answered {status} {body[:120]!r}")
+    prof = record["profile"]
+    status, body, _ms = prof["first"]
+    check(status == 200, f"/debug/profile answered {status}: {body[:200]!r}")
+    captured = json.loads(body)
+    check(prof["second"][0] == 409, f"a concurrent capture answered {prof['second'][0]}")
+    check(prof["zero"][0] == 400, f"seconds=0 answered {prof['zero'][0]}")
+    with open(captured["trace_file"], encoding="utf-8") as fh:
+        trace = json.load(fh)
+    kernels = Counter(e.get("name", "") for e in trace["traceEvents"]
+                      if str(e.get("cat", "")).lower() == "kernel")
+    topk_events = sum(c for name, c in kernels.items() if "block_topk_kernel" in name)
+    if dev.type == "cuda":
+        check(captured["device"] == "cuda" and "CUDA" in captured["activities"], f"capture {captured}")
+        check(topk_events > 0, f"the profile shows no block_topk kernel: {list(kernels)[:8]}")
+    record["server"].shutdown()
+    signals.reset_sampler()
+    # the doctor over the declared graph, and a faulty graph refused
+    t0 = _now()
+    report = pw.debug.diagnose(answers)
+    doctor_ms = (_now() - t0) * 1e3
+    boundary = [d for d in report.by_rule("compile-boundary") if d.node is embedded._node]
+    check(boundary and "UDF" in boundary[0].message,
+          f"no compile-boundary at the embedder: {[d.message for d in report.by_rule('compile-boundary')]}")
+    parse_graph.G.clear()
+    started = threading.Event()
+
+    class Never(pw.io.python.ConnectorSubject):
+        def run(self):
+            started.set()
+            self.close()
+
+    class KV(pw.Schema):
+        k: str
+        v: int
+
+    stream = pw.io.python.read(Never(), schema=KV)
+    pw.io.null.write(stream.groupby(pw.this.k).reduce(pw.this.k, s=pw.reducers.sum(pw.this.v)))
+    try:
+        pw.run(diagnostics="error")
+    except GraphDoctorError as e:
+        refused = [d.rule for d in e.report if d.severity.name != "INFO"]
+    else:
+        raise AssertionError("diagnostics='error' ran a faulty graph")
+    check(parse_graph.G.runtime is None and not started.is_set(), "the faulty graph ticked")
+    parse_graph.G.clear()
+    # the launch ledger, with the chain's own program among its live cases
+    t0 = _now()
+    ledger = lowering.prove_lowering()
+    prove_s = _now() - t0
+    statuses = Counter(e["status"] for e in ledger.entries)
+    rejected = sorted(e["family"] for e in ledger.by_status("rejected"))
+    check(not ledger.findings and rejected == ["block_topk", "paged_attention"]
+          and statuses["proved"] == len(ledger.entries) - 2, f"the launch ledger: {dict(statuses)}")
+    seg = next((e for e in ledger.entries if e["family"] == "tick_forge_live"
+                and "q2" in e["shape"].get("out_cols", [])), None)
+    check(seg is not None and seg["shape"]["rows"] in {row_bucket(len(p)) for p in parts},
+          f"the ledger has no program of the chain: {[e['case'] for e in ledger.entries if e['family'] == 'tick_forge_live']}")
+    check(launches > 0 or dev.type == "cpu", "block_topk never ran in the observability phase")
+    ab = {flag: [(replies[q]["t"] - commits[q]) * 1e3 for f, q in record["ab"] if f == flag]
+          for flag in (True, False)}
+    lat = lambda xs: {"p50": float(np.percentile(xs, 50)), "max": float(np.max(xs)), "n": len(xs)}  # noqa: E731
+    phase = {
+        "phase": "observability",
+        "nvidia_smi": smi,
+        "rows": {"chunks": n, "kept": int(keep.sum()), "embedded": OB_NEW_DOCS},
+        "b1_reply_ms_server_sampler_on_off": {"on": lat(ab[True]), "off": lat(ab[False])},
+        "b16_reply_ms_control_scraped_captured": {
+            label: lat([(replies[q + j]["t"] - commits[q + j]) * 1e3
+                        for f, q in record["b16"] if f == label for j in range(16)])
+            for label in ("control", "scraped", "captured")},
+        "metrics_scrape_ms_under_load": {**lat(record["scrape_ms"]), "every_s": OB_SCRAPE_S},
+        "profile_capture_wall_s": prof["wall_s"],
+        "profile": {"device_events": captured["device_events"], "block_topk_events": topk_events,
+                    "kernels": len(kernels)},
+        "doctor_ms": doctor_ms,
+        "doctor_findings": dict(Counter(d.rule for d in report)),
+        "faulty_graph_refused_by": sorted(set(refused)),
+        "prove_lowering_s": prove_s,
+        "ledger_cases": dict(statuses),
+        "chain_segment": seg_tail,
+        "signals_samples": sig["samples"],
+        "metrics": m,
+        "replies_keys_equal_plain": exact,
+        "near_ties": near,
+        "ingest_s": record["ingest_s"],
+        "burst_s": dict(record["burst_s"]),
+        "ticks": rt.stats.ticks,
+        "block_topk_launches": launches,
+        "block_topk_launches_by_shape": {f"B={b},k={k}": c for (b, k), c in sorted(shapes.items())},
+        "run_s": run_s,
+        "phase_s": _now() - t_phase,
+    }
+    q = {1: torch.from_numpy(qvecs[0][None, :]).to(dev),
+         16: torch.from_numpy(np.stack([qvecs[OB_B1 + j] for j in range(16)])).to(dev)}
+    prep, _c2, valid = ix.corpus.prepared_arrays("cosine", bf16=False)
+    return phase, {"prep": prep, "valid": valid, "queries": q, "launches": launches, "shapes": shapes}
+
+
+
+# --- phase 18: kernel times ---------------------------------------------------
 
 
 def kernel_times(main: dict, eng: dict, vs: dict, rest: dict, persist: dict, ik: dict, cc: dict,
-                 lc: dict, wi: dict, cdc: dict, ct: dict, rep: dict, gen: dict, rate: float,
+                 lc: dict, wi: dict, cdc: dict, ct: dict, rep: dict, gen: dict, ob: dict, rate: float,
                  rate_src: str) -> list[dict]:
+    from pathway_tpu_torch.analysis import lowering
     from pathway_tpu_torch.ops import block_topk as bt
     from pathway_tpu_torch.ops.knn import BLK, _normalize
 
@@ -6672,6 +7233,10 @@ def kernel_times(main: dict, eng: dict, vs: dict, rest: dict, persist: dict, ik:
         # (k = 3), each one search on the writer's corpus
         (b, k, rep["queries"][b], n, "replication (replica processes)", (rep["prep"], rep["valid"]))
         for (b, k), n in sorted(rep["shapes"].items())
+    ] + [
+        # the monitored live index's B = 1 and B = 16 query ticks
+        (b, k, ob["queries"][b], n, "observability", (ob["prep"], ob["valid"]))
+        for (b, k), n in sorted(ob["shapes"].items())
     ]
     per_batch = []
     for bs, k, q, path_launches, path, (prep, valid) in path_shapes:
@@ -6690,6 +7255,17 @@ def kernel_times(main: dict, eng: dict, vs: dict, rest: dict, persist: dict, ik:
         library_ms = cuda_ms(library, iters=5)
         sc, ix = bt.block_topk(qn, prep, valid, k)
         sr, ir = bt.block_topk_ref(qn, prep, valid, k)
+        # the launch ledger's shared memory and threads for this (B, k,
+        # dtype) are what the built kernel set at this launch, and the grid
+        # it took from the card's occupancy lies within the ledger's largest
+        bf16 = prep.dtype == torch.bfloat16
+        launched = bt.last_launch()
+        smem = launched["smem_bytes"]
+        ledger = lowering.block_topk_launch(bs, d, n, k, bf16)
+        (gx, gy, gz), (mx, my, mz) = launched["grid"], ledger["grid_max"]
+        check(smem == ledger["smem_bytes"] and launched["threads"] == ledger["threads"]
+              and 1 <= gx <= mx and gy == my and gz == mz == 1,
+              f"block_topk launched with {launched}, the ledger says {ledger}")
         # timing launches are not the path's
         bt.block_topk.launches, bt.block_topk.shapes = before
         # a block with no valid row scores -inf in both (the persistence
@@ -6706,8 +7282,8 @@ def kernel_times(main: dict, eng: dict, vs: dict, rest: dict, persist: dict, ik:
         t_ops = ops / PEAK_OPS_PER_S[str(prep.dtype).split(".")[-1]] * 1e3
         per_batch.append({
             "B": bs, "N": n, "D": d, "k": k, "dtype": str(prep.dtype).split(".")[-1],
-            "path": path, "launches": path_launches, "query_tile": bt._query_tile(bs, d, k),
-            "dynamic_smem_bytes": bt._smem_bytes(bt._query_tile(bs, d, k), d, k),
+            "path": path, "launches": path_launches, "query_tile": ledger["query_tile"],
+            "dynamic_smem_bytes": smem, "launch_grid": launched["grid"],
             "ms": ms, "device_ms": kernel_device_ms(times, "block_topk_kernel", 20),
             "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -6743,6 +7319,8 @@ def kernel_times(main: dict, eng: dict, vs: dict, rest: dict, persist: dict, ik:
         "compiled_ticks_launches_by_shape": {f"B={b},k={k}": n for (b, k), n in sorted(ct["shapes"].items())},
         "replication_launches": sum(rep["shapes"].values()),
         "replication_launches_by_shape": {f"B={b},k={k}": n for (b, k), n in sorted(rep["shapes"].items())},
+        "observability_launches": ob["launches"],
+        "observability_launches_by_shape": {f"B={b},k={k}": n for (b, k), n in sorted(ob["shapes"].items())},
         "max_abs_err": max(p["max_abs_err"] for p in per_batch),
         "ms": head["ms"],
         "plain_ms": head["plain_ms"],
@@ -6783,6 +7361,15 @@ def paged_shape_times(label: str, q, k, v, pt, sl, sm_scale: float, rate: float)
     got = pa.paged_attention(q, k, v, pt, sl, sm_scale=sm_scale)
     ref = pa.paged_attention_ref(q, k, v, pt, sl, sm_scale=sm_scale)
     pa.paged_attention.launches = before  # timing launches are not the path's
+    # the launch ledger's split count and shared memory are this launch's
+    from pathway_tpu_torch.analysis import lowering
+
+    launched = pa.last_launch()
+    smem = launched["smem_bytes"]
+    ledger = lowering.paged_attention_launch(b, h, p, dp, pt.shape[1], sms)
+    check(smem == ledger["smem_bytes"] and launched["threads"] == ledger["threads"]
+          and launched["grid"] == ledger["grid"] and ledger["splits"] == splits,
+          f"paged_attention launched with {launched}, {splits} splits; the ledger says {ledger}")
     n = sl.clamp(0, ctx).long()
     live = int(n.sum())
     # each live K and V row read once, q read and the output written once,
@@ -6794,7 +7381,7 @@ def paged_shape_times(label: str, q, k, v, pt, sl, sm_scale: float, rate: float)
     return {
         "shape": label, "B": b, "H": h, "P": p, "Dp": dp, "n_pages": k.shape[0],
         "max_pages": pt.shape[1], "splits": splits,
-        "dynamic_smem_bytes": -(-pt.shape[1] // splits) * 4, "live_tokens": live,
+        "dynamic_smem_bytes": smem, "live_tokens": live,
         "ms": ms, "device_ms": kernel_device_ms(times, "paged_decode_kernel", 20),
         "plain_ms": plain_ms, "library_ms": library_ms,
         "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -6914,8 +7501,11 @@ def main() -> int:
     phase, gen_data = generation(dev, main_data)
     emit(phase)
     emit(durability(dev, gen_data))
+    phase, ob_data = observability(dev, smi, vs_data, ct_data.pop("embedder"))
+    emit(phase)
     kernels = kernel_times(main_data, engine_data, vs_data, rest_data, persist_data, ik_data, cc_data,
-                           lc_data, wi_data, cdc_data, ct_data, repl_data, gen_data, rate, rate_src) + [
+                           lc_data, wi_data, cdc_data, ct_data, repl_data, gen_data, ob_data, rate,
+                           rate_src) + [
         paged_kernel_times(gen_data, repl_data, rate, rate_src)
     ]
     emit({"phase": "kernels", "kernels": kernels})

@@ -128,7 +128,7 @@ def __getattr__(name: str):
         return datetime_types.Duration
     if name in importlib.import_module("pathway_tpu_torch.stdlib").__all__:
         module = importlib.import_module(f"pathway_tpu_torch.stdlib.{name}")
-    elif name in ("stdlib", "xpacks"):
+    elif name in ("stdlib", "xpacks", "analysis"):
         module = importlib.import_module(f"pathway_tpu_torch.{name}")
     elif name in ROOT_NAMES:
         raise unported(f"pw.{name}", ROOT_NAMES[name])
@@ -169,6 +169,7 @@ def table_transformer(*args, **kwargs):
 __all__ = [
     "__version__",
     "resolve_device",
+    "analysis",
     "debug",
     "demo",
     "io",

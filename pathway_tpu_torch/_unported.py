@@ -7,10 +7,9 @@ from __future__ import annotations
 
 MESH = "[mesh] (multi-device: engine mesh, DCN, sharded top-k)"
 REPLICATION = "[replication] (parallel/standby.py and parallel/supervisor.py)"
-OBSERVABILITY = "[observability] (the rest of observability)"
 
 # root names of the reference the port lacks (subpackages), each with its item
-ROOT_NAMES = {"analysis": OBSERVABILITY, "autoscale": MESH}
+ROOT_NAMES = {"autoscale": MESH}
 
 
 def unported(what: str, item: str) -> NotImplementedError:

@@ -492,6 +492,11 @@ cudaError_t encoder(EncodeTiled* fn) {
   return cudaSuccess;
 }
 
+// the last launch's dynamic shared memory, threads per block and grid
+// (x, y, z), read back by the launch ledger's check
+// (pathway_block_topk_last_launch)
+long long g_last_launch[5] = {0, 0, 0, 0, 0};
+
 template <typename T, int QT, bool BIG>
 cudaError_t launch(const void* q, const void* c, const void* valid, void* out_sc,
                    void* out_ix, int B, int N, int D, int k, cudaStream_t stream) {
@@ -535,6 +540,8 @@ cudaError_t launch(const void* q, const void* c, const void* valid, void* out_sc
   // one wave of persistent blocks, shared among the query tiles
   const int per_tile = max(1, min(nblk, max(1, sms * per_sm) / tiles));
   dim3 grid(per_tile, tiles);
+  const long long shape[5] = {(long long)smem, BLOCK_THREADS, grid.x, grid.y, grid.z};
+  memcpy(g_last_launch, shape, sizeof(shape));
   kern<<<grid, BLOCK_THREADS, smem, stream>>>(
       map, static_cast<const T*>(q), static_cast<const T*>(c),
       static_cast<const uint8_t*>(valid), static_cast<float*>(out_sc),
@@ -583,6 +590,11 @@ extern "C" int pathway_block_topk(const void* q, const void* c, const void* vali
       bf16 ? dispatch<__nv_bfloat16>(qt, q, c, valid, out_sc, out_ix, B, N, D, k, s)
            : dispatch<float>(qt, q, c, valid, out_sc, out_ix, B, N, D, k, s);
   return (int)err;
+}
+
+// out[5]: the last launch's dynamic shared memory, threads, grid x, y, z
+extern "C" void pathway_block_topk_last_launch(long long* out) {
+  memcpy(out, g_last_launch, sizeof(g_last_launch));
 }
 
 extern "C" const char* pathway_cuda_error_string(int err) {

@@ -66,6 +66,7 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
@@ -293,6 +294,11 @@ paged_decode_kernel(const float* __restrict__ q, const float* __restrict__ k_poo
   }
 }
 
+// the last launch's dynamic shared memory, threads per block and grid
+// (x, y, z), read back by the launch ledger's check
+// (pathway_paged_attention_last_launch)
+long long g_last_launch[5] = {0, 0, 0, 0, 0};
+
 template <int NC>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* pt, const void* sl,
                    void* out, void* part, void* counters, int B, int H, int P, int n_pages,
@@ -306,6 +312,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* pt, 
     if (err != cudaSuccess) return err;
   }
   dim3 grid(B * H, S);
+  const long long shape[5] = {(long long)smem, THREADS, grid.x, grid.y, grid.z};
+  memcpy(g_last_launch, shape, sizeof(shape));
   kern<<<grid, THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const int32_t*>(pt), static_cast<const int32_t*>(sl), static_cast<float*>(out),
@@ -343,6 +351,11 @@ extern "C" int pathway_paged_attention(const void* q, const void* k_pool, const 
                                     counters, B, H, P, n_pages, max_pages, S, sm_scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// out[5]: the last launch's dynamic shared memory, threads, grid x, y, z
+extern "C" void pathway_paged_attention_last_launch(long long* out) {
+  memcpy(out, g_last_launch, sizeof(g_last_launch));
 }
 
 extern "C" const char* pathway_paged_attention_error_string(int err) {

@@ -5,9 +5,8 @@ __init__.py:207-709) — ``table_from_markdown`` (with ``__time__``/
 ``table_from_parquet``, ``StreamGenerator``, ``table_to_dicts``,
 ``table_to_pandas``, ``table_to_parquet``,
 ``compute_and_print[_update_stream]``, ``assert_table_equality[_wo_index]``
-and ``trace``/``trace_tree`` over the port's tracer, copied as they are.
-
-Not ported: ``diagnose`` (it raises naming [observability]). Capture with
+``trace``/``trace_tree`` over the port's tracer, copied as they are, and
+``diagnose`` (the Graph Doctor over a table's upstream cone). Capture with
 ``persistence_config`` restores and records through the persistence glue, as
 in the reference. The module imports no pandas: the pandas and parquet
 functions and ``StreamGenerator``'s pandas and markdown methods import it
@@ -24,13 +23,9 @@ from pathway_tpu_torch.engine.batch import DiffBatch
 from pathway_tpu_torch.engine.nodes import InputNode, OutputNode
 from pathway_tpu_torch.engine.runtime import Runtime, StaticSource
 from pathway_tpu_torch.internals import dtype as dt
-from pathway_tpu_torch._unported import OBSERVABILITY, package_getattr
 from pathway_tpu_torch.internals.api import Pointer, ref_scalar, sequential_key
 from pathway_tpu_torch.internals.table import Table
 from pathway_tpu_torch.internals.universe import Universe
-
-__getattr__ = package_getattr("pw.debug", {"diagnose": OBSERVABILITY})
-
 
 # debug fixtures with IDENTICAL key sets share one Universe object, so
 # row-aligned cross-fixture expressions (select(num=t_num.num)) build,
@@ -919,3 +914,23 @@ def trace_tree(
     out = tracer.format_tree(trace_id, seconds)
     print(out)
     return out
+
+
+def diagnose(*tables: Table, min_severity: str = "info"):
+    """Notebook entry point for the Graph Doctor (pathway_tpu_torch.analysis):
+    print and return the static-analysis report for the pipeline feeding
+    the given table(s) — or the whole declared graph when called with no
+    arguments. Nothing executes; the pass walks the declared nodes only."""
+    from pathway_tpu_torch.analysis import run_doctor
+    from pathway_tpu_torch.analysis.diagnostics import Severity
+    from pathway_tpu_torch.engine.runtime import collect_nodes
+
+    if tables:
+        seeds = [t._node for t in tables]
+        # scope to the upstream cone: a table under diagnosis counts as
+        # consumed, and unrelated parts of the graph stay out of view
+        report = run_doctor(outputs=seeds, all_nodes=collect_nodes(seeds))
+    else:
+        report = run_doctor()
+    print(report.format(min_severity=Severity.parse(min_severity)))
+    return report

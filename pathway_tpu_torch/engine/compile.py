@@ -582,11 +582,11 @@ class _Program:
 
     __slots__ = (
         "in_cols", "dev_out", "host_out", "has_mask", "has_keys", "fn",
-        "out_names", "n_ops", "out_row_bytes",
+        "out_names", "n_ops", "out_row_bytes", "out_dtypes",
     )
 
     def __init__(self, in_cols, dev_out, host_out, has_mask, has_keys,
-                 fn, out_names, n_ops, out_row_bytes):
+                 fn, out_names, n_ops, out_row_bytes, out_dtypes):
         self.in_cols = in_cols      # ordered device input column names
         self.dev_out = dev_out      # [(name, position-in-fn-result)]
         self.host_out = host_out    # [(name, external src col)]
@@ -596,6 +596,7 @@ class _Program:
         self.out_names = out_names  # final column order
         self.n_ops = n_ops          # lowered operations per row
         self.out_row_bytes = out_row_bytes  # device output bytes per row
+        self.out_dtypes = out_dtypes  # numpy dtype of each device column
 
 
 def _build_program(
@@ -704,6 +705,7 @@ def _build_program(
         # the outputs' bytes a row: the columns, a bool mask, int64 keys
         sum(_entry_dtype(en, dtypes, "output").itemsize for en in dev_entries)
         + bool(mask_entries) + 8 * (key_e is not None),
+        [_entry_dtype(en, dtypes, "output") for en in dev_entries],
     )
 
 
@@ -952,10 +954,29 @@ class SegmentRunner:
         compile_hist.observe(time.perf_counter() - t0)
         with self._lock:
             self._cache[key] = prog
-        # the Lowering Ledger's registration (the reference's
-        # _register_with_ledger) waits for analysis/, [observability]
+        self._register_with_ledger(prog, bucket, dtypes)
         self._register_roofline(prog, bucket, dtypes)
         return prog, key
+
+    def _register_with_ledger(self, prog: _Program, bucket: int, dtypes) -> None:
+        """Hand the freshly-built segment program to the launch ledger
+        (analysis/lowering.py): ``prove_lowering`` can then run the exact
+        program this process runs on meta tensors, device-free, and check
+        its outputs' shapes and numpy dtypes. The ledger never raises into
+        the tick."""
+        from pathway_tpu_torch.analysis import lowering as ledger
+
+        ledger.register_program(
+            f"seg_{'-'.join(prog.in_cols)}_rows{bucket}",
+            prog.fn,
+            tuple(((bucket,), dtypes[c]) for c in prog.in_cols),
+            meta={
+                "rows": bucket,
+                "in_cols": list(prog.in_cols),
+                "out_cols": [c for c, _ in prog.dev_out],
+                "out_dtypes": [str(d) for d in prog.out_dtypes],
+            },
+        )
 
     def _register_roofline(self, prog: _Program, bucket: int, dtypes) -> None:
         """Register the program's per-call cost with the Tick Scope

@@ -282,6 +282,20 @@ def _dcn_requested() -> bool:
     n = int(os.environ.get("PATHWAY_PROCESSES", "1") or 1)
     return n > 1 and os.environ.get("PATHWAY_DCN", "1") != "0"
 
+
+def refuse_unported_fabric(distributed: bool = True) -> None:
+    """Raise naming [mesh] when the env asks for an exchange fabric the
+    port does not run: a multi-process engine group (checked unless
+    ``distributed`` is False, as for an inner runtime) or engine-level mesh
+    sharding (``PATHWAY_ENGINE_SHARDS`` > 1: sharded execs and the frontier
+    all-reduce). The ``Runtime`` and ``parallel.exchange_topology`` both
+    refuse through it rather than run, or describe, a single process."""
+    if distributed and _dcn_requested():
+        raise unported("the multi-process engine (PATHWAY_PROCESSES>1)", MESH)
+    shards = os.environ.get("PATHWAY_ENGINE_SHARDS", "")
+    if shards.isdigit() and int(shards) > 1:
+        raise unported(f"engine sharding (PATHWAY_ENGINE_SHARDS={shards})", MESH)
+
 class RuntimeStats:
     """Prober-style counters (reference: ProberStats src/engine/graph.rs:533,
     connector monitors src/connectors/monitoring.rs) — fed to the
@@ -337,10 +351,10 @@ class Runtime:
         annotate_live_columns(self.order)
         # the multi-process engine (reference: stateful execs exchange host
         # rows over a TCP mesh, ticks in lockstep across the process group)
-        # is not ported; a process group raises rather than run each
-        # process alone. Inner runtimes pass distributed=False.
-        if distributed is not False and _dcn_requested():
-            raise unported("the multi-process engine (PATHWAY_PROCESSES>1)", MESH)
+        # and engine-level mesh sharding are not ported; either raises
+        # rather than run each process alone, unsharded. Inner runtimes
+        # pass distributed=False.
+        refuse_unported_fabric(distributed is not False)
         self._wake = threading.Event()
         self._stop = threading.Event()
         self.execs: dict[int, NodeExec] = {
@@ -372,11 +386,6 @@ class Runtime:
         self.stats = RuntimeStats()
         has_consumer = {inp.id for node in self.order for inp in node.inputs}
         self._sinks = [n for n in self.order if n.id not in has_consumer]
-        # engine-level mesh sharding (sharded execs, frontier all-reduce)
-        # is not ported: a sharded run raises rather than run unsharded
-        shards = os.environ.get("PATHWAY_ENGINE_SHARDS", "")
-        if shards.isdigit() and int(shards) > 1:
-            raise unported(f"engine sharding (PATHWAY_ENGINE_SHARDS={shards})", MESH)
         # OTLP operator-latency histogram (no-op without a metrics SDK)
         from pathway_tpu_torch.internals.telemetry import get_metrics
 

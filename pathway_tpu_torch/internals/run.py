@@ -5,7 +5,6 @@ from __future__ import annotations
 
 from typing import Any
 
-from pathway_tpu_torch._unported import OBSERVABILITY, unported
 from pathway_tpu_torch.engine.runtime import Runtime
 from pathway_tpu_torch.internals import parse_graph
 
@@ -16,6 +15,11 @@ class MonitoringLevel:
     NONE = "none"
     IN_OUT = "in_out"
     ALL = "all"
+
+
+# set by `python -m pathway_tpu_torch.analysis`: the script's pw.run() calls
+# declare the graph but never build a Runtime
+_build_only = False
 
 
 def run(
@@ -34,24 +38,25 @@ def run(
 ) -> None:
     """Execute the dataflow declared so far (all registered outputs).
 
+    ``diagnostics`` runs the Graph Doctor (pathway_tpu_torch.analysis) over
+    the declared graph before the engine starts: ``"warn"`` logs findings,
+    ``"error"`` raises GraphDoctorError on warning-or-worse findings so not
+    a single batch executes, ``"off"``/None skips the pass.
+
+    ``with_http_server`` (or ``monitoring_level`` ALL/IN_OUT) starts the
+    monitoring server (internals/monitoring_server.py: ``/metrics``,
+    ``/debug/*``, ``/fleet/*``) on port 20000 + ``PATHWAY_PROCESS_ID``; the
+    terminal dashboard shows for ALL/IN_OUT, and for AUTO on a tty.
+
     ``persistence_config`` (or ``PATHWAY_REPLAY_STORAGE`` for record/replay)
     restores the store's state before the first tick and records every tick
     into it (``persistence/_runtime_glue.py``).
 
-    Not ported, and raising ``NotImplementedError`` rather than running
-    without them: the Graph Doctor (``diagnostics``), the monitoring server
-    and dashboard
-    (``with_http_server``, ``monitoring_level`` ALL/IN_OUT) and the
-    multi-process engine. The reference's terminal dashboard for
-    ``monitoring_level=AUTO`` on a tty is not shown.
+    The multi-process engine is not ported: a process group raises naming
+    [mesh].
     """
-    if diagnostics not in (None, "off"):
-        raise unported("pw.run(diagnostics=...) (the Graph Doctor)", OBSERVABILITY)
-    if with_http_server or monitoring_level in (
-        MonitoringLevel.ALL,
-        MonitoringLevel.IN_OUT,
-    ):
-        raise unported("the monitoring server and dashboard", OBSERVABILITY)
+    if _build_only:
+        return
     G = parse_graph.G
     seeds = list(G.outputs)
     if kwargs.pop("_all_nodes", False):
@@ -60,6 +65,10 @@ def run(
         seeds += _nodes.ALL_NODES
     if not seeds:
         return
+    if diagnostics not in (None, "off"):
+        from pathway_tpu_torch.analysis import check_before_run
+
+        check_before_run(seeds, diagnostics)
     # a multi-process group (PATHWAY_PROCESSES > 1) raises in Runtime
     runtime = Runtime(seeds, autocommit_ms=autocommit_duration_ms)
     G.runtime = runtime
@@ -81,6 +90,33 @@ def run(
         from pathway_tpu_torch.persistence._runtime_glue import attach_persistence
 
         attach_persistence(runtime, persistence_config)
+    if with_http_server or monitoring_level in (
+        MonitoringLevel.ALL,
+        MonitoringLevel.IN_OUT,
+    ):
+        from pathway_tpu_torch.internals.monitoring_server import start_http_server
+
+        try:
+            start_http_server(runtime)
+        except Exception:
+            # the run goes on unmonitored, as in the reference, but says so
+            import logging
+
+            logging.getLogger("pathway_tpu_torch").warning(
+                "monitoring server failed to start", exc_info=True
+            )
+    monitor = None
+    import sys as _sys
+
+    want_tui = monitoring_level in (MonitoringLevel.ALL, MonitoringLevel.IN_OUT) or (
+        monitoring_level in (MonitoringLevel.AUTO, MonitoringLevel.AUTO_ALL)
+        and _sys.stdout.isatty()
+    )
+    if want_tui:
+        from pathway_tpu_torch.internals.monitoring import StatsMonitor
+
+        monitor = StatsMonitor(runtime)
+        monitor.start()
     from pathway_tpu_torch.internals.telemetry import get_telemetry
 
     from pathway_tpu_torch.internals import errors as _errors
@@ -101,6 +137,8 @@ def run(
                     raise first
                 raise RuntimeError(first)
     finally:
+        if monitor is not None:
+            monitor.stop()
         G.runtime = None
         for hook in G.post_run_hooks:
             try:

@@ -2,18 +2,21 @@
 ``pathway_tpu/observability``: one process-wide ``REGISTRY`` (same metric
 names, help strings and labels as the reference), the Prometheus exposition
 parser/validator, the span tracer, the incident journal, Tick Scope (the
-per-tick flight recorder, memory ledger and roofline), and the torch/CUDA
-gauges.
+per-tick flight recorder, memory ledger and roofline), the debug surfaces
+(thread dumps, graph tables, torch.profiler captures), the SLO signal rings
+with their burn rates, fleet federation, and the torch/CUDA gauges. The
+monitoring server that serves them is ``internals/monitoring_server.py``.
 
-Not ported yet: the monitoring server and debug surfaces
-(``observability/debug.py``), the SLO signal rings and fleet federation
-(ROADMAP [observability]; each of their names raises naming that tag), and
-the JAX gauges' compile events (the port counts its kernel builds instead;
-``install_jax_metrics`` is ``install_torch_metrics`` here).
+The JAX gauges' compile events have no counterpart (the port counts its
+kernel builds instead; ``install_jax_metrics`` is ``install_torch_metrics``
+here).
 """
 
-from pathway_tpu_torch._unported import OBSERVABILITY, package_getattr
-
+from pathway_tpu_torch.observability.debug import (
+    ProfilerUnavailable,
+    graph_table,
+    take_profile,
+)
 from pathway_tpu_torch.observability.exposition import (
     parse_exposition,
     validate_exposition,
@@ -37,6 +40,22 @@ from pathway_tpu_torch.observability.registry import (
     get_registry,
     log_linear_buckets,
     sanitize_metric_name,
+)
+from pathway_tpu_torch.observability.fleet import (
+    federate_events,
+    federate_metrics,
+    federate_ticks,
+    members_from_env,
+    stitch_traces,
+    window_from_events,
+)
+from pathway_tpu_torch.observability.signals import (
+    SignalRing,
+    SignalSampler,
+    arm_sampler,
+    get_sampler,
+    reset_sampler,
+    slo_targets,
 )
 from pathway_tpu_torch.observability.tickscope import (
     Roofline,
@@ -63,20 +82,6 @@ from pathway_tpu_torch.observability.tracing import (
     validate_chrome_trace,
 )
 
-__getattr__ = package_getattr(
-    "pathway_tpu_torch.observability",
-    dict.fromkeys(
-        (
-            "ProfilerUnavailable", "take_profile", "graph_table",  # debug.py
-            "SignalRing", "SignalSampler", "arm_sampler", "get_sampler",
-            "reset_sampler", "slo_targets",  # signals.py
-            "federate_events", "federate_metrics", "federate_ticks",
-            "members_from_env", "stitch_traces", "window_from_events",  # fleet.py
-        ),
-        OBSERVABILITY,
-    ),
-)
-
 __all__ = [
     "REGISTRY",
     "Counter",
@@ -85,21 +90,31 @@ __all__ = [
     "IncidentJournal",
     "JournalEvent",
     "MetricsRegistry",
+    "ProfilerUnavailable",
     "Roofline",
+    "SignalRing",
+    "SignalSampler",
     "SpanContext",
     "TickScope",
     "Tracer",
+    "arm_sampler",
     "coverage_status",
     "critical_path",
     "current_traceparent",
     "escape_label_value",
     "estimate_program_cost",
+    "federate_events",
+    "federate_metrics",
+    "federate_ticks",
     "get_registry",
+    "get_sampler",
     "get_tracer",
+    "graph_table",
     "install_crash_hooks",
     "install_torch_metrics",
     "journal",
     "log_linear_buckets",
+    "members_from_env",
     "memory_snapshot",
     "otel_sdk_provider_active",
     "parse_exposition",
@@ -109,11 +124,16 @@ __all__ = [
     "recorder",
     "register_memory_provider",
     "reset_journal",
+    "reset_sampler",
     "roofline",
     "sanitize_metric_name",
+    "slo_targets",
     "stitch_ranks",
+    "stitch_traces",
+    "take_profile",
     "thread_stack_dump",
     "validate_chrome_trace",
     "validate_exposition",
+    "window_from_events",
     "wire_snapshot",
 ]

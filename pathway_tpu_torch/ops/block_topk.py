@@ -45,6 +45,8 @@ _RING_ALIGN, _MERGE_BYTES, _BAR_BYTES = 1024, 16384, 64
 # k keeps all [QT, 1024] keys in shared memory
 _SMALL_K = 32
 _QT_MAX = 32
+# threads per block: 8 consumer warps and one producer warp
+_BLOCK_THREADS = 256 + 32
 
 _lib: ctypes.CDLL | None = None
 
@@ -103,6 +105,8 @@ def _library() -> ctypes.CDLL:
         lib.pathway_block_topk.restype = ctypes.c_int
         lib.pathway_cuda_error_string.argtypes = [ctypes.c_int]
         lib.pathway_cuda_error_string.restype = ctypes.c_char_p
+        lib.pathway_block_topk_last_launch.argtypes = [ctypes.POINTER(ctypes.c_longlong)]
+        lib.pathway_block_topk_last_launch.restype = None
         _lib = lib
     return _lib
 
@@ -172,6 +176,18 @@ def block_topk(
 
 block_topk.launches = 0
 block_topk.shapes = Counter()
+
+
+def last_launch() -> dict:
+    """The configuration of the built kernel's last launch in this process,
+    as its launch code set it: ``smem_bytes`` (dynamic shared memory per
+    block, the value passed to ``cudaFuncSetAttribute``), ``threads``
+    per block and ``grid`` [x, y, z] — what the launch ledger
+    (``analysis/lowering.py``) must predict or bound. Loads (and if need be
+    builds) the kernel; zeros before any launch."""
+    out = (ctypes.c_longlong * 5)()
+    _library().pathway_block_topk_last_launch(out)
+    return {"smem_bytes": out[0], "threads": out[1], "grid": list(out[2:])}
 
 
 def dense_topk_kernel(

@@ -120,6 +120,8 @@ def _library() -> ctypes.CDLL:
         lib.pathway_paged_attention.restype = ctypes.c_int
         lib.pathway_paged_attention_error_string.argtypes = [ctypes.c_int]
         lib.pathway_paged_attention_error_string.restype = ctypes.c_char_p
+        lib.pathway_paged_attention_last_launch.argtypes = [ctypes.POINTER(ctypes.c_longlong)]
+        lib.pathway_paged_attention_last_launch.restype = None
         _lib = lib
     return _lib
 
@@ -229,3 +231,14 @@ def _counter_buffer(device: torch.device, stream: int, n: int) -> torch.Tensor:
 
 
 paged_attention.launches = 0
+
+
+def last_launch() -> dict:
+    """The configuration of the built kernel's last launch in this process,
+    as its launch code set it: ``smem_bytes`` (dynamic shared memory per
+    block), ``threads`` per block and ``grid`` [x, y, z] — what the launch
+    ledger (``analysis/lowering.py``) must predict. Loads (and if need be
+    builds) the kernel; zeros before any launch."""
+    out = (ctypes.c_longlong * 5)()
+    _library().pathway_paged_attention_last_launch(out)
+    return {"smem_bytes": out[0], "threads": out[1], "grid": list(out[2:])}

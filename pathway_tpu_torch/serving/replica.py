@@ -5,12 +5,9 @@ What differs from the reference: the HTTP front is the port's own
 standard-library server (``io/http/_web.py``; the card's machine has no
 aiohttp); the role's index lives on ``device`` (``PATHWAY_REPLICA_DEVICE``,
 default ``cuda``, which raises without a card — there is no CPU fallback),
-so every read is a ``block_topk`` launch there; ``/debug/signals`` and
-``/debug/trace`` answer 501 naming [observability] (the SLO sampler and the
-fleet trace plane are not ported), and ``main()`` skips ``arm_sampler``
-saying so; ``GET /replica/kernels`` reports the process's kernel launches
-(``block_topk`` per ``(B, k)``, ``paged_attention``) and peak device
-memory. Hydration reads stores of either package
+so every read is a ``block_topk`` launch there; ``GET /replica/kernels``
+reports the process's kernel launches (``block_topk`` per ``(B, k)``,
+``paged_attention``) and peak device memory. Hydration reads stores of either package
 (``persistence/_pickle.py``).
 
 The horizontal read plane.
@@ -69,7 +66,6 @@ from typing import Any, Callable
 import numpy as np
 
 from pathway_tpu_torch._device import resolve_device
-from pathway_tpu_torch._unported import OBSERVABILITY, unported
 from pathway_tpu_torch.observability.journal import record as _journal_record
 from pathway_tpu_torch.observability.tracing import get_tracer
 
@@ -717,15 +713,6 @@ def kernel_launches() -> dict:
     }
 
 
-def _not_ported(route: str):
-    """A 501 naming the ROADMAP item of a route the port lacks."""
-    from pathway_tpu_torch.io.http import _web
-
-    return _web.json_response(
-        {"error": str(unported(route, OBSERVABILITY))}, status=501
-    )
-
-
 class _ReplicaHttp:
     """The replica's HTTP front (own loop thread, the port's
     standard-library server): POST <route> answers reads, GET
@@ -788,10 +775,35 @@ class _ReplicaHttp:
             )
 
         async def handle_signals(request):
-            return _not_ported("/debug/signals (observability/signals.py)")
+            from pathway_tpu_torch.observability.signals import get_sampler
+
+            sampler = get_sampler()
+            if sampler is None:
+                return _web.json_response(
+                    {"enabled": False, "signals": {}, "slo": {}}
+                )
+            try:
+                series = int(request.query.get("series", "0"))
+            except ValueError:
+                return _web.json_response(
+                    {"error": "series must be an integer"}, status=400
+                )
+            snap = sampler.snapshot(series_points=series)
+            snap["enabled"] = True
+            return _web.json_response(snap)
 
         async def handle_trace(request):
-            return _not_ported("/debug/trace (observability/fleet.py)")
+            from pathway_tpu_torch.observability.tracing import get_tracer
+
+            try:
+                seconds = float(request.query.get("seconds", "0"))
+            except ValueError:
+                return _web.json_response(
+                    {"error": "seconds must be a number"}, status=400
+                )
+            return _web.json_response(
+                get_tracer().chrome_trace(seconds=seconds if seconds > 0 else None)
+            )
 
         app.add_route("POST", srv.route, handle_read)
         app.add_get("/replica/health", handle_health)
@@ -1036,14 +1048,13 @@ def main() -> int:
         from pathway_tpu_torch.generate.serving import attach_generate
 
         attach_generate(server)
-    # Fleet Lens: the reference arms its SLO sampler here; the port has
-    # none yet, so the role says so and serves without it.  The
-    # postmortem bundle on unhandled exceptions is ported.
+    # Fleet Lens: a replica samples its own SLO signals (/debug/signals)
+    # and writes the postmortem bundle on unhandled exceptions — both
+    # opt-out via PATHWAY_SIGNALS=0 / unset PATHWAY_POSTMORTEM_DIR
     from pathway_tpu_torch.observability.journal import install_crash_hooks
+    from pathway_tpu_torch.observability.signals import arm_sampler
 
-    logging.getLogger("pathway_tpu_torch").warning(
-        "replica %d: %s", server.replica_id, unported("arm_sampler", OBSERVABILITY)
-    )
+    arm_sampler()
     install_crash_hooks()
     server.start()
     stop = threading.Event()

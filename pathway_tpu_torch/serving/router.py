@@ -4,9 +4,9 @@ port's own HTTP stack (the card's machine has no aiohttp): the server is
 ``io/http/_web.py`` with its catch-all route, the client
 ``io/http/_web_client.py`` (keep-alive, a total timeout per attempt,
 cancellation for the losing hedge). The Fleet Lens federation routes
-(``/fleet/metrics``, ``/fleet/events``, ``/fleet/trace``) answer 501
-naming [observability]: ``observability/fleet.py`` is not ported.
-``/debug/events`` serves this process's journal, as in the reference.
+(``/fleet/metrics``, ``/fleet/events``, ``/fleet/trace``) federate the
+replicas through ``observability/fleet.py``, and ``/debug/events`` serves
+this process's journal, as in the reference.
 
 Deadline-aware, occupancy-weighted balancing over the read replicas, IN
 FRONT of each replica's Surge Gate.
@@ -816,31 +816,61 @@ class FailoverRouter:
     # --- Fleet Lens federation --------------------------------------------
 
     async def _fleet_get(self, request):
-        """The router's own journal at ``/debug/events``; the fleet views
-        (``/fleet/metrics``, ``/fleet/events``, ``/fleet/trace``) federate
-        members through ``observability/fleet.py``, which the port lacks:
-        each answers 501 naming [observability]."""
-        from pathway_tpu_torch._unported import OBSERVABILITY, unported
+        """One observability plane for the whole mesh: the router is the
+        process that already knows every member's base URL, so it
+        federates their `/metrics`, `/debug/events` and `/debug/trace`
+        into member-labeled fleet views.  The blocking urllib fetches
+        run on the default executor — the proxy loop keeps serving."""
         from pathway_tpu_torch.io.http import _web
 
-        if request.path == "/debug/events":
+        route = request.path
+        members = [(ep.name, ep.url) for ep in self.endpoints]
+        loop = asyncio.get_running_loop()
+        if route == "/debug/events":
             from pathway_tpu_torch.observability.journal import journal
 
             j = journal()
             return _web.json_response(
                 {"member": j.member, "events": j.events()}
             )
-        return _web.json_response(
-            {
-                "error": str(
-                    unported(
-                        f"{request.path} (observability/fleet.py)",
-                        OBSERVABILITY,
-                    )
-                )
-            },
-            status=501,
+        if route == "/fleet/metrics":
+            from pathway_tpu_torch.observability import REGISTRY
+            from pathway_tpu_torch.observability.fleet import federate_metrics
+
+            local = ("router", REGISTRY.render())
+            text, errors = await loop.run_in_executor(
+                None, lambda: federate_metrics(members, local=local)
+            )
+            headers = (
+                {"x-pathway-fleet-errors": str(len(errors))}
+                if errors
+                else {}
+            )
+            return _web.Response(
+                text.encode(),
+                headers=headers,
+                content_type="text/plain; charset=utf-8",
+            )
+        if route == "/fleet/events":
+            from pathway_tpu_torch.observability.fleet import federate_events
+            from pathway_tpu_torch.observability.journal import journal
+
+            local = journal().events()
+            merged = await loop.run_in_executor(
+                None, lambda: federate_events(members, local=local)
+            )
+            return _web.json_response(merged)
+        # /fleet/trace
+        from pathway_tpu_torch.observability.fleet import stitch_traces
+        from pathway_tpu_torch.observability.tracing import get_tracer
+
+        trace_id = request.query.get("trace_id") or None
+        local = ("router", get_tracer().chrome_trace())
+        data = await loop.run_in_executor(
+            None,
+            lambda: stitch_traces(members, trace_id=trace_id, local=local),
         )
+        return _web.json_response(data)
 
     async def _handle(self, request):
         from pathway_tpu_torch.io.http import _web

@@ -6,7 +6,9 @@ through the kernel; the pipelines of ``chip_smoke.py`` at small sizes, the
 windowed index among them (its replies against the plain top-k over the
 live documents of ``chip_smoke.wi_oracle``) and the CDC-fed index (a
 SQLite table streamed into ``TpuKnn``, its replies against the plain
-top-k over the table's rows after every transaction).
+top-k over the table's rows after every transaction); the launch ledger's
+shared memory and split counts against what the built kernels launch with,
+and a ``/debug/profile`` capture of the card naming ``block_topk``'s kernel.
 
 These tests need an NVIDIA card (marker ``cuda``) and skip without one. On
 the card they run without the JAX package, so this file imports no JAX and
@@ -1158,3 +1160,99 @@ def test_native_hasher_is_live_on_the_card_machine():
     assert mod is not None, native.build_log
     values = (None, True, 7, 2.5, "x", b"y", (1, "z"), api.Pointer(3))
     assert int(api.ref_scalar(*values)) == api._hash_bytes(api._value_bytes(values))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [1, 16, 32, 256, 2048])
+@pytest.mark.parametrize("k", [1, 3, 10, 40, 1024])
+def test_launch_ledger_smem_is_the_launch(dev, dtype, b, k):
+    """What ``analysis/lowering.py`` proves without a GPU is what the built
+    kernel sets with cudaFuncSetAttribute and launches with: its shared
+    memory and threads, and a grid within the ledger's largest."""
+    from pathway_tpu_torch.analysis import lowering
+    from pathway_tpu_torch.ops import block_topk as bt
+
+    n, d = 8192, 384
+    c = torch.nn.functional.normalize(torch.randn(n, d, device=dev), dim=-1).to(dtype).contiguous()
+    valid = torch.ones(n, dtype=torch.bool, device=dev)
+    q = c[torch.arange(b, device=dev) % n].contiguous()
+    bt.block_topk(q, c, valid, k)
+    torch.cuda.synchronize()
+    want = lowering.block_topk_launch(b, d, n, k, dtype == torch.bfloat16)
+    got = bt.last_launch()
+    assert got["smem_bytes"] == want["smem_bytes"] and got["threads"] == want["threads"]
+    (gx, gy, gz), (mx, my, mz) = got["grid"], want["grid_max"]
+    assert 1 <= gx <= mx and gy == my and gz == mz == 1
+    assert want["query_tile"] == bt._query_tile(b, d, k, dtype == torch.bfloat16)
+
+
+@pytest.mark.parametrize("b,h,p,dp,max_pages", [(8, 4, 16, 128, 16), (1, 4, 16, 128, 16),
+                                                 (64, 32, 8, 256, 256), (1, 32, 16, 128, 4096)])
+def test_launch_ledger_paged_splits_and_smem_are_the_launch(dev, b, h, p, dp, max_pages):
+    from pathway_tpu_torch.analysis import lowering
+    from pathway_tpu_torch.ops import paged_attention as pa
+
+    n_pages = max_pages + 1
+    q = torch.randn(b, h, dp, device=dev)
+    k = torch.randn(n_pages, h, p, dp, device=dev)
+    v = torch.randn_like(k)
+    pt = torch.randint(0, n_pages, (b, max_pages), device=dev, dtype=torch.int32)
+    sl = torch.full((b,), max_pages * p, device=dev, dtype=torch.int32)
+    pa.paged_attention(q, k, v, pt, sl, sm_scale=0.1)
+    torch.cuda.synchronize()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    want = lowering.paged_attention_launch(b, h, p, dp, max_pages, sms)
+    got = pa.last_launch()
+    assert got["smem_bytes"] == want["smem_bytes"] and got["threads"] == want["threads"]
+    assert got["grid"] == want["grid"]
+    assert want["splits"] == pa.split_count(b * h, max_pages, p, dp, sms)
+
+
+def test_debug_profile_on_the_card_names_block_topk(dev):
+    """/debug/profile of a monitoring server (default device: the card)
+    while block_topk runs: 200, CUDA activity in the capture and the
+    kernel's symbol among its kernel events; a concurrent capture 409."""
+    import json
+    import threading
+    import urllib.error
+    import urllib.request
+
+    from pathway_tpu_torch.internals.monitoring_server import start_http_server
+    from pathway_tpu_torch.observability import debug
+    from pathway_tpu_torch.ops import block_topk as bt
+
+    c = torch.nn.functional.normalize(torch.randn(16384, 384, device=dev), dim=-1).contiguous()
+    valid = torch.ones(16384, dtype=torch.bool, device=dev)
+    q = c[:16].contiguous()
+    srv = start_http_server(port=0)
+    port = srv.server_address[1]
+    out = {}
+
+    def get(target, key):
+        try:
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}{target}", timeout=60) as r:
+                out[key] = (r.status, r.read())
+        except urllib.error.HTTPError as e:
+            out[key] = (e.code, e.read())
+
+    try:
+        th = threading.Thread(target=get, args=("/debug/profile?seconds=1", "first"))
+        th.start()
+        while not debug._profile_lock.locked() and th.is_alive():
+            pass
+        get("/debug/profile?seconds=1", "second")
+        while th.is_alive():
+            bt.block_topk(q, c, valid, 10)
+            torch.cuda.synchronize()
+        th.join()
+    finally:
+        srv.shutdown()
+    assert out["second"][0] == 409
+    status, body = out["first"]
+    assert status == 200, body
+    doc = json.loads(body)
+    assert doc["device"] == "cuda" and "CUDA" in doc["activities"] and doc["device_events"] > 0
+    with open(doc["trace_file"]) as fh:
+        trace = json.load(fh)
+    names = {e.get("name", "") for e in trace["traceEvents"] if str(e.get("cat", "")).lower() == "kernel"}
+    assert any("block_topk_kernel" in n for n in names), sorted(names)[:5]

@@ -32,8 +32,12 @@ with ``pw.io.sqlite.write``, the Debezium stream read beside it) runs with
 all of them blocked. The compiled ticks, the native hasher's loader and the
 graphs and viz stdlib import with ``pandas``, ``rich`` and ``bokeh`` blocked,
 and a compiled chain on the CPU, pagerank and ``pw.viz.plot``'s refusal run
-with them blocked. Without a card, an entry point left on its default device
-(compiled ticks included) raises instead of falling back to the CPU."""
+with them blocked. The Graph Doctor, the launch ledger, the debug surfaces,
+signals, fleet federation, the monitoring server and its dashboard import
+with ``pandas``, ``rich`` and ``bokeh`` blocked, and a monitored, diagnosed
+run serves its routes with them blocked. Without a card, an entry point left
+on its default device (compiled ticks included) raises instead of falling
+back to the CPU."""
 
 import ast
 import json
@@ -815,6 +819,71 @@ leaked = sorted(m for m in sys.modules if m.split(".")[0] in {blocked!r} and sys
 assert not leaked, leaked
 print("ok")
 """
+
+
+# the rest of observability: the Graph Doctor and the launch ledger, the
+# debug surfaces, signals and fleet, the monitoring server and dashboard
+# (``rich`` is imported only when the dashboard renders)
+OBSERVABILITY_MODULES = [
+    "pathway_tpu_torch.analysis",
+    "pathway_tpu_torch.analysis.__main__",
+    "pathway_tpu_torch.analysis.diagnostics",
+    "pathway_tpu_torch.analysis.doctor",
+    "pathway_tpu_torch.analysis.graph_facts",
+    "pathway_tpu_torch.analysis.lowering",
+    "pathway_tpu_torch.analysis.plane",
+    "pathway_tpu_torch.analysis.rules",
+    "pathway_tpu_torch.elastic.planner",
+    "pathway_tpu_torch.internals.monitoring",
+    "pathway_tpu_torch.internals.monitoring_server",
+    "pathway_tpu_torch.observability.debug",
+    "pathway_tpu_torch.observability.fleet",
+    "pathway_tpu_torch.observability.signals",
+]
+
+
+@pytest.fixture(scope="module")
+def observability_imported_with_rich_blocked():
+    r = _run(_IMPORT_EACH, blocked=BLOCKED_WITH_VIZ, mods=OBSERVABILITY_MODULES)
+    assert r.returncode == 0, r.stderr
+    return set(json.loads(r.stdout.strip().splitlines()[-1]))
+
+
+@pytest.mark.parametrize("mod", OBSERVABILITY_MODULES)
+def test_observability_module_imports_without_jax_pandas_or_rich(observability_imported_with_rich_blocked, mod):
+    assert mod in observability_imported_with_rich_blocked
+
+
+_MONITORED_RUN = """
+import json, os, sys, urllib.request
+for name in {blocked!r}:
+    sys.modules[name] = None
+os.environ.update(PATHWAY_SIGNALS_INTERVAL_MS="100")
+import pathway_tpu_torch as pw
+from pathway_tpu_torch.analysis import lowering
+t = pw.debug.table_from_rows(pw.schema_from_types(a=int), [(i,) for i in range(10)])
+out = t.select(b=t.a * 2).filter(pw.this.b > 4)
+pw.io.subscribe(out, on_change=lambda **kw: None)
+pw.run(with_http_server=True, diagnostics="warn", monitoring_level=pw.MonitoringLevel.ALL)
+srv = pw.internals.parse_graph.G.last_runtime.http_server
+port = srv.server_address[1]
+for route in ("/metrics", "/debug/graph", "/debug/signals", "/debug/tick", "/fleet/metrics"):
+    with urllib.request.urlopen(f"http://127.0.0.1:{{port}}{{route}}", timeout=30) as resp:
+        assert resp.status == 200, route
+srv.shutdown()
+report = pw.debug.diagnose(out)
+assert report.by_rule("graph-stats")
+assert not lowering.prove_lowering().findings
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in {blocked!r} and sys.modules[m])
+assert not leaked, leaked
+print("ok")
+"""
+
+
+def test_monitored_run_and_doctor_run_with_jax_pandas_and_rich_blocked():
+    r = _run(_MONITORED_RUN, blocked=BLOCKED_WITH_VIZ)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip().endswith("ok")
 
 
 def test_compiled_path_graphs_and_viz_run_with_pandas_rich_and_bokeh_blocked():

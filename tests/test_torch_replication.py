@@ -536,7 +536,8 @@ def test_replica_process_on_the_cpu_follows_the_stream(tmp_path):
             assert r.status == 200 and r.headers["x-pathway-replica"] == "4"
             want = [[k, s] for k, s in ref.search([(vecs[qi], 4, None)])[0]]
             assert same_matches(r.json()["matches"], want, 1e-5)
-        assert get(port, "/debug/signals").status == 501
+        signals = get(port, "/debug/signals")
+        assert signals.status == 200 and signals.json()["enabled"]  # the role arms its sampler
         launched = get(port, "/replica/kernels").json()
         assert launched["block_topk"] == 0 and launched["paged_attention"] == 0  # plain versions on the CPU
         proc.terminate()
@@ -544,7 +545,7 @@ def test_replica_process_on_the_cpu_follows_the_stream(tmp_path):
         lines.append(out)
         assert proc.returncode == 0
         assert "REPLICA-CLEAN-EXIT" in out
-        assert "[observability]" in "".join(lines)  # arm_sampler skipped, saying why
+        assert "[observability]" not in "".join(lines)  # nothing left unported on the role
     finally:
         if proc.poll() is None:
             proc.kill()

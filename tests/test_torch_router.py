@@ -10,8 +10,9 @@ own standard-library HTTP stack, the reference's on aiohttp — and compares
 the observable outcome: statuses, headers, picks, ejections, retries,
 merged top-k, fencing and the generated tokens (the JAX decoder on the CPU
 as its own tests run it; both decoders are seeded alike, in float32). The
-routes the port answers 501 for (the fleet views, ``/debug/signals``,
-``/debug/trace``) are checked to name [observability] and never hang.
+fleet views of the router and the replicas' ``/debug/signals`` and
+``/debug/trace`` (501 naming [observability] until it was ported) answer
+as the reference's do, and never hang.
 
 Every wait, join and HTTP call has a deadline; ports are ephemeral."""
 
@@ -565,24 +566,56 @@ def test_replica_hydration_filters_to_shard_in_both_packages(tmp_path):
     assert torch_out == jax_out and torch_out
 
 
-# --- the routes the port answers 501 for ---------------------------------------
+# --- the fleet views and the replicas' debug routes ---------------------------
+
+
+def _fleet_routes(pk):
+    import importlib
+
+    from pathway_tpu_torch.observability.exposition import parse_exposition
+
+    # in-process replicas arm no sampler (their process's main() does): start
+    # from none, whatever an earlier test of this process armed
+    importlib.import_module(f"{pk.root}.observability.signals").reset_sampler()
+    srv, reps, router = _plane(pk, n_replicas=2)
+    try:
+        srv.publish(0, [])
+        statuses, members = [], {}
+        for path in ("/fleet/metrics", "/fleet/events", "/fleet/trace?trace_id=x"):
+            r = get(router.port, path, timeout=10)
+            statuses.append(r.status)
+            if path == "/fleet/metrics":
+                fams, errs = parse_exposition(r.body.decode())
+                assert not errs, errs[:3]
+                members["metrics"] = sorted(
+                    {s.labels["member"] for f in fams.values() for s in f.samples})
+                members["up"] = sorted(
+                    (s.labels["member"], s.value) for s in fams["pathway_fleet_member_up"].samples)
+            elif path == "/fleet/events":
+                members["events"] = r.json()["members"]
+            else:
+                members["trace"] = r.json()["otherData"]["members"]
+        for path in ("/debug/signals?series=5", "/debug/trace?seconds=1", "/debug/signals?series=x"):
+            r = get(reps[0].http_port, path, timeout=10)
+            statuses.append(r.status)
+            if r.status == 200 and path.startswith("/debug/signals"):
+                members["signals"] = sorted(r.json())
+        statuses.append(get(reps[0].http_port, "/metrics").status)
+        return statuses, members
+    finally:
+        _stop_all(router, reps, srv)
 
 
 def test_fleet_and_signal_routes_answer_501_naming_observability():
-    tr = pkg("torch")
-    srv, reps, router = _plane(tr, n_replicas=1)
-    try:
-        srv.publish(0, [])
-        for path in ("/fleet/metrics", "/fleet/events", "/fleet/trace?trace_id=x"):
-            r = get(router.port, path, timeout=10)
-            assert r.status == 501 and "[observability]" in r.json()["error"], path
-        for path in ("/debug/signals?series=5", "/debug/trace?seconds=1"):
-            r = get(reps[0].http_port, path, timeout=10)
-            assert r.status == 501 and "[observability]" in r.json()["error"], path
-        assert get(reps[0].http_port, "/debug/events").json()["events"] is not None
-        assert get(reps[0].http_port, "/metrics").status == 200
-    finally:
-        _stop_all(router, reps, srv)
+    """Named for the 501s these routes gave until [observability] was
+    ported: the fleet views and the replicas' debug routes now answer as
+    the reference's — the same statuses, member names and documents."""
+    jax_out, torch_out = both(_fleet_routes)
+    assert torch_out == jax_out
+    statuses, members = torch_out
+    assert statuses == [200, 200, 200, 200, 200, 200, 200]
+    assert [m for m, v in members["up"] if v == 1.0] == ["replica0", "replica1", "router"]
+    assert members["trace"][0] == "router" and len(members["trace"]) == 3
 
 
 # --- /generate on a replica (tests/test_generate.py) ---------------------------

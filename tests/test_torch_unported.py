@@ -3,9 +3,10 @@
 without it: engine shards, the multi-process engine (DCN),
 the standby writer and the process-group supervisor of replication, the
 device mesh's names in ``parallel``, ``mesh=``,
-the observability routes of the read plane (501 naming [observability]),
-every root name of the reference the port lacks (``pw.analysis``) and
-``pw.debug.diagnose``, each naming its tag. Compiled ticks without a card
+and ``/debug/autoscale`` (the autoscaler), each naming its tag; the
+observability routes of the read plane answer now (they raised
+[observability] until it was ported), and ``pw.analysis`` and
+``pw.debug.diagnose`` resolve to the port's Graph Doctor. Compiled ticks without a card
 raise the device error; ``pw.graphs``, ``pw.viz`` and every
 ``pw.stdlib.<name>`` resolve to the port's own modules. Every public name of every package ``__init__`` of the reference
 resolves in the port or raises naming a tag, and the names that the port
@@ -94,6 +95,20 @@ def test_tpu_knn_mesh_raises():
         indexing.TpuKnn(t.a, dimensions=4, mesh=object(), device="cpu")
 
 
+def _served_run(t):
+    from pathway_tpu_torch.internals import monitoring_server
+    from pathway_tpu_torch.observability.signals import reset_sampler
+
+    pw.io.subscribe(t.select(c=t.a + 1), on_change=lambda **kw: None)
+    pw.run(with_http_server=True)
+    rt = parse_graph.G.last_runtime
+    server = rt.http_server
+    assert server is not None and server in monitoring_server._servers.values()
+    server.shutdown()
+    reset_sampler()  # serving armed the process-wide sampler
+    return rt
+
+
 @pytest.mark.parametrize(
     "make,item",
     [
@@ -106,7 +121,9 @@ def test_tpu_knn_mesh_raises():
         # the connectors are ported ([connectors] is gone): a service
         # connector gives the port's own table
         (lambda t: pw.io.debezium.read(input_dir="unused", schema=pw.schema_from_types(a=int, b=str)), None),
-        (lambda t: pw.run(with_http_server=True), r"\[observability\]"),
+        # the monitoring server is ported ([observability] is gone): a
+        # served run gives the port's own runtime, its server attached
+        (_served_run, None),
         # the graphs and viz stdlib are ported ([stdlib-rest] is gone)
         (lambda t: pw.stdlib.graphs.pagerank(t.select(u=t.b, v=t.b)), None),
     ],
@@ -182,27 +199,54 @@ def test_repl_port_arms_the_writers_delta_stream(monkeypatch):
 
 
 def test_observability_routes_of_the_plane_answer_501_naming_the_tag():
+    """The replica's ``/debug/signals`` and ``/debug/trace`` and the router's
+    ``/fleet/*`` answered 501 naming [observability] until it was ported:
+    each answers 200 now, and ``/debug/autoscale`` of the monitoring server
+    is the route left answering 501, naming [mesh]."""
     import http.client
     import json
 
+    from pathway_tpu_torch.internals import monitoring_server
     from pathway_tpu_torch.serving.replica import ReplicaServer
     from pathway_tpu_torch.serving.router import FailoverRouter
 
     rep = ReplicaServer(replica_id=0, index_factory=dict, device="cpu").start()
     router = FailoverRouter([f"http://127.0.0.1:{rep.http_port}"]).start()
+    mon = monitoring_server.start_http_server(port=0)
     try:
-        for port, path in ((rep.http_port, "/debug/signals"), (rep.http_port, "/debug/trace"),
-                           (router.port, "/fleet/metrics"), (router.port, "/fleet/events"),
-                           (router.port, "/fleet/trace")):
+        for port, path, status, tag in (
+            (rep.http_port, "/debug/signals", 200, None),
+            (rep.http_port, "/debug/trace", 200, None),
+            (router.port, "/fleet/metrics", 200, None),
+            (router.port, "/fleet/events", 200, None),
+            (router.port, "/fleet/trace", 200, None),
+            (mon.server_address[1], "/debug/autoscale", 501, "[mesh]"),
+        ):
             c = http.client.HTTPConnection("127.0.0.1", port, timeout=10)
             c.request("GET", path)
             r = c.getresponse()
-            body = json.loads(r.read())
+            body = r.read()
             c.close()
-            assert r.status == 501 and "[observability]" in body["error"], path
+            assert r.status == status, (path, r.status, body[:200])
+            if tag is None:
+                assert "[observability]" not in body.decode(), path
+                if path != "/fleet/metrics":
+                    json.loads(body)
+            else:
+                assert tag in body.decode(), path
     finally:
+        mon.shutdown()
         router.stop()
         rep.stop()
+        from pathway_tpu_torch.observability.signals import reset_sampler
+
+        reset_sampler()
+
+
+def _unported_root_names():
+    from pathway_tpu_torch._unported import ROOT_NAMES
+
+    return ROOT_NAMES
 
 
 def _missing(ref_names, port_module):
@@ -213,10 +257,15 @@ ROOT_MISSING = _missing(__import__("pathway_tpu").__all__, pw)
 STDLIB_MISSING = _missing(__import__("pathway_tpu.stdlib").stdlib.__all__, pw.stdlib)
 
 
-@pytest.mark.parametrize("name", ROOT_MISSING)
+@pytest.mark.parametrize("name", sorted(_unported_root_names()))
 def test_reference_root_name_raises_with_its_tag(name):
+    """Every reference root name is the port's own now (``ROOT_MISSING`` is
+    empty since ``pw.analysis`` was ported); the root subpackages of the
+    reference the port still lacks (``pw.autoscale``) raise naming their
+    tag."""
     from pathway_tpu_torch._unported import ROOT_NAMES
 
+    assert name not in ROOT_MISSING
     with pytest.raises(NotImplementedError, match=r"\[[a-z-]+\]") as e:
         getattr(pw, name)
     assert ROOT_NAMES[name].split()[0] in str(e.value) and f"pw.{name}" in str(e.value)
@@ -245,8 +294,9 @@ def test_root_name_tags_and_unknown_names():
         pw.stdlib.no_such_name
     # 12 until LiveTable, load_yaml and demo were ported (``live`` is not in
     # the reference's ``__all__``), 9 until the temporal names were, 2 (and
-    # 2 of the stdlib) until graphs and viz were
-    assert ROOT_MISSING == ["analysis"] and not STDLIB_MISSING
+    # 2 of the stdlib) until graphs and viz were, 1 until pw.analysis was
+    assert ROOT_MISSING == [] and not STDLIB_MISSING
+    assert pw.analysis.__name__ == "pathway_tpu_torch.analysis"
 
 
 # root names (and ``pw.stdlib.utils``) that raised [core-api] until the
@@ -422,5 +472,13 @@ def test_ported_debug_name_has_the_reference_signature(name):
 
 
 def test_debug_diagnose_keeps_its_tag():
-    with pytest.raises(NotImplementedError, match=r"\[observability\]"):
-        pw.debug.diagnose
+    """``pw.debug.diagnose`` raised [observability] until the Graph Doctor
+    was ported; it is the port's own now, with the reference's signature,
+    and no [observability] tag is left in ``_unported``."""
+    import pathway_tpu as jpw
+    from pathway_tpu_torch import _unported
+
+    assert not hasattr(_unported, "OBSERVABILITY")
+    _same_api(jpw.debug.diagnose, pw.debug.diagnose, "pw.debug.diagnose")
+    report = pw.debug.diagnose(_table().select(c=pw.this.a * 2))
+    assert report.by_rule("graph-stats")
