@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from csrc/ (nvcc, sm_90a, one process per
-source, all started together), then runs eighteen phases, printing one JSON
+source, all started together), then runs nineteen phases, printing one JSON
 object per phase:
 
 1. device         — nvidia-smi name/power limit, toolchain versions, build seconds.
@@ -414,7 +414,27 @@ object per phase:
                     and off in one window, the /metrics scrape p50 under load,
                     the capture's wall seconds, the doctor's ms and
                     prove_lowering's seconds.
-18. kernels       — per kernel and per path shape: launches on its path, ms
+18. mesh          — the in-process device mesh: make_mesh(4) puts four shards
+                    on cuda:0 (none on the CPU). 1,048,576 seeded unit vectors
+                    (D = 384) through pw.io.python in 16 commits into DataIndex
+                    over TpuKnn(mesh=mesh), 262,144 rows a shard; 16 B = 1 and
+                    4 B = 16 asks (k = 10) of noisy corpus rows, every reply
+                    against sharded_topk_ref on the same device slices and the
+                    merged top-10 against bf16 dense_topk over the whole corpus
+                    (near ties within BF16_TOL), block_topk launched once per
+                    shard at N = 262,144; the same asks with the exec's index
+                    swapped for an unsharded one loaded from its snapshot.
+                    The same run is under PATHWAY_ENGINE_SHARDS=4 (the engine
+                    mesh on cuda): a groupby-reduce (count, sum) over 65,536
+                    keys joined back to its 1,048,576 rows equals an unsharded
+                    run's row for row and numpy's aggregates, the device
+                    exchange ran, frontier_syncs is one a tick, the shards'
+                    keys are disjoint and cover every key. 1024 texts through
+                    SentenceTransformerEmbedder(mesh=mesh) equal the unsharded
+                    embedder's within CROSS_RUN_TOL. Prints the per-shard kernel
+                    ms, bound and library ms, the reply p50s sharded and
+                    unsharded, the exchange and frontier ms per tick.
+19. kernels       — per kernel and per path shape: launches on its path, ms
                     (CUDA events) and device ms (torch.profiler), its plain
                     version's ms, the bound and what sets it, the bytes it must
                     move, and the ms of the library call(s) computing the same
@@ -434,7 +454,8 @@ object per phase:
                     corpus at the end, and every (B,
                     k) the replica children launched,
                     on the writer's corpus, and B = 1 and 16 of the
-                    observability phase on its corpus; at every shape the
+                    observability phase on its corpus, and B = 1 and 16 of the
+                    mesh phase on one shard's bf16 slice; at every shape the
                     launch ledger's shared memory (analysis/lowering.py) must
                     equal what the built kernel launched with;
                     paged_attention: the
@@ -7167,12 +7188,508 @@ def observability(dev, smi: str, vs_data: dict, emb) -> tuple[dict, dict]:
 
 
 
-# --- phase 18: kernel times ---------------------------------------------------
+# --- phase 18: mesh -----------------------------------------------------------
+
+MESH_SHARDS = 4
+MESH_ROWS = 1 << 20  # the sharded index's corpus; the engine part's rows
+MESH_TICKS = 16  # commits of MESH_ROWS // MESH_TICKS rows, one tick each
+MESH_B1 = 16  # B = 1 asks
+MESH_B16 = 4  # B = 16 asks
+MESH_KEYS = 1 << 16  # group keys, MESH_KEYS // MESH_TICKS new ones a tick
+MESH_REVISIT = 256  # rows a tick whose key is one of the previous tick's
+MESH_TEXTS = 1024
+MESH_NOISE = 0.05  # a query is a corpus row plus this much noise, renormalised
+MESH_ENV = ("PATHWAY_ENGINE_SHARDS", "PATHWAY_MESH_DEVICE")
+
+
+def mesh_rows(seed: int, rows: int, ticks: int, keys: int, revisit: int) -> dict:
+    """The engine part's numeric rows: tick t holds the keys [t * kpt,
+    (t + 1) * kpt) (kpt = keys / ticks) in turn, but its first ``revisit``
+    rows go to keys of tick t - 1, whose aggregates (and joined rows) are
+    retracted and restated; values in [-1000, 1000)."""
+    rng = np.random.default_rng(seed)
+    per, kpt = rows // ticks, keys // ticks
+    g = np.empty(rows, np.int64)
+    for t in range(ticks):
+        block = t * kpt + np.arange(per) % kpt
+        if t:
+            block[:revisit] = (t - 1) * kpt + np.arange(revisit)
+        g[t * per:(t + 1) * per] = block
+    return {"g": g, "v": rng.integers(-1000, 1000, size=rows)}
+
+
+def mesh_run(pw, s: dict, ticks: int, vecs, asks, index_of, swap=None) -> dict:
+    """One run of the mesh phase's graph: rows (rid, g, v[, vec]) through
+    pw.io.python in ``ticks`` commits; a groupby-reduce (count, sum) over g
+    joined back to its input rows; with ``vecs``, DataIndex over the inner
+    index ``index_of(table)`` answering ``asks`` (lists of (qid, vector)),
+    each one commit, and with ``swap`` the same asks again after
+    ``swap(exec)`` replaced the exec's index. Returns the joined rows' final
+    state by key, the replies with their commit-to-reply seconds, and the
+    runtime."""
+    from pathway_tpu_torch.engine.index_node import ExternalIndexExec
+    from pathway_tpu_torch.internals import parse_graph
+    from pathway_tpu_torch.ops import block_topk as bt
+
+    _now = time.perf_counter
+    n = len(s["g"])
+    per = n // ticks
+    finished = threading.Event()
+    failure: list[BaseException] = []
+    rec: dict = {"rows": {}, "replies": {}, "next_s": [], "tick_s": [], "ask_launches": [],
+                 "ask_rows": [], "swapped_launches": [], "swapped_rows": []}
+    parse_graph.G.clear()
+
+    class RowSchema(pw.Schema):
+        rid: int = pw.column_definition(primary_key=True)
+        g: int
+        v: int
+
+    class VecRowSchema(RowSchema):
+        vec: np.ndarray
+
+    class QuerySchema(pw.Schema):
+        qid: int = pw.column_definition(primary_key=True)
+        vec: np.ndarray
+
+    class Idle(pw.io.python.ConnectorSubject):
+        def run(self):
+            finished.wait()
+
+    row_subject = Idle()
+    n_commits = [0]
+
+    def commit(subject, cond, what: str) -> None:
+        subject.commit()
+        n_commits[0] += 1
+        goal, rt = n_commits[0], parse_graph.G.runtime
+        wait_until(lambda: cond() and rt.stats.ticks >= goal, what)
+
+    def ask_all(qs, into: str, rows_into: str) -> None:
+        for group in asks:
+            before, rows_before = bt.block_topk.launches, bt.block_topk.corpus_rows.copy()
+            for qid, v in group:
+                qs.next(qid=qid + into_offset[into], vec=v)
+            t0 = _now()
+            ids = [qid + into_offset[into] for qid, _v in group]
+            commit(qs, lambda: all(q in rec["replies"] for q in ids), "a query's reply")
+            for q in ids:
+                rec["replies"][q]["s"] = rec["replies"][q]["t"] - t0
+            rec[into].append(bt.block_topk.launches - before)
+            rec[rows_into].append(dict(bt.block_topk.corpus_rows - rows_before))
+
+    into_offset = {"ask_launches": 0, "swapped_launches": 1 << 20}
+
+    def drive(qs) -> None:
+        g, v = s["g"].tolist(), s["v"].tolist()
+        for t in range(ticks):
+            tp = _now()
+            if vecs is None:
+                for j in range(t * per, (t + 1) * per):
+                    row_subject.next(rid=j, g=g[j], v=v[j])
+            else:
+                for j in range(t * per, (t + 1) * per):
+                    row_subject.next(rid=j, g=g[j], v=v[j], vec=vecs[j])
+            tc = _now()
+            rec["next_s"].append(tc - tp)
+            commit(row_subject, lambda: True, "a row commit")
+            rec["tick_s"].append(_now() - tc)
+        if vecs is None:
+            return
+        ask_all(qs, "ask_launches", "ask_rows")
+        if swap is not None:
+            rt = parse_graph.G.runtime
+            ex = next(e for e in rt.execs.values() if isinstance(e, ExternalIndexExec))
+            rec["sharded_index"] = ex.index
+            swap(ex)
+            ask_all(qs, "swapped_launches", "swapped_rows")
+
+    class QuerySubject(pw.io.python.ConnectorSubject):
+        def run(self):
+            try:
+                drive(self)
+            except BaseException as e:  # noqa: BLE001 — re-raised after pw.run
+                failure.append(e)
+            finally:
+                finished.set()
+
+    schema = RowSchema if vecs is None else VecRowSchema
+    rows = pw.io.python.read(row_subject, schema=schema, autocommit_duration_ms=None)
+    nums = rows.select(rid=pw.this.rid, g=pw.this.g, v=pw.this.v)
+    agg = nums.groupby(nums.g).reduce(nums.g, c=pw.reducers.count(), s=pw.reducers.sum(nums.v))
+    joined = agg.join(nums, agg.g == nums.g).select(rid=pw.right.rid, g=pw.right.g, v=pw.right.v,
+                                                     c=pw.left.c, s=pw.left.s)
+
+    def on_row(key, row, time, is_addition):
+        k = int(key)
+        vals = (row["rid"], row["g"], row["v"], row["c"], row["s"])
+        if is_addition:
+            rec["rows"][k] = vals
+        elif rec["rows"].get(k) == vals:
+            del rec["rows"][k]
+
+    pw.io.subscribe(joined, on_change=on_row)
+    queries = pw.io.python.read(QuerySubject(), schema=QuerySchema, autocommit_duration_ms=None)
+    # the query subject drives both sources: keep it in every graph
+    pw.io.subscribe(queries, on_change=lambda key, row, time, is_addition: None)
+    if vecs is not None:
+        from pathway_tpu_torch.stdlib.indexing import DataIndex
+
+        index = DataIndex(rows, index_of(rows))
+        answers = index.query_as_of_now(queries.vec, number_of_matches=K).select(
+            qid=pw.left.qid, ids=pw.right._pw_index_reply_id, scores=pw.right._pw_index_reply_score)
+
+        def on_reply(key, row, time, is_addition):
+            if is_addition and row["qid"] not in rec["replies"]:
+                rec["replies"][row["qid"]] = {"t": _now(), "ids": tuple(int(i) for i in row["ids"]),
+                                              "scores": tuple(float(x) for x in row["scores"])}
+
+        pw.io.subscribe(answers, on_change=on_reply)
+    t0 = _now()
+    pw.run()
+    rec["run_s"] = _now() - t0
+    if failure:
+        raise failure[0]
+    rec["runtime"] = parse_graph.G.last_runtime
+    return rec
+
+
+def mesh_plain_child(out: str, rows: int, ticks: int, keys: int, revisit: int) -> int:
+    """The mesh phase's unsharded engine run, in a process of its own beside
+    the sharded run (no engine mesh, no card): the same rows through the
+    same graph; writes the joined rows' final state to ``out``.npz and its
+    run figures to ``out``.json."""
+    import pathway_tpu_torch as pw
+
+    for k in MESH_ENV:
+        os.environ.pop(k, None)
+    s = mesh_rows(SEED + 73, rows, ticks, keys, revisit)
+    rec = mesh_run(pw, s, ticks, None, [], None)
+    rt = rec.pop("runtime")
+    rows = rec["rows"]
+    np.savez(out, keys=np.fromiter(rows.keys(), dtype=np.uint64, count=len(rows)),
+             vals=np.array(list(rows.values()), dtype=np.int64).reshape(-1, 5))
+    with open(out + ".json", "w") as f:
+        json.dump({"run_s": rec["run_s"], "tick_s": rec["tick_s"], "next_s": rec["next_s"],
+                   "ticks": rt.stats.ticks, "frontier_syncs": rt.frontier_syncs,
+                   "engine_mesh": rt.engine_mesh is not None}, f)
+    return 0
+
+
+def mesh(dev, smi: str, rate: float, emb) -> tuple[dict, dict]:
+    """The in-process device mesh on the card: make_mesh(MESH_SHARDS) puts
+    its shards round-robin over the cards there are (all on cuda:0 here).
+    (a) A sharded live index at the main path's width: MESH_ROWS seeded unit
+    vectors (D = 384) through pw.io.python in MESH_TICKS commits into
+    DataIndex over TpuKnn(mesh=mesh), MESH_B1 B = 1 and MESH_B16 B = 16
+    asks (k = 10) of noisy corpus rows; every reply against
+    sharded_topk_ref on the same device slices and the merged top-10
+    against bf16 dense_topk over the whole corpus, up to near ties within
+    BF16_TOL; each search launches block_topk once per shard at N =
+    MESH_ROWS / MESH_SHARDS. The same asks again with the exec's index
+    swapped for an unsharded TpuDenseKnnIndex loaded from its snapshot give
+    the unsharded reply times on the same corpus. (b) The same run is under
+    PATHWAY_ENGINE_SHARDS=MESH_SHARDS (get_engine_mesh on cuda): the rows'
+    numeric columns feed a groupby-reduce (count, sum) over MESH_KEYS keys
+    joined back to its rows, whose final state must equal an unsharded run's
+    (a child process running the same graph on the same rows meanwhile,
+    ``--mesh-plain-child``) row for row and numpy's aggregates; the device
+    exchange ran,
+    frontier_syncs is one per tick, the shards' key sets are disjoint and
+    cover every key. (c) MESH_TEXTS texts through
+    SentenceTransformerEmbedder(mesh=mesh) against the unsharded embedder
+    ``emb`` (the same seeded weights) within CROSS_RUN_TOL. Prints the
+    per-shard kernel ms against its bound and the library call, the reply
+    p50s sharded and unsharded, the exchange and frontier ms per tick."""
+    _now = time.perf_counter
+    t_phase = _now()
+    # the unsharded engine run, meanwhile, in a process of its own
+    tmp = tempfile.mkdtemp(prefix="pw_mesh_")
+    child_out = os.path.join(tmp, "plain")
+    env = {k: v for k, v in os.environ.items() if k not in MESH_ENV}
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    with open(child_out + ".log", "w") as log:
+        sizes = [str(x) for x in (MESH_ROWS, MESH_TICKS, MESH_KEYS, MESH_REVISIT)]
+        child = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--mesh-plain-child", child_out,
+                                  *sizes], env=env, stdout=log, stderr=subprocess.STDOUT)
+    try:
+        return mesh_phase(dev, smi, rate, emb, child, child_out, t_phase)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def mesh_phase(dev, smi: str, rate: float, emb, child, child_out: str, t_phase: float) -> tuple[dict, dict]:
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.engine import runtime as runtime_mod
+    from pathway_tpu_torch.engine import sharded as sharded_mod
+    from pathway_tpu_torch.observability import REGISTRY
+    from pathway_tpu_torch.ops import block_topk as bt
+    from pathway_tpu_torch.ops.knn import BLK, _normalize, dense_topk, sharded_topk_ref
+    from pathway_tpu_torch.parallel import make_mesh
+    from pathway_tpu_torch.parallel.mesh import reset_engine_mesh
+    from pathway_tpu_torch.stdlib.indexing import TpuKnn
+    from pathway_tpu_torch.stdlib.indexing._index_impls import TpuDenseKnnIndex
+    from pathway_tpu_torch.xpacks.llm.embedders import SentenceTransformerEmbedder
+
+    _now = time.perf_counter
+    m = make_mesh(MESH_SHARDS, device=dev.type)
+    placement = [str(d) for d in m.shard_devices()]
+    print(f"mesh: {MESH_SHARDS} shards on {placement}", flush=True)
+    # dev is the card (cuda:0): no shard may sit on the CPU
+    check(all(d == dev for d in m.shard_devices()), f"a mesh shard is not on {dev}: {placement}")
+    per_shard = MESH_ROWS // MESH_SHARDS
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 71)
+    vecs = torch.randn(MESH_ROWS, DIM, generator=gen, device=dev)
+    vecs = (vecs / vecs.norm(dim=-1, keepdim=True)).cpu().numpy()
+    rng = np.random.default_rng(SEED + 72)
+    src = rng.choice(MESH_ROWS, size=MESH_B1 + 16 * MESH_B16, replace=False)
+    qv = vecs[src] + MESH_NOISE * rng.standard_normal((len(src), DIM)).astype(np.float32)
+    qv /= np.linalg.norm(qv, axis=1, keepdims=True)
+    asks = [[(i, qv[i])] for i in range(MESH_B1)] + [
+        [(MESH_B1 + 16 * b + j, qv[MESH_B1 + 16 * b + j]) for j in range(16)] for b in range(MESH_B16)]
+    s = mesh_rows(SEED + 73, MESH_ROWS, MESH_TICKS, MESH_KEYS, MESH_REVISIT)
+
+    # the exchange and the frontier consensus, timed where they run
+    timing = {"exchange_s": Counter(), "exchange_bytes": Counter(), "frontier_s": []}
+    route_device, consensus = sharded_mod._ShardRouter._route_device, runtime_mod.Runtime._frontier_consensus
+
+    def timed_route(router, b, dest, numeric_cols):
+        t0 = _now()
+        out = route_device(router, b, dest, numeric_cols)
+        tick = pw.internals.parse_graph.G.runtime.stats.ticks
+        timing["exchange_s"][tick] += _now() - t0
+        # int32 words a row: key and diff (2 each), then each column's
+        width = 4 + sum(max(1, a.dtype.itemsize // 4) for arrs, _sp in numeric_cols for a in arrs)
+        timing["exchange_bytes"][tick] += 2 * 4 * width * len(b)  # up and back down
+        return out
+
+    def timed_consensus(rt, t):
+        t0 = _now()
+        out = consensus(rt, t)
+        timing["frontier_s"].append(_now() - t0)
+        return out
+
+    def exchanges(transport: str) -> float:
+        fam = REGISTRY.get("pathway_shard_exchanges_total")
+        return 0.0 if fam is None else fam.labels(transport).value
+
+    def swap(ex) -> None:
+        plain = TpuDenseKnnIndex(dimensions=DIM, metric="cosine", reserved_space=MESH_ROWS, device=dev)
+        plain.load_state(ex.index.state_dict())
+        ex.index = plain
+
+    saved_env = {k: os.environ.get(k) for k in MESH_ENV}
+    os.environ.update(PATHWAY_ENGINE_SHARDS=str(MESH_SHARDS), PATHWAY_MESH_DEVICE=dev.type)
+    reset_engine_mesh()
+    sharded_mod._ShardRouter._route_device = timed_route
+    runtime_mod.Runtime._frontier_consensus = timed_consensus
+    bt.block_topk.launches = 0
+    bt.block_topk.shapes.clear()
+    bt.block_topk.corpus_rows.clear()
+    dev_ex0 = exchanges("device")
+    try:
+        sharded = mesh_run(pw, s, MESH_TICKS, vecs, asks, lambda t: TpuKnn(
+            t.vec, dimensions=DIM, reserved_space=MESH_ROWS, mesh=m, device=dev), swap=swap)
+    finally:
+        sharded_mod._ShardRouter._route_device = route_device
+        runtime_mod.Runtime._frontier_consensus = consensus
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        reset_engine_mesh()
+    device_exchanges = exchanges("device") - dev_ex0
+    ix = sharded.pop("sharded_index")
+    rt = sharded.pop("runtime")
+    t_wait = _now()
+    rc = child.wait(timeout=600)
+    child_wait_s = _now() - t_wait
+    if rc != 0:
+        with open(child_out + ".log") as f:
+            print(f.read()[-4000:], file=sys.stderr)
+    check(rc == 0, f"the unsharded engine run exited {rc}")
+    with open(child_out + ".json") as f:
+        plain = json.load(f)
+    got = np.load(child_out + ".npz")
+    plain["rows"] = dict(zip(got["keys"].tolist(), map(tuple, got["vals"].tolist())))
+
+    # (a) the sharded index
+    check(ix.mesh is m and ix.corpus.sharding is not None, "the index is not sharded over the mesh")
+    slices, valids = ix.corpus.device_arrays()
+    check(len(slices) == MESH_SHARDS and all(c.shape[0] == per_shard for c in slices),
+          f"the corpus slices are {[tuple(c.shape) for c in slices]}")
+    check(len(ix) == MESH_ROWS, f"the sharded index holds {len(ix)} rows")
+    keys_of = np.array([ix.corpus.key_of[i] for i in range(MESH_ROWS)], dtype=object)
+    whole, whole_valid = torch.cat(slices), torch.cat(valids)
+    exact = near = 0
+    for qid in range(len(src)):
+        for off, what in ((0, "sharded"), (1 << 20, "unsharded")):
+            check(qid + off in sharded["replies"], f"ask {qid} has no {what} reply")
+    for group in asks:
+        q = torch.from_numpy(np.stack([v for _q, v in group])).to(dev)
+        sr, ir = sharded_topk_ref(q, slices, valids, K, mesh=m, metric="cosine", bf16=True)
+        sw, iw = dense_topk(q, whole, whole_valid, K, metric="cosine", bf16=True)
+        sr, ir, sw, iw = (x.cpu().numpy() for x in (sr, ir, sw, iw))
+        for row, (qid, _v) in enumerate(group):
+            got = tuple(zip(sharded["replies"][qid]["ids"],
+                            (x + 1.0 for x in sharded["replies"][qid]["scores"])))
+            ref = tuple((int(keys_of[i]), float(x)) for i, x in zip(ir[row], sr[row]))
+            ref_whole = tuple((int(keys_of[i]), float(x)) for i, x in zip(iw[row], sw[row]))
+            check(same_up_to_near_ties(got, ref, BF16_TOL), f"ask {qid}: reply differs from sharded_topk_ref")
+            check(same_up_to_near_ties(ref, ref_whole, BF16_TOL),
+                  f"ask {qid}: the merged top-{K} differs from dense_topk over the whole corpus")
+            exact += [k for k, _s in got] == [k for k, _s in ref]
+            near += [k for k, _s in ref] != [k for k, _s in ref_whole]
+    check(all(n_l == MESH_SHARDS for n_l in sharded["ask_launches"]),
+          f"a sharded search launched block_topk {sharded['ask_launches']} times, not once per shard")
+    check(all(r == {per_shard: MESH_SHARDS} for r in sharded["ask_rows"]),
+          f"the per-shard launches scanned {sharded['ask_rows']}, not N = {per_shard}")
+    check(all(r == {MESH_ROWS: 1} for r in sharded["swapped_rows"]),
+          f"the unsharded index's launches scanned {sharded['swapped_rows']}")
+    top1 = sum(sharded["replies"][q]["ids"][0] == int(keys_of[src[q]]) for q in range(len(src)))
+    del whole, whole_valid
+
+    # (b) the sharded engine against the unsharded run and numpy
+    check(sharded["rows"] == plain["rows"], "the sharded engine's rows differ from the unsharded run's")
+    check(len(plain["rows"]) == MESH_ROWS, f"the joined output holds {len(plain['rows'])} rows")
+    count = np.bincount(s["g"], minlength=MESH_KEYS)
+    total = np.bincount(s["g"], weights=s["v"], minlength=MESH_KEYS).astype(np.int64)
+    check(all(c == count[g] and sm == total[g] for _r, g, _v, c, sm in plain["rows"].values()),
+          "a joined aggregate differs from numpy's")
+    check(rt.engine_mesh is not None and rt.engine_mesh[0].shape == {"data": MESH_SHARDS}
+          and all(d.type == dev.type for d in rt.engine_mesh[0].shard_devices()),
+          f"the engine mesh is not on {dev.type}")
+    check(not plain["engine_mesh"] and plain["frontier_syncs"] == 0, "the unsharded run sharded")
+    check(device_exchanges > 0, "pathway_shard_exchanges_total{transport=device} did not move")
+    check(rt.frontier_syncs == rt.stats.ticks - 1,
+          f"frontier_syncs {rt.frontier_syncs} for {rt.stats.ticks} ticks (one final)")
+    # the groupby over g holds the most keys (DataIndex's own group query ids)
+    groupbys = [e.shard_group_keys() for e in rt.execs.values()
+                if isinstance(e, sharded_mod.ShardedGroupByExec)]
+    check(bool(groupbys), "no groupby sharded")
+    owned = max(groupbys, key=lambda o: sum(len(x) for x in o))
+    check(sum(len(o) for o in owned) == MESH_KEYS and len(set().union(*owned)) == MESH_KEYS,
+          "the shards' group keys overlap or miss a key")
+    check(all(len(o) > 0 for o in owned), "a shard owns no group key")
+    joins = [e for e in rt.execs.values() if isinstance(e, sharded_mod.ShardedJoinExec)]
+    check(any(e.router.device_exchanges > 0 for e in joins), "no sharded join took the device exchange")
+
+    # (c) data-parallel batches
+    texts = synthetic_docs(MESH_TEXTS, np.random.default_rng(SEED + 74))
+    t0 = _now()
+    emb_mesh = SentenceTransformerEmbedder(mesh=m, device=dev)
+    init_s = _now() - t0
+    check(len(emb_mesh.runtime._replicas) == 1, "the mesh encoder holds a copy per shard")
+    emb_mesh.embed_batch(texts[:64])  # warm-up
+    torch.cuda.synchronize()
+    t0 = _now()
+    a = np.stack(emb_mesh.embed_batch(texts))
+    sharded_embed_s = _now() - t0
+    t0 = _now()
+    b = np.stack(emb.embed_batch(texts))
+    plain_embed_s = _now() - t0
+    enc_err = float(np.abs(a - b).max())
+    check(a.shape == (MESH_TEXTS, DIM) and bool(np.isfinite(a).all()), "mesh embeddings' shape")
+    check(enc_err <= CROSS_RUN_TOL, f"the mesh embedder differs from the unsharded one by {enc_err}")
+    del emb_mesh
+
+    # the per-shard kernel against its bound and the library call
+    preps, _c2s, pvalids = ix.corpus.prepared_arrays("cosine", bf16=True)
+    prep, pvalid = preps[0], pvalids[0]
+    kernel = {}
+    queries = {}
+    for bs, lo in ((1, 0), (16, MESH_B1)):
+        q = torch.from_numpy(qv[lo:lo + bs]).to(dev)
+        queries[bs] = q
+        qn = _normalize(q).to(prep.dtype).contiguous()
+        before = bt.block_topk.launches, bt.block_topk.shapes.copy(), bt.block_topk.corpus_rows.copy()
+        ms = cuda_ms(lambda: bt.block_topk(qn, prep, pvalid, K))
+
+        def library():
+            sc = torch.matmul(qn, prep.T).masked_fill_(~pvalid[None, :], -float("inf"))
+            return torch.topk(sc.view(bs, per_shard // BLK, BLK), K, dim=-1)
+
+        library_ms = cuda_ms(library, iters=5)
+        plain_ms = cuda_ms(lambda: bt.block_topk_ref(qn, prep, pvalid, K), iters=5)
+        bt.block_topk.launches, bt.block_topk.shapes, bt.block_topk.corpus_rows = before
+        nbytes = per_shard * DIM * 2 + bs * DIM * 2 + per_shard + bs * (per_shard // BLK) * K * 8
+        t_bytes = nbytes / rate * 1e3
+        t_ops = 2.0 * bs * per_shard * DIM / PEAK_OPS_PER_S["bfloat16"] * 1e3
+        kernel[f"B={bs}"] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                             "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                             "bytes": nbytes}
+
+    def p50_ms(offset: int, lo: int, hi: int) -> float:
+        return float(np.percentile([sharded["replies"][q + offset]["s"] * 1e3 for q in range(lo, hi)], 50))
+
+    b16 = [MESH_B1 + 16 * b for b in range(MESH_B16)]
+    ex_ticks = sorted(timing["exchange_s"])
+    phase = {
+        "phase": "mesh",
+        "nvidia_smi": smi,
+        "shards": MESH_SHARDS,
+        "placement": placement,
+        "corpus_rows": MESH_ROWS,
+        "rows_per_shard": per_shard,
+        "ticks": MESH_TICKS,
+        "sharded_run_s": sharded["run_s"],
+        "unsharded_engine_run_s": plain["run_s"],
+        "unsharded_child_wait_s": child_wait_s,
+        "next_s": float(np.sum(sharded["next_s"])),
+        "tick_s_p50": float(np.percentile(sharded["tick_s"], 50)),
+        "unsharded_tick_s_p50": float(np.percentile(plain["tick_s"], 50)),
+        "reply_p50_ms": {
+            "sharded": {"B=1": p50_ms(0, 0, MESH_B1), "B=16": float(np.percentile(
+                [sharded["replies"][q]["s"] * 1e3 for q in b16], 50))},
+            "unsharded": {"B=1": p50_ms(1 << 20, 0, MESH_B1), "B=16": float(np.percentile(
+                [sharded["replies"][q + (1 << 20)]["s"] * 1e3 for q in b16], 50))},
+        },
+        "replies_equal_sharded_topk_ref": exact,
+        "replies_compared": len(src),
+        "merged_vs_whole_corpus_near_ties": near,
+        "top1_is_the_noisy_row": top1,
+        "block_topk_launches_per_search": sharded["ask_launches"],
+        "block_topk_rows_per_launch": per_shard,
+        "per_shard_kernel": kernel,
+        "engine": {
+            "rows": MESH_ROWS, "keys": MESH_KEYS, "ticks": rt.stats.ticks,
+            "frontier_syncs": rt.frontier_syncs, "device_exchanges": device_exchanges,
+            "keys_per_shard": [len(o) for o in owned],
+            "rows_equal_unsharded": True,
+            "exchange_ms_per_tick": {"p50": float(np.percentile([timing["exchange_s"][t] * 1e3
+                                                                 for t in ex_ticks], 50)),
+                                     "max": max(timing["exchange_s"][t] * 1e3 for t in ex_ticks),
+                                     "ticks": len(ex_ticks)},
+            "exchange_bytes_per_tick_p50": float(np.percentile([timing["exchange_bytes"][t]
+                                                                for t in ex_ticks], 50)),
+            "exchange_copy_bound_ms_p50": float(np.percentile([timing["exchange_bytes"][t]
+                                                               for t in ex_ticks], 50)) / CT_LINK_BYTES_PER_S * 1e3,
+            "frontier_ms": {"p50": float(np.percentile(timing["frontier_s"], 50)) * 1e3,
+                            "max": max(timing["frontier_s"]) * 1e3, "syncs": len(timing["frontier_s"])},
+        },
+        "encoder": {"texts": MESH_TEXTS, "max_abs_err": enc_err, "tol": CROSS_RUN_TOL, "init_s": init_s,
+                    "sharded_embed_s": sharded_embed_s, "unsharded_embed_s": plain_embed_s},
+        "phase_s": _now() - t_phase,
+    }
+    shapes = Counter()
+    for group, n in zip(asks, sharded["ask_launches"]):
+        shapes[(len(group), K)] += n
+    data = {"prep": prep, "valid": pvalid, "queries": queries, "launches": sum(sharded["ask_launches"]),
+            "shapes": dict(shapes), "index": ix}
+    return phase, data
+
+
+# --- phase 19: kernel times ---------------------------------------------------
 
 
 def kernel_times(main: dict, eng: dict, vs: dict, rest: dict, persist: dict, ik: dict, cc: dict,
-                 lc: dict, wi: dict, cdc: dict, ct: dict, rep: dict, gen: dict, ob: dict, rate: float,
-                 rate_src: str) -> list[dict]:
+                 lc: dict, wi: dict, cdc: dict, ct: dict, rep: dict, gen: dict, ob: dict, msh: dict,
+                 rate: float, rate_src: str) -> list[dict]:
     from pathway_tpu_torch.analysis import lowering
     from pathway_tpu_torch.ops import block_topk as bt
     from pathway_tpu_torch.ops.knn import BLK, _normalize
@@ -7237,6 +7754,11 @@ def kernel_times(main: dict, eng: dict, vs: dict, rest: dict, persist: dict, ik:
         # the monitored live index's B = 1 and B = 16 query ticks
         (b, k, ob["queries"][b], n, "observability", (ob["prep"], ob["valid"]))
         for (b, k), n in sorted(ob["shapes"].items())
+    ] + [
+        # the sharded index's searches: one launch per shard, each on its
+        # shard's bf16 slice (shard 0's here; the four are the same shape)
+        (b, k, msh["queries"][b], n, f"mesh (one shard of {MESH_SHARDS}, bf16)", (msh["prep"], msh["valid"]))
+        for (b, k), n in sorted(msh["shapes"].items())
     ]
     per_batch = []
     for bs, k, q, path_launches, path, (prep, valid) in path_shapes:
@@ -7321,6 +7843,8 @@ def kernel_times(main: dict, eng: dict, vs: dict, rest: dict, persist: dict, ik:
         "replication_launches_by_shape": {f"B={b},k={k}": n for (b, k), n in sorted(rep["shapes"].items())},
         "observability_launches": ob["launches"],
         "observability_launches_by_shape": {f"B={b},k={k}": n for (b, k), n in sorted(ob["shapes"].items())},
+        "mesh_launches": msh["launches"],
+        "mesh_launches_by_shape": {f"B={b},k={k}": n for (b, k), n in sorted(msh["shapes"].items())},
         "max_abs_err": max(p["max_abs_err"] for p in per_batch),
         "ms": head["ms"],
         "plain_ms": head["plain_ms"],
@@ -7430,6 +7954,9 @@ def paged_kernel_times(gen: dict, rep: dict, rate: float, rate_src: str) -> dict
 def main() -> int:
     if sys.argv[1:2] == ["--rest-client"]:
         return rest_client()
+    if sys.argv[1:2] == ["--mesh-plain-child"]:  # host only: no card needed
+        sys.path.insert(0, str(Path(__file__).resolve().parent))
+        return mesh_plain_child(sys.argv[2], *map(int, sys.argv[3:7]))
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 2
@@ -7501,11 +8028,15 @@ def main() -> int:
     phase, gen_data = generation(dev, main_data)
     emit(phase)
     emit(durability(dev, gen_data))
-    phase, ob_data = observability(dev, smi, vs_data, ct_data.pop("embedder"))
+    emb = ct_data.pop("embedder")
+    phase, ob_data = observability(dev, smi, vs_data, emb)
     emit(phase)
+    phase, mesh_data = mesh(dev, smi, rate, emb)
+    emit(phase)
+    del emb
     kernels = kernel_times(main_data, engine_data, vs_data, rest_data, persist_data, ik_data, cc_data,
-                           lc_data, wi_data, cdc_data, ct_data, repl_data, gen_data, ob_data, rate,
-                           rate_src) + [
+                           lc_data, wi_data, cdc_data, ct_data, repl_data, gen_data, ob_data, mesh_data,
+                           rate, rate_src) + [
         paged_kernel_times(gen_data, repl_data, rate, rate_src)
     ]
     emit({"phase": "kernels", "kernels": kernels})

@@ -5,7 +5,7 @@ behaviour."""
 
 from __future__ import annotations
 
-MESH = "[mesh] (multi-device: engine mesh, DCN, sharded top-k)"
+MESH = "[mesh] (multi-process: host mesh, DCN execs, spawn, elastic, autoscale)"
 REPLICATION = "[replication] (parallel/standby.py and parallel/supervisor.py)"
 
 # root names of the reference the port lacks (subpackages), each with its item

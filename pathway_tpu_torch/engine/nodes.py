@@ -1,11 +1,11 @@
 """Engine graph nodes and their executors — the port's own copy of
 ``pathway_tpu/engine/nodes.py`` (the same nodes, the same update streams).
 
-Hooks of the reference this copy does not carry: the sharded execs of the
-engine mesh (``engine/sharded.py``) and the multi-process execs
-(``engine/dcn.py``; the runtime raises for both, ROADMAP [mesh])
-— and the compiled-tick helpers (typed ingest,
-the jitted groupby partials; [compiled-ticks]). The columnar groupby
+Under an engine mesh (``parallel/mesh.py`` ``get_engine_mesh``) GroupBy,
+Join, Buffer and instance Sort build their key-sharded execs
+(``engine/sharded.py``), as the reference's do. Hooks of the reference
+this copy does not carry: the multi-process execs (``engine/dcn.py``; the
+runtime raises for them, ROADMAP [mesh]). The columnar groupby
 factorizes with numpy (``factorize``) where the reference calls pandas.
 
 This is the engine's operator vocabulary — the capability contract the
@@ -505,8 +505,18 @@ class GroupByNode(Node):
             out += (self.instance_col,)
         return out
 
-    def make_exec(self):
+    def _make_local_exec(self):
+        from pathway_tpu_torch.parallel.mesh import get_engine_mesh
+
+        em = get_engine_mesh()
+        if em is not None:
+            from pathway_tpu_torch.engine.sharded import ShardedGroupByExec
+
+            return ShardedGroupByExec(self, em[0], em[1])
         return GroupByExec(self)
+
+    def make_exec(self):
+        return self._make_local_exec()
 
 
 class _GroupState:
@@ -1013,8 +1023,18 @@ class JoinNode(Node):
     def key_columns(self) -> tuple[str, ...]:
         return tuple(self.left_on) + tuple(self.right_on)
 
-    def make_exec(self):
+    def _make_local_exec(self):
+        from pathway_tpu_torch.parallel.mesh import get_engine_mesh
+
+        em = get_engine_mesh()
+        if em is not None:
+            from pathway_tpu_torch.engine.sharded import ShardedJoinExec
+
+            return ShardedJoinExec(self, em[0], em[1])
         return JoinExec(self)
+
+    def make_exec(self):
+        return self._make_local_exec()
 
 
 class _SideState:
@@ -2101,8 +2121,20 @@ class SortNode(Node):
             out += (self.instance_col,)
         return out
 
-    def make_exec(self):
+    def _make_local_exec(self):
+        from pathway_tpu_torch.parallel.mesh import get_engine_mesh
+
+        em = get_engine_mesh()
+        # an instance-less sort is one global order: sharding would route
+        # every row to shard 0 and pay the exchange for nothing
+        if em is not None and self.instance_col is not None:
+            from pathway_tpu_torch.engine.sharded import ShardedSortExec
+
+            return ShardedSortExec(self, em[0], em[1])
         return SortExec(self)
+
+    def make_exec(self):
+        return self._make_local_exec()
 
 
 class SortExec(NodeExec):
@@ -2948,8 +2980,18 @@ class BufferNode(Node):
         self.current_time_col = current_time_col
         self.flush_on_end = flush_on_end
 
-    def make_exec(self):
+    def _make_local_exec(self):
+        from pathway_tpu_torch.parallel.mesh import get_engine_mesh
+
+        em = get_engine_mesh()
+        if em is not None:
+            from pathway_tpu_torch.engine.sharded import ShardedBufferExec
+
+            return ShardedBufferExec(self, em[0], em[1])
         return BufferExec(self)
+
+    def make_exec(self):
+        return self._make_local_exec()
 
 
 def _watermark_ledger_append(arr: Arrangement, ops) -> None:

@@ -3,12 +3,14 @@
 per-level worker pool), autocommit, streaming and static runs, the stop
 path, metrics, spans and the fault plan, as in the reference.
 
-Not ported, and raising ``NotImplementedError`` rather than running
-without them: compiled ticks (an explicit ``PATHWAY_COMPILED_TICK=1``;
-unset or 0 runs the interpreter, ROADMAP [compiled-ticks]), the engine
-mesh (``PATHWAY_ENGINE_SHARDS`` > 1) and the multi-process engine
-(``PATHWAY_PROCESSES`` > 1; [mesh]). Every tick lands in the runtime's
-Tick Scope recorder (``observability/tickscope.py``), as in the reference.
+Under an engine mesh (``set_engine_mesh`` or ``PATHWAY_ENGINE_SHARDS`` > 1,
+``parallel/mesh.py``) the stateful operators shard their keyed state
+(``engine/sharded.py``) and every tick ends with the frontier consensus, a
+min-all-reduce over the shards (``frontier_syncs``). Not ported, and
+raising ``NotImplementedError`` rather than running without it: the
+multi-process engine (``PATHWAY_PROCESSES`` > 1; [mesh]). Every tick lands
+in the runtime's Tick Scope recorder (``observability/tickscope.py``), as
+in the reference.
 
 The reference's design: a replacement for the timely worker main loop
 (upstream Pathway: src/engine/dataflow.rs:5962-6173): instead of N OS worker
@@ -286,15 +288,11 @@ def _dcn_requested() -> bool:
 def refuse_unported_fabric(distributed: bool = True) -> None:
     """Raise naming [mesh] when the env asks for an exchange fabric the
     port does not run: a multi-process engine group (checked unless
-    ``distributed`` is False, as for an inner runtime) or engine-level mesh
-    sharding (``PATHWAY_ENGINE_SHARDS`` > 1: sharded execs and the frontier
-    all-reduce). The ``Runtime`` and ``parallel.exchange_topology`` both
-    refuse through it rather than run, or describe, a single process."""
+    ``distributed`` is False, as for an inner runtime). The ``Runtime`` and
+    ``parallel.exchange_topology`` both refuse through it rather than run,
+    or describe, a single process."""
     if distributed and _dcn_requested():
         raise unported("the multi-process engine (PATHWAY_PROCESSES>1)", MESH)
-    shards = os.environ.get("PATHWAY_ENGINE_SHARDS", "")
-    if shards.isdigit() and int(shards) > 1:
-        raise unported(f"engine sharding (PATHWAY_ENGINE_SHARDS={shards})", MESH)
 
 class RuntimeStats:
     """Prober-style counters (reference: ProberStats src/engine/graph.rs:533,
@@ -351,10 +349,18 @@ class Runtime:
         annotate_live_columns(self.order)
         # the multi-process engine (reference: stateful execs exchange host
         # rows over a TCP mesh, ticks in lockstep across the process group)
-        # and engine-level mesh sharding are not ported; either raises
-        # rather than run each process alone, unsharded. Inner runtimes
-        # pass distributed=False.
+        # is not ported; it raises rather than run each process alone.
+        # Inner runtimes pass distributed=False.
         refuse_unported_fabric(distributed is not False)
+        # engine-level mesh sharding: the stateful execs shard (their
+        # _make_local_exec reads the same mesh) and the per-tick frontier
+        # consensus is a min-all-reduce over the shards
+        from pathway_tpu_torch.parallel.mesh import get_engine_mesh
+
+        self.engine_mesh = get_engine_mesh()
+        self.global_frontier = 0
+        self.frontier_syncs = 0
+        self._frontier_base: int | None = None
         self._wake = threading.Event()
         self._stop = threading.Event()
         self.execs: dict[int, NodeExec] = {
@@ -666,6 +672,8 @@ class Runtime:
             # BEFORE the persistence driver commits it — the group-
             # visible mid-tick death the chaos matrix exercises
             self._fault_plan.on_tick(t, "tail")
+        if self.engine_mesh is not None and not final:
+            self.global_frontier = self._frontier_consensus(t)
         if self.on_tick is not None:
             self.on_tick(t)
 
@@ -781,6 +789,31 @@ class Runtime:
     def stop(self) -> None:
         self._stop.set()
         self._wake.set()
+
+    def _frontier_consensus(self, t: int) -> int:
+        """min-all-reduce of the local clock across engine shards. Times are
+        wall-clock ms (> int32), so the collective carries the int32 offset
+        from the first tick, as the reference's does."""
+        import torch
+
+        from pathway_tpu_torch.parallel.collectives import frontier_allreduce
+
+        mesh, axis = self.engine_mesh
+        if self._frontier_base is None:
+            self._frontier_base = t
+        rel = t - self._frontier_base
+        if rel > (1 << 30):
+            # re-base before the int32 payload could overflow (~24.8 days
+            # of uptime); the consensus value is monotone either way
+            self._frontier_base = t
+            rel = 0
+        local = [
+            torch.tensor(rel, dtype=torch.int32, device=dev)
+            for dev in mesh.shard_devices(axis)
+        ]
+        ft = frontier_allreduce(local, mesh, axis)
+        self.frontier_syncs += 1
+        return int(ft[0]) + self._frontier_base
 
     @staticmethod
     def _now_ms() -> int:

@@ -89,8 +89,26 @@ class ConnectorSubject:
 
     # --- feeding -------------------------------------------------------------
 
+    def _plan(self) -> tuple:
+        """What the schema asks of every row, read from it once per schema:
+        (json columns with their optionality, float columns, primary key
+        columns or None)."""
+        cached = self.__dict__.get("_coerce_plan")
+        if cached is None or cached[0] is not self._schema:
+            json_cols, float_cols = [], []
+            for name, d in self._schema.dtypes().items():
+                sd = d.strip_optional()
+                if sd == dt.JSON:
+                    json_cols.append((name, d.is_optional()))
+                elif sd == dt.FLOAT:
+                    float_cols.append(name)
+            cached = self._coerce_plan = (
+                self._schema, (tuple(json_cols), tuple(float_cols), self._schema.primary_key_columns())
+            )
+        return cached[1]
+
     def _key_for(self, values: dict) -> int:
-        pk = self._schema.primary_key_columns() if self._schema else None
+        pk = self._plan()[2] if self._schema else None
         if pk:
             return int(ref_scalar(*[values.get(c) for c in pk]))
         self._counter += 1
@@ -107,17 +125,16 @@ class ConnectorSubject:
     def _coerce_values(self, values: dict) -> dict:
         if self._schema is None:
             return values
+        json_cols, float_cols, _pk = self._plan()
         out = dict(values)
-        for name, d in self._schema.dtypes().items():
-            if name in out:
-                v = out[name]
-                sd = d.strip_optional()
-                if sd == dt.JSON and not (v is None and d.is_optional()):
-                    from pathway_tpu_torch.internals.json import normalize_json
+        for name, optional in json_cols:
+            if name in out and not (out[name] is None and optional):
+                from pathway_tpu_torch.internals.json import normalize_json
 
-                    out[name] = normalize_json(v)
-                elif sd == dt.FLOAT and isinstance(v, int):
-                    out[name] = float(v)
+                out[name] = normalize_json(out[name])
+        for name in float_cols:
+            if isinstance(out.get(name), int):
+                out[name] = float(out[name])
         return out
 
     def next_json(self, values: dict | str) -> None:

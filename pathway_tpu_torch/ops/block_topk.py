@@ -21,8 +21,10 @@ in ``csrc/block_topk.cu``.
 
 On a CUDA tensor ``block_topk`` launches the kernel or raises; it uses the
 plain version ``block_topk_ref`` only when it is handed CPU tensors (the CPU
-tests). ``block_topk.launches`` counts kernel launches, and
-``block_topk.shapes`` counts them per ``(B, k)``.
+tests). ``block_topk.launches`` counts kernel launches,
+``block_topk.shapes`` counts them per ``(B, k)`` and ``block_topk.corpus_rows``
+per corpus row count N (a sharded search launches once per shard, at the
+shard's N).
 """
 
 from __future__ import annotations
@@ -171,11 +173,13 @@ def block_topk(
         raise RuntimeError(f"block_topk launch failed: cudaError {err} ({msg})")
     block_topk.launches += 1
     block_topk.shapes[(b, k)] += 1
+    block_topk.corpus_rows[n] += 1
     return out_sc, out_ix
 
 
 block_topk.launches = 0
 block_topk.shapes = Counter()
+block_topk.corpus_rows = Counter()
 
 
 def last_launch() -> dict:

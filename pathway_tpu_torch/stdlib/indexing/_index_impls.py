@@ -15,8 +15,14 @@ counterpart of ``pathway_tpu/stdlib/indexing/_index_impls.py``:
 either package), the power-of-two query-batch ladder, the x4 oversample when
 a filter is set, f32 scoring, the cosine ``scores - 1.0`` shift and the same
 filter loop, and the Tick Scope roofline (family ``topk``: analytic FLOPs
-2·B·N·D over the measured wall, host sync included). The mesh path and the
-batch-occupancy metric are not ported yet.
+2·B·N·D over the measured wall, host sync included). The batch-occupancy
+metric is not ported yet.
+
+``mesh=`` shards the corpus's rows over the mesh ``axis``
+(``parallel/mesh.py``): each shard's slice sits on its shard's device and
+``search`` calls ``ops.knn.sharded_topk`` with the reference's arguments
+(bf16 scoring, its default), whose local step per shard is the block
+top-k kernel on the card for cosine/dot; ``device=`` is then the mesh's.
 
 Kernel selector — unlike the JAX index, whose default is ``"xla"``, the
 default here goes through the hand-written kernel on the card:
@@ -49,12 +55,11 @@ import numpy as np
 import torch
 
 from pathway_tpu_torch._device import resolve_device
-from pathway_tpu_torch._unported import MESH, unported
 from pathway_tpu_torch.ops import block_topk as bt
 from pathway_tpu_torch.ops.ivf import assign_clusters, train_centroids
 from pathway_tpu_torch.ops.lsh import lsh_buckets, make_projections
 from pathway_tpu_torch.observability import tickscope
-from pathway_tpu_torch.ops.knn import DeviceCorpus, dense_topk_prepared
+from pathway_tpu_torch.ops.knn import DeviceCorpus, dense_topk_prepared, sharded_topk
 from pathway_tpu_torch.stdlib.indexing._filters import compile_filter
 
 KERNELS = ("auto", "torch", "cuda")
@@ -79,12 +84,13 @@ class TpuDenseKnnIndex:
         kernel: str = "auto",
         device: str | torch.device = "cuda",
     ):
-        if mesh is not None:
-            raise unported("TpuDenseKnnIndex(mesh=...) (a sharded corpus)", MESH)
         self.dim = dimensions
         self.metric = metric
         self.reserved = reserved_space
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.axis = axis
+        # a sharded corpus lives on the mesh's devices
+        self.device = mesh.device_of(0, axis) if mesh is not None else resolve_device(device)
         self.corpus: DeviceCorpus | None = None
         self.metadata: dict[int, Any] = {}
         if kernel == "auto":
@@ -98,7 +104,17 @@ class TpuDenseKnnIndex:
 
     def _ensure(self, dim: int) -> DeviceCorpus:
         if self.corpus is None:
-            self.corpus = DeviceCorpus(dim, self.reserved, device=self.device)
+            cap, sharding = self.reserved, None
+            if self.mesh is not None:
+                from pathway_tpu_torch.parallel.collectives import sharded_rows
+
+                n_dev = self.mesh.shape[self.axis]
+                cap = max(cap, n_dev)
+                cap = ((cap + n_dev - 1) // n_dev) * n_dev
+                sharding = sharded_rows(self.mesh, self.axis)
+            self.corpus = DeviceCorpus(
+                dim, cap, device=self.device, sharding=sharding, valid_sharding=sharding
+            )
         return self.corpus
 
     def upsert(self, key: int, data: Any, metadata: Any) -> None:
@@ -129,7 +145,10 @@ class TpuDenseKnnIndex:
             self.metadata = {k: v for k, v in self.metadata.items() if pred(k)}
             return
         kept = [(k, s) for k, s in c.slot_of.items() if pred(k)]
-        fresh = DeviceCorpus(c.dim, max(len(kept), 1), device=self.device)
+        fresh = DeviceCorpus(
+            c.dim, max(len(kept), 1), device=self.device, sharding=c.sharding,
+            valid_sharding=c.valid_sharding,
+        )
         for key, slot in kept:
             fresh.upsert(key, c.host[slot])
         self.corpus = fresh
@@ -202,6 +221,15 @@ class TpuDenseKnnIndex:
         # oversample when filtering so post-filter still fills k
         eff_k = max(0, min(len(self.corpus), max_k * 4 if has_filter else max_k))
         t0 = time.perf_counter()
+        if self.mesh is not None:
+            # the reference's sharded call: bf16 scoring, its default
+            corpus_arr, valid = self.corpus.device_arrays()
+            preps, c2s, _v = self.corpus.prepared_arrays(self.metric, bf16=True)
+            scores, idx = sharded_topk(
+                qmat, corpus_arr, valid, eff_k, mesh=self.mesh, axis=self.axis,
+                metric=self.metric, prepared=list(zip(preps, c2s)),
+            )
+            return self._replies(queries, qmat, n_q, eff_k, scores, idx, t0)
         # f32 end to end, as the JAX index path scores
         prep, c2, valid = self.corpus.prepared_arrays(self.metric, bf16=False)
         q = torch.from_numpy(qmat).to(self.device)
@@ -211,6 +239,9 @@ class TpuDenseKnnIndex:
             scores, idx = dense_topk_prepared(
                 q, prep, c2, valid, eff_k, metric=self.metric, bf16=False
             )
+        return self._replies(queries, qmat, n_q, eff_k, scores, idx, t0)
+
+    def _replies(self, queries, qmat, n_q: int, eff_k: int, scores, idx, t0: float):
         scores = scores[:n_q].double().cpu().numpy()
         idx = idx[:n_q].cpu().numpy()
         n, d = len(self.corpus), qmat.shape[1]

@@ -9,7 +9,8 @@ kernel). ``USearchKnn`` / ``BruteForceKnn`` keep the reference's parameter
 surfaces and lower to it. ``LshKnn`` keeps candidate-bucketing semantics
 with its projections on the device (``LshKnnIndex``); ``IvfKnn`` is the
 two-level IVF tier (``IvfKnnIndex``). Every index and factory takes
-``device=`` (default ``"cuda"``). ``mesh=`` raises (ROADMAP [mesh])."""
+``device=`` (default ``"cuda"``). ``TpuKnn(mesh=)`` shards the corpus's
+rows over the mesh's devices (``parallel/mesh.py``)."""
 
 from __future__ import annotations
 
@@ -18,7 +19,6 @@ from enum import Enum
 from typing import Any
 
 from pathway_tpu_torch.internals.expression import ColumnExpression, ColumnReference
-from pathway_tpu_torch._unported import MESH, unported
 from pathway_tpu_torch.stdlib.indexing._index_impls import (
     IvfKnnIndex,
     LshKnnIndex,
@@ -55,8 +55,9 @@ def _metric_name(metric: Any, default: str = "cosine") -> str:
 
 class TpuKnn(EngineInnerIndex):
     """Exact dense KNN over a corpus on ``device`` (default ``"cuda"``: the
-    hand-written block top-k kernel answers the queries). The reference's
-    ``mesh=`` (a corpus sharded over devices) is not ported and raises."""
+    hand-written block top-k kernel answers the queries). ``mesh=`` shards
+    the corpus's rows over the mesh ``axis``; its devices replace
+    ``device``."""
 
     def __init__(
         self,
@@ -71,8 +72,6 @@ class TpuKnn(EngineInnerIndex):
         axis: str = "data",
         device: str = "cuda",
     ):
-        if mesh is not None:
-            raise unported("TpuKnn(mesh=...) (a sharded corpus)", MESH)
         metric_s = _metric_name(metric)
         super().__init__(
             data_column,
@@ -81,6 +80,8 @@ class TpuKnn(EngineInnerIndex):
                 dimensions=dimensions,
                 metric=metric_s,
                 reserved_space=reserved_space,
+                mesh=mesh,
+                axis=axis,
                 device=device,
             ),
             embedder=embedder,

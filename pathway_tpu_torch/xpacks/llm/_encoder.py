@@ -15,12 +15,19 @@ Weights: ``EncoderRuntime(seed=s)`` loads the JAX package's seeded init,
 reproduced in numpy by ``_flax_init.py`` (threefry keys, flax's per-scope
 key derivation and initializers), so both packages give the same vectors
 and scores for the same seed. Attention is plain tensor ops:
-the JAX encoder has no Pallas kernel. The mesh (data-parallel batches) is
-not ported yet.
+the JAX encoder has no Pallas kernel.
+
+``EncoderRuntime(mesh=, axis=)`` runs data-parallel batches, as the
+reference's does: the parameters are replicated once per distinct device
+of the mesh (not once per shard), the batch bucket is padded up to a
+multiple of the shard count, each shard runs its slice of the batch on its
+device, and the outputs are concatenated in shard order.
 """
 
 from __future__ import annotations
 
+import copy
+import functools
 import math
 from typing import Any
 
@@ -30,7 +37,6 @@ import torch.nn.functional as F
 from torch import nn
 
 from pathway_tpu_torch._device import resolve_device
-from pathway_tpu_torch._unported import MESH, unported
 from pathway_tpu_torch.xpacks.llm import _flax_init
 
 
@@ -148,17 +154,30 @@ def init_weights(module: nn.Module, seed: int) -> nn.Module:
     cross = isinstance(module, CrossEncoderHead)
     enc = module.encoder if cross else module
     blk = enc.blocks[0]
-    params = _flax_init.init_params(
+    params = _seeded_tree(
         seed,
-        vocab_size=enc.tok_embed.num_embeddings,
-        dim=enc.dim,
-        depth=len(enc.blocks),
-        heads=blk.attn.heads,
-        mlp_ratio=blk.fc1.out_features // enc.dim,
-        max_len=enc.max_len,
-        cross_encoder=cross,
+        enc.tok_embed.num_embeddings,
+        enc.dim,
+        len(enc.blocks),
+        blk.attn.heads,
+        blk.fc1.out_features // enc.dim,
+        enc.max_len,
+        cross,
     )
     return flax_to_torch(params, module)
+
+
+@functools.lru_cache(maxsize=1)
+def _seeded_tree(seed, vocab_size, dim, depth, heads, mlp_ratio, max_len, cross) -> dict:
+    """The seeded flax tree of the last shape asked for, drawn once: a
+    process that builds several encoders of one shape and seed (an
+    embedder per pipeline, a mesh runtime beside a plain one) pays the
+    numpy draw once. ``flax_to_torch`` copies out of it; nothing writes to
+    it."""
+    return _flax_init.init_params(
+        seed, vocab_size=vocab_size, dim=dim, depth=depth, heads=heads,
+        mlp_ratio=mlp_ratio, max_len=max_len, cross_encoder=cross,
+    )
 
 
 def _bucket_batch(n: int) -> int:
@@ -187,9 +206,10 @@ class EncoderRuntime:
         param_dtype: torch.dtype | None = None,
         device: str | torch.device = "cuda",
     ):
-        if mesh is not None:
-            raise unported("EncoderRuntime(mesh=...) (data-parallel batches)", MESH)
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.axis = axis
+        # with a mesh the model lives on the mesh's devices
+        self.device = mesh.device_of(0, axis) if mesh is not None else resolve_device(device)
         self.max_len = max_len
         self.pretrained = False
         if model_path is not None and not cross_encoder:
@@ -217,15 +237,34 @@ class EncoderRuntime:
             self.model = init_weights(model, seed).to(self.device)
             self.dim = dim
         self.model.eval()
+        # the model once per distinct device of the mesh's shards
+        self._replicas = {self.device: self.model}
+        if mesh is not None:
+            for dev in mesh.shard_devices(axis):
+                if dev not in self._replicas:
+                    self._replicas[dev] = copy.deepcopy(self.model).to(dev)
 
     def forward_ids(self, ids: np.ndarray, mask: np.ndarray) -> np.ndarray:
         n = ids.shape[0]
         bucket = _bucket_batch(n)
+        if self.mesh is not None:
+            n_dev = self.mesh.shape[self.axis]
+            bucket = max(bucket, n_dev)
+            bucket = ((bucket + n_dev - 1) // n_dev) * n_dev
         if bucket != n:
             ids = np.pad(ids, ((0, bucket - n), (0, 0)))
             mask = np.pad(mask, ((0, bucket - n), (0, 0)))
-        ids_t = torch.from_numpy(np.ascontiguousarray(ids, dtype=np.int64)).to(self.device)
-        mask_t = torch.from_numpy(np.ascontiguousarray(mask, dtype=np.float32)).to(self.device)
+        ids_h = torch.from_numpy(np.ascontiguousarray(ids, dtype=np.int64))
+        mask_h = torch.from_numpy(np.ascontiguousarray(mask, dtype=np.float32))
+        if self.mesh is None:
+            with torch.inference_mode():
+                out = self.model(ids_h.to(self.device), mask_h.to(self.device))
+            return out.float().cpu().numpy()[:n]
+        devices = self.mesh.shard_devices(self.axis)
+        per = bucket // len(devices)
+        outs = []
         with torch.inference_mode():
-            out = self.model(ids_t, mask_t)
-        return out.float().cpu().numpy()[:n]
+            for s, dev in enumerate(devices):
+                rows = slice(s * per, (s + 1) * per)
+                outs.append(self._replicas[dev](ids_h[rows].to(dev), mask_h[rows].to(dev)))
+        return torch.cat([o.float().cpu() for o in outs]).numpy()[:n]

@@ -4,8 +4,9 @@
 As in the reference, both are pw ``UDF``s: ``emb(table.text)`` is a column
 expression, and the engine feeds whole ticks to the batched path
 (``embed_batch``, chunks of at most ``batch_size``). Same constructor
-arguments (``mesh=`` raises [mesh]; other extra keywords are ignored, as
-in the reference), tokenizer priority (HF tokenizer when one is
+arguments (``mesh=`` passes the mesh to the encoder, which runs
+data-parallel batches over it; other extra keywords are ignored, as in the
+reference), tokenizer priority (HF tokenizer when one is
 cached locally → WordPiece over a local vocab.txt → hashing) and checkpoint
 fallback as the JAX class. Each device batch records the JAX class's
 ``pathway_embed_batch_seconds``/``_docs_total``/``_docs_per_sec_per_chip``
@@ -27,7 +28,6 @@ from typing import Any, Sequence
 import numpy as np
 import torch
 
-from pathway_tpu_torch._unported import MESH, unported
 from pathway_tpu_torch.internals import expression as expr_mod
 from pathway_tpu_torch.internals.udfs import UDF
 from pathway_tpu_torch.observability import REGISTRY
@@ -77,8 +77,6 @@ class SentenceTransformerEmbedder(BaseEmbedder):
     ):
         # extra keywords (``trust_remote_code=`` and the like) are accepted
         # and ignored, as in the reference
-        if mesh is not None:
-            raise unported("SentenceTransformerEmbedder(mesh=...)", MESH)
         model_dir = _find_model_dir(model)
         model_path = None
         if model_dir is not None and os.path.exists(
@@ -117,6 +115,7 @@ class SentenceTransformerEmbedder(BaseEmbedder):
             depth=depth,
             heads=heads,
             max_len=max_len,
+            mesh=mesh,
             model_path=model_path,
             device=device,
         )

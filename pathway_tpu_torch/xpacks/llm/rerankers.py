@@ -5,8 +5,8 @@
 ``CrossEncoderReranker`` and ``EncoderReranker`` run the port's encoder
 (``_encoder.py``) on ``device`` (default ``"cuda"``). The cross-encoder
 keeps the reference's batched UDF path, so the pairs of one tick go through
-one forward. Its ``mesh=`` (data-parallel batches) is not ported and
-raises. ``flashrank`` is imported only when ``FlashRankReranker`` scores."""
+one forward; its ``mesh=`` passes to the encoder (data-parallel batches).
+``flashrank`` is imported only when ``FlashRankReranker`` scores."""
 
 from __future__ import annotations
 
@@ -14,7 +14,6 @@ from typing import Any
 
 import numpy as np
 
-from pathway_tpu_torch._unported import MESH, unported
 from pathway_tpu_torch.internals.common import apply_with_type
 from pathway_tpu_torch.internals.expression import ColumnExpression
 from pathway_tpu_torch.internals.udfs import UDF
@@ -55,8 +54,6 @@ class CrossEncoderReranker(UDF):
         device: str = "cuda",
         **kwargs,
     ):
-        if mesh is not None:
-            raise unported("CrossEncoderReranker(mesh=...)", MESH)
         self.tokenizer = HashingTokenizer()
         self.runtime = EncoderRuntime(
             vocab_size=self.tokenizer.vocab_size,
@@ -64,6 +61,7 @@ class CrossEncoderReranker(UDF):
             depth=depth,
             heads=heads,
             max_len=max_len,
+            mesh=mesh,
             cross_encoder=True,
             device=device,
         )

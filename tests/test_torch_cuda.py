@@ -1256,3 +1256,114 @@ def test_debug_profile_on_the_card_names_block_topk(dev):
         trace = json.load(fh)
     names = {e.get("name", "") for e in trace["traceEvents"] if str(e.get("cat", "")).lower() == "kernel"}
     assert any("block_topk_kernel" in n for n in names), sorted(names)[:5]
+
+
+# --- the in-process device mesh on the card ------------------------------------
+
+
+def test_mesh_shards_share_the_card(dev):
+    """make_mesh(4) on one card: four shards on cuda:0, none on the CPU."""
+    from pathway_tpu_torch.parallel import make_mesh
+
+    m = make_mesh(4)
+    assert m.shape == {"data": 4}
+    assert m.shard_devices() == [torch.device("cuda", i % torch.cuda.device_count()) for i in range(4)]
+    assert all(d.type == "cuda" for d in m.devices.flat)
+
+
+@pytest.mark.parametrize("metric", ["cosine", "dot"])
+@pytest.mark.parametrize("bf16", [True, False])
+@pytest.mark.parametrize("rows", [4096, 4 * 3000])
+def test_sharded_topk_kernel_per_shard_equals_plain(dev, metric, bf16, rows):
+    """Each shard's local step launches block_topk once (a slice of 3000
+    rows padded to 3072 on the card); integer-grid vectors make every score
+    exact, so the merge equals sharded_topk_ref bit for bit, ties included."""
+    from pathway_tpu_torch.ops import block_topk as bt
+    from pathway_tpu_torch.ops.knn import sharded_topk, sharded_topk_ref
+    from pathway_tpu_torch.parallel import make_mesh
+
+    m = make_mesh(4)
+    q, c, valid = _grid(rows, 64, 5, torch.float32, dev)
+    if metric == "cosine":  # +-1 rows: norms of 8, so cosine scores stay exact
+        c = (torch.sign(c) + (c == 0)).contiguous()
+        q = torch.sign(q) + (q == 0)
+    before = bt.block_topk.launches, bt.block_topk.corpus_rows.copy()
+    sc, ix = sharded_topk(q, c, valid, 10, mesh=m, metric=metric, bf16=bf16)
+    torch.cuda.synchronize()
+    assert bt.block_topk.launches == before[0] + 4
+    per = rows // 4
+    assert bt.block_topk.corpus_rows - before[1] == {per + (-per % 1024): 4}
+    sr, ir = sharded_topk_ref(q, c, valid, 10, mesh=m, metric=metric, bf16=bf16)
+    assert sc.device == dev and torch.equal(ix, ir)
+    assert torch.allclose(sc, sr, atol=1e-5, rtol=0)
+
+
+def test_sharded_index_on_the_card_launches_once_per_shard(dev):
+    from pathway_tpu_torch.ops import block_topk as bt
+    from pathway_tpu_torch.parallel import make_mesh
+    from pathway_tpu_torch.stdlib.indexing._index_impls import TpuDenseKnnIndex
+
+    m = make_mesh(4)
+    ix = TpuDenseKnnIndex(dimensions=32, mesh=m, reserved_space=8192)
+    plain = TpuDenseKnnIndex(dimensions=32, reserved_space=8192, device="cpu", mesh=make_mesh(4, device="cpu"))
+    rng = np.random.default_rng(0)
+    vecs = rng.normal(size=(5000, 32)).astype(np.float32)
+    for i, v in enumerate(vecs):
+        ix.upsert(i, v, None)
+        plain.upsert(i, v, None)
+    before = bt.block_topk.launches
+    got = ix.search([(vecs[7], 5, None), (vecs[9], 5, None)])
+    assert bt.block_topk.launches == before + 4
+    assert [p.device for p in ix.corpus.device_arrays()[0]] == [dev] * 4
+    want = plain.search([(vecs[7], 5, None), (vecs[9], 5, None)])
+    for g, w in zip(got, want):
+        assert g[0][0] == w[0][0]
+        np.testing.assert_allclose([s for _k, s in g], [s for _k, s in w], atol=1e-5)
+
+
+def test_exchange_on_the_card_equals_the_cpu_mesh(dev):
+    """ragged_all_to_all and exchange_rows with the shards on the card give
+    the CPU mesh's blocks bit for bit; the frontier min lands on every shard."""
+    from pathway_tpu_torch.parallel import collectives, exchange, make_mesh
+
+    card, cpu = make_mesh(4), make_mesh(4, device="cpu")
+    rng = np.random.default_rng(1)
+    keys = rng.integers(0, 2**63, size=5000).astype(np.uint64)
+    vals = rng.normal(size=5000)
+    dest = (keys % np.uint64(4)).astype(np.int32)
+    dest[::97] = -1
+    for got, want in zip(exchange.exchange_rows([keys, vals], dest, card),
+                         exchange.exchange_rows([keys, vals], dest, cpu)):
+        for a, b in zip(got, want):
+            assert np.array_equal(a.view(np.uint8), b.view(np.uint8))
+    low = collectives.frontier_allreduce(np.array([5, 3, 9, 4], np.int32), card)
+    assert [int(t) for t in low] == [3] * 4 and all(t.device == dev for t in low)
+
+
+def test_engine_shards_on_the_card(dev, monkeypatch):
+    """PATHWAY_ENGINE_SHARDS=4 (the engine mesh on cuda): a numeric groupby
+    shards, takes the device exchange and equals the unsharded run."""
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.engine import sharded
+    from pathway_tpu_torch.parallel import mesh
+
+    def run():
+        pw.internals.parse_graph.G.clear()
+        t = pw.debug.table_from_rows(pw.schema_from_types(g=int, v=float),
+                                     [(i % 13, i / 7) for i in range(2000)])
+        out = pw.debug.table_to_dicts(t.groupby(t.g).reduce(t.g, s=pw.reducers.sum(t.v)))
+        return out, pw.internals.parse_graph.G.last_runtime
+
+    plain, _rt = run()
+    monkeypatch.setenv("PATHWAY_ENGINE_SHARDS", "4")
+    monkeypatch.delenv("PATHWAY_MESH_DEVICE", raising=False)
+    mesh.reset_engine_mesh()
+    try:
+        got, rt = run()
+    finally:
+        mesh.reset_engine_mesh()
+    # the same rows; the key order of the dicts is the shards'
+    assert sorted(got[0]) == sorted(plain[0]) and got[1] == plain[1]
+    ex = next(e for e in rt.execs.values() if isinstance(e, sharded.ShardedGroupByExec))
+    assert ex.router.device_exchanges > 0 and rt.frontier_syncs > 0
+    assert rt.engine_mesh[0].shard_devices()[0].type == "cuda"

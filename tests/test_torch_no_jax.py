@@ -9,7 +9,10 @@ card's machine has none of them, and no port module imports one at module
 level. The REST connector and the Surge Gate (``io/http``, ``serving``)
 import with the clients blocked as well, and a port server started with
 ``aiohttp`` and ``requests`` blocked answers over HTTP without loading
-either. So do the replicated read plane's modules (``parallel``, the
+either. The in-process device mesh (``parallel.mesh``, ``exchange``,
+``collectives``, the sharded execs, ``sharded_topk``, the mesh encoder)
+imports with them blocked, and a sharded run loads neither. So do the
+replicated read plane's modules (``parallel``, the
 replica, the router, the result cache, ``/generate``), which import
 neither anywhere, and a writer's stream, a replica and a router with its
 cache answer with both blocked. The persistence glue, its stores and the file connectors import
@@ -459,6 +462,52 @@ for name, table in (("w", w), ("j", j), ("a", a)):
                     res.setdefault(name, []).append(is_addition))
 pw.run()
 assert all(res.get(n) for n in "wja"), res
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in {blocked!r} and sys.modules[m])
+assert not leaked, leaked
+print("ok")
+"""
+
+# the in-process device mesh: each imports with pandas and the clients
+# blocked, and a sharded run (engine shards, a sharded index, a mesh
+# encoder) runs without loading either
+MESH_MODULES = [
+    "pathway_tpu_torch.parallel.mesh",
+    "pathway_tpu_torch.parallel.exchange",
+    "pathway_tpu_torch.parallel.collectives",
+    "pathway_tpu_torch.engine.sharded",
+    "pathway_tpu_torch.ops.knn",
+    "pathway_tpu_torch.stdlib.indexing._index_impls",
+    "pathway_tpu_torch.xpacks.llm._encoder",
+]
+
+_MESH_RUN = """
+import os, sys
+for name in {blocked!r}:
+    sys.modules[name] = None
+os.environ["PATHWAY_ENGINE_SHARDS"] = "4"
+os.environ["PATHWAY_MESH_DEVICE"] = "cpu"
+import numpy as np
+import pathway_tpu_torch as pw
+from pathway_tpu_torch.engine.sharded import ShardedGroupByExec
+from pathway_tpu_torch.parallel import make_mesh
+from pathway_tpu_torch.stdlib.indexing import DataIndex, TpuKnn
+from pathway_tpu_torch.xpacks.llm._encoder import EncoderRuntime
+
+t = pw.debug.table_from_rows(pw.schema_from_types(g=int, v=float), [(i % 7, i / 3) for i in range(700)])
+agg = t.groupby(t.g).reduce(t.g, s=pw.reducers.sum(t.v))
+docs = pw.debug.table_from_rows(pw.schema_from_types(vec=np.ndarray),
+                                [(np.eye(4, dtype=np.float32)[i],) for i in range(4)])
+ix = DataIndex(docs, TpuKnn(docs.vec, dimensions=4, mesh=make_mesh(2, device="cpu"), device="cpu"))
+res = ix.query_as_of_now(docs.vec, number_of_matches=1).select(r=pw.right._pw_index_reply_id)
+got = {{}}
+pw.io.subscribe(agg, on_change=lambda key, row, time, is_addition: got.setdefault("agg", []).append(row))
+pw.io.subscribe(res, on_change=lambda key, row, time, is_addition: got.setdefault("ix", []).append(row))
+pw.run()
+rt = pw.internals.parse_graph.G.last_runtime
+assert any(isinstance(e, ShardedGroupByExec) for e in rt.execs.values()) and rt.frontier_syncs > 0
+assert len(got["agg"]) == 7 and len(got["ix"]) == 4, got
+enc = EncoderRuntime(vocab_size=50, dim=8, depth=1, heads=2, max_len=16, mesh=make_mesh(3, device="cpu"))
+assert enc.forward_ids(np.ones((5, 4), np.int32), np.ones((5, 4), np.float32)).shape == (5, 8)
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in {blocked!r} and sys.modules[m])
 assert not leaked, leaked
 print("ok")
@@ -932,6 +981,24 @@ def temporal_imported_with_pandas_blocked():
 @pytest.mark.parametrize("mod", TEMPORAL_MODULES)
 def test_temporal_module_imports_without_jax_or_pandas(temporal_imported_with_pandas_blocked, mod):
     assert mod in temporal_imported_with_pandas_blocked
+
+
+@pytest.fixture(scope="module")
+def mesh_imported_with_clients_blocked():
+    r = _run(_IMPORT_EACH, blocked=BLOCKED_WITH_CLIENTS, mods=MESH_MODULES)
+    assert r.returncode == 0, r.stderr
+    return set(json.loads(r.stdout.strip().splitlines()[-1]))
+
+
+@pytest.mark.parametrize("mod", MESH_MODULES)
+def test_mesh_module_imports_without_jax_pandas_or_clients(mesh_imported_with_clients_blocked, mod):
+    assert mod in mesh_imported_with_clients_blocked
+
+
+def test_sharded_run_with_jax_pandas_and_clients_blocked():
+    r = _run(_MESH_RUN, blocked=BLOCKED_WITH_CLIENTS)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip().endswith("ok")
 
 
 def test_temporal_pipeline_runs_with_pandas_blocked():

@@ -268,8 +268,19 @@ def test_encoder_reranker_scores_equal_reference(carry):
 
 
 def test_cross_encoder_mesh_raises():
-    with pytest.raises(NotImplementedError, match=r"\[mesh\]"):
-        trr.CrossEncoderReranker(mesh=object(), device="cpu")
+    """``mesh=`` raised [mesh] until the mesh was ported: the reranker now
+    splits each tick's pairs over the mesh's shards, and scores them as
+    the unsharded one does (f32 on the CPU)."""
+    from pathway_tpu_torch.parallel import make_mesh
+
+    _ref, plain = _cross_encoders(False)
+    sharded = trr.CrossEncoderReranker(mesh=make_mesh(3, device="cpu"), device="cpu", dim=CROSS_DIM,
+                                       depth=CROSS_DEPTH, heads=CROSS_HEADS, max_len=MAXLEN)
+    sharded.runtime.model.encoder.dtype = torch.float32
+    pairs = _pairs(n=7)
+    docs, queries = [d for d, _ in pairs], [q for _, q in pairs]
+    np.testing.assert_allclose(sharded._score_batch(docs, queries), plain._score_batch(docs, queries),
+                               atol=SCORE_ATOL, rtol=0)
 
 
 def test_rerank_topk_filter_is_exact():

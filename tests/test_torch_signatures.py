@@ -2,8 +2,9 @@
 
 ``EncoderRuntime``, ``SentenceTransformerEmbedder`` and
 ``TpuDenseKnnIndex`` take ``mesh=``/``axis=`` where the reference does:
-``mesh=None`` builds as if it were left out, and a mesh that is set raises
-``NotImplementedError`` naming [mesh] (the port has one card). The embedder
+``mesh=None`` builds as if it were left out, and a mesh builds and runs
+(a corpus searched across its shards, batches split over them). The
+embedder
 takes extra keywords and ignores them, as the reference does.
 ``split_kv_store`` takes ``transfer_id=`` and splits a store as the
 reference does. Embeddings are compared exactly within the port; the split
@@ -46,9 +47,29 @@ def test_constructor_takes_the_reference_parameters(port, ref, kw):
 
 @pytest.mark.parametrize("port,ref,kw", CONSTRUCTORS, ids=IDS)
 def test_constructor_mesh_none_builds_and_a_mesh_raises(port, ref, kw):
-    port(mesh=None, axis="data", device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match=r"\[mesh\]"):
-        port(mesh=object(), device="cpu", **kw)
+    """``mesh=`` raised [mesh] until the mesh was ported: a mesh now builds
+    and searches (or embeds) as the unsharded object does."""
+    from pathway_tpu_torch.parallel import make_mesh
+
+    plain = port(mesh=None, axis="data", device="cpu", **kw)
+    sharded = port(mesh=make_mesh(2, device="cpu"), axis="data", device="cpu", **kw)
+    if port is TpuDenseKnnIndex:
+        vecs = np.random.default_rng(0).normal(size=(40, 8)).astype(np.float32)
+        for ix in (plain, sharded):
+            for i, v in enumerate(vecs):
+                ix.upsert(i, v, None)
+        ask = [(vecs[5], 3, None)]
+        assert [k for k, _s in sharded.search(ask)[0]] == [k for k, _s in plain.search(ask)[0]]
+        return
+    if port is EncoderRuntime:
+        ids = np.random.default_rng(0).integers(2, 50, size=(5, 8)).astype(np.int32)
+        mask = np.ones((5, 8), np.float32)
+        got, want = sharded.forward_ids(ids, mask), plain.forward_ids(ids, mask)
+    else:
+        texts = ["a seeded sentence", "another one", "and a third"]
+        got, want = np.stack(sharded.embed_batch(texts)), np.stack(plain.embed_batch(texts))
+    # bf16 forwards on other batch shapes: unit vectors, cosine >= 0.999
+    assert got.shape == want.shape and (np.sum(got * want, axis=-1) >= 0.999).all()
 
 
 def test_embedder_ignores_extra_init_kwargs():

@@ -1,9 +1,11 @@
 """Every reference hook the port does not carry yet raises
 ``NotImplementedError`` naming its ROADMAP tag, instead of running
-without it: engine shards, the multi-process engine (DCN),
-the standby writer and the process-group supervisor of replication, the
-device mesh's names in ``parallel``, ``mesh=``,
-and ``/debug/autoscale`` (the autoscaler), each naming its tag; the
+without it: the multi-process engine (DCN), the standby writer and the
+process-group supervisor of replication, and ``/debug/autoscale`` (the
+autoscaler), each naming its tag; engine shards
+(``PATHWAY_ENGINE_SHARDS``) and ``TpuKnn(mesh=)`` run sharded now on the
+port's in-process mesh, and an engine mesh that cannot be built raises
+naming its device; the
 observability routes of the read plane answer now (they raised
 [observability] until it was ported), and ``pw.analysis`` and
 ``pw.debug.diagnose`` resolve to the port's Graph Doctor. Compiled ticks without a card
@@ -21,6 +23,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 import pathway_tpu_torch as pw
 from pathway_tpu_torch.internals import parse_graph
@@ -55,15 +58,46 @@ def _index_pipeline(**kw):
     docs = pw.debug.table_from_rows(schema, [(np.ones(4, np.float32),)])
     index = indexing.DataIndex(docs, indexing.TpuKnn(docs.vec, dimensions=4, device="cpu", **kw))
     res = index.query_as_of_now(docs.vec, number_of_matches=1).select(r=pw.right.vec)
-    pw.io.subscribe(res, on_change=lambda **k: None)
+    replies = []
+    pw.io.subscribe(res, on_change=lambda key, row, time, is_addition: replies.append(row["r"]))
     pw.run()
+    return replies
+
+
+def _run_sharded():
+    """A groupby and a join under ``PATHWAY_ENGINE_SHARDS=4`` on the CPU
+    mesh: both operators shard, the rows equal an unsharded run's."""
+    from pathway_tpu_torch.engine import sharded
+    from pathway_tpu_torch.parallel import mesh
+
+    def rows():
+        t = _table()
+        agg = t.groupby(t.b).reduce(t.b, s=pw.reducers.sum(t.a))
+        j = agg.join(t, agg.b == t.b).select(t.a, agg.s)
+        return pw.debug.table_to_dicts(j)
+
+    try:
+        got = rows()
+        rt = parse_graph.G.last_runtime
+        kinds = {type(e) for e in rt.execs.values()}
+        assert {sharded.ShardedGroupByExec, sharded.ShardedJoinExec} <= kinds
+        assert rt.frontier_syncs > 0 and rt.engine_mesh[0].shape == {"data": 4}
+        parse_graph.G.clear()
+        mesh.set_engine_mesh(None)
+        assert got == rows()
+    finally:
+        mesh.reset_engine_mesh()
 
 
 ENV_CASES = [
     # compiled ticks are ported ([compiled-ticks] is gone): they run on
     # PATHWAY_COMPILED_DEVICE, default cuda, which raises without a card
     ({"PATHWAY_COMPILED_TICK": "1"}, _run_simple, RuntimeError, r"torch\.cuda\.is_available\(\) is False"),
-    ({"PATHWAY_ENGINE_SHARDS": "4"}, _run_simple, NotImplementedError, r"\[mesh\]"),
+    # engine shards are ported: on a CPU mesh the run shards (exc None);
+    # on the default cuda mesh without a card it raises naming the device
+    ({"PATHWAY_ENGINE_SHARDS": "4", "PATHWAY_MESH_DEVICE": "cpu"}, _run_sharded, None, None),
+    ({"PATHWAY_MESH_DEVICE": "cuda", "PATHWAY_ENGINE_SHARDS": "4"}, _run_simple, RuntimeError,
+     r"PATHWAY_MESH_DEVICE='cuda'"),
     ({"PATHWAY_PROCESSES": "2"}, _run_simple, NotImplementedError, r"\[mesh\]"),  # the DCN engine
     # the writer's delta stream is ported (PATHWAY_REPL_PORT arms it); the
     # standby writer that takes over its port is not
@@ -76,11 +110,57 @@ ENV_CASES = [
     "env,run,exc,item", ENV_CASES, ids=[next(iter(c[0])) for c in ENV_CASES]
 )
 def test_env_hook_raises(monkeypatch, env, run, exc, item):
-    monkeypatch.delenv("PATHWAY_COMPILED_DEVICE", raising=False)
+    """A hook the port lacks, or cannot run here, raises; one it carries
+    now (``exc`` None) runs."""
+    from pathway_tpu_torch.parallel import mesh
+
+    for k in ("PATHWAY_COMPILED_DEVICE", "PATHWAY_ENGINE_SHARDS", "PATHWAY_MESH_DEVICE"):
+        monkeypatch.delenv(k, raising=False)
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    with pytest.raises(exc, match=item):
-        run()
+    mesh.reset_engine_mesh()
+    try:
+        if exc is None:
+            run()
+            return
+        if "PATHWAY_MESH_DEVICE" in env and torch.cuda.is_available():
+            pytest.skip("a CUDA device is present")
+        with pytest.raises(exc, match=item):
+            run()
+    finally:
+        mesh.reset_engine_mesh()
+
+
+MULTI_PROCESS_NAMES = [
+    ("pathway_tpu_torch.parallel.host_exchange", "HostMesh"),
+    ("pathway_tpu_torch.parallel.host_exchange", "process_env"),
+    ("pathway_tpu_torch.parallel.host_exchange", "dcn_active"),
+    ("pathway_tpu_torch.parallel.host_exchange", "get_host_mesh"),
+    ("pathway_tpu_torch.parallel.distributed", "global_mesh"),
+    ("pathway_tpu_torch.parallel.distributed", "sharded_topk_global"),
+    ("pathway_tpu_torch.testing", "chaos"),
+    ("pathway_tpu_torch.elastic", "FerryReceiver"),
+    ("pathway_tpu_torch.elastic", "TwoPhaseHandover"),
+    ("pathway_tpu_torch", "autoscale"),
+]
+
+
+@pytest.mark.parametrize("module,name", MULTI_PROCESS_NAMES, ids=[f"{m.split('.')[-1]}.{n}" for m, n in
+                                                                   MULTI_PROCESS_NAMES])
+def test_multi_process_names_raise_naming_mesh(module, name):
+    """What is left of [mesh] after the in-process mesh was ported: the host
+    mesh, meshes across processes, the chaos drivers, the segment ferry
+    and handover, and the autoscaler raise naming [mesh], whose text names
+    the multi-process fabric."""
+    with pytest.raises(NotImplementedError, match=r"\[mesh\] \(multi-process"):
+        getattr(importlib.import_module(module), name)
+
+
+def test_cli_spawn_raises_naming_mesh():
+    from pathway_tpu_torch import cli
+
+    with pytest.raises(NotImplementedError, match=r"\[mesh\]"):
+        cli.main(["spawn", "-n", "2", "--", "true"])
 
 
 def test_compiled_tick_off_or_unset_runs_the_interpreter(monkeypatch):
@@ -90,9 +170,14 @@ def test_compiled_tick_off_or_unset_runs_the_interpreter(monkeypatch):
 
 
 def test_tpu_knn_mesh_raises():
-    t = _table()
-    with pytest.raises(NotImplementedError, match=r"\[mesh\]"):
-        indexing.TpuKnn(t.a, dimensions=4, mesh=object(), device="cpu")
+    """``TpuKnn(mesh=)`` raised [mesh] until the mesh was ported: it now
+    searches a corpus sharded over the mesh and answers as unsharded."""
+    from pathway_tpu_torch.parallel import make_mesh
+
+    sharded = _index_pipeline(mesh=make_mesh(2, device="cpu"))
+    parse_graph.G.clear()
+    assert len(sharded) == 1
+    np.testing.assert_array_equal(np.asarray(sharded[0]), np.asarray(_index_pipeline()[0]))
 
 
 def _served_run(t):
