@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from csrc/ (nvcc, sm_90a, one process per
-source, all started together), then runs nineteen phases, printing one JSON
+source, all started together), then runs twenty phases, printing one JSON
 object per phase:
 
 1. device         — nvidia-smi name/power limit, toolchain versions, build seconds.
@@ -434,7 +434,39 @@ object per phase:
                     embedder's within CROSS_RUN_TOL. Prints the per-shard kernel
                     ms, bound and library ms, the reply p50s sharded and
                     unsharded, the exchange and frontier ms per tick.
-19. kernels       — per kernel and per path shape: launches on its path, ms
+19. dcn           — the multi-process engine: three groups of two ranks
+                    (`python -m pathway_tpu_torch.cli spawn -n 2 --backend
+                    gloo` of this script's --dcn-rank) share cuda:0; the
+                    device group runs on gloo (NCCL refuses two ranks on one
+                    card), named on the phase's line. (a) sharded_topk_global
+                    over 1,048,576 seeded unit vectors (f32), 524,288 a rank:
+                    16 B = 1 and 4 B = 16 asks (k = 10), block_topk once an
+                    ask a rank at N = 524,288, both ranks' merged ids equal,
+                    and equal to the plain dense top-10 over the whole corpus
+                    up to near ties within F32_TOL. (b) the mesh phase's rows
+                    (a groupby-reduce over 65,536 keys joined back to
+                    1,048,576 rows), half a rank in 16 CSV files through
+                    pw.io.csv: the union of the ranks' outputs equals the
+                    mesh phase's unsharded run row for row, the DCN routers
+                    exchanged, the ranks' group keys are disjoint and cover
+                    every key, both ranks ticked the same times, each after
+                    its lockstep barrier. (c) 262,144 seeded documents
+                    through pw.io.python, split across the ranks in 8
+                    commits, into DataIndex over TpuKnn: the index side is
+                    broadcast, so each rank's index holds all of them; 16
+                    B = 1 and 4 B = 16 asks to each rank, every reply
+                    against the plain top-10 over the same rows, block_topk
+                    launched on both. (d) (b) with persistence and a fault
+                    plan killing rank 1 at its 10th data tick: rank 0 exits
+                    non-zero with HostMeshError naming peer 1 within the
+                    liveness bound; a second spawn resumes from the
+                    group-committed generation; the folded outputs equal the
+                    uninterrupted run's. Prints the phase's seconds, the
+                    per-rank kernel ms at N = 524,288 and 262,144 with bound
+                    and library ms, the gloo merge ms, the host exchange's
+                    ms and bytes a tick, the lockstep barrier's p50, the
+                    failure-detection and restart-to-first-tick seconds.
+20. kernels       — per kernel and per path shape: launches on its path, ms
                     (CUDA events) and device ms (torch.profiler), its plain
                     version's ms, the bound and what sets it, the bytes it must
                     move, and the ms of the library call(s) computing the same
@@ -454,8 +486,10 @@ object per phase:
                     corpus at the end, and every (B,
                     k) the replica children launched,
                     on the writer's corpus, and B = 1 and 16 of the
-                    observability phase on its corpus, and B = 1 and 16 of the
-                    mesh phase on one shard's bf16 slice; at every shape the
+                    observability phase on its corpus, B = 1 and 16 of the
+                    mesh phase on one shard's bf16 slice, and B = 1 and 16 of
+                    the dcn phase on a rank's shard (N = 524,288) and on a
+                    rank's replicated index (N = 262,144); at every shape the
                     launch ledger's shared memory (analysis/lowering.py) must
                     equal what the built kernel launched with;
                     paged_attention: the
@@ -7680,19 +7714,821 @@ def mesh_phase(dev, smi: str, rate: float, emb, child, child_out: str, t_phase: 
     for group, n in zip(asks, sharded["ask_launches"]):
         shapes[(len(group), K)] += n
     data = {"prep": prep, "valid": pvalid, "queries": queries, "launches": sum(sharded["ask_launches"]),
-            "shapes": dict(shapes), "index": ix}
+            "shapes": dict(shapes), "index": ix, "plain_rows": plain["rows"]}
     return phase, data
 
 
-# --- phase 19: kernel times ---------------------------------------------------
+# --- phase 19: the multi-process engine (dcn) ---------------------------------
+
+DCN_RANKS = 2
+DCN_KNN_ROWS = 1 << 20  # sharded_topk_global's corpus, DCN_KNN_ROWS // DCN_RANKS a rank
+DCN_INDEX_ROWS = 1 << 18  # the live index's documents, broadcast to every rank
+DCN_INDEX_COMMITS = 8
+DCN_B1 = 16  # B = 1 asks, in (a) and to each rank in (c)
+DCN_B16 = 4  # B = 16 asks
+DCN_SNAPSHOT_EVERY = 4  # group-safe snapshot points of (d): every 4th tick
+DCN_KILL_TICK = 10  # (d): rank 1 dies at the head of its 10th data tick
+DCN_LIVENESS_S = 30.0  # PATHWAY_MESH_LIVENESS_TIMEOUT_MS's default, the detection bound
+DCN_TIMEOUT_S = 600  # each spawn's --timeout
+
+
+def dcn_asks(vecs: np.ndarray, seed: int) -> list[np.ndarray]:
+    """DCN_B1 B = 1 and DCN_B16 B = 16 asks: noisy corpus rows, renormalised."""
+    rng = np.random.default_rng(seed)
+    src = rng.choice(len(vecs), size=DCN_B1 + 16 * DCN_B16, replace=False)
+    qv = vecs[src] + MESH_NOISE * rng.standard_normal((len(src), DIM)).astype(np.float32)
+    qv /= np.linalg.norm(qv, axis=1, keepdims=True)
+    return [qv[i:i + 1] for i in range(DCN_B1)] + [
+        qv[DCN_B1 + 16 * b:DCN_B1 + 16 * (b + 1)] for b in range(DCN_B16)]
+
+
+def dcn_unit_vectors(n: int, seed: int, dev) -> torch.Tensor:
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    v = torch.randn(n, DIM, generator=gen, device=dev)
+    return v / v.norm(dim=-1, keepdim=True)
+
+
+def dcn_knn(dev, pid: int, n: int) -> dict:
+    """(a) sharded_topk_global: this rank's half of DCN_KNN_ROWS seeded unit
+    vectors (f32) on the card; every ask's merged top-K against the plain
+    dense top-K over the whole corpus on the card."""
+    import torch.distributed as td
+
+    from pathway_tpu_torch.ops import block_topk as bt
+    from pathway_tpu_torch.ops.knn import dense_topk
+    from pathway_tpu_torch.parallel import distributed as dist
+
+    _now = time.perf_counter
+    t0 = _now()
+    check(dist.maybe_initialize(device=dev), "the device group was not joined")
+    join_s = _now() - t0
+    whole = dcn_unit_vectors(DCN_KNN_ROWS, SEED + 81, dev)
+    per = DCN_KNN_ROWS // n
+    shard = whole[pid * per:(pid + 1) * per].contiguous()
+    valid = torch.ones(per, dtype=torch.bool, device=dev)
+    asks = dcn_asks(whole.cpu().numpy(), SEED + 82)
+    bt.block_topk.launches = 0
+    bt.block_topk.shapes.clear()
+    bt.block_topk.corpus_rows.clear()
+    ids, call_ms = [], []
+    for q in asks:
+        torch.cuda.synchronize()
+        t0 = _now()
+        sc, ix = dist.sharded_topk_global(q, shard, valid, K, metric="cosine", bf16=False, device=dev)
+        call_ms.append((_now() - t0) * 1e3)
+        ids.append((ix.tolist(), sc.tolist()))
+    launches, shapes, rows = bt.block_topk.launches, dict(bt.block_topk.shapes), dict(bt.block_topk.corpus_rows)
+    whole_valid = torch.ones(DCN_KNN_ROWS, dtype=torch.bool, device=dev)
+    exact = near = 0
+    for q, (ix, sc) in zip(asks, ids):
+        sw, iw = dense_topk(torch.from_numpy(q).to(dev), whole, whole_valid, K, metric="cosine", bf16=False)
+        for row in range(len(q)):
+            got = tuple(zip(ix[row], sc[row]))
+            ref = tuple(zip(iw[row].tolist(), sw[row].tolist()))
+            check(same_up_to_near_ties(got, ref, F32_TOL), f"rank {pid}: a merged top-{K} differs from the plain "
+                                                           "dense top-K over the whole corpus")
+            exact += [i for i, _s in got] == [i for i, _s in ref]
+            near += [i for i, _s in got] != [i for i, _s in ref]
+    # the merge alone: this rank's B = 16 candidates gathered over gloo
+    # (staged to the host) and merged, the pieces of sharded_topk_global
+    q16 = torch.from_numpy(asks[-1]).to(dev)
+    sc_l, ix_l = dist.local_topk(q16, shard, valid, K, metric="cosine", bf16=False, offset=pid * per)
+    merge_ms = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = _now()
+        dist.gather_merge(sc_l, ix_l, K)
+        torch.cuda.synchronize()
+        merge_ms.append((_now() - t0) * 1e3)
+    bt.block_topk.launches, bt.block_topk.shapes, bt.block_topk.corpus_rows = launches, Counter(shapes), Counter(rows)
+    del whole, shard, whole_valid
+    torch.cuda.empty_cache()
+    return {
+        "backend": td.get_backend(), "world": td.get_world_size(), "join_s": join_s,
+        "rows_per_rank": per, "launches": launches, "corpus_rows": {str(k): v for k, v in rows.items()},
+        "shapes": [[b, k, n_l] for (b, k), n_l in sorted(shapes.items())],
+        "ids": [ix for ix, _sc in ids], "exact": exact, "near_ties": near,
+        "call_ms": {"B=1": float(np.percentile(call_ms[:DCN_B1], 50)),
+                    "B=16": float(np.percentile(call_ms[DCN_B1:], 50))},
+        "gloo_merge_ms": {"p50": float(np.percentile(merge_ms, 50)), "max": max(merge_ms)},
+        "memory_allocated_max_mb": torch.cuda.max_memory_allocated(dev) / 2**20,
+    }
+
+
+class DcnTicks:
+    """The phase's one hook on the engine, for the lockstep order check:
+    ``Runtime.tick`` notes each data tick's time with the host mesh's
+    barrier round at that moment (every data tick must follow a barrier
+    round of its own) and the first tick's wall clock. The exchange, wire
+    and barrier times come from the host mesh's own histograms
+    (:func:`dcn_mesh_histograms`)."""
+
+    def __init__(self):
+        from pathway_tpu_torch.engine import runtime as runtime_mod
+        from pathway_tpu_torch.engine.batch import END_OF_TIME
+
+        self.ticks: list[int] = []
+        self.rounds: list[int] = []
+        self.first_tick_wall: float | None = None
+        self._tick = tick = runtime_mod.Runtime.tick
+        probe = self
+
+        def noted_tick(rt, t, injected=None):
+            if probe.first_tick_wall is None:
+                probe.first_tick_wall = time.time()
+            if rt.host_mesh is not None and t < END_OF_TIME:
+                probe.ticks.append(int(t))
+                probe.rounds.append(rt.host_mesh._round)
+            return tick(rt, t, injected)
+
+        runtime_mod.Runtime.tick = noted_tick
+
+    def restore(self) -> None:
+        from pathway_tpu_torch.engine import runtime as runtime_mod
+
+        runtime_mod.Runtime.tick = self._tick
+
+    def ticked_after_barrier(self, round0: int) -> bool:
+        """Every data tick saw the mesh's barrier round move since the last
+        one (or since ``round0``, the round before the run)."""
+        return all(r > r0 for r0, r in zip([round0] + self.rounds, self.rounds))
+
+
+DCN_MESH_HISTOGRAMS = ("barrier", "gather", "encode", "decode")
+
+
+def dcn_mesh_histograms() -> dict:
+    """The host mesh's histograms ``pathway_host_exchange_<name>_seconds``,
+    summed over their labels: name -> (bounds, bucket counts, sum)."""
+    from pathway_tpu_torch.observability import REGISTRY
+
+    out = {}
+    for name in DCN_MESH_HISTOGRAMS:
+        fam = REGISTRY.get(f"pathway_host_exchange_{name}_seconds")
+        counts, total = [0] * (len(fam.bounds) + 1), 0.0
+        for child in list(fam._children.values()):
+            counts = [a + b for a, b in zip(counts, child.counts)]
+            total += child.sum
+        out[name] = (fam.bounds, counts, total)
+    return out
+
+
+def dcn_mesh_delta(before: dict, after: dict) -> dict:
+    """What the host mesh's histograms gathered between two readings, each
+    as a histogram of its own (its quantiles interpolated within a bucket,
+    as the registry's are)."""
+    from pathway_tpu_torch.observability.registry import _HistogramChild
+
+    out = {}
+    for name, (bounds, counts, total) in after.items():
+        h = _HistogramChild(bounds)
+        h.counts = [a - b for a, b in zip(counts, before[name][1])]
+        h.count, h.sum = sum(h.counts), total - before[name][2]
+        out[name] = h
+    return out
+
+
+def dcn_sent_bytes() -> float:
+    from pathway_tpu_torch.observability import REGISTRY
+
+    fam = REGISTRY.get("pathway_host_exchange_sent_bytes_total")
+    return 0.0 if fam is None else sum(child.value for child in fam._children.values())
+
+
+def dcn_engine(pw, out: str, pid: int, n: int, mode: str) -> dict:
+    """(b) and (d): mesh_rows through a groupby-reduce (count, sum) joined back
+    to its rows, this rank's half of every tick's rows in a CSV file of its
+    own (pw.io.csv streaming; the next file is written once the last one
+    was ticked). Each batch the sink receives is appended to an .npy file
+    (so a killed rank's output survives it). ``mode``: "b" plain; "kill"
+    and "resume" with persistence, the fault plan in the env."""
+    from pathway_tpu_torch.engine import dcn as dcn_mod
+    from pathway_tpu_torch.engine.nodes import OutputNode
+    from pathway_tpu_torch.internals import parse_graph
+    from pathway_tpu_torch.parallel import host_exchange as hx
+
+    persist = mode in ("kill", "resume")
+    tag = "d" if persist else "b"
+    s = mesh_rows(SEED + 73, MESH_ROWS, MESH_TICKS, MESH_KEYS, MESH_REVISIT)
+    per = MESH_ROWS // MESH_TICKS
+    in_dir = os.path.join(out, f"{tag}in{pid}")
+    os.makedirs(in_dir, exist_ok=True)
+    sink_path = os.path.join(out, f"{tag}out{pid}_{mode}.npy")
+    parse_graph.G.clear()
+
+    class RowSchema(pw.Schema):
+        rid: int = pw.column_definition(primary_key=True)
+        g: int
+        v: int
+
+    rows = pw.io.csv.read(in_dir, schema=RowSchema, mode="streaming")
+    src = rows._node.source
+    agg = rows.groupby(rows.g).reduce(rows.g, c=pw.reducers.count(), s=pw.reducers.sum(rows.v))
+    joined = agg.join(rows, agg.g == rows.g).select(rid=pw.right.rid, g=pw.right.g, v=pw.right.v,
+                                                     c=pw.left.c, s=pw.left.s)
+    sink = open(sink_path, "ab")
+
+    def on_batch(t, batch) -> None:
+        vals = np.stack([np.asarray(batch.columns[c], dtype=np.int64) for c in ("rid", "g", "v", "c", "s")], axis=1) \
+            if len(batch) else np.zeros((0, 5), np.int64)
+        np.save(sink, np.asarray(batch.keys, dtype=np.uint64))
+        np.save(sink, np.asarray(batch.diffs, dtype=np.int64))
+        np.save(sink, vals.reshape(-1, 5))
+        sink.flush()
+
+    parse_graph.G.add_output(OutputNode(joined._node, on_batch, None))
+    failure: list[BaseException] = []
+
+    def feed() -> None:
+        try:
+            while parse_graph.G.runtime is None:
+                time.sleep(0.01)
+            rt = parse_graph.G.runtime
+            g, v = s["g"], s["v"]
+            for t in range(MESH_TICKS):
+                path = os.path.join(in_dir, f"f{t:02d}.csv")
+                if os.path.exists(path):  # written before a restart
+                    continue
+                j = np.arange(t * per, (t + 1) * per)
+                j = j[j % n == pid]
+                tmp = os.path.join(out, f".f{pid}.tmp")
+                with open(tmp, "w") as f:
+                    f.write("rid,g,v\n")
+                    f.write("\n".join(f"{a},{b},{c}" for a, b, c in zip(j.tolist(), g[j].tolist(), v[j].tolist())))
+                    f.write("\n")
+                os.replace(tmp, path)
+                wait_until(lambda: path in src._seen, f"rank {pid} reading {path}")
+                wait_until(lambda: not src.session.has_data(), f"rank {pid} ticking {path}")
+                ticks0 = rt.stats.ticks
+                wait_until(lambda: rt.stats.ticks > ticks0, f"rank {pid} finishing the tick of {path}")
+            open(os.path.join(out, f"done_{mode}_{pid}"), "w").close()
+            # the group stops once every rank's rows are ticked: a stop is
+            # group-coordinated, so no rank leaves before the others' rows
+            wait_until(lambda: all(os.path.exists(os.path.join(out, f"done_{mode}_{p}")) for p in range(n)),
+                       "the other ranks' last rows")
+            rt.stop()
+        except BaseException as e:  # noqa: BLE001 — re-raised after pw.run
+            failure.append(e)
+            parse_graph.G.runtime.stop()
+
+    threading.Thread(target=feed, daemon=True).start()
+    cfg = None
+    if persist:
+        cfg = pw.persistence.Config.simple_config(
+            pw.persistence.Backend.filesystem(os.path.join(out, f"pstore{pid}")),
+            snapshot_every=DCN_SNAPSHOT_EVERY)
+    mesh = hx.get_host_mesh()
+    detected: list = []
+    mesh.add_failure_listener(lambda peer, reason: detected.append((peer, reason, time.time())))
+    probe = DcnTicks()
+    bytes0, hist0, round0 = dcn_sent_bytes(), dcn_mesh_histograms(), mesh._round
+    t0 = time.perf_counter()
+    try:
+        pw.run(persistence_config=cfg, autocommit_duration_ms=20)
+    except Exception as e:
+        cause = e
+        while cause is not None and not isinstance(cause, hx.HostMeshError):
+            cause = cause.__cause__ or cause.__context__
+        # the mesh wakes a pending barrier before it calls its failure
+        # listeners: give the listener its moment
+        t_end = time.monotonic() + 5.0
+        while not detected and time.monotonic() < t_end:
+            time.sleep(0.01)
+        with open(os.path.join(out, f"rank{pid}_{mode}_error.json"), "w") as f:
+            json.dump({"error": f"{type(cause or e).__name__}: {cause or e}", "detected": detected,
+                       "t": time.time()}, f)
+        raise
+    finally:
+        probe.restore()
+        sink.close()
+    if failure:
+        raise failure[0]
+    run_s = time.perf_counter() - t0
+    rt = parse_graph.G.last_runtime
+    gbs = [e for e in rt.execs.values() if isinstance(e, dcn_mod.DcnGroupByExec)]
+    check(len(gbs) == 1, f"rank {pid}: {len(gbs)} DCN groupby execs")
+    joins = [e for e in rt.execs.values() if isinstance(e, dcn_mod.DcnJoinExec)]
+    check(len(joins) == 1, f"rank {pid}: {len(joins)} DCN join execs")
+    np.save(os.path.join(out, f"{tag}owned{pid}_{mode}.npy"),
+            np.fromiter(gbs[0].owned_group_keys(), dtype=np.uint64))
+    drv = getattr(rt, "persistence_driver", None)
+    hist = dcn_mesh_delta(hist0, dcn_mesh_histograms())
+    ticks = max(1, len(probe.ticks))
+    return {
+        "run_s": run_s, "ticks": probe.ticks, "data_ticks": len(probe.ticks), "barriers": mesh._round - round0,
+        "ticked_after_barrier": probe.ticked_after_barrier(round0), "first_tick_wall": probe.first_tick_wall,
+        "barrier_ms_p50": hist["barrier"].quantile(0.5) * 1e3 if hist["barrier"].count else None,
+        # a gather waits for every peer's frame: the slower rank's lag and the wire
+        "gather_wait_ms_per_tick": hist["gather"].sum * 1e3 / ticks,
+        # the wire's own work, on the sender and receiver threads
+        "wire_encode_decode_ms_per_tick": (hist["encode"].sum + hist["decode"].sum) * 1e3 / ticks,
+        "sent_bytes_per_tick": (dcn_sent_bytes() - bytes0) / ticks,
+        "exchanges": {"groupby": gbs[0].router.exchanges, "join": joins[0].lrouter.exchanges + joins[0].rrouter.exchanges},
+        "restored": None if drv is None else {
+            "restored_from_snapshot": bool(getattr(drv, "restored_from_snapshot", False)),
+            "restore_s": drv.restore_seconds, "replay_s": drv.replay_seconds,
+            "replayed_ticks": drv.replayed_ticks, "replayed_events": drv.replayed_events},
+    }
+
+
+def dcn_index(pw, out: str, dev, pid: int, n: int) -> dict:
+    """(c) DCN_INDEX_ROWS seeded documents through pw.io.python, this rank's
+    half in DCN_INDEX_COMMITS commits, into DataIndex over TpuKnn:
+    DcnExternalIndexExec broadcasts the index side, so this rank's index
+    holds every document on the card; then DCN_B1 B = 1 and DCN_B16 B = 16
+    asks to this rank (query ids unique across the group), searched on
+    this rank, every reply against the plain top-K over the same rows.
+    DataIndex's later stages route a reply to the rank owning its key, so
+    every rank appends the replies it emits to a file of its own and an
+    ask waits for its replies in all of them."""
+    from pathway_tpu_torch.engine import dcn as dcn_mod
+    from pathway_tpu_torch.internals import parse_graph
+    from pathway_tpu_torch.internals.api import ref_scalar
+    from pathway_tpu_torch.ops import block_topk as bt
+    from pathway_tpu_torch.ops.knn import dense_topk
+    from pathway_tpu_torch.stdlib.indexing import DataIndex, TpuKnn
+
+    _now = time.perf_counter
+    docs = dcn_unit_vectors(DCN_INDEX_ROWS, SEED + 83, dev)
+    vecs = docs.cpu().numpy()
+    asks = dcn_asks(vecs, SEED + 84 + pid)
+    mine = np.arange(pid, DCN_INDEX_ROWS, n)
+    per_commit = -(-len(mine) // DCN_INDEX_COMMITS)
+    parse_graph.G.clear()
+    finished = threading.Event()
+    failure: list[BaseException] = []
+    rec: dict = {"replies": {}, "ask_launches": [], "ask_shapes": [], "ask_rows": []}
+    first_qid = pid * 1_000_000
+    reply_files = [os.path.join(out, f"creplies{p}.jsonl") for p in range(n)]
+    mine_replies = open(reply_files[pid], "a")
+    seen: dict[int, dict] = {}
+
+    def poll_replies() -> dict:
+        for path in reply_files:
+            if os.path.exists(path):
+                with open(path) as f:
+                    for line in f:
+                        if line.endswith("\n"):
+                            r = json.loads(line)
+                            seen.setdefault(r["qid"], r)
+        return seen
+
+    class DocSchema(pw.Schema):
+        rid: int = pw.column_definition(primary_key=True)
+        vec: np.ndarray
+
+    class QuerySchema(pw.Schema):
+        qid: int = pw.column_definition(primary_key=True)
+        vec: np.ndarray
+
+    class Idle(pw.io.python.ConnectorSubject):
+        def run(self):
+            finished.wait()
+
+    doc_subject = Idle()
+
+    def drive(qs) -> None:
+        rt = None
+        while rt is None:
+            rt = parse_graph.G.runtime
+            time.sleep(0.01)
+        t0 = _now()
+        for c in range(DCN_INDEX_COMMITS):
+            for j in mine[c * per_commit:(c + 1) * per_commit].tolist():
+                doc_subject.next(rid=j, vec=vecs[j])
+            ticks0 = rt.stats.ticks
+            doc_subject.commit()
+            wait_until(lambda: not doc_subject._session.has_data() and rt.stats.ticks > ticks0,
+                       f"rank {pid}: a document commit")
+        # every rank's documents are in: the index holds the whole corpus
+        ex = next(e for e in rt.execs.values() if isinstance(e, dcn_mod.DcnExternalIndexExec))
+        wait_until(lambda: len(ex.inner.index) == DCN_INDEX_ROWS, f"rank {pid}: the broadcast corpus")
+        rec["ingest_s"] = _now() - t0
+        rec["index_rows"] = len(ex.inner.index)
+        qid = first_qid
+        for q in asks:
+            before = bt.block_topk.launches, bt.block_topk.shapes.copy(), bt.block_topk.corpus_rows.copy()
+            ids = []
+            for row in q:
+                qs.next(qid=qid, vec=row)
+                ids.append(qid)
+                qid += 1
+            t0 = time.time()
+            qs.commit()
+            wait_until(lambda: all(i in poll_replies() for i in ids), f"rank {pid}: a reply")
+            for i in ids:
+                rec["replies"][i] = dict(seen[i], s=seen[i]["t"] - t0)
+            rec["ask_launches"].append(bt.block_topk.launches - before[0])
+            rec["ask_shapes"].append([[b, k, n_l] for (b, k), n_l in sorted((bt.block_topk.shapes - before[1]).items())])
+            rec["ask_rows"].append({str(k): v for k, v in (bt.block_topk.corpus_rows - before[2]).items()})
+
+    class QuerySubject(pw.io.python.ConnectorSubject):
+        def run(self):
+            try:
+                drive(self)
+            except BaseException as e:  # noqa: BLE001 — re-raised after pw.run
+                failure.append(e)
+            finally:
+                finished.set()
+
+    docs_t = pw.io.python.read(doc_subject, schema=DocSchema, autocommit_duration_ms=None)
+    queries = pw.io.python.read(QuerySubject(), schema=QuerySchema, autocommit_duration_ms=None)
+    index = DataIndex(docs_t, TpuKnn(docs_t.vec, dimensions=DIM, reserved_space=DCN_INDEX_ROWS, device=dev))
+    answers = index.query_as_of_now(queries.vec, number_of_matches=K).select(
+        qid=pw.left.qid, ids=pw.right._pw_index_reply_id, scores=pw.right._pw_index_reply_score)
+
+    _wall = time.time
+
+    def on_reply(key, row, time, is_addition):
+        if is_addition:
+            mine_replies.write(json.dumps({"qid": int(row["qid"]), "t": _wall(),
+                                           "ids": [int(i) for i in row["ids"]],
+                                           "scores": [float(x) for x in row["scores"]]}) + "\n")
+            mine_replies.flush()
+
+    pw.io.subscribe(answers, on_change=on_reply)
+    t0 = _now()
+    try:
+        pw.run(autocommit_duration_ms=20)
+    finally:
+        mine_replies.close()
+    run_s = _now() - t0
+    if failure:
+        raise failure[0]
+    keys = np.array([int(ref_scalar(j)) for j in range(DCN_INDEX_ROWS)], dtype=np.uint64)
+    valid = torch.ones(DCN_INDEX_ROWS, dtype=torch.bool, device=dev)
+    qid, exact = first_qid, 0
+    for q in asks:
+        # the unsharded index scores its f32 prepared corpus
+        sw, iw = dense_topk(torch.from_numpy(q).to(dev), docs, valid, K, metric="cosine", bf16=False)
+        sw, iw = sw.cpu().numpy(), iw.cpu().numpy()
+        for row in range(len(q)):
+            rep = rec["replies"][qid]
+            got = tuple(zip(rep["ids"], (x + 1.0 for x in rep["scores"])))
+            ref = tuple((int(keys[i]), float(x)) for i, x in zip(iw[row], sw[row]))
+            check(same_up_to_near_ties(got, ref, F32_TOL), f"rank {pid}: reply {qid} differs from the plain "
+                                                            f"top-{K} over the same rows")
+            exact += [k for k, _s in got] == [k for k, _s in ref]
+            qid += 1
+    del docs
+    torch.cuda.empty_cache()
+    b1 = [rec["replies"][first_qid + i]["s"] * 1e3 for i in range(DCN_B1)]
+    b16 = [rec["replies"][i]["s"] * 1e3 for i in range(first_qid + DCN_B1, qid)]
+    return {
+        "run_s": run_s, "ingest_s": rec["ingest_s"], "index_rows": rec["index_rows"], "replies": qid - first_qid,
+        "exact": exact, "ask_launches": rec["ask_launches"], "ask_shapes": rec["ask_shapes"],
+        "ask_rows": rec["ask_rows"],
+        "reply_p50_ms": {"B=1": float(np.percentile(b1, 50)), "B=16": float(np.percentile(b16, 50))},
+    }
+
+
+def dcn_rank(out: str, mode: str) -> int:
+    """One rank of the dcn phase, launched by ``python -m
+    pathway_tpu_torch.cli spawn -n 2`` (``--dcn-rank <dir> <mode>``): mode
+    "abc" runs (a), (b) and (c); "kill" and "resume" run (d)'s engine with
+    persistence. Writes ``rank<pid>_<mode>.json`` in ``<dir>``."""
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.parallel import distributed as dist
+    from pathway_tpu_torch.parallel import host_exchange as hx
+    from pathway_tpu_torch.testing import faults
+
+    n, pid, _port, _host = hx.process_env()
+    rec: dict = {"pid": pid, "mode": mode, "start_wall": time.time()}
+    if mode == "abc":  # (d) is host work: its ranks never open a context on the card
+        dev = dist.rank_device(int(os.environ.get("LOCAL_RANK", pid)), "cuda")
+        torch.cuda.set_device(dev)
+        rec["device"] = str(dev)
+    if mode == "kill":
+        exit_ = faults.FaultPlan._exit
+
+        def timed_exit(plan, what):
+            with open(os.path.join(out, f"rank{pid}_died.json"), "w") as f:
+                json.dump({"t": time.time(), "what": what}, f)
+            exit_(plan, what)
+
+        faults.FaultPlan._exit = timed_exit
+    if mode == "abc":
+        rec["knn"] = dcn_knn(dev, pid, n)
+        rec["engine"] = dcn_engine(pw, out, pid, n, "b")
+        rec["index"] = dcn_index(pw, out, dev, pid, n)
+    else:
+        rec["engine"] = dcn_engine(pw, out, pid, n, mode)
+    with open(os.path.join(out, f"rank{pid}_{mode}.json"), "w") as f:
+        json.dump(rec, f)
+    return 0
+
+
+def dcn_fold(paths: list[str]) -> dict:
+    """The joined rows' final state from the ranks' sink files, in order:
+    an insertion sets a key's row, a retraction removes it if it matches (a
+    restarted rank may emit a tick again)."""
+    state: dict = {}
+    for path in paths:
+        if not os.path.exists(path):
+            continue
+        with open(path, "rb") as f:
+            while True:
+                try:
+                    keys, diffs, vals = np.load(f), np.load(f), np.load(f)
+                except (EOFError, ValueError):
+                    break
+                for k, d, row in zip(keys.tolist(), diffs.tolist(), map(tuple, vals.tolist())):
+                    if d > 0:
+                        state[k] = row
+                    elif state.get(k) == row:
+                        del state[k]
+    return state
+
+
+def dcn_spawn(out: str, mode: str, log: str, extra_env: dict | None = None) -> tuple[int, float, str]:
+    """``python -m pathway_tpu_torch.cli spawn -n 2 --backend gloo`` of this
+    script's ``--dcn-rank`` on the card; returns (exit code, wall clock at
+    the start, the group's output)."""
+    from pathway_tpu_torch.testing.chaos import free_dcn_port
+
+    root = Path(__file__).resolve().parent
+    store = free_port()
+    dcn_port = free_dcn_port(DCN_RANKS)
+    while store in (dcn_port, dcn_port + 1):
+        store = free_port()
+    env = {k: v for k, v in os.environ.items() if k not in MESH_ENV and k != "PATHWAY_FAULTS"}
+    env.update(PATHWAY_DCN_PORT=str(dcn_port), PATHWAY_DIST_DEVICE="cuda", **(extra_env or {}))
+    env["PYTHONPATH"] = os.pathsep.join([str(root)] + [p for p in [env.get("PYTHONPATH")] if p])
+    cmd = [sys.executable, "-m", "pathway_tpu_torch.cli", "spawn", "-n", str(DCN_RANKS), "--backend", "gloo",
+           "--first-port", str(store), "--timeout", str(DCN_TIMEOUT_S), "--",
+           sys.executable, str(Path(__file__).resolve()), "--dcn-rank", out, mode]
+    start = time.time()
+    with open(log, "w") as f:
+        proc = subprocess.Popen(cmd, env=env, stdout=f, stderr=subprocess.STDOUT, cwd=str(root))
+        try:
+            rc = proc.wait(timeout=DCN_TIMEOUT_S + 120)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    with open(log) as f:
+        text = f.read()
+    return rc, start, text
+
+
+def dcn(dev, smi: str, rate: float, plain_rows: dict) -> tuple[dict, dict]:
+    """The multi-process engine on the card: two ranks launched by ``python
+    -m pathway_tpu_torch.cli spawn -n 2 --backend gloo`` share cuda:0 (NCCL
+    refuses two ranks on one card, so the device group runs on gloo, named
+    on the phase's line). (a) sharded_topk_global over DCN_KNN_ROWS seeded
+    unit vectors (f32), half a rank: DCN_B1 B = 1 and DCN_B16 B = 16 asks
+    (k = 10); each rank launches block_topk once an ask at N = 524,288, the
+    ranks' merged ids are equal and equal the plain dense top-10 over the
+    whole corpus up to near ties. (b) the mesh phase's rows (a groupby-reduce
+    over 65,536 keys joined back to 1,048,576 rows), half a rank in 16
+    ticks through pw.io.csv: the union of the ranks' outputs equals the
+    mesh phase's unsharded run row for row, the DCN routers exchanged, the
+    ranks' group keys are disjoint and cover every key, both ranks ticked
+    the same times and every tick followed its lockstep barrier. (c)
+    DCN_INDEX_ROWS documents through pw.io.python, split across the ranks in
+    8 commits, into DataIndex over TpuKnn: each rank's index holds every
+    document; DCN_B1 B = 1 and DCN_B16 B = 16 asks to each rank, every reply
+    against the plain top-10 over the same rows, block_topk launched on
+    both. (d) (b) with persistence and PATHWAY_FAULTS killing rank 1 at its
+    DCN_KILL_TICK-th data tick: rank 0 exits non-zero with HostMeshError
+    naming peer 1 within the liveness bound, a second spawn resumes from the
+    group-committed generation, and the folded outputs of both runs equal
+    the uninterrupted run's."""
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="pw_dcn_")
+    try:
+        return dcn_phase(dev, smi, rate, plain_rows, tmp, t_phase)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def dcn_phase(dev, smi: str, rate: float, plain_rows: dict, tmp: str, t_phase: float) -> tuple[dict, dict]:
+    from pathway_tpu_torch.ops.knn import prepare_corpus
+
+    _now = time.perf_counter
+    print(f"dcn: {DCN_RANKS} ranks sharing {dev} through cli spawn, device group backend=gloo", flush=True)
+
+    def ranks(mode: str) -> list[dict]:
+        got = []
+        for p in range(DCN_RANKS):
+            with open(os.path.join(tmp, f"rank{p}_{mode}.json")) as f:
+                got.append(json.load(f))
+        return got
+
+    def spawned(mode: str, extra_env=None) -> tuple[int, float, str, float]:
+        t0 = _now()
+        rc, start, text = dcn_spawn(tmp, mode, os.path.join(tmp, f"{mode}.log"), extra_env)
+        return rc, start, text, _now() - t0
+
+    # (a), (b), (c) in one group
+    rc, _start, text, abc_s = spawned("abc")
+    if rc != 0:
+        print(text[-8000:], file=sys.stderr)
+    check(rc == 0, f"the dcn group exited {rc}")
+    r = ranks("abc")
+    knn = [x["knn"] for x in r]
+    check(all(k["backend"] == "gloo" and k["world"] == DCN_RANKS for k in knn), "the device group is not gloo on 2")
+    per = DCN_KNN_ROWS // DCN_RANKS
+    n_asks = DCN_B1 + DCN_B16
+    shapes_a, shapes_c = Counter(), Counter()
+    for p, k in enumerate(knn):
+        got_a = Counter({(b, kk): n_l for b, kk, n_l in k["shapes"]})
+        check(k["launches"] == n_asks and k["corpus_rows"] == {str(per): n_asks}
+              and got_a == Counter({(1, K): DCN_B1, (16, K): DCN_B16}),
+              f"rank {p} launched block_topk {k['launches']} times at {dict(got_a)} over {k['corpus_rows']}, "
+              f"not once an ask at N={per}")
+        shapes_a += got_a
+    check(knn[0]["ids"] == knn[1]["ids"], "the ranks' merged ids differ")
+    eng = [x["engine"] for x in r]
+    got_rows = dcn_fold([os.path.join(tmp, f"bout{p}_b.npy") for p in range(DCN_RANKS)])
+    check(len(got_rows) == MESH_ROWS, f"the ranks' union holds {len(got_rows)} rows")
+    check(got_rows == plain_rows, "the union of the ranks' outputs differs from the unsharded run's")
+    for p, e in enumerate(eng):
+        check(e["exchanges"]["groupby"] > 0 and e["exchanges"]["join"] > 0, f"rank {p}: no DCN exchange moved")
+        check(e["ticked_after_barrier"] and e["barriers"] >= e["data_ticks"] > 0,
+              f"rank {p}: a tick ran without its lockstep barrier")
+    check(eng[0]["ticks"] == eng[1]["ticks"], "the ranks ticked different times")
+    owned = [set(np.load(os.path.join(tmp, f"bowned{p}_b.npy")).tolist()) for p in range(DCN_RANKS)]
+    check(not (owned[0] & owned[1]) and len(owned[0] | owned[1]) == MESH_KEYS and all(owned),
+          "the ranks' group keys overlap or miss a key")
+    idx = [x["index"] for x in r]
+    for p, x in enumerate(idx):
+        check(x["index_rows"] == DCN_INDEX_ROWS, f"rank {p}'s index holds {x['index_rows']} rows")
+        check(x["replies"] == DCN_B1 + 16 * DCN_B16, f"rank {p} got {x['replies']} replies")
+        want = [[[1, K, 1]]] * DCN_B1 + [[[16, K, 1]]] * DCN_B16
+        check(x["ask_launches"] == [1] * n_asks and x["ask_shapes"] == want
+              and x["ask_rows"] == [{str(DCN_INDEX_ROWS): 1}] * n_asks,
+              f"rank {p}: the asks launched block_topk {x['ask_shapes']} over {x['ask_rows']}, not once an ask "
+              f"at its B over N={DCN_INDEX_ROWS}")
+        for ask in x["ask_shapes"]:
+            for b, kk, n_l in ask:
+                shapes_c[(b, kk)] += n_l
+
+    # (d) kill rank 1 mid-stream, then resume
+    rc_kill, kill_start, kill_text, kill_s = spawned("kill", {"PATHWAY_FAULTS": f"kill=tick:{DCN_KILL_TICK},pid:1"})
+    check(rc_kill != 0, "the killed group exited 0")
+    check("rank 1 exited 23" in kill_text, "rank 1 did not die by the fault plan (exit 23)")
+    check("rank 0 exited" in kill_text and "rank 0 exited 0" not in kill_text, "rank 0 did not exit non-zero")
+    with open(os.path.join(tmp, "rank0_kill_error.json")) as f:
+        err = json.load(f)
+    with open(os.path.join(tmp, "rank1_died.json")) as f:
+        died = json.load(f)
+    check(err["error"].startswith("HostMeshError") and "peer(s) [1]" in err["error"],
+          f"rank 0 failed with {err['error']!r}, not a HostMeshError naming peer 1")
+    check(bool(err["detected"]) and err["detected"][0][0] == 1, "rank 0's failure listener did not name peer 1")
+    detect_s = err["detected"][0][2] - died["t"]
+    check(0 <= detect_s <= DCN_LIVENESS_S, f"peer 1's death was detected after {detect_s:.3f} s")
+    check(not os.path.exists(os.path.join(tmp, "rank0_kill.json")), "rank 0 finished the killed run")
+    rc_res, res_start, res_text, resume_s = spawned("resume")
+    if rc_res != 0:
+        print(res_text[-8000:], file=sys.stderr)
+    check(rc_res == 0, f"the resumed group exited {rc_res}")
+    res = ranks("resume")
+    for p, x in enumerate(res):
+        check(x["engine"]["restored"] is not None and x["engine"]["restored"]["restored_from_snapshot"],
+              f"rank {p} did not restore a snapshot generation")
+    with open(os.path.join(tmp, "pstore0", "group_commit.json")) as f:
+        group_commit = json.load(f)
+    folded = dcn_fold([os.path.join(tmp, f"dout{p}_{m}.npy") for m in ("kill", "resume") for p in range(DCN_RANKS)])
+    check(folded == plain_rows, "the killed and resumed runs' folded outputs differ from the uninterrupted run's")
+    restart_s = min(x["engine"]["first_tick_wall"] for x in res) - res_start
+
+    # the corpora the ranks launched block_topk on, for the kernels phase's
+    # rows: rank 0's shard of (a) and a replicated index corpus of (c), f32
+    whole = dcn_unit_vectors(DCN_KNN_ROWS, SEED + 81, dev)
+    knn_asks = dcn_asks(whole.cpu().numpy(), SEED + 82)
+    prep_a, _c2 = prepare_corpus(whole[:per].contiguous(), "cosine", bf16=False)
+    del whole
+    docs = dcn_unit_vectors(DCN_INDEX_ROWS, SEED + 83, dev)
+    ix_asks = dcn_asks(docs.cpu().numpy(), SEED + 84)
+    prep_c, _c2 = prepare_corpus(docs, "cosine", bf16=False)
+    del docs
+    torch.cuda.empty_cache()
+    phase = {
+        "phase": "dcn",
+        "nvidia_smi": smi,
+        "ranks": DCN_RANKS,
+        "backend": "gloo",
+        "device_group": f"torch.distributed backend=gloo, {DCN_RANKS} ranks on one card (NCCL refuses two ranks "
+                        "on one card)",
+        "device": [x["device"] for x in r],
+        "launcher": "python -m pathway_tpu_torch.cli spawn -n 2 --backend gloo",
+        "spawn_s": {"abc": abc_s, "kill": kill_s, "resume": resume_s},
+        "knn": {
+            "rows": DCN_KNN_ROWS, "rows_per_rank": per, "asks": n_asks,
+            "launches_per_rank": [k["launches"] for k in knn], "exact": [k["exact"] for k in knn],
+            "near_ties": [k["near_ties"] for k in knn], "join_s": [k["join_s"] for k in knn],
+            "call_ms_p50": [k["call_ms"] for k in knn], "gloo_merge_ms": [k["gloo_merge_ms"] for k in knn],
+            "memory_allocated_max_mb": [k["memory_allocated_max_mb"] for k in knn],
+        },
+        "engine": {
+            "rows": MESH_ROWS, "keys": MESH_KEYS, "run_s": [e["run_s"] for e in eng],
+            "data_ticks": eng[0]["data_ticks"], "barriers": [e["barriers"] for e in eng],
+            "keys_per_rank": [len(o) for o in owned], "rows_equal_unsharded": True,
+            "exchanges": [e["exchanges"] for e in eng],
+            "host_exchange_gather_wait_ms_per_tick": [e["gather_wait_ms_per_tick"] for e in eng],
+            "host_exchange_wire_encode_decode_ms_per_tick": [e["wire_encode_decode_ms_per_tick"] for e in eng],
+            "host_sent_bytes_per_tick": [e["sent_bytes_per_tick"] for e in eng],
+            "lockstep_barrier_ms_p50": [e["barrier_ms_p50"] for e in eng],
+            "mesh_times": "the host mesh's pathway_host_exchange_{gather,encode,decode,barrier}_seconds "
+                          "histograms over the run (barrier p50 interpolated within a bucket)",
+        },
+        "index": {
+            "rows": DCN_INDEX_ROWS, "commits": DCN_INDEX_COMMITS, "rows_per_rank_index": [x["index_rows"] for x in idx],
+            "ingest_s": [x["ingest_s"] for x in idx], "replies": [x["replies"] for x in idx],
+            "exact": [x["exact"] for x in idx], "reply_p50_ms": [x["reply_p50_ms"] for x in idx],
+            "launches_per_rank": [sum(x["ask_launches"]) for x in idx],
+        },
+        "kill_resume": {
+            "kill_tick": DCN_KILL_TICK, "snapshot_every": DCN_SNAPSHOT_EVERY,
+            "rank0_error": err["error"][:200], "failure_detection_s": detect_s,
+            "liveness_bound_s": DCN_LIVENESS_S, "group_commit_time": group_commit.get("time"),
+            "restart_to_first_tick_s": restart_s,
+            "restored": [x["engine"]["restored"] for x in res],
+            "resumed_run_s": [x["engine"]["run_s"] for x in res],
+            "folded_equal_uninterrupted": True,
+        },
+        "kernel_times": "block_topk at the ranks' shapes: the kernels line's per_batch rows whose path "
+                        "starts with 'dcn'",
+        "phase_s": _now() - t_phase,
+    }
+    data = {"a": {"prep": prep_a, "valid": torch.ones(prep_a.shape[0], dtype=torch.bool, device=dev),
+                  "queries": {1: torch.from_numpy(knn_asks[0]).to(dev),
+                                              16: torch.from_numpy(knn_asks[-1]).to(dev)},
+                  "shapes": dict(shapes_a), "launches": sum(k["launches"] for k in knn)},
+            "c": {"prep": prep_c, "valid": torch.ones(prep_c.shape[0], dtype=torch.bool, device=dev),
+                  "queries": {1: torch.from_numpy(ix_asks[0]).to(dev),
+                                              16: torch.from_numpy(ix_asks[-1]).to(dev)},
+                  "shapes": dict(shapes_c), "launches": sum(sum(x["ask_launches"]) for x in idx)}}
+    return phase, data
+
+
+# --- phase 20: kernel times ---------------------------------------------------
+
+
+def block_topk_shape_times(bs: int, k: int, q, path_launches: int, path: str, prep, valid, rate: float) -> dict:
+    """block_topk at one path shape: its ms and device ms, its plain
+    version's and the library call's ms, the bound, and the launch ledger
+    held against what the built kernel launched with (timing launches are
+    not the path's)."""
+    from pathway_tpu_torch.analysis import lowering
+    from pathway_tpu_torch.ops import block_topk as bt
+    from pathway_tpu_torch.ops.knn import BLK, _normalize
+
+    n, d = prep.shape
+    check(path_launches > 0, f"block_topk never ran at B={bs}, k={k} on the {path} path")
+    qn = _normalize(q).to(prep.dtype).contiguous()
+    before = bt.block_topk.launches, bt.block_topk.shapes.copy()
+    ms = cuda_ms(lambda: bt.block_topk(qn, prep, valid, k))
+    times = device_times(lambda: bt.block_topk(qn, prep, valid, k))
+    plain_ms = cuda_ms(lambda: bt.block_topk_ref(qn, prep, valid, k), iters=5)
+
+    def library():
+        s = torch.matmul(qn, prep.T).masked_fill_(~valid[None, :], -float("inf"))
+        return torch.topk(s.view(bs, n // BLK, BLK), k, dim=-1)
+
+    library_ms = cuda_ms(library, iters=5)
+    sc, ix = bt.block_topk(qn, prep, valid, k)
+    sr, ir = bt.block_topk_ref(qn, prep, valid, k)
+    # the launch ledger's shared memory and threads for this (B, k,
+    # dtype) are what the built kernel set at this launch, and the grid
+    # it took from the card's occupancy lies within the ledger's largest
+    bf16 = prep.dtype == torch.bfloat16
+    launched = bt.last_launch()
+    smem = launched["smem_bytes"]
+    ledger = lowering.block_topk_launch(bs, d, n, k, bf16)
+    (gx, gy, gz), (mx, my, mz) = launched["grid"], ledger["grid_max"]
+    check(smem == ledger["smem_bytes"] and launched["threads"] == ledger["threads"]
+          and 1 <= gx <= mx and gy == my and gz == mz == 1,
+          f"block_topk launched with {launched}, the ledger says {ledger}")
+    # timing launches are not the path's
+    bt.block_topk.launches, bt.block_topk.shapes = before
+    # a block with no valid row scores -inf in both (the persistence
+    # corpus reserves whole blocks ahead of its rows)
+    live = torch.isfinite(sr)
+    check(torch.equal(torch.isfinite(sc), live), f"block_topk timing inputs disagree on -inf at B={bs}")
+    err = float((sc - sr)[live].abs().max())
+    check(err <= F32_TOL, f"block_topk timing inputs disagree by {err} at B={bs}")
+    elem = prep.element_size()
+    bytes_read = n * d * elem + bs * d * elem + n  # corpus, queries, valid
+    nbytes = bytes_read + bs * (n // BLK) * k * 8  # + the candidates written
+    ops = 2.0 * bs * n * d
+    t_bytes = nbytes / rate * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[str(prep.dtype).split(".")[-1]] * 1e3
+    return {
+        "B": bs, "N": n, "D": d, "k": k, "dtype": str(prep.dtype).split(".")[-1],
+        "path": path, "launches": path_launches, "query_tile": ledger["query_tile"],
+        "dynamic_smem_bytes": smem, "launch_grid": launched["grid"],
+        "ms": ms, "device_ms": kernel_device_ms(times, "block_topk_kernel", 20),
+        "plain_ms": plain_ms, "library_ms": library_ms,
+        "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bytes_read": bytes_read, "bytes": nbytes, "ops": ops, "max_abs_err": err,
+    }
 
 
 def kernel_times(main: dict, eng: dict, vs: dict, rest: dict, persist: dict, ik: dict, cc: dict,
                  lc: dict, wi: dict, cdc: dict, ct: dict, rep: dict, gen: dict, ob: dict, msh: dict,
-                 rate: float, rate_src: str) -> list[dict]:
-    from pathway_tpu_torch.analysis import lowering
-    from pathway_tpu_torch.ops import block_topk as bt
-    from pathway_tpu_torch.ops.knn import BLK, _normalize
+                 dcn_data: dict, rate: float, rate_src: str) -> list[dict]:
 
     # (B, k, queries, launches of that shape on its path, path, its corpus)
     m_corpus, e_corpus = (main["prep"], main["valid"]), (eng["prep"], eng["valid"])
@@ -7759,58 +8595,17 @@ def kernel_times(main: dict, eng: dict, vs: dict, rest: dict, persist: dict, ik:
         # shard's bf16 slice (shard 0's here; the four are the same shape)
         (b, k, msh["queries"][b], n, f"mesh (one shard of {MESH_SHARDS}, bf16)", (msh["prep"], msh["valid"]))
         for (b, k), n in sorted(msh["shapes"].items())
+    ] + [
+        # the process group's searches, each rank's launches on its own
+        # corpus: sharded_topk_global on one rank's shard and the live
+        # index replicated on every rank, both f32
+        (b, k, part["queries"][b], n, what, (part["prep"], part["valid"]))
+        for part, what in ((dcn_data["a"], f"dcn (sharded_topk_global, one rank's shard of {DCN_RANKS}, f32)"),
+                           (dcn_data["c"], "dcn (the live index replicated on each rank, f32)"))
+        for (b, k), n in sorted(part["shapes"].items())
     ]
-    per_batch = []
-    for bs, k, q, path_launches, path, (prep, valid) in path_shapes:
-        n, d = prep.shape
-        check(path_launches > 0, f"block_topk never ran at B={bs}, k={k} on the {path} path")
-        qn = _normalize(q).to(prep.dtype).contiguous()
-        before = bt.block_topk.launches, bt.block_topk.shapes.copy()
-        ms = cuda_ms(lambda: bt.block_topk(qn, prep, valid, k))
-        times = device_times(lambda: bt.block_topk(qn, prep, valid, k))
-        plain_ms = cuda_ms(lambda: bt.block_topk_ref(qn, prep, valid, k), iters=5)
-
-        def library():
-            s = torch.matmul(qn, prep.T).masked_fill_(~valid[None, :], -float("inf"))
-            return torch.topk(s.view(bs, n // BLK, BLK), k, dim=-1)
-
-        library_ms = cuda_ms(library, iters=5)
-        sc, ix = bt.block_topk(qn, prep, valid, k)
-        sr, ir = bt.block_topk_ref(qn, prep, valid, k)
-        # the launch ledger's shared memory and threads for this (B, k,
-        # dtype) are what the built kernel set at this launch, and the grid
-        # it took from the card's occupancy lies within the ledger's largest
-        bf16 = prep.dtype == torch.bfloat16
-        launched = bt.last_launch()
-        smem = launched["smem_bytes"]
-        ledger = lowering.block_topk_launch(bs, d, n, k, bf16)
-        (gx, gy, gz), (mx, my, mz) = launched["grid"], ledger["grid_max"]
-        check(smem == ledger["smem_bytes"] and launched["threads"] == ledger["threads"]
-              and 1 <= gx <= mx and gy == my and gz == mz == 1,
-              f"block_topk launched with {launched}, the ledger says {ledger}")
-        # timing launches are not the path's
-        bt.block_topk.launches, bt.block_topk.shapes = before
-        # a block with no valid row scores -inf in both (the persistence
-        # corpus reserves whole blocks ahead of its rows)
-        live = torch.isfinite(sr)
-        check(torch.equal(torch.isfinite(sc), live), f"block_topk timing inputs disagree on -inf at B={bs}")
-        err = float((sc - sr)[live].abs().max())
-        check(err <= F32_TOL, f"block_topk timing inputs disagree by {err} at B={bs}")
-        elem = prep.element_size()
-        bytes_read = n * d * elem + bs * d * elem + n  # corpus, queries, valid
-        nbytes = bytes_read + bs * (n // BLK) * k * 8  # + the candidates written
-        ops = 2.0 * bs * n * d
-        t_bytes = nbytes / rate * 1e3
-        t_ops = ops / PEAK_OPS_PER_S[str(prep.dtype).split(".")[-1]] * 1e3
-        per_batch.append({
-            "B": bs, "N": n, "D": d, "k": k, "dtype": str(prep.dtype).split(".")[-1],
-            "path": path, "launches": path_launches, "query_tile": ledger["query_tile"],
-            "dynamic_smem_bytes": smem, "launch_grid": launched["grid"],
-            "ms": ms, "device_ms": kernel_device_ms(times, "block_topk_kernel", 20),
-            "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes_read": bytes_read, "bytes": nbytes, "ops": ops, "max_abs_err": err,
-        })
+    per_batch = [block_topk_shape_times(bs, k, q, path_launches, path, prep, valid, rate)
+                 for bs, k, q, path_launches, path, (prep, valid) in path_shapes]
     head = per_batch[0]  # B=1: the "KNN p50 @1M x 384" shape
     return [{
         "name": "block_topk",
@@ -7845,6 +8640,9 @@ def kernel_times(main: dict, eng: dict, vs: dict, rest: dict, persist: dict, ik:
         "observability_launches_by_shape": {f"B={b},k={k}": n for (b, k), n in sorted(ob["shapes"].items())},
         "mesh_launches": msh["launches"],
         "mesh_launches_by_shape": {f"B={b},k={k}": n for (b, k), n in sorted(msh["shapes"].items())},
+        "dcn_launches": dcn_data["a"]["launches"] + dcn_data["c"]["launches"],
+        "dcn_launches_by_shape": {f"{part} B={b},k={k}": n for part in ("a", "c")
+                                  for (b, k), n in sorted(dcn_data[part]["shapes"].items())},
         "max_abs_err": max(p["max_abs_err"] for p in per_batch),
         "ms": head["ms"],
         "plain_ms": head["plain_ms"],
@@ -7975,6 +8773,8 @@ def main() -> int:
         return kill_child(sys.argv[2])
     if sys.argv[1:2] == ["--persist-child"]:
         return persist_child(*sys.argv[2:5])
+    if sys.argv[1:2] == ["--dcn-rank"]:
+        return dcn_rank(sys.argv[2], sys.argv[3])
     dev = torch.device("cuda", 0)
     smi = nvidia_smi("name,power.limit")
 
@@ -8034,9 +8834,11 @@ def main() -> int:
     phase, mesh_data = mesh(dev, smi, rate, emb)
     emit(phase)
     del emb
+    phase, dcn_data = dcn(dev, smi, rate, mesh_data.pop("plain_rows"))
+    emit(phase)
     kernels = kernel_times(main_data, engine_data, vs_data, rest_data, persist_data, ik_data, cc_data,
                            lc_data, wi_data, cdc_data, ct_data, repl_data, gen_data, ob_data, mesh_data,
-                           rate, rate_src) + [
+                           dcn_data, rate, rate_src) + [
         paged_kernel_times(gen_data, repl_data, rate, rate_src)
     ]
     emit({"phase": "kernels", "kernels": kernels})

@@ -8,11 +8,20 @@ build. Libraries land in ``build/pathway_tpu_torch/`` at the repository root,
 named by a hash of the source and the flags, so an edited source is rebuilt
 and an unchanged one is reused. A failed build raises with the compiler's
 output; there is no fallback.
+
+Builds are safe across processes as well as threads: the ranks of one
+process group that reach a kernel first at the same moment take an
+``fcntl`` lock on ``build/pathway_tpu_torch/.build.lock`` around the
+``nvcc`` runs, the one holding it builds, the others find the library on
+disk when they get it, and a library only appears under its final name by
+an atomic rename of a complete file.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -75,11 +84,30 @@ def _finish(name: str, tmp: Path, out: Path, proc: subprocess.Popen) -> None:
     os.replace(tmp, out)  # atomic: a concurrent loader never sees a partial file
 
 
+@contextlib.contextmanager
+def _build_lock():
+    """Exclusive across the processes sharing ``BUILD_DIR`` (``fcntl``):
+    the ranks of a group never run ``nvcc`` on the same outputs at once."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".build.lock", "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def build_all(names: list[str] | None = None) -> dict[str, float]:
     """Build every named source (default: all) that is not built yet, one
     ``nvcc`` process per source, all started together. Returns the wall
-    seconds each build took (0.0 for a library already on disk)."""
+    seconds each build took (0.0 for a library already on disk, or built
+    meanwhile by another process holding the build lock)."""
     names = sources() if names is None else names
+    with _build_lock():
+        return _build_unlocked(names)
+
+
+def _build_unlocked(names: list[str]) -> dict[str, float]:
     t0 = time.perf_counter()
     running = {}
     for name in names:

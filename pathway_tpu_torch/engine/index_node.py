@@ -16,8 +16,9 @@ engine recovers, and a query whose REST deadline expired
 With ``PATHWAY_REPL_PORT`` set the process is the replication writer: the
 exec publishes each tick's consolidated corpus deltas (an empty marker on
 an idle tick) to ``parallel/replicate.py``'s delta stream, as the
-reference does. Not ported: the multi-process exec (the runtime raises for
-a process group, [mesh]).
+reference does. In a process group the node builds
+``engine/dcn.py``'s ``DcnExternalIndexExec``: the index side is broadcast
+to every rank and queries answer locally.
 """
 
 from __future__ import annotations
@@ -62,8 +63,15 @@ class ExternalIndexNode(Node):
         self.index_factory = index_factory
         self.as_of_now = as_of_now
 
-    def make_exec(self):
+    def _make_local_exec(self):
         return ExternalIndexExec(self)
+
+    def make_exec(self):
+        if getattr(self, "_dcn", False):
+            from pathway_tpu_torch.engine.dcn import DcnExternalIndexExec
+
+            return DcnExternalIndexExec(self)
+        return self._make_local_exec()
 
 
 class ExternalIndexExec(NodeExec):

@@ -3,9 +3,9 @@
 
 Under an engine mesh (``parallel/mesh.py`` ``get_engine_mesh``) GroupBy,
 Join, Buffer and instance Sort build their key-sharded execs
-(``engine/sharded.py``), as the reference's do. Hooks of the reference
-this copy does not carry: the multi-process execs (``engine/dcn.py``; the
-runtime raises for them, ROADMAP [mesh]). The columnar groupby
+(``engine/sharded.py``), as the reference's do. In a process group
+(``Runtime`` marks every node ``_dcn``) each stateful node builds its
+cross-process exec (``engine/dcn.py``) around its local one. The columnar groupby
 factorizes with numpy (``factorize``) where the reference calls pandas.
 
 This is the engine's operator vocabulary — the capability contract the
@@ -516,6 +516,10 @@ class GroupByNode(Node):
         return GroupByExec(self)
 
     def make_exec(self):
+        if getattr(self, "_dcn", False):
+            from pathway_tpu_torch.engine.dcn import DcnGroupByExec
+
+            return DcnGroupByExec(self)
         return self._make_local_exec()
 
 
@@ -1034,6 +1038,10 @@ class JoinNode(Node):
         return JoinExec(self)
 
     def make_exec(self):
+        if getattr(self, "_dcn", False):
+            from pathway_tpu_torch.engine.dcn import DcnJoinExec
+
+            return DcnJoinExec(self)
         return self._make_local_exec()
 
 
@@ -1935,8 +1943,15 @@ class UpdateRowsNode(Node):
     def __init__(self, left: Node, right: Node):
         super().__init__([left, right], left.column_names)
 
-    def make_exec(self):
+    def _make_local_exec(self):
         return UpdateRowsExec(self)
+
+    def make_exec(self):
+        if getattr(self, "_dcn", False):
+            from pathway_tpu_torch.engine.dcn import DcnUpdateRowsExec
+
+            return DcnUpdateRowsExec(self)
+        return self._make_local_exec()
 
 
 class UpdateRowsExec(NodeExec):
@@ -2134,6 +2149,10 @@ class SortNode(Node):
         return SortExec(self)
 
     def make_exec(self):
+        if getattr(self, "_dcn", False):
+            from pathway_tpu_torch.engine.dcn import DcnSortExec
+
+            return DcnSortExec(self)
         return self._make_local_exec()
 
 
@@ -2291,8 +2310,15 @@ class GradualBroadcastNode(Node):
     def __init__(self, data: Node, thr: Node):
         super().__init__([data, thr], ["apx_value"])
 
-    def make_exec(self):
+    def _make_local_exec(self):
         return GradualBroadcastExec(self)
+
+    def make_exec(self):
+        if getattr(self, "_dcn", False):
+            from pathway_tpu_torch.engine.dcn import DcnGradualBroadcastExec
+
+            return DcnGradualBroadcastExec(self)
+        return self._make_local_exec()
 
 
 _KEY_SPACE = float(1 << 64)
@@ -2433,8 +2459,15 @@ class DeduplicateNode(Node):
     def key_columns(self) -> tuple[str, ...]:
         return tuple(self.instance_cols)
 
-    def make_exec(self):
+    def _make_local_exec(self):
         return DeduplicateExec(self)
+
+    def make_exec(self):
+        if getattr(self, "_dcn", False):
+            from pathway_tpu_torch.engine.dcn import DcnDeduplicateExec
+
+            return DcnDeduplicateExec(self)
+        return self._make_local_exec()
 
 
 class DeduplicateExec(NodeExec):
@@ -2789,8 +2822,15 @@ class IxNode(Node):
         self.ptr_col = ptr_col
         self.optional = optional
 
-    def make_exec(self):
+    def _make_local_exec(self):
         return IxExec(self)
+
+    def make_exec(self):
+        if getattr(self, "_dcn", False):
+            from pathway_tpu_torch.engine.dcn import DcnIxExec
+
+            return DcnIxExec(self)
+        return self._make_local_exec()
 
 
 class IxExec(NodeExec):
@@ -2871,8 +2911,15 @@ class UniverseSetOpNode(Node):
         super().__init__([left] + list(others), left.column_names)
         self.mode = mode  # 'intersect' | 'difference' | 'restrict'
 
-    def make_exec(self):
+    def _make_local_exec(self):
         return UniverseSetOpExec(self)
+
+    def make_exec(self):
+        if getattr(self, "_dcn", False):
+            from pathway_tpu_torch.engine.dcn import DcnUniverseSetOpExec
+
+            return DcnUniverseSetOpExec(self)
+        return self._make_local_exec()
 
 
 class UniverseSetOpExec(NodeExec):
@@ -2991,6 +3038,10 @@ class BufferNode(Node):
         return BufferExec(self)
 
     def make_exec(self):
+        if getattr(self, "_dcn", False):
+            from pathway_tpu_torch.engine.dcn import DcnWatermarkExec
+
+            return DcnWatermarkExec(self)
         return self._make_local_exec()
 
 
@@ -3185,8 +3236,15 @@ class ForgetNode(Node):
             )
         self.mark_forgetting_records = mark_forgetting_records
 
-    def make_exec(self):
+    def _make_local_exec(self):
         return ForgetExec(self)
+
+    def make_exec(self):
+        if getattr(self, "_dcn", False):
+            from pathway_tpu_torch.engine.dcn import DcnWatermarkExec
+
+            return DcnWatermarkExec(self)
+        return self._make_local_exec()
 
 
 class ForgetExec(NodeExec):
@@ -3307,8 +3365,15 @@ class FreezeNode(Node):
         self.threshold_col = threshold_col
         self.current_time_col = current_time_col
 
-    def make_exec(self):
+    def _make_local_exec(self):
         return FreezeExec(self)
+
+    def make_exec(self):
+        if getattr(self, "_dcn", False):
+            from pathway_tpu_torch.engine.dcn import DcnWatermarkExec
+
+            return DcnWatermarkExec(self)
+        return self._make_local_exec()
 
 
 class FreezeExec(NodeExec):

@@ -6,9 +6,11 @@ path, metrics, spans and the fault plan, as in the reference.
 Under an engine mesh (``set_engine_mesh`` or ``PATHWAY_ENGINE_SHARDS`` > 1,
 ``parallel/mesh.py``) the stateful operators shard their keyed state
 (``engine/sharded.py``) and every tick ends with the frontier consensus, a
-min-all-reduce over the shards (``frontier_syncs``). Not ported, and
-raising ``NotImplementedError`` rather than running without it: the
-multi-process engine (``PATHWAY_PROCESSES`` > 1; [mesh]). Every tick lands
+min-all-reduce over the shards (``frontier_syncs``). In a process group
+(``PATHWAY_PROCESSES`` > 1) the runtime joins the host mesh
+(``parallel/host_exchange.py``), every stateful node builds its
+cross-process exec (``engine/dcn.py``) and the ticks run in lockstep: a
+barrier on ``("tick", next)`` agrees each tick's time group-wide. Every tick lands
 in the runtime's Tick Scope recorder (``observability/tickscope.py``), as
 in the reference.
 
@@ -23,12 +25,10 @@ their work on the card inside their operator.
 
 from __future__ import annotations
 
-import os
 import threading
 import time as _time
 from typing import Any, Callable, Iterable, Sequence
 
-from pathway_tpu_torch._unported import MESH, unported
 from pathway_tpu_torch.engine.batch import END_OF_TIME, DiffBatch
 import concurrent.futures as _cf
 
@@ -277,23 +277,6 @@ class StreamingSource:
         pass
 
 
-
-def _dcn_requested() -> bool:
-    """True when the reference's env contract asks for a multi-process
-    engine group (``PATHWAY_PROCESSES`` > 1, ``PATHWAY_DCN`` not 0)."""
-    n = int(os.environ.get("PATHWAY_PROCESSES", "1") or 1)
-    return n > 1 and os.environ.get("PATHWAY_DCN", "1") != "0"
-
-
-def refuse_unported_fabric(distributed: bool = True) -> None:
-    """Raise naming [mesh] when the env asks for an exchange fabric the
-    port does not run: a multi-process engine group (checked unless
-    ``distributed`` is False, as for an inner runtime). The ``Runtime`` and
-    ``parallel.exchange_topology`` both refuse through it rather than run,
-    or describe, a single process."""
-    if distributed and _dcn_requested():
-        raise unported("the multi-process engine (PATHWAY_PROCESSES>1)", MESH)
-
 class RuntimeStats:
     """Prober-style counters (reference: ProberStats src/engine/graph.rs:533,
     connector monitors src/connectors/monitoring.rs) — fed to the
@@ -347,11 +330,35 @@ class Runtime:
                 n for n in self.order if n.id in _late
             ]
         annotate_live_columns(self.order)
-        # the multi-process engine (reference: stateful execs exchange host
-        # rows over a TCP mesh, ticks in lockstep across the process group)
-        # is not ported; it raises rather than run each process alone.
-        # Inner runtimes pass distributed=False.
-        refuse_unported_fabric(distributed is not False)
+        # multi-process engine (DCN rung): stateful execs exchange host rows
+        # over the TCP mesh and ticks run in lockstep across the process
+        # group (reference: timely workers over the TCP mesh,
+        # src/engine/dataflow/config.rs:88-121). Inner runtimes (iterate,
+        # interactive) pass distributed=False — they must not join the
+        # group's barrier cadence.
+        from pathway_tpu_torch.parallel.host_exchange import dcn_active
+
+        # created BEFORE the failure listener below can fire: the mesh
+        # replays already-detected failures synchronously at
+        # registration, and _on_peer_failure sets this event
+        self._wake = threading.Event()
+        self.dcn = dcn_active() if distributed is None else (
+            distributed and dcn_active()
+        )
+        self.host_mesh = None
+        if self.dcn:
+            from pathway_tpu_torch.parallel.host_exchange import get_host_mesh
+
+            self.host_mesh = get_host_mesh()
+            # learn about a dead peer at DETECTION time (reader EOF, send
+            # failure, liveness timeout) instead of inside the next gather:
+            # serving flips to stale reads and the streaming loop wakes so
+            # the pending barrier surfaces the HostMeshError at once
+            self.host_mesh.add_failure_listener(self._on_peer_failure)
+        # every stateful operator type has a cross-process exchange wrapper
+        # (engine/dcn.py), as the reference's universal Exchange pact
+        for node in self.order:
+            node._dcn = self.dcn
         # engine-level mesh sharding: the stateful execs shard (their
         # _make_local_exec reads the same mesh) and the per-tick frontier
         # consensus is a min-all-reduce over the shards
@@ -361,7 +368,6 @@ class Runtime:
         self.global_frontier = 0
         self.frontier_syncs = 0
         self._frontier_base: int | None = None
-        self._wake = threading.Event()
         self._stop = threading.Event()
         self.execs: dict[int, NodeExec] = {
             node.id: node.make_exec() for node in self.order
@@ -428,6 +434,7 @@ class Runtime:
         from pathway_tpu_torch.observability.tracing import get_tracer
 
         self._tracer = get_tracer()
+        self._tick_traceparent: str | None = None  # lockstep: set per round
         self.http_server = None  # set by start_http_server when attached
         # Fault Forge (chaos testing): None unless PATHWAY_FAULTS is set,
         # so the per-tick cost is one attribute check
@@ -486,6 +493,30 @@ class Runtime:
                 )
 
     # --- core tick ------------------------------------------------------------
+
+    def _on_peer_failure(self, peer: int, reason: str) -> None:
+        """FailureListener (called from mesh internal threads): the
+        surviving group drains its in-flight tick — completed ticks are
+        already durably committed per tick — and exits for a supervised
+        whole-group restart from the latest group-committed snapshot
+        generation. While that happens, the Surge Gate serves stale."""
+        if not getattr(self, "_phoenix_active", True):
+            # this run already finished: a peer exiting after a clean
+            # group shutdown is the normal end of the job, not a
+            # failure to recover from
+            return
+        import logging
+
+        logging.getLogger("pathway_tpu_torch").warning(
+            "runtime: peer %d failed (%s); draining for supervised "
+            "group restart",
+            peer,
+            reason,
+        )
+        from pathway_tpu_torch.serving import degrade
+
+        degrade.enter_recovery(f"peer {peer} failed: {reason}")
+        self._wake.set()
 
     def _process_node(self, node, t, produced, injected, final, stats):
         runner = None
@@ -593,14 +624,17 @@ class Runtime:
         """Process one logical time: push diffs through all nodes in topo
         order. `injected` maps input-node id -> batches. The whole tick
         runs under an ``engine.tick`` span parented on the trace being
-        served (the pending REST request) so per-operator child spans
-        attribute the tick's work to that request."""
+        served (pending REST request, or the barrier-agreed group trace
+        in lockstep mode) so per-operator child spans attribute the
+        tick's work to that request."""
         if not self._tracer.enabled:
             self._tick_inner(t, injected)
             return
         from pathway_tpu_torch.observability import tracing
 
-        parent = tracing.pending_context()
+        parent = tracing.parse_traceparent(self._tick_traceparent)
+        if parent is None:
+            parent = tracing.pending_context()
         with self._tracer.span(
             "engine.tick", parent=parent, root=True, t=t
         ):
@@ -682,7 +716,10 @@ class Runtime:
     def run_static(self) -> None:
         """Run all static sources to completion, merging events by time
         (deterministic 'batch mode' — reference PersistenceMode::Batch).
-        The reference's multi-process lockstep variant is not ported."""
+        Multi-process: tick times are agreed by a min-barrier over the host
+        mesh, so every process ticks the same logical times in lockstep —
+        DCN execs then exchange exactly one partition per (channel, tick,
+        peer) and the barrier doubles as the frontier consensus."""
         events: list[tuple[int, int, DiffBatch]] = []  # (time, node_id, batch)
         for node in self.order:
             if isinstance(node, InputNode) and isinstance(
@@ -693,13 +730,32 @@ class Runtime:
         events.sort(key=lambda e: e[0])
         i = 0
         n = len(events)
-        while i < n:
-            t = events[i][0]
-            injected: dict[int, list[DiffBatch]] = {}
+        if self.host_mesh is None:
+            while i < n:
+                t = events[i][0]
+                injected: dict[int, list[DiffBatch]] = {}
+                while i < n and events[i][0] == t:
+                    injected.setdefault(events[i][1], []).append(events[i][2])
+                    i += 1
+                self.tick(t, injected)
+            self.tick(END_OF_TIME)
+            return
+        while True:
+            local_next = events[i][0] if i < n else END_OF_TIME
+            vals = self.host_mesh.barrier(("tick", local_next))
+            # the barrier frames carried every process's traceparent:
+            # adopt the group's pick so all processes' tick spans (and
+            # their DCN exchanges) land in ONE trace
+            self._tick_traceparent = self.host_mesh.group_traceparent()
+            t = min(v[1] for v in vals.values())
+            if t >= END_OF_TIME:
+                break
+            injected = {}
             while i < n and events[i][0] == t:
                 injected.setdefault(events[i][1], []).append(events[i][2])
                 i += 1
             self.tick(t, injected)
+            self.global_frontier = t
         self.tick(END_OF_TIME)
 
     # --- streaming run --------------------------------------------------------
@@ -720,6 +776,9 @@ class Runtime:
                         static_events.append((t, node.id, batch))
         for _node, src in sources:
             src.start()
+        if self.host_mesh is not None:
+            self._run_streaming_lockstep(sources, static_events)
+            return
         # feed all static data at the first tick
         last_t = 0
         if static_events:
@@ -790,6 +849,73 @@ class Runtime:
         self._stop.set()
         self._wake.set()
 
+    def _run_streaming_lockstep(self, sources, static_events) -> None:
+        """Streaming loop for the multi-process engine: every autocommit
+        interval the group exchanges (proposed time, has-data, all-done)
+        over the host mesh; if anyone has data, EVERY process ticks at the
+        min proposed time (possibly with empty input), so DCN exchanges
+        and the per-tick frontier stay aligned. Termination needs group
+        consensus: all sources finished everywhere and no data in flight."""
+        first_static: dict[int, list[DiffBatch]] | None = None
+        if static_events:
+            first_static = {}
+            for _t, nid, batch in static_events:
+                first_static.setdefault(nid, []).append(batch)
+        last_t = 0
+        while True:
+            if first_static is None:
+                self._wake.wait(timeout=self.autocommit_ms / 1000.0)
+                self._wake.clear()
+            injected: dict[int, list[DiffBatch]] = (
+                first_static if first_static is not None else {}
+            )
+            any_data = bool(injected)
+            all_done = True
+            for node, src in sources:
+                rows = src.session.drain()
+                if rows:
+                    any_data = True
+                    injected.setdefault(node.id, []).append(
+                        DiffBatch.from_rows(rows, src.column_names)
+                    )
+                if not src.session.finished:
+                    all_done = False
+            first_static = None
+            # stop() must be group-coordinated: a process leaving the
+            # lockstep cadence unilaterally would strand peers at their
+            # next gather. Any process's stop request stops the group at
+            # this round, BEFORE the tick, so the final END tick pairs up.
+            vals = self.host_mesh.barrier(
+                (
+                    "stream",
+                    self._now_ms(),
+                    any_data,
+                    all_done,
+                    self._stop.is_set(),
+                )
+            )
+            group_stop = any(v[4] for v in vals.values())
+            group_any = any(v[2] for v in vals.values())
+            group_done = all(v[3] for v in vals.values())
+            self._tick_traceparent = self.host_mesh.group_traceparent()
+            if group_any:
+                # rows already drained from sessions advanced their offset
+                # markers — they must be ticked (and so logged) even when
+                # stopping, or a post-restart seek would skip them
+                t = max(min(v[1] for v in vals.values()), last_t + 2)
+                last_t = t
+                self.tick(t, injected)
+                self.global_frontier = t
+            if group_stop or (group_done and not group_any):
+                break
+        for _node, src in sources:
+            src.stop()
+        self.tick(END_OF_TIME)
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._wake.set()
+
     def _frontier_consensus(self, t: int) -> int:
         """min-all-reduce of the local clock across engine shards. Times are
         wall-clock ms (> int32), so the collective carries the int32 offset
@@ -827,12 +953,16 @@ class Runtime:
             and isinstance(node.source, StreamingSource)
             for node in self.order
         )
+        self._phoenix_active = True
         try:
             if has_streaming:
                 self.run_streaming()
             else:
                 self.run_static()
         finally:
+            # peers exiting after this point are a clean group shutdown,
+            # not a failure (the mesh singleton outlives the run)
+            self._phoenix_active = False
             if self._pool is not None:
                 self._pool.shutdown(wait=True, cancel_futures=True)
                 self._pool = None

@@ -1,6 +1,6 @@
-"""The port's own copy of ``pathway_tpu/internals/iterate.py``. It leaves
-out the multi-process engine's ``DcnIterateExec``: under DCN
-``IterateNode.make_exec`` raises naming [mesh]. A depth's inner runtime
+"""The port's own copy of ``pathway_tpu/internals/iterate.py``. In a
+process group ``IterateNode.make_exec`` builds ``engine/dcn.py``'s
+``DcnIterateExec`` (the fixpoint runs on process 0). A depth's inner runtime
 keeps its own Tick Scope recorder and does not replace the outer runtime's
 as the process's published one (``tickscope.recorder()``).
 
@@ -34,7 +34,6 @@ from __future__ import annotations
 
 from typing import Any, Callable
 
-from pathway_tpu_torch._unported import MESH, unported
 from pathway_tpu_torch.engine.batch import DiffBatch, MultisetState, _values_eq
 from pathway_tpu_torch.engine.nodes import InputNode, Node, NodeExec, OutputNode
 from pathway_tpu_torch.engine.runtime import Runtime, StaticSource
@@ -84,7 +83,9 @@ class IterateNode(Node):
 
     def make_exec(self):
         if getattr(self, "_dcn", False):
-            raise unported("pw.iterate under the multi-process engine", MESH)
+            from pathway_tpu_torch.engine.dcn import DcnIterateExec
+
+            return DcnIterateExec(self)
         return self._make_local_exec()
 
 

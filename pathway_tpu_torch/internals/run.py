@@ -52,8 +52,10 @@ def run(
     restores the store's state before the first tick and records every tick
     into it (``persistence/_runtime_glue.py``).
 
-    The multi-process engine is not ported: a process group raises naming
-    [mesh].
+    In a process group (``python -m pathway_tpu_torch.cli spawn -n N``)
+    the runtime joins the host mesh; the device group on
+    ``torch.distributed`` is joined too when ``PATHWAY_JAX_DISTRIBUTED=1``
+    (the reference's variable, so one env means the same to both packages).
     """
     if _build_only:
         return
@@ -69,7 +71,29 @@ def run(
         from pathway_tpu_torch.analysis import check_before_run
 
         check_before_run(seeds, diagnostics)
-    # a multi-process group (PATHWAY_PROCESSES > 1) raises in Runtime
+    # join the process group when `spawn -n N` launched us (reference env
+    # contract PATHWAY_PROCESSES/PROCESS_ID, config.rs:88). The engine's
+    # multi-process transport is the host mesh (TCP), which the Runtime
+    # joins itself; the torch.distributed device group is needed only for
+    # cross-process device collectives (sharded KNN) and is joined when
+    # PATHWAY_JAX_DISTRIBUTED=1.
+    import os as _os
+
+    from pathway_tpu_torch.parallel.host_exchange import dcn_active
+
+    if not dcn_active() or _os.environ.get("PATHWAY_JAX_DISTRIBUTED") == "1":
+        from pathway_tpu_torch.parallel.distributed import maybe_initialize
+
+        maybe_initialize()
+    else:
+        import logging
+
+        logging.getLogger("pathway_tpu_torch").warning(
+            "multi-process engine: host-row exchange active; cross-process "
+            "DEVICE collectives (sharded KNN over torch.distributed) "
+            "are disabled — set PATHWAY_JAX_DISTRIBUTED=1 to join the "
+            "device group as well"
+        )
     runtime = Runtime(seeds, autocommit_ms=autocommit_duration_ms)
     G.runtime = runtime
     G.last_runtime = runtime

@@ -197,6 +197,23 @@ def _kernel_local_topk(q, prep, valid, kk: int, metric: str):
     return bt.dense_topk_kernel(q, prep, valid, kk, metric=metric)
 
 
+def _local_candidates(q, prep, c2, valid, kk: int, metric: str, bf16: bool, offset: int):
+    """One shard's top ``kk`` with ids offset by ``offset`` (the shard's
+    first global row): for cosine or dot with ``kk <= 1024`` the block
+    top-k kernel over the shard's prepared slice, else the plain
+    ``dense_topk_prepared``, as the unsharded index does. The per-shard
+    step of :func:`sharded_topk` and of the multi-process
+    ``parallel.distributed.sharded_topk_global``."""
+    from pathway_tpu_torch.ops import block_topk as bt
+
+    n = prep.shape[0]
+    if metric in ("cosine", "dot") and bt.supported(n + (-n % BLK), kk):
+        sc, ix = _kernel_local_topk(q, prep, valid, kk, metric)
+    else:
+        sc, ix = dense_topk_prepared(q, prep, c2, valid, kk, metric=metric, bf16=bf16)
+    return sc, ix.to(torch.int32) + offset
+
+
 def sharded_topk(
     queries: Any,  # [B, D] f32, replicated
     corpus: Any,  # [N, D] f32, or one [N/S, D] slice per shard
@@ -221,8 +238,6 @@ def sharded_topk(
     ``dense_topk_prepared``, as the unsharded index does. ``prepared``
     passes each shard's ``prepare_corpus(slice, metric, bf16)`` when the
     caller keeps them (``DeviceCorpus.prepared_arrays``)."""
-    from pathway_tpu_torch.ops import block_topk as bt
-
     slices = shard_rows(corpus, mesh, axis)
     valids = shard_rows(valid, mesh, axis)
     per = slices[0].shape[0]
@@ -233,11 +248,7 @@ def sharded_topk(
     candidates = []
     for s, ((prep, c2), v) in enumerate(zip(prepared, valids)):
         q = q_host.to(prep.device, torch.float32)
-        if metric in ("cosine", "dot") and bt.supported(per + (-per % BLK), kk):
-            sc, ix = _kernel_local_topk(q, prep, v, kk, metric)
-        else:
-            sc, ix = dense_topk_prepared(q, prep, c2, v, kk, metric=metric, bf16=bf16)
-        candidates.append((sc, ix.to(torch.int32) + s * per))
+        candidates.append(_local_candidates(q, prep, c2, v, kk, metric, bf16, s * per))
     return _merge_shards(candidates, k, mesh.device_of(0, axis))
 
 

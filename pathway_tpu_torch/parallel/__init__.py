@@ -10,13 +10,14 @@ replication wire of the read plane (counterpart of ``pathway_tpu/parallel``).
 * :mod:`~pathway_tpu_torch.parallel.wire` — the typed columnar frame codec;
 * :mod:`~pathway_tpu_torch.parallel.replicate` — the writer's
   ``DeltaStreamServer`` and the replicas' ``DeltaStreamClient``;
-* :mod:`~pathway_tpu_torch.parallel.host_exchange` — the handshake's HMAC
-  helpers only;
+* :mod:`~pathway_tpu_torch.parallel.host_exchange` — the host mesh
+  between engine processes (``HostMesh``, ``get_host_mesh``);
+* :mod:`~pathway_tpu_torch.parallel.distributed` — the device group on
+  ``torch.distributed`` and ``sharded_topk_global``;
 * :func:`exchange_topology` — the static exchange facts the Graph Doctor
   reads.
 
-The host mesh across processes (``parallel/distributed.py``, the rest of
-``host_exchange.py``) raises naming [mesh]. The standby writer and the
+The standby writer and the
 process-group supervisor (``parallel/standby.py``,
 ``parallel/supervisor.py``) raise naming [replication].
 """
@@ -36,16 +37,21 @@ from pathway_tpu_torch.parallel.mesh import (
 def exchange_topology() -> dict:
     """Static facts about the exchange fabric this process would execute
     with (the reference's ``parallel.exchange_topology``): engine key-shards
-    over the device mesh and one process. A process group raises naming
-    [mesh], through the ``Runtime``'s own refusal, rather than describe a
-    fabric it would not run."""
-    from pathway_tpu_torch.engine.runtime import refuse_unported_fabric
+    over the device mesh and peer processes on the host mesh. Consumed by
+    the Graph Doctor's graph-stats rule; cheap enough to call at graph-build
+    time."""
+    from pathway_tpu_torch.parallel.host_exchange import dcn_active, process_env
     from pathway_tpu_torch.parallel.mesh import get_engine_mesh
 
-    refuse_unported_fabric()
+    n_procs, _pid, _port, _host = process_env()
     em = get_engine_mesh()
     shards = em[0].shape[em[1]] if em is not None else 1
-    return {"engine_shards": shards, "dcn_processes": 1, "sharding_active": shards > 1}
+    dcn = n_procs if dcn_active() else 1
+    return {
+        "engine_shards": shards,
+        "dcn_processes": dcn,
+        "sharding_active": shards > 1 or dcn > 1,
+    }
 
 
 __all__ = [

@@ -4,10 +4,12 @@ layout (``metadata.json``, ``inputs/``, ``offsets/``, ``states/gen-*``,
 Every blob is pickled through ``_pickle.py``, which names the classes both
 packages share by the JAX package's module paths and maps them back on load.
 
-The multi-process branches of the reference (the host mesh's group-safe
-snapshot points, the two-phase generation commit, the retained generations
-and the lockstep replay) come with ROADMAP [mesh]: the port's runtime has
-none of them, so the single-process path below is all of it. A restarted
+In a process group (the runtime holds a host mesh) the reference's
+multi-process branches run as well: operator snapshots only at group-safe
+points (the head of a lockstep tick), a commit every tick, the superseded
+generations retained until the ``gen-commit`` barrier confirms the group
+minimum (``group_commit.json``), and the replay restoring one agreed
+generation and replaying the log tail in lockstep. A restarted
 replication writer floors its delta publisher at the restored state's time,
 as the reference does; ``state_key``/``segment_key`` name the blobs an
 out-of-process reader (a read replica's hydration) loads.
@@ -71,8 +73,8 @@ from pathway_tpu_torch.persistence.segments import (
 )
 
 _META_KEY = "metadata.json"
-_GROUP_COMMIT_KEY = "group_commit.json"  # written by the reference's
-# multi-process gen-commit barrier; read by resume_point
+_GROUP_COMMIT_KEY = "group_commit.json"  # durable audit record of the
+# last gen-commit barrier agreement (phase 2 of the generation commit)
 _log = logging.getLogger("pathway_tpu_torch")
 
 _M: dict | None = None
@@ -241,6 +243,12 @@ class PersistenceDriver:
             int(getattr(config, "snapshot_every", 8) or 8), 1
         )
         self._commits_since_snapshot = 0
+        # multi-process: GC deferred past the gen-commit barrier (phase
+        # 2 of the two-phase generation commit) — files are only retired
+        # once the whole group has confirmed a generation every rank can
+        # restore
+        self._pending_gc: tuple[dict, dict] | None = None
+        self._group_commit_time: int | None = None
         # mixed dependency: a node fed by BOTH a transient source and a
         # logged one is excluded from snapshots (its transient rows re-feed)
         # yet needs the logged rows to rebuild — truncating the log would
@@ -277,6 +285,9 @@ class PersistenceDriver:
         self.recovery_seconds = 0.0
         self.replayed_ticks = self.replayed_rows = 0
         self.snapshots: list[tuple[float, int]] = []
+        # multi-process: lockstep tick counter driving group-safe snapshot
+        # points (identical on every process — ticks are barrier-agreed)
+        self._ticks_seen = 0
         # incremental segment snapshots: segment keys this run may skip
         # rewriting. Primed from the keys the DURABLE metadata references
         # — NOT from a store listing: a crash between segment writes and
@@ -371,6 +382,27 @@ class PersistenceDriver:
         return out
 
     def on_tick(self, t: int, injected: dict[int, list[DiffBatch]] | None = None):
+        hm = getattr(self.runtime, "host_mesh", None)
+        if (
+            hm is not None
+            and self.record
+            and self.snapshot_operators
+            and t < END_OF_TIME
+        ):
+            # group-safe snapshot point: we are at the HEAD of a lockstep
+            # tick, so the barrier that scheduled it has confirmed every
+            # peer completed (and, with per-tick commits below, durably
+            # logged) the previous tick. State captured here can never run
+            # ahead of any peer's durable input log — the reference's
+            # "all workers flushed up to T" consensus
+            # (src/persistence/state.rs:291) realized on the tick barrier.
+            if (
+                self._ticks_seen > 0
+                and self._ticks_seen % self.snapshot_every == 0
+            ):
+                self.commit(snapshot=True)
+                self._group_commit(hm)
+            self._ticks_seen += 1
         self._orig_tick(t, injected)
         if not self.record:
             # selective mode snapshots named operators on shutdown AND on
@@ -405,8 +437,12 @@ class PersistenceDriver:
                 if rows:
                     self._pending[pid].append((t, rows))
         # capture offsets AT LOG TIME: commit() persists this pairing,
-        # never the session's live last_offsets, which may already cover
-        # rows drained for the NEXT tick
+        # never the session's live last_offsets. The live value already
+        # covers rows drained for the NEXT tick (the lockstep loop
+        # drains before calling tick), so a commit running at the head
+        # of a tick — the group-safe snapshot point — would otherwise
+        # persist offsets ahead of the durable log and a mid-tick death
+        # would LOSE those rows on resume.
         for pid, node in self.inputs.items():
             session = getattr(node.source, "session", None)
             if session is not None and getattr(
@@ -415,14 +451,22 @@ class PersistenceDriver:
                 self._offsets_at_log[pid] = session.last_offsets
         if t >= END_OF_TIME:
             self.commit(final=True)
+            if hm is not None:
+                self._group_commit(hm)
             return
         self._last_real_time = max(self._last_real_time, t)
         now = time.monotonic()
-        if (now - self._last_commit_wall) * 1000.0 >= self.snapshot_interval_ms:
+        if hm is not None:
+            # multi-process: the input log must be durable before the next
+            # barrier round lets any peer snapshot state derived from this
+            # tick's exchanged rows — commit every tick
+            self._last_commit_wall = now
+            self.commit()
+        elif (now - self._last_commit_wall) * 1000.0 >= self.snapshot_interval_ms:
             self._last_commit_wall = now
             self.commit()
 
-    def commit(self, final: bool = False) -> None:
+    def commit(self, final: bool = False, snapshot: bool = False) -> None:
         """Atomically advance the durable frontier: flush pending log chunks,
         snapshot source offsets (and, periodically, every operator's state),
         then write metadata last (metadata names exactly the chunks +
@@ -467,10 +511,14 @@ class PersistenceDriver:
             session = getattr(src, "session", None)
             if session is not None:
                 # only offsets captured when their covered rows were
-                # appended to the log (on_tick)
+                # appended to the log (on_tick) — the session's LIVE
+                # last_offsets can already cover the next tick's drained
+                # -but-unlogged rows when this commit runs at the head
+                # of a tick (group-safe snapshot point)
                 state = self._offsets_at_log.get(pid)
                 # last_offsets is REASSIGNED per drain, so identity
-                # detects change: idle commits skip the rewrite
+                # detects change: idle ticks (a group commits every tick)
+                # skip the rewrite entirely
                 if state is self._offsets_persisted.get(pid):
                     state = None
             elif isinstance(src, StaticSource):
@@ -490,10 +538,16 @@ class PersistenceDriver:
                 offsets_changed = True
         snap = None
         self._commits_since_snapshot += 1
+        dcn = getattr(self.runtime, "host_mesh", None) is not None
         if self.snapshot_operators and (
             final  # clean shutdown always snapshots: restarts restore
             # accumulator state (deduplicate) even for short runs
-            or (wrote and self._commits_since_snapshot >= self.snapshot_every)
+            or snapshot  # explicit group-safe snapshot point (on_tick)
+            or (
+                not dcn  # multi-process snapshots ONLY at group-safe points
+                and wrote
+                and self._commits_since_snapshot >= self.snapshot_every
+            )
         ):
             snap = self._snapshot_operators(meta)
         if wrote or offsets_changed or final or snap:
@@ -504,6 +558,33 @@ class PersistenceDriver:
                 meta["offsets"] = offsets_named
                 meta["offsets_seq"] = oseq
             if snap:
+                if dcn:
+                    # multi-process: RETAIN every superseded generation
+                    # (state + the chunks between snapshots) until the
+                    # gen-commit barrier confirms the whole group holds
+                    # something newer — GC then trims the list back to
+                    # one. Snapshot points are lockstep-aligned, so the
+                    # steady-state list length is one (the old prev_state
+                    # behavior); a degraded rank (unpicklable state)
+                    # grows it, and every healthy rank keeps enough
+                    # history for the group-min restore (reference:
+                    # consistent frontier across workers,
+                    # src/persistence/state.rs:291)
+                    if meta.get("state"):
+                        retained = list(meta.get("retained_states", ()))
+                        retained.append(
+                            {
+                                "state": meta["state"],
+                                "chunks": {
+                                    pid: list(v)
+                                    for pid, v in self._live_chunks.items()
+                                },
+                            }
+                        )
+                        meta["retained_states"] = retained
+                        # legacy mirrors (older readers + replay fallback)
+                        meta["prev_state"] = meta["state"]
+                        meta["prev_chunks"] = retained[-1]["chunks"]
                 meta["state"] = snap
                 meta["live_chunks"] = self._live_chunks = {
                     pid: [] for pid in self._live_chunks
@@ -524,7 +605,46 @@ class PersistenceDriver:
                     self.store.remove(key)
             if snap:
                 self._commits_since_snapshot = 0
-                self._gc(meta, snap)
+                if dcn and self.record:
+                    # phase 2 (the gen-commit barrier in on_tick) decides
+                    # whether this generation's GC may run. Selective
+                    # mode never joins that barrier (its interval
+                    # snapshots are wall-clock-driven, not lockstep-
+                    # aligned), so it keeps the immediate GC below.
+                    self._pending_gc = (meta, snap)
+                else:
+                    self._gc(meta, snap)
+
+    def _group_commit(self, hm) -> None:
+        """Two-phase generation commit (Phoenix Mesh). Phase 1 is the
+        local durable snapshot commit (commit(snapshot=True) — atomic on
+        metadata). Phase 2 is this barrier: every rank exchanges the
+        time of its newest durable generation; the group minimum —
+        the newest state the WHOLE group can restore — gates the
+        deferred GC (only once it has caught up to a rank's own
+        generation does that rank retire superseded files, so no rank
+        ever deletes what a lagging/degraded peer's group-min restore
+        still needs) and is recorded under ``group_commit.json`` as the
+        durable audit record of the agreement (restore re-derives the
+        agreement with a live barrier over what is actually restorable;
+        the retained-generation list guarantees that minimum exists on
+        every rank even when a rank dies between the two phases)."""
+        pending, self._pending_gc = self._pending_gc, None
+        meta = pending[0] if pending is not None else self._load_meta()
+        local = (
+            int(meta["state"].get("time", 0)) if meta.get("state") else -1
+        )
+        vals = hm.barrier(("gen-commit", local))
+        group = min(v[1] for v in vals.values())
+        if group >= 0 and group != self._group_commit_time:
+            self._group_commit_time = group
+            self.store.put(
+                _GROUP_COMMIT_KEY, json.dumps({"time": group}).encode()
+            )
+        if pending is not None:
+            _meta, snap = pending
+            if int(snap.get("time", -1)) <= group:
+                self._gc(_meta, snap)
 
     @staticmethod
     def _state_key(gen: int, ident) -> str:
@@ -638,8 +758,44 @@ class PersistenceDriver:
         """After the metadata naming the new generation is durable, delete
         the input chunks the snapshot covers, older state generations, and
         segment files no retained generation references (compaction
-        retires dead segments)."""
+        retires dead segments).  Multi-process keeps one extra generation
+        (state + the inter-snapshot chunks) so a restart can restore the
+        group-min time."""
         keep_segments = set(snap.get("segment_keys", ()))
+        if getattr(self.runtime, "host_mesh", None) is not None:
+            # the group confirmed this generation (gen-commit barrier):
+            # trim the retained list back to ONE superseded generation
+            # (the lockstep skew bound), then retire files nothing kept
+            # references. Metadata is trimmed FIRST — a crash here
+            # orphans files (harmless: _segments_present is primed from
+            # metadata, so re-minted ids overwrite them) instead of
+            # naming deleted ones.
+            retained = list(meta.get("retained_states", ()))
+            kept = retained[-1:]
+            meta["retained_states"] = kept
+            if kept:
+                meta["prev_state"] = kept[-1]["state"]
+                meta["prev_chunks"] = kept[-1]["chunks"]
+            self.store.put(_META_KEY, json.dumps(meta).encode())
+            keep_inputs = {
+                f"inputs/{pid}/chunk-{i:08d}.pkl"
+                for entry in kept
+                for pid, ids in entry.get("chunks", {}).items()
+                for i in ids
+            }
+            for key in self.store.list_keys("inputs/"):
+                if key not in keep_inputs:
+                    self.store.remove(key)
+            keep = {f"states/gen-{snap['gen']:06d}/"}
+            for entry in kept:
+                prev = entry.get("state") or {}
+                keep.add(f"states/gen-{int(prev['gen']):06d}/")
+                keep_segments.update(prev.get("segment_keys", ()))
+            for key in self.store.list_keys("states/"):
+                if not any(key.startswith(p) for p in keep):
+                    self.store.remove(key)
+            self._gc_segments(keep_segments)
+            return
         for key in self.store.list_keys("inputs/"):
             self.store.remove(key)
         prefix = f"states/gen-{snap['gen']:06d}/"
@@ -679,11 +835,61 @@ class PersistenceDriver:
         }
         if not self.replay_allowed:
             return
+        # multi-process: replay ticks must run in lockstep like live ticks
+        # (DCN exchanges pair by (channel, tick) group-wide), and the
+        # whole group must restore at ONE agreed time — a process whose
+        # snapshot is newer than a peer's would otherwise skip replaying
+        # logged rows the peer's state still needs. Snapshot generations
+        # are lockstep-aligned with skew <= 1, and commit() retains the
+        # previous generation, so the group-min time is always locally
+        # restorable (the reference's cross-worker flushed-frontier
+        # consensus, src/persistence/state.rs:291).
+        hm = getattr(self.runtime, "host_mesh", None)
         state_time = -1  # -1 = no snapshot: replay everything incl. t=0
         t0 = time.monotonic()
-        snap = meta.get("state")
-        if snap:
-            state_time = self._restore_operators(snap)
+        if hm is None:
+            snap = meta.get("state")
+            if snap:
+                state_time = self._restore_operators(snap)
+        else:
+            latest = meta.get("state")
+            # candidates newest-first: latest, then every retained
+            # superseded generation (legacy metadata: prev_state). The
+            # gen-commit barrier's retained list guarantees the group
+            # minimum is locally restorable on every rank.
+            older = [
+                r.get("state")
+                for r in reversed(meta.get("retained_states", []))
+                if r.get("state")
+            ]
+            if not older and meta.get("prev_state"):
+                older = [meta["prev_state"]]
+            latest_time = int(latest.get("time", 0)) if latest else -1
+            vals = hm.barrier(("replay-gen", latest_time))
+            group_time = min(v[1] for v in vals.values())
+            chosen = None
+            if group_time >= 0:
+                for cand in [latest] + older:
+                    if cand and int(cand.get("time", 0)) <= group_time:
+                        chosen = cand
+                        break
+            # the phase-2 audit record: what the group had confirmed
+            # restorable before the crash — surfaced so an operator can
+            # compare it with what this recovery actually picked
+            marker_raw = self.store.get(_GROUP_COMMIT_KEY)
+            if marker_raw is not None:
+                import logging
+
+                logging.getLogger("pathway_tpu_torch").info(
+                    "group recovery: restoring generation at time %s "
+                    "(live group agreement %s; last durable gen-commit "
+                    "agreement %s)",
+                    chosen.get("time") if chosen else None,
+                    group_time,
+                    json.loads(marker_raw.decode()).get("time"),
+                )
+            if chosen is not None:
+                state_time = self._restore_operators(chosen)
         self.restore_seconds = time.monotonic() - t0
         # Replica Shield: a restarted WRITER restored the index at
         # state_time — ticks at or before it are not in the (fresh)
@@ -697,10 +903,27 @@ class PersistenceDriver:
             pub = replicate.publisher()
             if pub is not None:
                 pub.set_floor(state_time)
+        # receiver-side floor: drop exchanged partitions already covered
+        # by this process's restored state
+        if hm is not None and state_time >= 0:
+            for ex in self.runtime.execs.values():
+                if hasattr(ex, "replay_floor"):
+                    ex.replay_floor = state_time
+        # sender-side floor must be the GROUP minimum: rows this process
+        # logged may route to a peer restored at an older time (e.g. a
+        # structural-mismatch fallback on one process)
+        if hm is not None:
+            vals = hm.barrier(("replay-floor", state_time))
+            group_floor = min(v[1] for v in vals.values())
+        else:
+            group_floor = state_time
         need_emit = any(
             getattr(ex, "_restore_emit", None)
             for ex in self.runtime.execs.values()
         )
+        if hm is not None:
+            vals = hm.barrier(("replay-emit", need_emit))
+            need_emit = any(v[1] for v in vals.values())
         if need_emit:
             # flush restored-accumulator re-emissions at the run's
             # INITIAL time, before any log-tail replay at later times —
@@ -713,13 +936,29 @@ class PersistenceDriver:
             chunk_ids = self._live_chunks.get(pid)
             if chunk_ids is None:  # pre-compaction metadata: contiguous
                 chunk_ids = list(range(meta.get("chunks", {}).get(pid, 0)))
+            if hm is not None:
+                # retained-generation chunks too: they cover the spans
+                # between the retained generations, needed when the
+                # group restores an older one
+                retained_chunks = [
+                    i
+                    for r in meta.get("retained_states", [])
+                    for i in r.get("chunks", {}).get(pid, [])
+                ]
+                if not retained_chunks:
+                    retained_chunks = list(
+                        meta.get("prev_chunks", {}).get(pid, [])
+                    )
+                chunk_ids = list(
+                    dict.fromkeys(retained_chunks + list(chunk_ids))
+                )
             for i in chunk_ids:
                 raw = self.store.get(f"inputs/{pid}/chunk-{i:08d}.pkl")
                 if raw is None:
                     continue
                 for t, rows in _pickle.loads(raw):
-                    if t <= state_time:
-                        continue  # covered by the restored state
+                    if t <= group_floor:
+                        continue  # covered by every process's state
                     events.append(
                         (t, node.id, DiffBatch.from_rows(rows, node.column_names))
                     )
@@ -728,14 +967,28 @@ class PersistenceDriver:
         events.sort(key=lambda e: e[0])
         i, n = 0, len(events)
         ticks = 0
-        while i < n:
-            t = events[i][0]
-            injected: dict[int, list[DiffBatch]] = {}
-            while i < n and events[i][0] == t:
-                injected.setdefault(events[i][1], []).append(events[i][2])
-                i += 1
-            self._orig_tick(t, injected)
-            ticks += 1
+        if hm is None:
+            while i < n:
+                t = events[i][0]
+                injected: dict[int, list[DiffBatch]] = {}
+                while i < n and events[i][0] == t:
+                    injected.setdefault(events[i][1], []).append(events[i][2])
+                    i += 1
+                self._orig_tick(t, injected)
+                ticks += 1
+        else:
+            while True:
+                local_next = events[i][0] if i < n else END_OF_TIME
+                vals = hm.barrier(("replay", local_next))
+                t = min(v[1] for v in vals.values())
+                if t >= END_OF_TIME:
+                    break
+                injected = {}
+                while i < n and events[i][0] == t:
+                    injected.setdefault(events[i][1], []).append(events[i][2])
+                    i += 1
+                self._orig_tick(t, injected)
+                ticks += 1
         self.replayed_ticks = ticks
         self.replay_seconds = time.monotonic() - t0
         t0 = time.monotonic()

@@ -1,9 +1,6 @@
-"""pathway_tpu_torch.testing — the fault plan (``faults.py``). The chaos
-drivers of process groups (``testing/chaos.py``) raise naming [mesh]."""
+"""pathway_tpu_torch.testing — the fault plan (``faults.py``) and the chaos
+drivers' shared helpers (``chaos.py``)."""
 
-from pathway_tpu_torch._unported import MESH, package_getattr
-from pathway_tpu_torch.testing import faults
+from pathway_tpu_torch.testing import chaos, faults
 
-__getattr__ = package_getattr("pathway_tpu_torch.testing", {"chaos": MESH})
-
-__all__ = ["faults"]
+__all__ = ["chaos", "faults"]

@@ -1367,3 +1367,112 @@ def test_engine_shards_on_the_card(dev, monkeypatch):
     ex = next(e for e in rt.execs.values() if isinstance(e, sharded.ShardedGroupByExec))
     assert ex.router.device_exchanges > 0 and rt.frontier_syncs > 0
     assert rt.engine_mesh[0].shard_devices()[0].type == "cuda"
+
+
+# --- the device group on the card: sharded_topk_global --------------------------
+
+
+def test_sharded_topk_global_one_rank_launches_the_kernel(dev):
+    """Outside a group (one rank) sharded_topk_global is the block top-k
+    kernel once over the rank's corpus on the card: integer-grid scores
+    are exact, so the ids equal the plain dense top-k's, ties included."""
+    from pathway_tpu_torch.ops import block_topk as bt
+    from pathway_tpu_torch.ops.knn import dense_topk
+    from pathway_tpu_torch.parallel.distributed import sharded_topk_global
+
+    q, c, valid = _grid(8192, 64, 4, torch.float32, dev)
+    before = bt.block_topk.launches, bt.block_topk.corpus_rows.copy()
+    sc, ix = sharded_topk_global(q.cpu().numpy(), c, valid, 10, metric="dot", bf16=False)
+    assert bt.block_topk.launches == before[0] + 1
+    assert bt.block_topk.corpus_rows - before[1] == {8192: 1}
+    sr, ir = dense_topk(q, c, valid, 10, metric="dot", bf16=False)
+    assert ix.tolist() == ir.cpu().tolist()
+    np.testing.assert_allclose(sc, sr.cpu().numpy(), atol=1e-5)
+
+
+_GLOBAL_RANK = """
+import json, os, sys
+import numpy as np
+import torch
+from pathway_tpu_torch.ops import block_topk as bt
+from pathway_tpu_torch.parallel import distributed as dist
+assert dist.maybe_initialize(device="cuda")
+import torch.distributed as td
+assert td.get_backend() == "gloo" and td.get_world_size() == 2
+pid = td.get_rank()
+g = np.random.default_rng(3)
+corpus = g.integers(-2, 3, size=(2 * 4096, 64)).astype(np.float32)
+corpus[5000] = corpus[10]  # a tie across the two shards
+q = g.integers(-2, 3, size=(3, 64)).astype(np.float32)
+q[0] = corpus[10]
+valid = np.ones(2 * 4096, bool)
+valid[4096 + 7] = False
+lo, hi = pid * 4096, (pid + 1) * 4096
+sc, ix = dist.sharded_topk_global(q, corpus[lo:hi], valid[lo:hi], 10, metric="dot", bf16=False)
+# one write of the whole line: the ranks share spawn's stdout
+sys.stdout.write("RESULT " + json.dumps({"pid": pid, "ids": ix.tolist(), "scores": sc.tolist(),
+                                         "launches": bt.block_topk.launches, "rows": dict(bt.block_topk.corpus_rows),
+                                         "device": str(torch.cuda.current_device())}) + "\\n")
+sys.stdout.flush()
+"""
+
+
+def test_sharded_topk_global_two_gloo_ranks_on_one_card(dev, tmp_path):
+    """Two ranks spawned with the gloo backend share the card: each launches
+    block_topk once on its 4096-row shard there, the candidates gather on
+    the host, and both ranks' merged ids equal the plain dense top-k over
+    the whole corpus, the lower global id first on the tie."""
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from pathway_tpu_torch.ops.knn import dense_topk
+    from pathway_tpu_torch.testing.chaos import free_dcn_port
+
+    script = tmp_path / "rank.py"
+    script.write_text(_GLOBAL_RANK)
+    root = Path(__file__).resolve().parent.parent
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    env = {**os.environ, "PYTHONPATH": str(root), "PATHWAY_DCN_PORT": str(free_dcn_port(2))}
+    r = subprocess.run([sys.executable, "-m", "pathway_tpu_torch.cli", "spawn", "-n", "2", "--backend", "gloo",
+                        "--first-port", str(port), "--timeout", "240", "--", sys.executable, str(script)],
+                       capture_output=True, text=True, timeout=300, env=env, cwd=root)
+    assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
+    got = [json.loads(ln[7:]) for ln in r.stdout.splitlines() if ln.startswith("RESULT ")]
+    assert sorted(x["pid"] for x in got) == [0, 1]
+    g = np.random.default_rng(3)
+    corpus = g.integers(-2, 3, size=(2 * 4096, 64)).astype(np.float32)
+    corpus[5000] = corpus[10]
+    q = g.integers(-2, 3, size=(3, 64)).astype(np.float32)
+    q[0] = corpus[10]
+    valid = np.ones(2 * 4096, bool)
+    valid[4096 + 7] = False
+    sr, ir = dense_topk(torch.from_numpy(q).to(dev), torch.from_numpy(corpus).to(dev),
+                        torch.from_numpy(valid).to(dev), 10, metric="dot", bf16=False)
+    for x in got:
+        assert x["launches"] == 1 and x["rows"] == {"4096": 1}, x
+        assert x["ids"] == ir.cpu().tolist()
+        np.testing.assert_allclose(x["scores"], sr.cpu().numpy(), atol=1e-5)
+    assert got[0]["ids"][0][:2] == [10, 5000]
+
+
+def test_nccl_refuses_two_ranks_on_one_card(dev, monkeypatch):
+    """NCCL cannot place two ranks on one card: the device group raises
+    naming the cause and the gloo way before NCCL would fail opaquely."""
+    from pathway_tpu_torch.parallel import distributed as dist
+
+    if torch.cuda.device_count() > 1:
+        pytest.skip("more than one card: two ranks get a card each")
+    monkeypatch.setenv("PATHWAY_PROCESSES", "2")
+    monkeypatch.setenv("PATHWAY_PROCESS_ID", "0")
+    for k in ("LOCAL_WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(RuntimeError, match="NCCL refuses two ranks on one card"):
+        dist.maybe_initialize(device="cuda")
+    assert not dist.is_multiprocess()

@@ -306,12 +306,30 @@ def test_temporal_buffer_in_a_body_is_refused_like_reference():
             stream(pw, res)
 
 
-def test_iterate_under_the_multi_process_engine_raises_mesh():
+def test_iterate_under_the_multi_process_engine_raises_mesh(monkeypatch):
+    """Under the multi-process engine an iterate raised [mesh] until the
+    engine was ported: it builds the reference's ``DcnIterateExec`` now
+    (the fixpoint centralised on process 0) around its local exec."""
+    from pathway_tpu_torch.engine.dcn import DcnIterateExec
+    from pathway_tpu_torch.internals.iterate import IterateExec
+    from pathway_tpu_torch.parallel import host_exchange
+
+    class _Mesh:
+        n, pid = 2, 1
+
+    monkeypatch.setattr(host_exchange, "get_host_mesh", lambda: _Mesh())
     t = tpw.debug.table_from_markdown("   | a\n 1 | 1")
     res = tpw.iterate(lambda iterated: iterated.select(a=iterated.a), iterated=t)
     res._node._dcn = True
-    with pytest.raises(NotImplementedError, match=r"\[mesh\]"):
-        res._node.make_exec()
+    ex = res._node.make_exec()
+    assert isinstance(ex, DcnIterateExec) and isinstance(ex.inner, IterateExec)
+    assert ex.n == 2 and ex.dest_for(0, _one_row_batch()).tolist() == [0]
+
+
+def _one_row_batch():
+    from pathway_tpu_torch.engine.batch import DiffBatch
+
+    return DiffBatch.from_rows([(7, 1, (1,))], ["a"])
 
 
 def test_streaming_commits_wake_the_outer_runtime_only():

@@ -38,7 +38,11 @@ and a compiled chain on the CPU, pagerank and ``pw.viz.plot``'s refusal run
 with them blocked. The Graph Doctor, the launch ledger, the debug surfaces,
 signals, fleet federation, the monitoring server and its dashboard import
 with ``pandas``, ``rich`` and ``bokeh`` blocked, and a monitored, diagnosed
-run serves its routes with them blocked. Without a card, an entry point left
+run serves its routes with them blocked. The multi-process engine (the host mesh, the device
+group, the DCN execs, ``spawn``, the chaos helpers) imports with pandas and
+the clients blocked, and a two-process group spawned through the CLI runs
+a groupby and a join and searches ``sharded_topk_global`` on gloo with
+them blocked in every rank. Without a card, an entry point left
 on its default device (compiled ticks included) raises instead of falling
 back to the CPU."""
 
@@ -1122,3 +1126,78 @@ def test_default_device_raises_without_cuda():
     r = _run(_DEFAULT_DEVICE_RAISES)
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip().endswith("ok")
+
+
+# the multi-process engine: each imports with pandas and the clients
+# blocked, and a spawned two-process group runs with them blocked
+MULTI_PROCESS_MODULES = [
+    "pathway_tpu_torch.parallel.host_exchange",
+    "pathway_tpu_torch.parallel.distributed",
+    "pathway_tpu_torch.engine.dcn",
+    "pathway_tpu_torch.cli",
+    "pathway_tpu_torch.testing.chaos",
+    "pathway_tpu_torch.persistence._runtime_glue",
+]
+
+
+@pytest.fixture(scope="module")
+def multi_process_imported_with_clients_blocked():
+    r = _run(_IMPORT_EACH, blocked=BLOCKED_WITH_CLIENTS, mods=MULTI_PROCESS_MODULES)
+    assert r.returncode == 0, r.stderr
+    return set(json.loads(r.stdout.strip().splitlines()[-1]))
+
+
+@pytest.mark.parametrize("mod", MULTI_PROCESS_MODULES)
+def test_multi_process_module_imports_without_jax_pandas_or_clients(multi_process_imported_with_clients_blocked, mod):
+    assert mod in multi_process_imported_with_clients_blocked
+
+
+_GROUP_RANK = """
+import json, os, sys
+for name in {blocked!r}:
+    sys.modules[name] = None
+import numpy as np
+import pathway_tpu_torch as pw
+from pathway_tpu_torch.engine.dcn import DcnGroupByExec, DcnJoinExec
+from pathway_tpu_torch.parallel import distributed as dist
+
+pid, n = int(os.environ["PATHWAY_PROCESS_ID"]), int(os.environ["PATHWAY_PROCESSES"])
+t = pw.debug.table_from_rows(pw.schema_from_types(g=int, v=int), [(i % 5, i) for i in range(40) if i % n == pid])
+agg = t.groupby(t.g).reduce(t.g, s=pw.reducers.sum(t.v))
+j = agg.join(t, agg.g == t.g).select(t.v, agg.s)
+keys, cols = pw.debug.table_to_dicts(j)
+rt = pw.internals.parse_graph.G.last_runtime
+assert {{DcnGroupByExec, DcnJoinExec}} <= {{type(e) for e in rt.execs.values()}}
+assert dist.maybe_initialize(device="cpu")
+rng = np.random.default_rng(1)
+corpus = rng.normal(size=(2048, 8)).astype(np.float32)
+sc, ix = dist.sharded_topk_global(corpus[:2], corpus[pid * 1024:(pid + 1) * 1024], np.ones(1024, bool), 3,
+                                  device="cpu")
+assert ix[:, 0].tolist() == [0, 1], ix
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in {blocked!r} and sys.modules[m])
+assert not leaked, leaked
+# one write of the whole line: the ranks share spawn's stdout
+sys.stdout.write(f"RANK-OK {{len(keys)}}\\n")
+sys.stdout.flush()
+"""
+
+
+def test_spawned_group_runs_with_jax_pandas_and_clients_blocked(tmp_path):
+    import os
+    import socket
+
+    from pathway_tpu_torch.testing.chaos import free_dcn_port
+
+    script = tmp_path / "rank.py"
+    script.write_text(_GROUP_RANK.format(blocked=BLOCKED_WITH_CLIENTS))
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    store = s.getsockname()[1]
+    s.close()
+    env = {**os.environ, "PYTHONPATH": str(ROOT), "CUDA_VISIBLE_DEVICES": "", "PATHWAY_DCN_PORT": str(free_dcn_port(2))}
+    r = subprocess.run([sys.executable, "-m", "pathway_tpu_torch.cli", "spawn", "-n", "2", "--backend", "gloo",
+                        "--first-port", str(store), "--timeout", "200", "--", sys.executable, str(script)],
+                       cwd=ROOT, capture_output=True, text=True, timeout=240, env=env)
+    assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
+    lines = [ln.split() for ln in r.stdout.splitlines() if ln.startswith("RANK-OK")]
+    assert len(lines) == 2 and sum(int(x[1]) for x in lines) == 40

@@ -165,3 +165,45 @@ def test_read_plane_takes_the_reference_parameters(module, name):
         public = [n for n, v in vars(ref).items() if callable(v) and not n.startswith("__")]
         for method in public:
             assert _plane_params(getattr(port, method)) == _plane_params(getattr(ref, method)), method
+
+
+# the multi-process engine: the host mesh, the DCN execs, the device group
+# (whose functions add ``device=``, ``backend=`` and ``group=``), the CLI
+# and the chaos helpers
+MESH_HOST = [
+    ("parallel.host_exchange", n)
+    for n in ("HostMesh", "HostMeshError", "process_env", "dcn_active", "get_host_mesh", "_flush_mesh_at_exit")
+] + [
+    ("engine.dcn", n)
+    for n in ("_DcnRouter", "_OriginTracker", "DcnGroupByExec", "DcnJoinExec", "DcnDeduplicateExec",
+              "DcnSortExec", "DcnUpdateRowsExec", "DcnUniverseSetOpExec", "DcnIxExec",
+              "DcnGradualBroadcastExec", "DcnExternalIndexExec", "DcnIterateExec", "DcnWatermarkExec")
+] + [
+    ("parallel.distributed", n)
+    for n in ("process_env", "maybe_initialize", "is_multiprocess", "global_mesh", "from_process_local",
+              "replicated", "to_host", "sharded_topk_global")
+] + [("cli", "main")] + [
+    ("testing.chaos", n) for n in ("wait_snapshot_covered", "free_dcn_port", "fold_diff_stream")
+]
+_PORT_ONLY = {"device", "backend", "group"}
+
+
+@pytest.mark.parametrize("module,name", MESH_HOST, ids=[f"{m}.{n}" for m, n in MESH_HOST])
+def test_multi_process_engine_takes_the_reference_parameters(module, name):
+    import importlib
+
+    ref = getattr(importlib.import_module(f"pathway_tpu.{module}"), name)
+    port = getattr(importlib.import_module(f"pathway_tpu_torch.{module}"), name)
+    assert port.__module__ == f"pathway_tpu_torch.{module}"
+
+    def params(obj):
+        return [p for p in _plane_params(obj) if p[0] not in _PORT_ONLY]
+
+    if isinstance(ref, type) and issubclass(ref, BaseException):
+        assert issubclass(port, BaseException)
+        return
+    assert params(port) == params(ref)
+    if isinstance(ref, type):
+        public = [n for n, v in vars(ref).items() if callable(v) and not n.startswith("__")]
+        for method in public:
+            assert params(getattr(port, method)) == params(getattr(ref, method)), method

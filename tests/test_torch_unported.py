@@ -1,8 +1,11 @@
 """Every reference hook the port does not carry yet raises
 ``NotImplementedError`` naming its ROADMAP tag, instead of running
-without it: the multi-process engine (DCN), the standby writer and the
-process-group supervisor of replication, and ``/debug/autoscale`` (the
-autoscaler), each naming its tag; engine shards
+without it: the standby writer, the process-group supervisor and
+``spawn --supervise`` of replication, the elastic resizing and
+``/debug/autoscale`` (the autoscaler), each naming its tag. The
+multi-process engine runs now (the host mesh, the device group,
+``spawn``, the chaos helpers resolve to the port's own modules, and a
+process group without its secret refuses to run unauthenticated); engine shards
 (``PATHWAY_ENGINE_SHARDS``) and ``TpuKnn(mesh=)`` run sharded now on the
 port's in-process mesh, and an engine mesh that cannot be built raises
 naming its device; the
@@ -98,7 +101,9 @@ ENV_CASES = [
     ({"PATHWAY_ENGINE_SHARDS": "4", "PATHWAY_MESH_DEVICE": "cpu"}, _run_sharded, None, None),
     ({"PATHWAY_MESH_DEVICE": "cuda", "PATHWAY_ENGINE_SHARDS": "4"}, _run_simple, RuntimeError,
      r"PATHWAY_MESH_DEVICE='cuda'"),
-    ({"PATHWAY_PROCESSES": "2"}, _run_simple, NotImplementedError, r"\[mesh\]"),  # the DCN engine
+    # the DCN engine is ported: a group without PATHWAY_DCN_SECRET refuses
+    # to run unauthenticated (the host mesh's own check)
+    ({"PATHWAY_PROCESSES": "2"}, _run_simple, RuntimeError, r"PATHWAY_DCN_SECRET is not set"),
     # the writer's delta stream is ported (PATHWAY_REPL_PORT arms it); the
     # standby writer that takes over its port is not
     ({"PATHWAY_REPL_PORT": "18765"}, lambda: importlib.import_module(
@@ -114,7 +119,7 @@ def test_env_hook_raises(monkeypatch, env, run, exc, item):
     now (``exc`` None) runs."""
     from pathway_tpu_torch.parallel import mesh
 
-    for k in ("PATHWAY_COMPILED_DEVICE", "PATHWAY_ENGINE_SHARDS", "PATHWAY_MESH_DEVICE"):
+    for k in ("PATHWAY_COMPILED_DEVICE", "PATHWAY_ENGINE_SHARDS", "PATHWAY_MESH_DEVICE", "PATHWAY_DCN_SECRET"):
         monkeypatch.delenv(k, raising=False)
     for k, v in env.items():
         monkeypatch.setenv(k, v)
@@ -145,22 +150,37 @@ MULTI_PROCESS_NAMES = [
 ]
 
 
+# the multi-process engine's names, ported now: each resolves to the port's
+# own object
+PORTED_MULTI_PROCESS = {"host_exchange", "distributed", "testing"}
+
+
 @pytest.mark.parametrize("module,name", MULTI_PROCESS_NAMES, ids=[f"{m.split('.')[-1]}.{n}" for m, n in
                                                                    MULTI_PROCESS_NAMES])
 def test_multi_process_names_raise_naming_mesh(module, name):
-    """What is left of [mesh] after the in-process mesh was ported: the host
-    mesh, meshes across processes, the chaos drivers, the segment ferry
-    and handover, and the autoscaler raise naming [mesh], whose text names
-    the multi-process fabric."""
+    """What is left of [mesh] after the in-process mesh and the
+    multi-process engine were ported: the segment ferry and handover and
+    the autoscaler raise naming [mesh], whose text names the multi-process
+    elastic resizing. The host mesh, meshes across processes and the chaos
+    helpers raised it until they were ported: they resolve now."""
+    mod = importlib.import_module(module)
+    if module.split(".")[-1] in PORTED_MULTI_PROCESS:
+        got = getattr(mod, name)
+        assert getattr(got, "__module__", getattr(got, "__name__", "")).startswith("pathway_tpu_torch."), got
+        return
     with pytest.raises(NotImplementedError, match=r"\[mesh\] \(multi-process"):
-        getattr(importlib.import_module(module), name)
+        getattr(mod, name)
 
 
 def test_cli_spawn_raises_naming_mesh():
+    """``spawn`` raised [mesh] until the multi-process engine was ported: it
+    runs a group now; ``--supervise`` (the group supervisor) raises naming
+    [replication]."""
     from pathway_tpu_torch import cli
 
-    with pytest.raises(NotImplementedError, match=r"\[mesh\]"):
-        cli.main(["spawn", "-n", "2", "--", "true"])
+    assert cli.main(["spawn", "-n", "2", "--", "true"]) == 0
+    with pytest.raises(NotImplementedError, match=r"\[replication\]"):
+        cli.main(["spawn", "-n", "2", "--supervise", "--", "true"])
 
 
 def test_compiled_tick_off_or_unset_runs_the_interpreter(monkeypatch):
