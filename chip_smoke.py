@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from csrc/ (nvcc, sm_90a, one process per
-source, all started together), then runs twenty phases, printing one JSON
+source, all started together), then runs twenty-one phases, printing one JSON
 object per phase:
 
 1. device         — nvidia-smi name/power limit, toolchain versions, build seconds.
@@ -74,9 +74,10 @@ object per phase:
                     POSTs): seconds and rows in/out per operator type, and
                     the critical path of the slowest tick.
 6. rest           — VectorStoreServer.run_server answering /v1/retrieve over
-                    HTTP: the vector store phase's corpus (the same 32,768
-                    documents in 16 commits of 2048, 78,185 chunks, the same
-                    embedder, device="cuda") served ungated by run_server on
+                    HTTP: the vector store phase's corpus (its first 16,384
+                    documents in 8 commits of 2048, cut from all 32,768 beside
+                    the supervise phase, the same embedder and index
+                    capacity, device="cuda") served ungated by run_server on
                     one port and, in the same graph, through a Surge Gate
                     (rest_connector with QoSConfig(max_batch_size=16,
                     max_wait_ms=5, max_queue=64) wired to retrieve_query) on
@@ -144,8 +145,8 @@ object per phase:
 8. index kinds    — the other index kinds on the card, in four parts.
                     (a) DocumentStore over HybridIndexFactory([TantivyBM25Factory(),
                     BruteForceKnnFactory(the phase-3 embedder, device="cuda")]):
-                    the first 16,384 of the vector store phase's documents
-                    (cut from 32,768; 8 commits of 2048, Utf8Parser,
+                    the first 8,192 of the vector store phase's documents
+                    (cut from 32,768, then 16,384; 4 commits of 2048, Utf8Parser,
                     TokenCountSplitter(20, 60)), 16 B = 1 and 1
                     B = 16 queries (k = 10), then 4 live writes of 64
                     documents, each followed by a query for one of them.
@@ -157,12 +158,13 @@ object per phase:
                     near tie is read back from the fused scores and allowed),
                     a copied query finds its chunk first, block_topk launches
                     equal the dense searches per shape. (b) DataIndex over
-                    IvfKnn(device="cuda") at its defaults (704 clusters, 27
-                    probes at 500,000 rows) through the engine: the first
-                    500,000 rows of bench.py's accelerator IVF mixture
+                    IvfKnn(device="cuda") at its defaults (496 clusters, 22
+                    probes at 250,000 rows) through the engine: the first
+                    250,000 rows of bench.py's accelerator IVF mixture
                     (1,000,000 x 384 f32, 2000 centres, noise 0.35,
                     default_rng(7); cut from all of it beside the
-                    observability phase) in commits of 65,536 via
+                    observability phase, then from half beside the
+                    supervise phase) in commits of 65,536 via
                     pw.io.python, then 16 B = 1 and 1 B = 16 queries
                     (k = 10); the index trains once. Checked: every score is its row's cosine - 1
                     (numpy, 1e-5), replies descend, every key's cluster is
@@ -183,7 +185,8 @@ object per phase:
                     RRF us per tick, IVF train / assign s, recall, per-row LSH
                     upsert us, and each device op's ms against its bound.
 9. components     — a live semantic-components pipeline as a user writes it:
-                    16,384 seeded documents in 2,048 families of 8 (each
+                    8,192 seeded documents in 1,024 families of 8 (cut from
+                    16,384 in 2,048 beside the supervise phase; each
                     variant drops, swaps or replaces 2 words of the one
                     before) arrive through pw.io.python in one commit, the
                     phase-3 embedder embeds them, DataIndex over
@@ -234,10 +237,10 @@ object per phase:
                     standing query answered again as the corpus grew),
                     launches per shape and peak memory.
 11. windowed index — a recency-bounded live index as a user writes it
-                    (``wi_pipeline``): 32,768 seeded documents (synthetic_docs)
+                    (``wi_pipeline``): 16,384 seeded documents (synthetic_docs)
                     with an event time rising from 0 to 3600 s with jitter and
                     one of 64 topics, 2% of them sent back past their window's
-                    cutoff, arrive through pw.io.python in 32 commits of 1024,
+                    cutoff, arrive through pw.io.python in 16 commits of 1024,
                     one tick each, after one commit of 256 standing queries;
                     the phase-3 embedder embeds both; windowby(t,
                     tumbling(600), instance=topic, common_behavior(delay=60,
@@ -275,9 +278,9 @@ object per phase:
                     on every change in one block_topk batch (B = 256); the
                     replies (qid, doc_id, score) go to pw.io.sqlite.write in
                     a second SQLite file. A writer thread with its own
-                    connection commits 16 transactions, each inserting 512
+                    connection commits 8 transactions, each inserting 512
                     rows, changing the body of 256 and deleting 256 (the live
-                    rows peak at 28,672); each also goes as Postgres-dialect
+                    rows peak at 26,624); each also goes as Postgres-dialect
                     Debezium envelopes, one file per transaction, into a
                     folder that pw.io.debezium.read(input_dir=...) reads in
                     the same graph (not embedded). Checked after every
@@ -302,9 +305,9 @@ object per phase:
                     memory.
 13. compiled ticks — an event feed whose metadata decides what a live RAG
                     index holds, with PATHWAY_COMPILED_TICK=1 and
-                    PATHWAY_COMPILED_DEVICE=cuda (``ct_chain``): 1,048,576
+                    PATHWAY_COMPILED_DEVICE=cuda (``ct_chain``): 524,288
                     seeded rows (doc_id, topic, ts, quality, flags, text) in
-                    16 commits of 65,536 through two pw.io.python subjects
+                    8 commits of 65,536 through two pw.io.python subjects
                     (one next() per row, keyed by the native hasher),
                     concatenated after promise_are_pairwise_disjoint; a
                     select (a float score and an int bucket) -> a filter on
@@ -466,7 +469,40 @@ object per phase:
                     and library ms, the gloo merge ms, the host exchange's
                     ms and bytes a tick, the lockstep barrier's p50, the
                     failure-detection and restart-to-first-tick seconds.
-20. kernels       — per kernel and per path shape: launches on its path, ms
+20. supervise     — the group supervisor and the standby writer; (a) runs
+                    while (b)'s first writer ingests its first half and
+                    its replica hydrates, (b)'s kill waits for it. (a) dcn
+                    (d)'s pipeline and persistence under ``python -m
+                    pathway_tpu_torch.cli spawn -n 2 --backend gloo
+                    --supervise --max-restarts 1`` with the fault plan
+                    killing rank 1 at its 10th data tick: rank 1 exits 23,
+                    rank 0 fails with HostMeshError naming peer 1 within
+                    the liveness bound, the supervisor's journal holds
+                    rank-died, group-restart and group-done with one
+                    restart, incarnation 1 runs with no injected death and
+                    resumes from the group-committed generation, spawn
+                    exits 0, and the folded outputs of both incarnations
+                    equal the mesh phase's unsharded run row for row. (b)
+                    the persistence phase's graph over 12,288 documents as
+                    a writer process with the delta stream on a fixed
+                    port and a fault plan ending it at its 10th tick;
+                    ``python -m pathway_tpu_torch.parallel.standby``
+                    shadows it (grace 1000 ms) and a replica on the card
+                    follows it. The writer ingests half the documents and
+                    dies; the standby respawns it at incarnation 1, which
+                    writes the rest in one tick and 2 new documents.
+                    Checked: the
+                    takeover at incarnation 1 within the grace + 1 s; the
+                    replica holds every chunk once; 4 single asks and a
+                    burst of 16 (k = 10) through the replica equal the
+                    plain dense top-10 over the writer's rows up to near
+                    ties within REPL_TOL; each new document's chunk is rank
+                    1 there; every request during the takeover got 200 or
+                    503 inside its deadline; the replica and the respawned
+                    writer launched block_topk. Prints the detection,
+                    restart, takeover-to-first-delta, stale-window and
+                    restore seconds.
+21. kernels       — per kernel and per path shape: launches on its path, ms
                     (CUDA events) and device ms (torch.profiler), its plain
                     version's ms, the bound and what sets it, the bytes it must
                     move, and the ms of the library call(s) computing the same
@@ -489,7 +525,9 @@ object per phase:
                     observability phase on its corpus, B = 1 and 16 of the
                     mesh phase on one shard's bf16 slice, and B = 1 and 16 of
                     the dcn phase on a rank's shard (N = 524,288) and on a
-                    rank's replicated index (N = 262,144); at every shape the
+                    rank's replicated index (N = 262,144), B = 1 and 16 of
+                    the supervise phase's respawned writer and B = 1 of its
+                    replica, each on its own corpus; at every shape the
                     launch ledger's shared memory (analysis/lowering.py) must
                     equal what the built kernel launched with;
                     paged_attention: the
@@ -509,6 +547,7 @@ import math
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -554,6 +593,10 @@ VS_ASKS = 8
 VS_GROUPS = 4  # document i sits under docs/<i % 4>/; a filter keeps one group
 # the rest phase: the vector store phase's corpus served over HTTP by
 # VectorStoreServer.run_server (ungated) and a gated rest_connector route
+# the first half of that corpus, cut from all of it beside the supervise
+# phase to keep the smoke under its limit (the ingest's embedder scales with
+# the documents); its index keeps the whole corpus's capacity
+REST_DOCS = VS_DOCS // 2
 REST_SEQ = 64  # POST /v1/retrieve one at a time (B = 1 in the kernel)
 REST_GET = 8
 REST_FILTERED = 4  # k = 40 in the kernel after the x4 oversample
@@ -634,17 +677,19 @@ IK_B1 = 16
 # query on the host, ≈6 s a B = 16 tick
 IK_B16 = 1
 IK_LIVE_WRITES = 4
-# the hybrid store's documents: the first half of the vector store phase's,
-# cut from all 32,768 beside the compiled ticks phase to keep the smoke
-# under 950 s (BM25 and the embedder scale with the corpus); its dense
-# index keeps the vector store phase's capacity
-IK_HYBRID_DOCS = VS_DOCS // 2
+# the hybrid store's documents: the first quarter of the vector store
+# phase's, cut from all 32,768 beside the compiled ticks phase, then from
+# half beside the supervise phase, to keep the smoke under its limit (BM25
+# and the embedder scale with the corpus); its dense index keeps the vector
+# store phase's capacity
+IK_HYBRID_DOCS = VS_DOCS // 4
 RRF_K = 60.0  # HybridIndexFactory's default
 IK_IVF_ROWS = 1_000_000
-# the engine part's rows: the mixture's first half, cut from all of it
-# beside the observability phase to keep the smoke under 950 s (ingest,
-# assignment and scoring scale with the rows)
-IK_IVF_ENGINE_ROWS = IK_IVF_ROWS // 2
+# the engine part's rows: the mixture's first quarter, cut from all of it
+# beside the observability phase, then from half beside the supervise
+# phase, to keep the smoke under its limit (ingest, assignment and scoring
+# scale with the rows)
+IK_IVF_ENGINE_ROWS = IK_IVF_ROWS // 4
 IK_IVF_CENTRES = 2000
 IK_IVF_COMMIT = 1 << 16
 IK_IVF_DEVICE_QUERIES = 50
@@ -680,8 +725,22 @@ REPL_ENV = ("PATHWAY_DCN_SECRET", "PATHWAY_REPL_PORT", "PATHWAY_REPLICA_DIM",
 PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}  # dense, H100 SXM
 
 
+_T0 = time.perf_counter()  # the script's start: each phase line carries its end
+
+
 def emit(obj: dict) -> None:
+    if "phase" in obj:
+        obj = {**obj, "smoke_s": time.perf_counter() - _T0}
     print(json.dumps(obj), flush=True)
+
+
+def without_hf_tokenizer() -> None:
+    """In a child that builds the encoder: the embedder's Hugging Face
+    tokenizer lookup (``transformers``, where the host has it) finds no
+    model offline and falls back to the hashing tokenizer, after an import
+    that costs the card's host ≈25 s; blocking the import takes the same
+    fallback at once, so the child's boot is the port's own."""
+    sys.modules.setdefault("transformers", None)
 
 
 def check(cond: bool, what: str) -> None:
@@ -2081,8 +2140,8 @@ def refused(port: int) -> bool:
 
 def rest(dev, smi: str, vs_b1_p50_ms: float, corpus: tuple) -> tuple[dict, dict]:
     """VectorStoreServer.run_server answering /v1/retrieve over HTTP on the
-    card: the vector store phase's corpus (the same 32,768 seeded
-    documents in 16 commits of 2048 through pw.io.python, the same
+    card: the vector store phase's corpus (its first REST_DOCS seeded
+    documents in commits of 2048 through pw.io.python, the same
     full-width embedder, device="cuda"), served ungated by run_server on one
     port and, in the same graph, through a Surge Gate (a gated
     rest_connector wired to retrieve_query) on another. Stdlib http.client
@@ -2118,7 +2177,7 @@ def rest(dev, smi: str, vs_b1_p50_ms: float, corpus: tuple) -> tuple[dict, dict]
     capacity = -(-int(upto[-1]) // 1024) * 1024
     n_asks = (2 + REST_SEQ + REST_GET + REST_FILTERED + REST_CLIENTS * (REST_UNGATED_EACH + REST_GATED_EACH)
               + REST_BURST + REST_DEADLINE + REST_STALE + 2 * REST_DRAIN)
-    qdocs = iter(int(d) for d in np.random.default_rng(SEED + 13).choice(VS_DOCS, size=n_asks, replace=False))
+    qdocs = iter(int(d) for d in np.random.default_rng(SEED + 13).choice(REST_DOCS, size=n_asks, replace=False))
     mark("clients_and_queries")
 
     parse_graph.G.clear()
@@ -2186,7 +2245,7 @@ def rest(dev, smi: str, vs_b1_p50_ms: float, corpus: tuple) -> tuple[dict, dict]
     ix = execs[0].index
     mark("graph_and_servers_up")
     t0 = time.perf_counter()
-    for lo in range(0, VS_DOCS, VS_COMMIT):
+    for lo in range(0, REST_DOCS, VS_COMMIT):
         for i in range(lo, lo + VS_COMMIT):
             doc_subject.next(doc_id=i, data=docs[i].encode(), _metadata={"path": doc_path(i)})
         doc_subject.commit()
@@ -2269,7 +2328,7 @@ def rest(dev, smi: str, vs_b1_p50_ms: float, corpus: tuple) -> tuple[dict, dict]
     deadline_expired = {s: expired.labels(s).value - exp0[s] for s in exp0}
 
     # the store's other routes and the OpenAPI document
-    n_static = int(upto[VS_DOCS - 1])
+    n_static = int(upto[REST_DOCS - 1])
     (stats,) = clients.run(port_a, [[[-1, "POST", "/v1/statistics", "{}", {}]]])
     (inputs,) = clients.run(port_a, [[[-2, "POST", "/v1/inputs",
                                        json.dumps({"metadata_filter": "globmatch('docs/1/*', path)"}), {}]]])
@@ -2285,7 +2344,7 @@ def rest(dev, smi: str, vs_b1_p50_ms: float, corpus: tuple) -> tuple[dict, dict]
             doc_subject.next(doc_id=i, data=docs[i].encode(), _metadata={"path": doc_path(i)})
         tc = time.monotonic()
         doc_subject.commit()
-        goal = upto[lo + VS_LIVE_DOCS - 1]
+        goal = n_static + upto[lo + VS_LIVE_DOCS - 1] - upto[VS_DOCS - 1]
         wait_until(lambda: all(len(ex.index) >= goal for ex in execs), "a live commit")
         target = VS_DOCS + t * VS_LIVE_DOCS + (t * 7) % VS_LIVE_DOCS
         qvec.pop(chunks_of[target][0], None)  # the live commit embedded it as a document
@@ -2409,7 +2468,7 @@ def rest(dev, smi: str, vs_b1_p50_ms: float, corpus: tuple) -> tuple[dict, dict]
           f"drain: idle {idle_a, idle_b}, refused after {refused_after}")
     stat = stats[3]
     check(stats[1] == 200 and stat["file_count"] == n_static, f"statistics {stats[:2]} {stat}")
-    want = {doc_path(i) for i in range(VS_DOCS) if i % VS_GROUPS == 1}
+    want = {doc_path(i) for i in range(REST_DOCS) if i % VS_GROUPS == 1}
     got_paths = [m["path"] for m in inputs[3]]
     check(inputs[1] == 200 and len(got_paths) == len(set(got_paths)) and set(got_paths) == want,
           f"/v1/inputs under the filter: {len(got_paths)} paths, {len(want)} expected")
@@ -2434,8 +2493,8 @@ def rest(dev, smi: str, vs_b1_p50_ms: float, corpus: tuple) -> tuple[dict, dict]
     phase = {
         "phase": "rest",
         "nvidia_smi": smi,
-        "docs": VS_DOCS,
-        "chunks": int(upto[-1]),
+        "docs": REST_DOCS,
+        "chunks": n_static + int(upto[-1] - upto[VS_DOCS - 1]),
         "corpus_capacity": capacity,
         "ingest_s": ingest_s,
         "reply_ms_by_group": latency,
@@ -2577,6 +2636,7 @@ def persist_child(folder: str, store: str, progress: str) -> int:
     ends the process at the head of a tick: returning (exit code 1) means
     it never fired."""
     t_start, t_wall = time.perf_counter(), time.time()
+    without_hf_tokenizer()
     import pathway_tpu_torch as pw
     from pathway_tpu_torch.internals import parse_graph
     from pathway_tpu_torch.xpacks.llm.embedders import SentenceTransformerEmbedder
@@ -3727,7 +3787,7 @@ def index_kinds(dev, smi: str, rate: float) -> tuple[dict, dict]:
 
 # --- phase 9: components ------------------------------------------------------
 
-CC_FAMILIES = 2048
+CC_FAMILIES = 1024  # cut from 2048 beside the supervise phase to keep the smoke under its limit
 CC_FAMILY = 8  # near-duplicate variants per family
 CC_WORDS = 24  # words of a family's first variant
 CC_EDITS = 2  # drops, swaps or substitutions from one variant to the next
@@ -4274,8 +4334,10 @@ def live_classify(dev, smi: str) -> tuple[dict, dict]:
 
 # --- phase 11: windowed index -------------------------------------------------
 
-WI_DOCS = 32768
-WI_COMMITS = 32  # commits of 1024 documents, one tick each
+# cut from 32,768 documents in 32 commits beside the supervise phase, to keep
+# the smoke under 950 s (each commit re-answers every standing query)
+WI_DOCS = 16384
+WI_COMMITS = 16  # commits of 1024 documents, one tick each
 WI_TOPICS = 64
 WI_QUERIES = 256  # standing queries, answered again on every change
 WI_K = 10
@@ -4286,7 +4348,7 @@ WI_DELAY = 60  # a window becomes visible WI_DELAY after it starts ...
 WI_CUTOFF = 1200  # ... and is retracted WI_CUTOFF after it ends
 WI_LATE = 0.02  # the share of documents that arrive past their window's cutoff
 WI_JOIN = (-300, 0)  # the host leg: a query's topic in the 5 minutes up to its time
-WI_RESERVED = 1 << 15  # the live documents peak past 16,384: the next power of two
+WI_RESERVED = 1 << 15  # kept at the uncut stream's power of two: the kernel's N stays 32,768
 
 
 def wi_stream(seed: int, n: int, commits: int, topics: int, queries: int) -> dict:
@@ -4602,14 +4664,14 @@ def windowed_index(dev, smi: str) -> tuple[dict, dict]:
 # --- phase 12: cdc index ------------------------------------------------------
 
 CDC_DOCS = 24576  # rows of the source table before the first transaction
-CDC_TXNS = 16
+CDC_TXNS = 8  # cut from 16 beside the supervise phase, to keep the smoke under 950 s
 CDC_INSERTS = 512  # per transaction
 CDC_EDITS = 256  # rows whose body changes: the old key gets a new vector
 CDC_DELETES = 256
 CDC_TOPICS = 64
 CDC_QUERIES = 256  # standing queries, answered again on every change
 CDC_K = WI_K  # 10: wi_plain's top-k is this phase's plain version too
-CDC_RESERVED = 1 << 15  # the live rows peak at 24,576 + 16 * 256 = 28,672
+CDC_RESERVED = 1 << 15  # the live rows peak at 24,576 + 8 * 256 = 26,624
 CDC_WAIT_S = 120.0
 
 
@@ -5010,8 +5072,10 @@ def cdc_index(dev, smi: str) -> tuple[dict, dict]:
 
 # --- phase 13: compiled ticks -------------------------------------------------
 
-CT_ROWS = 1 << 20
-CT_COMMITS = 16  # one tick each, of CT_ROWS // CT_COMMITS rows, alternating the two subjects
+# cut from 1,048,576 rows in 16 commits beside the supervise phase, to keep the
+# smoke under its limit: a tick keeps its 65,536 rows
+CT_ROWS = 1 << 19
+CT_COMMITS = 8  # one tick each, of CT_ROWS // CT_COMMITS rows, alternating the two subjects
 CT_TOPICS = 64
 CT_SURVIVORS = 1 << 15  # rows that pass the filter in all: the index's reservation
 CT_QUERIES = 256  # standing queries, answered again on every commit
@@ -7032,6 +7096,11 @@ def observability(dev, smi: str, vs_data: dict, emb) -> tuple[dict, dict]:
         wait_until(debug._profile_lock.locked, "the profile capture to start", timeout=30.0)
         record["profile"]["second"] = get_url(port, f"/debug/profile?seconds=1&device={dev.type}")
         record["profile"]["zero"] = get_url(port, "/debug/profile?seconds=0")
+        # the lock is taken before torch.profiler starts, and starting it
+        # (CUPTI's set-up) can outlast the burst: the burst waits for the trace
+        wait_until(lambda: debug._profile_tracing.is_set() or not profiler.is_alive(),
+                   "the profile's trace to start", timeout=30.0)
+        check(profiler.is_alive(), "the profile capture ended before its trace was seen on")
         burst("captured", OB_B16_TICKS)
         profiler.join(60)
         stop.set()
@@ -8187,13 +8256,27 @@ def dcn_rank(out: str, mode: str) -> int:
     pathway_tpu_torch.cli spawn -n 2`` (``--dcn-rank <dir> <mode>``): mode
     "abc" runs (a), (b) and (c); "kill" and "resume" run (d)'s engine with
     persistence. Writes ``rank<pid>_<mode>.json`` in ``<dir>``."""
+    # a supervised spawn's journal file is the supervisor's own: the ranks
+    # keep theirs in memory
+    os.environ.pop("PATHWAY_JOURNAL_PATH", None)
     import pathway_tpu_torch as pw
     from pathway_tpu_torch.parallel import distributed as dist
     from pathway_tpu_torch.parallel import host_exchange as hx
     from pathway_tpu_torch.testing import faults
 
     n, pid, _port, _host = hx.process_env()
-    rec: dict = {"pid": pid, "mode": mode, "start_wall": time.time()}
+    inc = int(os.environ.get("PATHWAY_MESH_INCARNATION", "0") or 0)
+    rec: dict = {"pid": pid, "mode": mode, "start_wall": time.time(), "incarnation": inc}
+
+    def fail_stop_grace(signum, _frame) -> None:
+        # the supervisor terminates a survivor as soon as it sees a rank
+        # die: give this rank's own fail-stop (the host mesh's
+        # HostMeshError naming the dead peer) up to 3 s before it exits
+        t = threading.Timer(3.0, os._exit, args=(128 + signum,))
+        t.daemon = True
+        t.start()
+
+    signal.signal(signal.SIGTERM, fail_stop_grace)
     if mode == "abc":  # (d) is host work: its ranks never open a context on the card
         dev = dist.rank_device(int(os.environ.get("LOCAL_RANK", pid)), "cuda")
         torch.cuda.set_device(dev)
@@ -8203,7 +8286,7 @@ def dcn_rank(out: str, mode: str) -> int:
 
         def timed_exit(plan, what):
             with open(os.path.join(out, f"rank{pid}_died.json"), "w") as f:
-                json.dump({"t": time.time(), "what": what}, f)
+                json.dump({"t": time.time(), "what": what, "incarnation": inc}, f)
             exit_(plan, what)
 
         faults.FaultPlan._exit = timed_exit
@@ -8240,9 +8323,11 @@ def dcn_fold(paths: list[str]) -> dict:
     return state
 
 
-def dcn_spawn(out: str, mode: str, log: str, extra_env: dict | None = None) -> tuple[int, float, str]:
+def dcn_spawn(out: str, mode: str, log: str, extra_env: dict | None = None,
+              supervise: bool = False) -> tuple[int, float, str]:
     """``python -m pathway_tpu_torch.cli spawn -n 2 --backend gloo`` of this
-    script's ``--dcn-rank`` on the card; returns (exit code, wall clock at
+    script's ``--dcn-rank`` on the card (``supervise``: with ``--supervise
+    --max-restarts SUP_MAX_RESTARTS``); returns (exit code, wall clock at
     the start, the group's output)."""
     from pathway_tpu_torch.testing.chaos import free_dcn_port
 
@@ -8255,8 +8340,10 @@ def dcn_spawn(out: str, mode: str, log: str, extra_env: dict | None = None) -> t
     env.update(PATHWAY_DCN_PORT=str(dcn_port), PATHWAY_DIST_DEVICE="cuda", **(extra_env or {}))
     env["PYTHONPATH"] = os.pathsep.join([str(root)] + [p for p in [env.get("PYTHONPATH")] if p])
     cmd = [sys.executable, "-m", "pathway_tpu_torch.cli", "spawn", "-n", str(DCN_RANKS), "--backend", "gloo",
-           "--first-port", str(store), "--timeout", str(DCN_TIMEOUT_S), "--",
-           sys.executable, str(Path(__file__).resolve()), "--dcn-rank", out, mode]
+           "--first-port", str(store), "--timeout", str(DCN_TIMEOUT_S)]
+    if supervise:
+        cmd += ["--supervise", "--max-restarts", str(SUP_MAX_RESTARTS)]
+    cmd += ["--", sys.executable, str(Path(__file__).resolve()), "--dcn-rank", out, mode]
     start = time.time()
     with open(log, "w") as f:
         proc = subprocess.Popen(cmd, env=env, stdout=f, stderr=subprocess.STDOUT, cwd=str(root))
@@ -8463,7 +8550,583 @@ def dcn_phase(dev, smi: str, rate: float, plain_rows: dict, tmp: str, t_phase: f
     return phase, data
 
 
-# --- phase 20: kernel times ---------------------------------------------------
+# --- phase 20: supervise (the group supervisor and the standby writer) -------
+
+SUP_MAX_RESTARTS = 1  # (a): the budget the supervised DCN group may spend
+SB_COMMIT = PERSIST_COMMIT  # (b): 768 documents a tick, as the persistence phase
+SB_DOCS = SB_COMMIT * 16  # 12,288: the persistence phase's documents before its cut
+# batches 1-8 (half the documents), then query ticks: the fault plan ends
+# the writer at the head of its 10th tick, after the snapshot generation of
+# tick 8 and one logged query tick
+SB_KILL_TICK = 10
+SB_GRACE_MS = 1000  # PATHWAY_STANDBY_GRACE_MS
+SB_WRITER_B1 = 4  # the respawned writer's own B = 1 query ticks (k = 10)
+SB_WRITER_B16 = 1  # and B = 16 query ticks
+SB_TIMEOUT_S = 600  # each child's wait bound
+
+
+def supervised_group(out: str, plain_rows: dict) -> dict:
+    """(a) dcn (d)'s pipeline and persistence under ``cli spawn --supervise
+    --max-restarts 1``: Fault Forge kills rank 1 at its DCN_KILL_TICK-th data
+    tick; rank 0 fail-stops with HostMeshError naming peer 1; the supervisor
+    restarts the whole group once (incarnation 1, no injected death), which
+    resumes from the group-committed generation; spawn exits 0. The
+    supervisor's events come from its journal (PATHWAY_JOURNAL_PATH)."""
+    os.makedirs(out)
+    journal = os.path.join(out, "spawn_journal.jsonl")
+    t0 = time.perf_counter()
+    rc, start, text = dcn_spawn(out, "kill", os.path.join(out, "spawn.log"),
+                                {"PATHWAY_FAULTS": f"kill=tick:{DCN_KILL_TICK},pid:1",
+                                 "PATHWAY_JOURNAL_PATH": journal, "PATHWAY_JOURNAL_FLUSH_MS": "0"},
+                                supervise=True)
+    spawn_s = time.perf_counter() - t0
+    if rc != 0:
+        print(text[-8000:], file=sys.stderr)
+    check(rc == 0, f"the supervised group exited {rc}")
+    check(text.count("fault forge: injected death") == 1, "the fault plan fired other than once")
+    with open(os.path.join(out, "rank1_died.json")) as f:
+        died = json.load(f)
+    check(died["incarnation"] == 0, f"rank 1 died in incarnation {died['incarnation']}")
+    with open(os.path.join(out, "rank0_kill_error.json")) as f:
+        err = json.load(f)
+    check(err["error"].startswith("HostMeshError") and "peer(s) [1]" in err["error"],
+          f"rank 0 failed with {err['error']!r}, not a HostMeshError naming peer 1")
+    check(bool(err["detected"]) and err["detected"][0][0] == 1, "rank 0's failure listener did not name peer 1")
+    detect_s = err["detected"][0][2] - died["t"]
+    check(0 <= detect_s <= DCN_LIVENESS_S, f"peer 1's death was detected after {detect_s:.3f} s")
+    with open(journal) as f:
+        events = [json.loads(ln) for ln in f if ln.strip()]
+    sup = [(e["kind"], e["detail"], e["wall"]) for e in events
+           if e["kind"] in ("group-start", "rank-died", "group-restart", "group-done", "gave-up")]
+    kinds = [k for k, _d, _w in sup]
+    check(kinds == ["group-start", "rank-died", "group-restart", "group-start", "group-done"],
+          f"the supervisor's events were {sup}")
+    check(f"rank 1 exited {FAULT_EXIT} (incarnation 0)" in sup[1][1], f"the supervisor saw {sup[1][1]!r}")
+    restarts_used = int(sup[2][1].split()[1].split("/")[0])
+    check(restarts_used == 1 and sup[2][1].endswith("(incarnation 1)"), f"the restart was {sup[2][1]!r}")
+    res = []
+    for p in range(DCN_RANKS):
+        with open(os.path.join(out, f"rank{p}_kill.json")) as f:
+            res.append(json.load(f))
+    for p, x in enumerate(res):
+        check(x["incarnation"] == 1, f"rank {p} finished in incarnation {x['incarnation']}")
+        check(x["engine"]["restored"] is not None and x["engine"]["restored"]["restored_from_snapshot"],
+              f"rank {p} of incarnation 1 did not restore a snapshot generation")
+    folded = dcn_fold([os.path.join(out, f"dout{p}_kill.npy") for p in range(DCN_RANKS)])
+    check(folded == plain_rows, "the supervised incarnations' folded outputs differ from the uninterrupted run's")
+    return {
+        "launcher": f"python -m pathway_tpu_torch.cli spawn -n {DCN_RANKS} --backend gloo --supervise "
+                    f"--max-restarts {SUP_MAX_RESTARTS}",
+        "rows": MESH_ROWS, "keys": MESH_KEYS, "ticks": MESH_TICKS, "kill_tick": DCN_KILL_TICK,
+        "supervisor_events": kinds, "restarts_used": restarts_used,
+        "rank0_error": err["error"][:200], "failure_detection_s": detect_s,
+        "liveness_bound_s": DCN_LIVENESS_S,
+        # rank 1's death → the supervisor's restart event, then → the first
+        # tick of incarnation 1 (its ranks' earliest)
+        "death_to_restart_event_s": sup[2][2] - died["t"],
+        "supervisor_restart_s": min(x["engine"]["first_tick_wall"] for x in res) - died["t"],
+        "restored": [x["engine"]["restored"] for x in res],
+        "folded_equal_uninterrupted": True, "spawn_s": spawn_s,
+    }
+
+
+def write_json(path: Path, obj) -> None:
+    """``obj`` as JSON at ``path``, renamed into place: a reader polling for
+    the file never meets it half-written."""
+    tmp = path.with_name(path.name + ".tmp")
+    tmp.write_text(json.dumps(obj))
+    os.replace(tmp, path)
+
+
+def standby_writer(work: str) -> int:
+    """(b)'s writer role (``--standby-writer <dir>``), started by the phase
+    as incarnation 0 and respawned by the standby as incarnation 1: the
+    persistence phase's graph (persist_graph: pw.io.fs → VectorStoreServer
+    on the card → retrieve_query) with the delta stream on
+    PATHWAY_REPL_PORT. Incarnation 0 writes the first half of SB_DOCS
+    documents, one tick a batch of SB_COMMIT, then (once the phase says go)
+    query ticks until the fault plan ends it at the head of tick
+    SB_KILL_TICK. Incarnation 1 restores the store, writes the other half in
+    one tick and the live documents one tick each, answers SB_WRITER_B1 B = 1 and SB_WRITER_B16
+    B = 16 query ticks with its block_topk launches counted, writes its
+    record and corpus, and runs until the phase's STOP file."""
+    t_wall = time.time()
+    without_hf_tokenizer()
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.internals import parse_graph
+    from pathway_tpu_torch.ops import block_topk as bt
+    from pathway_tpu_torch.testing import faults
+    from pathway_tpu_torch.xpacks.llm.embedders import SentenceTransformerEmbedder
+
+    t_imported = time.time()
+    w = Path(work)
+    inc = int(os.environ.get("PATHWAY_MESH_INCARNATION", "0") or 0)
+    dev = torch.device("cuda", 0)
+    folder, store = str(w / "docs"), str(w / "store")
+    docs = store_docs()
+    plan = json.loads((w / "plan.json").read_text())
+    upto, texts = plan["upto"], plan["texts"]
+    # wall stamps of the boot: imports, the seeded encoder, the graph, the
+    # feeder's start (after pw.run's restore), the first batch's tick
+    rec: dict = {"incarnation": inc, "start_wall": t_wall, "imported": t_imported}
+    asked: dict = {}  # qid -> text
+    replies: dict = {}  # qid -> the top reply's text
+    failure: list[BaseException] = []
+    if inc == 0:
+        exit_ = faults.FaultPlan._exit
+
+        def timed_exit(fault_plan, what):
+            write_json(w / "writer_died.json", {"t": time.time(), "what": what})
+            exit_(fault_plan, what)
+
+        faults.FaultPlan._exit = timed_exit
+
+    def ask(qs, rows: list[tuple[int, str]]) -> None:
+        for qid, text in rows:
+            asked[qid] = text
+            qs.next(qid=qid, query=text, k=K, metadata_filter=None, filepath_globpattern=None)
+        qs.commit()
+        wait_until(lambda: all(q in replies for q, _t in rows), "a query's reply", SB_TIMEOUT_S)
+
+    def feed(qs) -> None:
+        rt = parse_graph.G.runtime
+        ix = store_index(rt)
+        half = SB_DOCS // 2
+        if inc == 0:  # batches of SB_COMMIT: the snapshot generation lands at the 8th
+            spans = [(lo, lo + SB_COMMIT) for lo in range(0, half, SB_COMMIT)]
+        else:  # the other half in one tick
+            rec["restored_rows"] = len(ix)
+            spans = [(half, SB_DOCS)]
+        rec["feeding_wall"] = time.time()
+        for lo, hi in spans:
+            ticks = rt.stats.ticks
+            write_batch_as_one_tick(rt, folder, docs, range(lo, hi))
+            wait_until(lambda: len(ix) >= upto[hi - 1] and rt.stats.ticks > ticks, "a batch's tick", SB_TIMEOUT_S)
+            rec.setdefault("first_batch", time.time())
+        if inc == 0:
+            write_json(w / "half.json", {**rec, "rows": len(ix), "ticks": rt.stats.ticks, "wall": time.time()})
+            wait_until(lambda: (w / "go").exists(), "the phase's go", SB_TIMEOUT_S)
+            qid = 0
+            while True:  # the fault plan ends the process at the head of SB_KILL_TICK
+                ask(qs, [(qid, texts[0])])
+                qid += 1
+        rows = len(ix)
+        for i in plan["live"]:
+            t0, ticks = time.perf_counter(), rt.stats.ticks
+            write_batch_as_one_tick(rt, folder, docs, [i])
+            rows += plan["live_rows"][str(i)]
+            wait_until(lambda: len(ix) >= rows and rt.stats.ticks > ticks, "a live write's tick", SB_TIMEOUT_S)
+            rec.setdefault("live_write_s", []).append(time.perf_counter() - t0)
+        rec["index_rows"] = len(ix)
+        # the writer's own reads, their launches counted from here
+        bt.block_topk.launches = 0
+        bt.block_topk.shapes.clear()
+        qid = 1_000_000  # the query log persists: fresh keys per life
+        for j in range(SB_WRITER_B1):
+            ask(qs, [(qid, texts[j])])
+            qid += 1
+        for j in range(SB_WRITER_B16):
+            lo = SB_WRITER_B1 + 16 * j
+            ask(qs, [(qid + i, texts[lo + i]) for i in range(16)])
+            qid += 16
+        rec["launches"] = bt.block_topk.launches
+        rec["shapes"] = [[b, k, n] for (b, k), n in sorted(bt.block_topk.shapes.items())]
+        # a copied chunk is its own nearest row
+        mine = [q for q in replies if q >= 1_000_000]
+        rec["asked"], rec["self_top1"] = len(mine), sum(1 for q in mine if replies[q] == asked[q])
+        drv = rt.persistence_driver
+        rec["restored"] = {"restored_from_snapshot": bool(drv.restored_from_snapshot),
+                           "restore_s": drv.restore_seconds, "replay_s": drv.replay_seconds,
+                           "replayed_ticks": drv.replayed_ticks}
+        prep, _c2, valid = ix.corpus.prepared_arrays("cosine", bf16=False)
+        slot_key = sorted(ix.corpus.key_of.items())
+        np.savez(w / "writer_corpus.npz", prep=prep.cpu().numpy(), valid=valid.cpu().numpy(),
+                 slots=np.array([s_ for s_, _k in slot_key], dtype=np.int64),
+                 keys=np.array([k_ for _s, k_ in slot_key], dtype=np.uint64))
+        write_json(w / f"writer_inc{inc}.json", rec)
+        wait_until(lambda: (w / "STOP").exists(), "the phase's stop", SB_TIMEOUT_S)
+
+    class Feeder(pw.io.python.ConnectorSubject):
+        def run(self):
+            try:
+                feed(self)
+            except BaseException as e:  # noqa: BLE001 — reported after pw.run
+                failure.append(e)
+            finally:
+                parse_graph.G.runtime.stop()
+
+    emb = SentenceTransformerEmbedder(device=dev)
+    check(type(emb.tokenizer).__name__ == "HashingTokenizer", f"the writer's tokenizer is {emb.tokenizer!r}")
+    rec["embedder"] = time.time()
+    replied, cfg = persist_graph(folder, store, emb, Feeder(), dev)
+
+    def on_reply(key, row, time, is_addition):
+        if is_addition and row["qid"] not in replies:
+            res = row["result"].value
+            replies[row["qid"]] = res[0]["text"] if res else None
+
+    pw.io.subscribe(replied, on_change=on_reply)
+    rec["graph"] = time.time()
+    # the batches are the ticks: no autocommit wakes the loop in between
+    pw.run(persistence_config=cfg, autocommit_duration_ms=3_600_000)
+    if failure:
+        raise failure[0]
+    return 0
+
+
+def standby_replica(dump: str) -> int:
+    """(b)'s replica (``--standby-replica <npz>``): ``python -m
+    pathway_tpu_torch.serving.replica``'s main, run from this script so
+    that, when SIGTERM stops it, it writes the corpus it served (every
+    resident key, its slot, the rows and the valid mask) to ``dump``."""
+    from pathway_tpu_torch.serving import replica
+
+    stop = replica.ReplicaServer.stop
+
+    def stop_and_dump(self) -> None:
+        c = self.index.corpus
+        items = sorted(c.slot_of.items(), key=lambda kv: kv[1])
+        np.savez(dump, keys=np.array([k for k, _s in items], dtype=np.uint64),
+                 slots=np.array([s for _k, s in items], dtype=np.int64), host=c.host, valid=c.valid_host)
+        stop(self)
+
+    replica.ReplicaServer.stop = stop_and_dump
+    return replica.main()
+
+
+class _Probe:
+    """A client thread asking the replica one B = 1 read after another,
+    each with REPL_DEADLINE_MS, until stopped: (sent, done, status) each."""
+
+    def __init__(self, port: int, vec: np.ndarray):
+        self.port, self.body, self.got = port, {"vec": [float(x) for x in vec], "k": K}, []
+        self.halt = threading.Event()
+        self.thread = threading.Thread(target=self.run, daemon=True)
+        self.thread.start()
+
+    def run(self) -> None:
+        hdr = {"x-pathway-deadline-ms": str(REPL_DEADLINE_MS)}
+        while not self.halt.is_set():
+            t0 = time.time()
+            try:
+                status = http_json(self.port, "POST", "/query", self.body, hdr, timeout=REPL_DEADLINE_MS / 1e3)[0]
+            except OSError as e:
+                status = f"{type(e).__name__}"
+            self.got.append((t0, time.time(), status))
+            time.sleep(0.05)
+
+    def stop(self) -> list:
+        self.halt.set()
+        self.thread.join(timeout=REPL_DEADLINE_MS / 1e3 + 10)
+        return self.got
+
+
+def standby_takeover(dev, work: str, corpus: tuple, meanwhile=None) -> tuple[dict, dict]:
+    """(b) A standby writer takes over a live index. The writer
+    (``--standby-writer``, incarnation 0) is the persistence phase's graph
+    over SB_DOCS documents with the delta stream on a fixed
+    PATHWAY_REPL_PORT and PATHWAY_FAULTS=kill=tick:SB_KILL_TICK; ``python -m
+    pathway_tpu_torch.parallel.standby`` shadows its stream with the
+    writer's argv and PATHWAY_STANDBY_GRACE_MS=SB_GRACE_MS; a replica on the
+    card (``--standby-replica``) hydrates from the store and follows the
+    port. The writer ingests half the documents and dies at tick
+    SB_KILL_TICK; the standby respawns it under a 1-rank supervisor at
+    incarnation 1, which writes the rest and REPL_LIVE_WRITES new documents.
+    Checked: the takeover event and the respawn's incarnation; the death →
+    takeover within the grace + 1 s; the replica's corpus holds every chunk
+    once; REPL_ASKS B = 1 asks and a burst of 16 concurrent ones (the
+    replica's route takes one vector a request) equal the plain dense
+    top-10 over the writer's rows up to near ties within REPL_TOL; each
+    live document's chunk is rank 1 on the replica; every request during
+    the takeover got 200 or 503 inside REPL_DEADLINE_MS; the replica and the
+    respawned writer launched block_topk. ``meanwhile()``, when given, runs
+    on a thread from the first writer's start until before the kill (while
+    the writer ingests its first half and the replica hydrates); returns
+    ((the leg's figures, what ``meanwhile`` returned), the kernels'
+    corpora)."""
+    from pathway_tpu_torch.ops.knn import dense_topk, prepare_corpus
+    from pathway_tpu_torch.persistence.backends import FilesystemStore
+    from pathway_tpu_torch.serving.replica import hydrate_index_state
+
+    docs, chunks_of, upto = corpus
+    w = Path(work)
+    w.mkdir(parents=True)
+    folder, store = w / "docs", w / "store"
+    folder.mkdir()
+    rng = np.random.default_rng(SEED + 91)
+    live = [VS_DOCS + t * VS_LIVE_DOCS for t in range(REPL_LIVE_WRITES)]
+    n_texts = SB_WRITER_B1 + 16 * SB_WRITER_B16
+    texts = [chunks_of[int(d)][0] for d in rng.choice(SB_DOCS, size=n_texts, replace=False)]
+    (w / "plan.json").write_text(json.dumps({
+        "upto": [int(u) for u in upto[:SB_DOCS]], "texts": texts, "live": live,
+        "live_rows": {str(i): len(chunks_of[i]) for i in live}}))
+    want = expected_chunk_keys(str(folder), list(range(SB_DOCS)) + live, chunks_of)
+    check(len(want) == int(upto[SB_DOCS - 1]) + sum(len(chunks_of[i]) for i in live), "the host's chunk keys collide")
+    root = str(Path(__file__).resolve().parent)
+    repl_port, http_port = free_port(), free_port()
+    env = {k: v for k, v in os.environ.items()
+           if k not in MESH_ENV + REPL_ENV and k not in ("PATHWAY_FAULTS", "PATHWAY_MESH_INCARNATION")}
+    env.update(PYTHONPATH=os.pathsep.join([root] + [p for p in [os.environ.get("PYTHONPATH")] if p]),
+               PATHWAY_DCN_SECRET=os.urandom(16).hex(), PATHWAY_REPL_PORT=str(repl_port),
+               PATHWAY_REPLICA_DIM=str(DIM))
+    me = [sys.executable, str(Path(__file__).resolve())]
+    writer_argv = me + ["--standby-writer", str(w)]
+    procs: dict[str, subprocess.Popen] = {}
+    logs = {name: open(w / f"{name}.log", "w") for name in ("writer", "standby", "replica")}
+    probe = side = None
+    met: dict = {}
+    _now = time.perf_counter
+    wall0 = time.time()
+
+    def spawn(name: str, argv: list[str], extra: dict) -> None:
+        procs[name] = subprocess.Popen(argv, env={**env, **extra}, stdout=logs[name], stderr=subprocess.STDOUT,
+                                       cwd=root)
+
+    def log(name: str) -> str:
+        logs[name].flush()
+        return (w / f"{name}.log").read_text()
+
+    def alive(name: str) -> bool:
+        check(procs[name].poll() is None, f"the {name} exited {procs[name].returncode}: {log(name)[-3000:]}")
+        return True
+
+    def health() -> dict:
+        try:
+            return http_json(http_port, "GET", "/replica/health", timeout=5)[2]
+        except OSError:
+            return {}
+
+    def position() -> dict:
+        try:
+            return json.loads((w / "standby.json").read_text())
+        except (OSError, ValueError):
+            return {}
+
+    try:
+        t_phase = _now()
+        spawn("writer", writer_argv, {"PATHWAY_FAULTS": f"kill=tick:{SB_KILL_TICK}"})
+        if meanwhile is not None:
+            side = threading.Thread(target=lambda: met.update(value=meanwhile()), daemon=True)
+            side.start()
+        wait_until(lambda: alive("writer") and (w / "half.json").exists(), "the writer's first half", SB_TIMEOUT_S)
+        half = json.loads((w / "half.json").read_text())
+        check(half["rows"] == int(upto[SB_DOCS // 2 - 1]) and half["ticks"] == SB_DOCS // 2 // SB_COMMIT,
+              f"the writer's first half: {half}")
+        first_half_s = half["wall"] - wall0
+        wait_until(lambda: hydrate_index_state(FilesystemStore(str(store))) is not None,
+                   "the writer's first snapshot generation", 120)
+        spawn("standby", [sys.executable, "-m", "pathway_tpu_torch.parallel.standby", "--writer-port",
+                          str(repl_port), "--store-root", str(store), "--position-file", str(w / "standby.json"),
+                          "--", *writer_argv], {"PATHWAY_STANDBY_GRACE_MS": str(SB_GRACE_MS)})
+        t_replica = _now()
+        spawn("replica", me + ["--standby-replica", str(w / "replica_corpus.npz")],
+              {"PATHWAY_REPLICA_ID": "0", "PATHWAY_REPLICA_STORE": str(store),
+               "PATHWAY_REPLICA_HTTP_PORT": str(http_port), "PATHWAY_REPLICA_DEVICE": "cuda"})
+        # the standby's first contact (its position file) and the replica caught up
+        wait_until(lambda: alive("standby") and "STANDBY-READY" in log("standby") and position(),
+                   "the standby's first contact", 120)
+        wait_until(lambda: alive("replica") and health().get("ready") and
+                   health().get("corpus_docs") == half["rows"], "the replica caught up", 180)
+        replica_ready_s = _now() - t_replica
+        hydrate_s = [float(ln.split("=", 1)[1]) for ln in log("replica").splitlines()
+                     if ln.startswith("replica hydrate_s=")]
+        if side is not None:  # the kill waits for ``meanwhile``: the takeover runs alone
+            side.join()
+            check("value" in met, "the leg run meanwhile failed")
+        probe_vec = rng.standard_normal(DIM).astype(np.float32)
+        probe = _Probe(http_port, probe_vec / np.linalg.norm(probe_vec))
+        (w / "go").touch()
+        rc = procs["writer"].wait(timeout=SB_TIMEOUT_S)
+        check(rc == FAULT_EXIT, f"the writer exited {rc}, not by the fault plan: {log('writer')[-3000:]}")
+        died = json.loads((w / "writer_died.json").read_text())
+        # the standby forces its position file at the takeover: incarnation 1
+        wait_until(lambda: position().get("incarnation") == 1, "the standby's takeover", 60)
+        t_takeover = time.time()
+        inc1 = None
+        while inc1 is None:
+            h = health()
+            if h.get("writer_incarnation") == 1:
+                inc1 = time.time()
+            else:
+                check(time.time() - t_takeover < SB_TIMEOUT_S, "the replica never heard incarnation 1")
+                time.sleep(0.01)
+        caught = None
+        while caught is None:
+            h = health()
+            if h.get("writer_incarnation") == 1 and h.get("ready"):
+                caught = time.time()
+            else:
+                check(time.time() - inc1 < SB_TIMEOUT_S, f"the replica never caught up with incarnation 1: {h}")
+                time.sleep(0.01)
+        wait_until(lambda: alive("standby") and (w / "writer_inc1.json").exists(),
+                   "the respawned writer's record", SB_TIMEOUT_S)
+        wrec = json.loads((w / "writer_inc1.json").read_text())
+        wait_until(lambda: health().get("corpus_docs") == len(want) and health().get("ready"),
+                   "the replica holding every chunk", 120)
+        takeover_window = probe.stop()
+        probe = None
+        statuses = Counter(str(s) for _t0, _t1, s in takeover_window)
+        over = [r for r in takeover_window if (r[1] - r[0]) * 1e3 > REPL_DEADLINE_MS]
+        check(set(statuses) <= {"200", "503"} and not over,
+              f"during the takeover the replica answered {dict(statuses)}, {len(over)} past the deadline")
+        check(wrec["incarnation"] == 1 and wrec["restored"]["restored_from_snapshot"],
+              f"the respawned writer: {wrec}")
+        check(wrec["self_top1"] == wrec["asked"] == n_texts, f"the respawned writer's own reads: {wrec}")
+        check(wrec["launches"] == SB_WRITER_B1 + SB_WRITER_B16 and
+              sorted(map(tuple, wrec["shapes"])) == [(1, K, SB_WRITER_B1), (16, K, SB_WRITER_B16)],
+              f"the respawned writer launched block_topk {wrec['launches']} times at {wrec['shapes']}")
+        # the writer's final rows: what the replica must hold and answer from
+        wc = np.load(w / "writer_corpus.npz")
+        wprep, wvalid = torch.from_numpy(wc["prep"]).to(dev), torch.from_numpy(wc["valid"]).to(dev)
+        key_at = dict(zip(wc["slots"].tolist(), wc["keys"].tolist()))
+        check(set(key_at.values()) == set(want) and int(wc["valid"].sum()) == len(want),
+              "the respawned writer's index differs from the documents written")
+
+        def plain(qv: np.ndarray) -> list[tuple]:
+            s, ix = dense_topk(torch.from_numpy(np.atleast_2d(qv)).to(dev), wprep, wvalid, K, metric="cosine",
+                               bf16=False)
+            s, ix = (s.double() - 1.0).cpu().numpy(), ix.cpu().numpy()
+            return [tuple((key_at[int(j)], float(x)) for x, j in zip(sr, jr) if j >= 0) for sr, jr in zip(s, ix)]
+
+        def ask_replica(qv: np.ndarray) -> tuple:
+            status, _h, body = http_json(http_port, "POST", "/query", {"vec": [float(x) for x in qv], "k": K},
+                                         {"x-pathway-deadline-ms": str(REPL_DEADLINE_MS)})
+            check(status == 200, f"the replica answered {status}: {body}")
+            return tuple((int(a), float(b)) for a, b in body["matches"])
+
+        rows_live = np.flatnonzero(wc["valid"])
+        src = rng.choice(rows_live, size=REPL_ASKS + 16, replace=False)
+        qv = wc["prep"][src] + MESH_NOISE * rng.standard_normal((len(src), DIM)).astype(np.float32)
+        qv /= np.linalg.norm(qv, axis=1, keepdims=True)
+        want_top = plain(qv)
+        got_top = [ask_replica(q) for q in qv[:REPL_ASKS]]
+        burst: list = [None] * 16
+        threads = [threading.Thread(target=lambda j=j: burst.__setitem__(j, ask_replica(qv[REPL_ASKS + j])))
+                   for j in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=REPL_DEADLINE_MS / 1e3 + 10)
+        got_top += burst
+        for i, (g, p) in enumerate(zip(got_top, want_top)):
+            check(g is not None and same_up_to_near_ties(g, p, REPL_TOL), f"ask {i}: the replica {g[:3] if g else g}, "
+                                                                           f"plain {p[:3]}")
+        exact = sum(1 for g, p in zip(got_top, want_top) if [m[0] for m in g] == [m[0] for m in p])
+        # each live document's first chunk, asked by its own vector: rank 1
+        slot_of = {k_: s_ for s_, k_ in key_at.items()}
+        for i in live:
+            key = next(iter(expected_chunk_keys(str(folder), [i], chunks_of)))
+            top = ask_replica(wc["prep"][slot_of[key]])
+            check(top[0][0] == key, f"live document {i}'s chunk is not rank 1 on the replica: {top[:2]}")
+        kernels = http_json(http_port, "GET", "/replica/kernels")[2]
+        check(kernels["block_topk"] > 0, f"the replica never launched block_topk: {kernels}")
+        (w / "STOP").touch()
+        for name in ("replica", "standby"):
+            procs[name].send_signal(signal.SIGTERM)
+        for name in ("replica", "standby"):
+            procs[name].wait(timeout=120)
+        sb_log = log("standby")
+        check("[standby] takeover:" in sb_log and "resuming as incarnation 1" in sb_log,
+              f"the standby's events: {sb_log[-3000:]}")
+        check(procs["standby"].returncode == 0 and procs["replica"].returncode == 0,
+              f"the standby exited {procs['standby'].returncode}, the replica {procs['replica'].returncode}")
+        rd = np.load(w / "replica_corpus.npz")
+        rkeys = rd["keys"].tolist()
+        check(len(rkeys) == len(set(rkeys)) == int(rd["valid"].sum()) and set(rkeys) == set(want),
+              f"the replica's corpus: {len(rkeys)} keys, {int(rd['valid'].sum())} valid rows, "
+              f"{len(set(rkeys) ^ set(want))} keys off the documents' chunks")
+        detect_s = t_takeover - died["t"]
+        check(0 <= detect_s <= SB_GRACE_MS / 1e3 + 1.0,
+              f"the takeover came {detect_s:.3f} s after the writer's death (grace {SB_GRACE_MS} ms)")
+        phase = {
+            "docs": SB_DOCS, "chunks": len(want), "kill_tick": SB_KILL_TICK, "grace_ms": SB_GRACE_MS,
+            # the writer's start → its first half indexed (leg (a) ran meanwhile)
+            "writer_first_half_s": first_half_s, "writer_boot_s": {
+                f"inc{r['incarnation']}": {k: r[k] - r["start_wall"] for k in ("imported", "embedder", "graph",
+                                                                                  "feeding_wall", "first_batch")}
+                for r in (half, wrec)},
+            "replica_ready_s": replica_ready_s, "replica_hydrate_s": hydrate_s,
+            # the writer's injected death → the standby's position file at
+            # incarnation 1 (polled every 20 ms)
+            "takeover_detection_s": detect_s,
+            # → the replica's health naming incarnation 1 (the new writer's suback)
+            "takeover_to_first_delta_s": inc1 - t_takeover,
+            # the writer's death → the replica ready under incarnation 1
+            "replica_stale_window_s": caught - died["t"],
+            "restore_s": wrec["restored"]["restore_s"], "replay_s": wrec["restored"]["replay_s"],
+
+            "live_write_s": wrec["live_write_s"],
+            "takeover_window_requests": len(takeover_window), "takeover_window_statuses": dict(statuses),
+            "asks": len(got_top), "keys_equal_plain": exact, "replica_kernels": kernels,
+            "writer_launches": wrec["launches"], "writer_shapes": wrec["shapes"],
+            "replica_corpus_rows": int(rd["valid"].shape[0]),
+        }
+    finally:
+        if side is not None:
+            side.join()  # its own spawn's --timeout bounds it
+        if probe is not None:
+            probe.stop()
+        (w / "STOP").touch()
+        for p in procs.values():
+            if p.poll() is None:
+                p.send_signal(signal.SIGTERM)
+        for p in procs.values():
+            try:
+                p.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+        for f in logs.values():
+            f.close()
+    # the corpora the launches scanned: the writer's rows, and the
+    # replica's (its own capacity) from its dump
+    rprep, _c2 = prepare_corpus(torch.from_numpy(rd["host"]).to(dev), "cosine", bf16=False)
+    rvalid = torch.from_numpy(rd["valid"]).to(dev)
+    rshapes: Counter = Counter()
+    for shape, cnt in kernels["block_topk_by_shape"].items():
+        b, k = (int(x.split("=")[1]) for x in shape.split(","))
+        rshapes[(b, k)] += cnt
+    q16 = torch.from_numpy(qv[:16]).to(dev)
+    data = {
+        "writer": {"prep": wprep, "valid": wvalid, "queries": {1: q16[:1], 16: q16},
+                   "shapes": Counter({(b, k): n for b, k, n in wrec["shapes"]}), "launches": wrec["launches"]},
+        "replica": {"prep": rprep, "valid": rvalid, "queries": {b: q16[:b] for b, _k in rshapes},
+                    "shapes": rshapes, "launches": kernels["block_topk"]},
+    }
+    return (phase, met.get("value")), data
+
+
+def supervise(dev, smi: str, plain_rows: dict, corpus: tuple) -> tuple[dict, dict]:
+    """The group supervisor and the standby writer on the card
+    (``parallel/supervisor.py``, ``parallel/standby.py``, ``cli spawn
+    --supervise``): (a) supervised_group runs while (b) standby_takeover's
+    first writer ingests its first half and the replica hydrates (the one
+    host-bound, the other on the card); (b)'s kill waits for (a)."""
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="pw_supervise_")
+
+    def leg_a() -> dict:
+        t0 = time.perf_counter()
+        got = supervised_group(os.path.join(tmp, "a"), plain_rows)
+        got["leg_s"] = time.perf_counter() - t0
+        return got
+
+    try:
+        t0 = time.perf_counter()
+        (b, a), data = standby_takeover(dev, os.path.join(tmp, "b"), corpus, meanwhile=leg_a)
+        b["leg_s"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    phase = {
+        "phase": "supervise", "nvidia_smi": smi, "supervised_group": a, "standby": b,
+        "kernel_times": "block_topk at the respawned writer's and the replica's shapes: the kernels line's "
+                        "per_batch rows whose path starts with 'supervise'",
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    return phase, data
+
+
+# --- phase 21: kernel times ---------------------------------------------------
 
 
 def block_topk_shape_times(bs: int, k: int, q, path_launches: int, path: str, prep, valid, rate: float) -> dict:
@@ -8528,7 +9191,7 @@ def block_topk_shape_times(bs: int, k: int, q, path_launches: int, path: str, pr
 
 def kernel_times(main: dict, eng: dict, vs: dict, rest: dict, persist: dict, ik: dict, cc: dict,
                  lc: dict, wi: dict, cdc: dict, ct: dict, rep: dict, gen: dict, ob: dict, msh: dict,
-                 dcn_data: dict, rate: float, rate_src: str) -> list[dict]:
+                 dcn_data: dict, sup: dict, rate: float, rate_src: str) -> list[dict]:
 
     # (B, k, queries, launches of that shape on its path, path, its corpus)
     m_corpus, e_corpus = (main["prep"], main["valid"]), (eng["prep"], eng["valid"])
@@ -8603,6 +9266,13 @@ def kernel_times(main: dict, eng: dict, vs: dict, rest: dict, persist: dict, ik:
         for part, what in ((dcn_data["a"], f"dcn (sharded_topk_global, one rank's shard of {DCN_RANKS}, f32)"),
                            (dcn_data["c"], "dcn (the live index replicated on each rank, f32)"))
         for (b, k), n in sorted(part["shapes"].items())
+    ] + [
+        # the standby leg's reads: the respawned writer's own query ticks on
+        # its final corpus, and the replica's reads on its own rows
+        (b, k, part["queries"][b], n, what, (part["prep"], part["valid"]))
+        for part, what in ((sup["writer"], "supervise (the respawned writer, incarnation 1, f32)"),
+                           (sup["replica"], "supervise (the replica after the takeover, f32)"))
+        for (b, k), n in sorted(part["shapes"].items())
     ]
     per_batch = [block_topk_shape_times(bs, k, q, path_launches, path, prep, valid, rate)
                  for bs, k, q, path_launches, path, (prep, valid) in path_shapes]
@@ -8643,6 +9313,9 @@ def kernel_times(main: dict, eng: dict, vs: dict, rest: dict, persist: dict, ik:
         "dcn_launches": dcn_data["a"]["launches"] + dcn_data["c"]["launches"],
         "dcn_launches_by_shape": {f"{part} B={b},k={k}": n for part in ("a", "c")
                                   for (b, k), n in sorted(dcn_data[part]["shapes"].items())},
+        "supervise_launches": sup["writer"]["launches"] + sup["replica"]["launches"],
+        "supervise_launches_by_shape": {f"{part} B={b},k={k}": n for part in ("writer", "replica")
+                                        for (b, k), n in sorted(sup[part]["shapes"].items())},
         "max_abs_err": max(p["max_abs_err"] for p in per_batch),
         "ms": head["ms"],
         "plain_ms": head["plain_ms"],
@@ -8775,6 +9448,10 @@ def main() -> int:
         return persist_child(*sys.argv[2:5])
     if sys.argv[1:2] == ["--dcn-rank"]:
         return dcn_rank(sys.argv[2], sys.argv[3])
+    if sys.argv[1:2] == ["--standby-writer"]:
+        return standby_writer(sys.argv[2])
+    if sys.argv[1:2] == ["--standby-replica"]:
+        return standby_replica(sys.argv[2])
     dev = torch.device("cuda", 0)
     smi = nvidia_smi("name,power.limit")
 
@@ -8801,7 +9478,6 @@ def main() -> int:
     emit(phase)
     phase, persist_data = persistence(dev, smi, vs_phase, vs_data, corpus)
     emit(phase)
-    del corpus
     phase, ik_data = index_kinds(dev, smi, rate)
     emit(phase)
     cc_phase, cc_data = components(dev, smi)
@@ -8834,11 +9510,15 @@ def main() -> int:
     phase, mesh_data = mesh(dev, smi, rate, emb)
     emit(phase)
     del emb
-    phase, dcn_data = dcn(dev, smi, rate, mesh_data.pop("plain_rows"))
+    plain_rows = mesh_data.pop("plain_rows")
+    phase, dcn_data = dcn(dev, smi, rate, plain_rows)
     emit(phase)
+    phase, sup_data = supervise(dev, smi, plain_rows, corpus)
+    emit(phase)
+    del corpus, plain_rows
     kernels = kernel_times(main_data, engine_data, vs_data, rest_data, persist_data, ik_data, cc_data,
                            lc_data, wi_data, cdc_data, ct_data, repl_data, gen_data, ob_data, mesh_data,
-                           dcn_data, rate, rate_src) + [
+                           dcn_data, sup_data, rate, rate_src) + [
         paged_kernel_times(gen_data, repl_data, rate, rate_src)
     ]
     emit({"phase": "kernels", "kernels": kernels})

@@ -6,7 +6,6 @@ behaviour."""
 from __future__ import annotations
 
 MESH = "[mesh] (multi-process: elastic resizing and autoscale)"
-REPLICATION = "[replication] (parallel/standby.py and parallel/supervisor.py)"
 
 # root names of the reference the port lacks (subpackages), each with its item
 ROOT_NAMES = {"autoscale": MESH}

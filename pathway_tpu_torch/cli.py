@@ -15,8 +15,13 @@ default on cards, refuses two ranks on one card).
 
 Every child is started with ``subprocess`` (never forked), and a spawn that
 ends — normally, on a signal or on ``--timeout`` — kills the children still
-running. ``--supervise`` (the group supervisor) raises naming
-[replication].
+running. ``--supervise`` runs the group under the Phoenix Mesh restart
+supervisor (``parallel/supervisor.py``): a dead rank tears the group down
+and the whole group respawns, from the latest group-committed snapshot
+generation, up to ``--max-restarts`` times; each incarnation's ranks get
+their ``torch.distributed`` variables from the supervisor (one rule with
+:func:`rank_env`). ``--timeout`` and SIGTERM stop the supervisor, and with
+it every rank.
 """
 
 from __future__ import annotations
@@ -30,7 +35,7 @@ import sys
 import threading
 import time
 
-from pathway_tpu_torch._unported import REPLICATION, unported
+from pathway_tpu_torch.parallel.supervisor import GroupSupervisor, rank_vars
 
 
 def _env_base(args) -> dict:
@@ -57,19 +62,16 @@ def _env_base(args) -> dict:
     # the coordinator at PATHWAY_FIRST_PORT
     env.setdefault("MASTER_ADDR", "127.0.0.1")
     env.setdefault("MASTER_PORT", str(args.first_port))
-    env["WORLD_SIZE"] = str(n)
-    env["LOCAL_WORLD_SIZE"] = str(n)
     if args.backend:
         env["PATHWAY_DIST_BACKEND"] = args.backend
     return env
 
 
 def rank_env(env_base: dict, pid: int) -> dict:
-    """One rank's env: the group's plus its process id and ranks."""
+    """One rank's env: the group's plus its process id, ranks and world
+    size (``parallel.supervisor.rank_vars``, the supervisor's own rule)."""
     env = dict(env_base)
-    env["PATHWAY_PROCESS_ID"] = str(pid)
-    env["RANK"] = str(pid)
-    env["LOCAL_RANK"] = str(pid)
+    env.update(rank_vars(int(env_base["PATHWAY_PROCESSES"]), pid))
     return env
 
 
@@ -93,7 +95,7 @@ def _spawn(args, extra: list[str]) -> int:
         print("nothing to run", file=sys.stderr)
         return 2
     if getattr(args, "supervise", False):
-        raise unported("spawn --supervise (parallel/supervisor.py GroupSupervisor)", REPLICATION)
+        return _supervise(args, extra, env_base)
     procs: list[subprocess.Popen] = []
     deadline = time.monotonic() + args.timeout if args.timeout else None
 
@@ -125,6 +127,44 @@ def _spawn(args, extra: list[str]) -> int:
             signal.signal(signal.SIGTERM, old)
 
 
+def _supervise(args, extra: list[str], env_base: dict) -> int:
+    """Phoenix Mesh: run the group under the restart supervisor — a dead
+    rank tears the group down and the whole group respawns from the latest
+    group-committed snapshot generation, up to ``--max-restarts`` (else
+    PATHWAY_MESH_MAX_RESTARTS) times. The supervisor runs on a thread of
+    its own, so that ``--timeout`` and SIGTERM can stop it (and with it
+    every rank) from here."""
+    sup = GroupSupervisor(extra, args.processes, env=env_base, max_restarts=args.max_restarts)
+    rc: list[int] = []
+    runner = threading.Thread(target=lambda: rc.append(sup.run()), name="pw-spawn-supervisor")
+    deadline = time.monotonic() + args.timeout if args.timeout else None
+
+    def _halt() -> None:
+        sup.stop()
+        runner.join()
+
+    def _on_signal(signum, _frame):
+        _halt()
+        raise SystemExit(128 + signum)
+
+    main_thread = threading.current_thread() is threading.main_thread()
+    old = signal.signal(signal.SIGTERM, _on_signal) if main_thread else None
+    try:
+        runner.start()
+        while runner.is_alive():
+            if deadline is not None and time.monotonic() > deadline:
+                print(f"spawn: --timeout {args.timeout}s passed; stopping the supervised group", file=sys.stderr)
+                _halt()
+                return 124
+            runner.join(0.05)
+        return rc[0] if rc else 1
+    finally:
+        if runner.is_alive():
+            _halt()
+        if main_thread:
+            signal.signal(signal.SIGTERM, old)
+
+
 def _spawn_from_env(args, extra: list[str]) -> int:
     """`spawn-from-env` — read the spawn arguments from PATHWAY_SPAWN_ARGS
     (reference: cli.py spawn-from-env, used by container entrypoints)."""
@@ -142,8 +182,7 @@ def main(argv: list[str] | None = None) -> int:
     sp.add_argument(
         "--supervise",
         action="store_true",
-        help="restart the whole group on rank failure, up to --max-restarts times "
-        "(not ported: raises naming [replication])",
+        help="restart the whole group on rank failure (Phoenix Mesh), up to --max-restarts times",
     )
     sp.add_argument("--max-restarts", type=int, default=None)
     sp.add_argument("--record", action="store_true")

@@ -122,6 +122,9 @@ def _device_events(trace_path: str) -> int:
 
 
 _profile_lock = threading.Lock()
+# set while a capture's trace is on, from prof.start() to prof.stop(): work
+# meant to land in the trace starts once this is set, not at the lock
+_profile_tracing = threading.Event()
 
 
 def take_profile(
@@ -149,9 +152,11 @@ def take_profile(
 
         prof = torch.profiler.profile(activities=activities)
         prof.start()
+        _profile_tracing.set()
         try:
             time.sleep(seconds)
         finally:
+            _profile_tracing.clear()
             prof.stop()
         trace_path = os.path.join(logdir, TRACE_FILE)
         prof.export_chrome_trace(trace_path)

@@ -14,12 +14,12 @@ replication wire of the read plane (counterpart of ``pathway_tpu/parallel``).
   between engine processes (``HostMesh``, ``get_host_mesh``);
 * :mod:`~pathway_tpu_torch.parallel.distributed` — the device group on
   ``torch.distributed`` and ``sharded_topk_global``;
+* :mod:`~pathway_tpu_torch.parallel.supervisor` — ``GroupSupervisor``,
+  the whole-group restart of a process group (``cli spawn --supervise``);
+* :mod:`~pathway_tpu_torch.parallel.standby` — ``StandbyWriter``, the hot
+  takeover of the writer role;
 * :func:`exchange_topology` — the static exchange facts the Graph Doctor
   reads.
-
-The standby writer and the
-process-group supervisor (``parallel/standby.py``,
-``parallel/supervisor.py``) raise naming [replication].
 """
 
 from pathway_tpu_torch.parallel.collectives import (

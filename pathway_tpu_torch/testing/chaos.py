@@ -1,7 +1,7 @@
 """Shared helpers for chaos/recovery harnesses — the port's own copy of
 ``pathway_tpu/testing/chaos.py``. The two worker scripts run on the CPU
-(``CUDA_VISIBLE_DEVICES=""`` where the reference pins jax to the CPU); their
-supervised use needs ``parallel/supervisor.py`` ([replication]).
+(``CUDA_VISIBLE_DEVICES=""`` where the reference pins jax to the CPU), alone
+or under the group supervisor (``parallel/supervisor.py``).
 
 The kill/restart matrix in ``tests/test_distributed.py`` and the
 ``bench.py chaos_recovery`` tier drive the same shape of experiment: a

@@ -4,7 +4,8 @@
 what ``torch.distributed`` reads where the JAX package sets its ``JAX_*``
 variables; ``spawn-from-env`` reads its arguments from
 ``PATHWAY_SPAWN_ARGS``; ``--timeout`` kills the group; ``--supervise``
-raises naming [replication]; and a spawned group with
+restarts the whole group after a Fault Forge kill (and ``--timeout`` still
+kills every rank of a supervised group); and a spawned group with
 ``PATHWAY_JAX_DISTRIBUTED=1`` joins the gloo device group in ``pw.run``
 and folds to the JAX package's single-process wordcount."""
 
@@ -95,11 +96,75 @@ def test_spawn_exit_codes_and_timeout(tmp_path):
     assert not marker.exists()
 
 
-def test_spawn_supervise_raises_naming_replication():
+_SUPERVISED_RUN = worker(
+    """
+    import logging
+    logging.basicConfig(level=logging.WARNING)
+
+    class S(pw.Schema):
+        word: str
+
+    words_all = [f"w{i % 7}" for i in range(100)]
+    t = pw.debug.table_from_rows(S, [(w,) for i, w in enumerate(words_all) if i % N == PID])
+    r = t.groupby(t.word).reduce(t.word, count=pw.reducers.count())
+    out = {}
+
+    def on_change(key, row, time, is_addition):
+        if is_addition:
+            out[row["word"]] = row["count"]
+        elif out.get(row["word"]) == row["count"]:
+            del out[row["word"]]
+
+    pw.io.subscribe(r, on_change=on_change)
+    pw.run()
+    import torch.distributed as td
+    info = None  # the single-process reference run joins no group
+    if td.is_available() and td.is_initialized():
+        info = [os.environ["PATHWAY_MESH_INCARNATION"], td.get_world_size(), os.environ["WORLD_SIZE"],
+                os.environ["RANK"]]
+    sys.stdout.write("RESULT " + json.dumps([out, info]) + "\\n")  # one write: a shared stdout
+    sys.stdout.flush()
+    """
+)
+
+
+def test_spawn_supervise_restarts_the_group_after_a_fault_forge_kill(tmp_path):
+    """``spawn -n 2 --supervise --backend gloo`` with ``PATHWAY_FAULTS``
+    killing rank 1 at its first tick: rank 0 fail-stops, the supervisor
+    restarts the whole group once, incarnation 1 (no injected death) joins
+    the gloo device group again, and spawn exits 0 with the JAX package's
+    single-process wordcount."""
+    script = tmp_path / "wc.py"
+    script.write_text(_SUPERVISED_RUN)
+    env = {"PATHWAY_DCN_PORT": str(free_dcn_port(2)), "PATHWAY_DIST_DEVICE": "cpu", "PATHWAY_JAX_DISTRIBUTED": "1",
+           "PATHWAY_FAULTS": "kill=tick:1,pid:1", "PATHWAY_MESH_LIVENESS_TIMEOUT_MS": "5000"}
+    procs, outs = _cli(["spawn", "-n", "2", "--backend", "gloo", "--supervise", "--max-restarts", "1",
+                        "--first-port", str(free_dcn_port(1)), "--timeout", "150", "--", sys.executable,
+                        str(script)], env, timeout=200)
+    assert procs[0].returncode == 0, outs[0][-4000:]
+    assert "fault forge: injected death" in outs[0], outs[0][-4000:]
+    got = results(procs, outs)
+    # only incarnation 1 finished: one restart, both ranks in a group of 2
+    assert sorted(info for _out, info in got) == [["1", 2, "2", "0"], ["1", 2, "2", "1"]], got
+    merged = {**got[0][0], **got[1][0]}
+    single = results(*run_procs([([sys.executable, str(script)], {**os.environ, "PYTHONPATH": ROOT,
+                                                                    "PW_PKG": "pathway_tpu"})]))
+    assert merged == single[0][0]
+
+
+def test_spawn_supervise_timeout_kills_every_rank(tmp_path):
+    """Past ``--timeout`` a supervised group is stopped with its supervisor:
+    spawn exits 124 and no rank lives on."""
     from pathway_tpu_torch import cli
 
-    with pytest.raises(NotImplementedError, match=r"\[replication\]"):
-        cli.main(["spawn", "-n", "2", "--supervise", "--", "true"])
+    marker = tmp_path / "alive"
+    slow = f"import time, pathlib; time.sleep(60); pathlib.Path({str(marker)!r}).touch()"
+    t0 = time.monotonic()
+    assert cli.main(["spawn", "-n", "2", "--supervise", "--timeout", "2", "--", sys.executable, "-c", slow]) == 124
+    assert time.monotonic() - t0 < 30
+    time.sleep(0.5)
+    assert not marker.exists()
+    assert cli.main(["spawn", "-n", "2", "--supervise", "--", sys.executable, "-c", "pass"]) == 0
 
 
 _GROUP_RUN = worker(

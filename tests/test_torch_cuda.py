@@ -8,7 +8,10 @@ live documents of ``chip_smoke.wi_oracle``) and the CDC-fed index (a
 SQLite table streamed into ``TpuKnn``, its replies against the plain
 top-k over the table's rows after every transaction); the launch ledger's
 shared memory and split counts against what the built kernels launch with,
-and a ``/debug/profile`` capture of the card naming ``block_topk``'s kernel.
+a ``/debug/profile`` capture of the card naming ``block_topk``'s kernel, a
+supervised two-rank gloo group restarted on the card, and a standby
+writer's takeover followed by a replica that answers through
+``block_topk``.
 
 These tests need an NVIDIA card (marker ``cuda``) and skip without one. On
 the card they run without the JAX package, so this file imports no JAX and
@@ -1476,3 +1479,167 @@ def test_nccl_refuses_two_ranks_on_one_card(dev, monkeypatch):
     with pytest.raises(RuntimeError, match="NCCL refuses two ranks on one card"):
         dist.maybe_initialize(device="cuda")
     assert not dist.is_multiprocess()
+
+
+_SUPERVISED_RANK = """
+import json, os, sys
+import numpy as np
+import torch
+from pathway_tpu_torch.ops import block_topk as bt
+from pathway_tpu_torch.parallel import distributed as dist
+inc = int(os.environ["PATHWAY_MESH_INCARNATION"])
+assert dist.maybe_initialize(device="cuda")
+import torch.distributed as td
+pid = td.get_rank()
+if inc == 0 and pid == 1:
+    os._exit(23)  # dies after joining: rank 0's all-gather loses its peer
+g = np.random.default_rng(5)
+corpus = g.integers(-2, 3, size=(2 * 4096, 64)).astype(np.float32)
+q = g.integers(-2, 3, size=(3, 64)).astype(np.float32)
+valid = np.ones(2 * 4096, bool)
+lo, hi = pid * 4096, (pid + 1) * 4096
+sc, ix = dist.sharded_topk_global(q, corpus[lo:hi], valid[lo:hi], 10, metric="dot", bf16=False)
+# one write of the whole line: the ranks share spawn's stdout
+sys.stdout.write("RESULT " + json.dumps({"pid": pid, "inc": inc, "ids": ix.tolist(), "launches": bt.block_topk.launches,
+                                         "world": [os.environ["WORLD_SIZE"], os.environ["LOCAL_WORLD_SIZE"]]}) + "\\n")
+sys.stdout.flush()
+"""
+
+
+def test_supervised_two_gloo_ranks_on_one_card(dev, tmp_path):
+    """``spawn -n 2 --backend gloo --supervise`` on the card: rank 1 of
+    incarnation 0 dies after joining the device group; the supervisor
+    restarts the whole group, whose ranks rejoin the same rendezvous port
+    and each launch block_topk once on its shard; the merged ids equal the
+    plain dense top-k over the whole corpus; spawn exits 0."""
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from pathway_tpu_torch.ops.knn import dense_topk
+    from pathway_tpu_torch.testing.chaos import free_dcn_port
+
+    script = tmp_path / "rank.py"
+    script.write_text(_SUPERVISED_RANK)
+    root = Path(__file__).resolve().parent.parent
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    env = {**os.environ, "PYTHONPATH": str(root), "PATHWAY_DCN_PORT": str(free_dcn_port(2)),
+           "PATHWAY_DCN_TIMEOUT": "60"}
+    r = subprocess.run([sys.executable, "-m", "pathway_tpu_torch.cli", "spawn", "-n", "2", "--backend", "gloo",
+                        "--supervise", "--max-restarts", "1", "--first-port", str(port), "--timeout", "240", "--",
+                        sys.executable, str(script)], capture_output=True, text=True, timeout=300, env=env, cwd=root)
+    assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
+    got = [json.loads(ln[7:]) for ln in r.stdout.splitlines() if ln.startswith("RESULT ")]
+    assert sorted((x["inc"], x["pid"]) for x in got) == [(1, 0), (1, 1)], got
+    g = np.random.default_rng(5)
+    corpus = g.integers(-2, 3, size=(2 * 4096, 64)).astype(np.float32)
+    q = g.integers(-2, 3, size=(3, 64)).astype(np.float32)
+    valid = np.ones(2 * 4096, bool)
+    _sr, ir = dense_topk(torch.from_numpy(q).to(dev), torch.from_numpy(corpus).to(dev),
+                         torch.from_numpy(valid).to(dev), 10, metric="dot", bf16=False)
+    for x in got:
+        assert x["launches"] == 1 and x["world"] == ["2", "2"], x
+        assert x["ids"] == ir.cpu().tolist()
+
+
+def test_standby_takeover_replica_answers_through_block_topk(dev, monkeypatch):
+    """A standby shadows an in-process writer's delta stream; the writer
+    dies; the standby takes over at incarnation 1 and republishes the
+    corpus, plus one new row, on the same port; a replica process on the
+    card follows the new writer and answers every read through block_topk
+    with the keys and scores of block_topk_ref over the same rows (within
+    1e-5), the new row at rank 1 for its own vector."""
+    import http.client
+    import json
+    import time
+
+    from pathway_tpu_torch.engine.batch import DiffBatch
+    from pathway_tpu_torch.ops import block_topk as bt
+    from pathway_tpu_torch.ops.knn import _normalize, stable_topk
+    from pathway_tpu_torch.parallel.replicate import DeltaStreamServer
+    from pathway_tpu_torch.parallel.standby import StandbyWriter
+    from pathway_tpu_torch.testing.chaos import free_dcn_port
+
+    monkeypatch.setenv("PATHWAY_DCN_SECRET", "card-standby-test")
+    rng = np.random.default_rng(11)
+    n, d, k = 2000, 64, 5
+    vecs = rng.standard_normal((n + 1, d)).astype(np.float32)
+    keys = [20_000 + i for i in range(n + 1)]
+
+    def batch(rows):
+        return DiffBatch.from_rows([(keys[i], 1, (vecs[i], None)) for i in rows], ("_data", "_meta"))
+
+    port = free_dcn_port(1)
+    primary = DeltaStreamServer(port, incarnation=0)
+    primary.publish(0, [batch(range(n))])
+    taken: list = []
+
+    def on_takeover(standby):
+        srv = DeltaStreamServer(port, incarnation=standby.next_incarnation())
+        srv.set_floor(99)
+        srv.publish(100, [batch(range(n))])
+        taken.append(srv)
+
+    standby = StandbyWriter("127.0.0.1", port, on_takeover=on_takeover, grace_s=0.5, poll_s=0.05).start()
+    proc, http_port = _replica_child({"PATHWAY_REPL_PORT": str(port), "PATHWAY_REPLICA_DIM": str(d)})
+
+    def get(path):
+        conn = http.client.HTTPConnection("127.0.0.1", http_port, timeout=60)
+        conn.request("GET", path)
+        body = json.loads(conn.getresponse().read())
+        conn.close()
+        return body
+
+    def read(q):
+        conn = http.client.HTTPConnection("127.0.0.1", http_port, timeout=60)
+        conn.request("POST", "/query", json.dumps({"vec": q.tolist(), "k": k}), {"content-type": "application/json"})
+        resp = conn.getresponse()
+        body = json.loads(resp.read())
+        conn.close()
+        assert resp.status == 200, body
+        return body["matches"]
+
+    def until(pred, what, timeout=60.0):
+        deadline = time.monotonic() + timeout
+        while not pred():
+            assert time.monotonic() < deadline, what
+            time.sleep(0.05)
+
+    try:
+        until(lambda: standby.applied_tick == 0 and standby._client.connected, "the standby's first contact")
+        until(lambda: get("/replica/health")["corpus_docs"] == n, "the replica's corpus")
+        time.sleep(0.2)
+        primary.close()  # the writer dies
+        assert standby.wait_takeover(timeout=30) and standby.takeover_incarnation == 1
+        taken[0].publish(101, [batch([n])])
+        until(lambda: get("/replica/health")["writer_incarnation"] == 1 and
+              get("/replica/health")["corpus_docs"] == n + 1, "the replica following incarnation 1")
+        prep = torch.zeros(4096, d, device=dev)
+        prep[: n + 1] = _normalize(torch.from_numpy(vecs).to(dev))
+        valid = torch.zeros(4096, dtype=torch.bool, device=dev)
+        valid[: n + 1] = True
+        queries = np.concatenate([rng.standard_normal((5, d)).astype(np.float32), vecs[n:]])
+        sc, ix = bt.block_topk_ref(_normalize(torch.from_numpy(queries).to(dev)), prep, valid, k)
+        s, pos = stable_topk(sc.reshape(len(queries), -1), k)
+        idx = torch.gather(ix.reshape(len(queries), -1), 1, pos)
+        for qi, q in enumerate(queries):
+            got = read(q)
+            assert [m[0] for m in got] == [keys[int(j)] for j in idx[qi]]
+            assert np.allclose([m[1] for m in got], (s[qi].double() - 1.0).cpu().numpy(), atol=1e-5)
+        assert read(vecs[n])[0][0] == keys[n]
+        launched = get("/replica/kernels")
+        assert launched["block_topk_by_shape"] == {f"B=1,k={k}": len(queries) + 1}
+        assert get("/replica/health")["fenced_writers"] == 0
+    finally:
+        standby.stop()
+        proc.terminate()
+        proc.wait(timeout=60)
+        primary.close()
+        for srv in taken:
+            srv.close()

@@ -221,7 +221,12 @@ def test_take_profile_contract_on_the_cpu():
         time.sleep(0.01)
     with pytest.raises(RuntimeError, match="in progress"):
         debug.take_profile(0.1, device="cpu")
+    # the trace is on while the capture sleeps, and off once it returns
+    while not debug._profile_tracing.is_set() and time.time() < deadline:
+        time.sleep(0.001)
+    assert debug._profile_tracing.is_set()
     th.join(30)
+    assert not debug._profile_tracing.is_set()
     trace_dir = results["first"]
     with open(os.path.join(trace_dir, debug.SUMMARY_FILE)) as fh:
         summary = json.load(fh)

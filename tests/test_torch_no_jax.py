@@ -39,10 +39,11 @@ with them blocked. The Graph Doctor, the launch ledger, the debug surfaces,
 signals, fleet federation, the monitoring server and its dashboard import
 with ``pandas``, ``rich`` and ``bokeh`` blocked, and a monitored, diagnosed
 run serves its routes with them blocked. The multi-process engine (the host mesh, the device
-group, the DCN execs, ``spawn``, the chaos helpers) imports with pandas and
-the clients blocked, and a two-process group spawned through the CLI runs
-a groupby and a join and searches ``sharded_topk_global`` on gloo with
-them blocked in every rank. Without a card, an entry point left
+group, the DCN execs, ``spawn``, the chaos helpers, the group supervisor and
+the standby writer) imports with pandas and the clients blocked, and a
+two-process group spawned through the CLI runs a groupby and a join and
+searches ``sharded_topk_global`` on gloo with them blocked in every rank;
+so does a supervised group, in both of its incarnations. Without a card, an entry point left
 on its default device (compiled ticks included) raises instead of falling
 back to the CPU."""
 
@@ -1042,6 +1043,29 @@ def test_port_server_answers_with_aiohttp_and_requests_blocked():
     assert r.stdout.strip().endswith("ok")
 
 
+def test_supervised_group_runs_with_jax_pandas_and_clients_blocked(tmp_path):
+    """``spawn -n 2 --supervise``: incarnation 0's rank 1 dies by the fault
+    plan at its first tick, the supervisor restarts the group, and both
+    incarnations' ranks run with jax, pandas and the clients blocked."""
+    import os
+
+    from pathway_tpu_torch.testing.chaos import free_dcn_port
+
+    script = tmp_path / "rank.py"
+    script.write_text(_GROUP_RANK.format(blocked=BLOCKED_WITH_CLIENTS).replace(
+        'sys.stdout.write(f"RANK-OK', 'sys.stdout.write(f"INC-{os.environ[\'PATHWAY_MESH_INCARNATION\']} RANK-OK'))
+    env = {**os.environ, "PYTHONPATH": str(ROOT), "CUDA_VISIBLE_DEVICES": "", "PATHWAY_DCN_PORT": str(free_dcn_port(2)),
+           "PATHWAY_FAULTS": "kill=tick:1,pid:1", "PATHWAY_MESH_LIVENESS_TIMEOUT_MS": "5000"}
+    r = subprocess.run([sys.executable, "-m", "pathway_tpu_torch.cli", "spawn", "-n", "2", "--backend", "gloo",
+                        "--supervise", "--max-restarts", "1", "--first-port", str(free_dcn_port(1)),
+                        "--timeout", "200", "--", sys.executable, str(script)],
+                       cwd=ROOT, capture_output=True, text=True, timeout=240, env=env)
+    assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
+    assert "fault forge: injected death" in r.stderr, r.stderr[-3000:]
+    lines = [ln.split() for ln in r.stdout.splitlines() if "RANK-OK" in ln]
+    assert sorted(x[0] for x in lines) == ["INC-1", "INC-1"] and sum(int(x[2]) for x in lines) == 40, r.stdout
+
+
 @pytest.fixture(scope="module")
 def replication_imported_with_clients_blocked():
     r = _run(_IMPORT_EACH, blocked=BLOCKED_WITH_CLIENTS, mods=REPLICATION_MODULES)
@@ -1137,6 +1161,8 @@ MULTI_PROCESS_MODULES = [
     "pathway_tpu_torch.cli",
     "pathway_tpu_torch.testing.chaos",
     "pathway_tpu_torch.persistence._runtime_glue",
+    "pathway_tpu_torch.parallel.supervisor",
+    "pathway_tpu_torch.parallel.standby",
 ]
 
 

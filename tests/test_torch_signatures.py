@@ -101,9 +101,10 @@ def test_split_kv_store_takes_transfer_id_like_the_reference(tmp_path):
     assert results["torch"][1] == 8 and results["torch"][2] == 0
 
 
-# the replicated read plane: every ported class and function takes the
-# reference's parameters, in its order, with its defaults (the port adds
-# only ``device=``, to ``ReplicaServer``)
+# the replicated read plane, its group supervisor and its standby writer:
+# every ported class and function takes the reference's parameters, in its
+# order, with its defaults (the port adds only ``device=``, to
+# ``ReplicaServer``)
 PLANE = [
     ("parallel.replicate", "DeltaStreamServer"),
     ("parallel.replicate", "DeltaStreamClient"),
@@ -143,6 +144,13 @@ PLANE = [
     ("generate.scheduler", "generate_enabled_via_env"),
     ("persistence._runtime_glue", "state_key"),
     ("persistence._runtime_glue", "segment_key"),
+    # the group supervisor and the standby writer
+    ("parallel.supervisor", "GroupSupervisor"),
+    ("parallel.supervisor", "max_restarts_env"),
+    ("parallel.supervisor", "main"),
+    ("parallel.standby", "StandbyWriter"),
+    ("parallel.standby", "grace_env"),
+    ("parallel.standby", "main"),
 ]
 
 

@@ -1,9 +1,12 @@
 """Every reference hook the port does not carry yet raises
 ``NotImplementedError`` naming its ROADMAP tag, instead of running
-without it: the standby writer, the process-group supervisor and
-``spawn --supervise`` of replication, the elastic resizing and
-``/debug/autoscale`` (the autoscaler), each naming its tag. The
-multi-process engine runs now (the host mesh, the device group,
+without it: the elastic resizing and ``/debug/autoscale`` (the
+autoscaler) name [mesh]. The standby writer, the process-group
+supervisor and ``spawn --supervise`` run now (they raised [replication]
+until they were ported): the names resolve to the port's classes with the
+reference's signatures, and ``python -m
+pathway_tpu_torch.parallel.standby`` without a writer argv refuses as the
+reference's does. The multi-process engine runs now (the host mesh, the device group,
 ``spawn``, the chaos helpers resolve to the port's own modules, and a
 process group without its secret refuses to run unauthenticated); engine shards
 (``PATHWAY_ENGINE_SHARDS``) and ``TpuKnn(mesh=)`` run sharded now on the
@@ -92,6 +95,21 @@ def _run_sharded():
         mesh.reset_engine_mesh()
 
 
+def _standby_main_refuses():
+    """``standby.main([])`` with PATHWAY_REPL_PORT set: exit 2 and the
+    reference's message, in both packages."""
+    import contextlib
+    import io
+
+    got = []
+    for root in ("pathway_tpu", "pathway_tpu_torch"):
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            rc = importlib.import_module(f"{root}.parallel.standby").main([])
+        got.append((rc, err.getvalue()))
+    assert got[0] == got[1] == (2, "nothing to take over with (pass -- <writer argv>)\n"), got
+
+
 ENV_CASES = [
     # compiled ticks are ported ([compiled-ticks] is gone): they run on
     # PATHWAY_COMPILED_DEVICE, default cuda, which raises without a card
@@ -104,10 +122,10 @@ ENV_CASES = [
     # the DCN engine is ported: a group without PATHWAY_DCN_SECRET refuses
     # to run unauthenticated (the host mesh's own check)
     ({"PATHWAY_PROCESSES": "2"}, _run_simple, RuntimeError, r"PATHWAY_DCN_SECRET is not set"),
-    # the writer's delta stream is ported (PATHWAY_REPL_PORT arms it); the
-    # standby writer that takes over its port is not
-    ({"PATHWAY_REPL_PORT": "18765"}, lambda: importlib.import_module(
-        "pathway_tpu_torch.parallel.standby").main(), NotImplementedError, r"\[replication\]"),
+    # the writer's delta stream is ported (PATHWAY_REPL_PORT arms it), and so
+    # is the standby writer that takes over its port: without a writer argv
+    # it refuses (exit 2) with the reference's message
+    ({"PATHWAY_REPL_PORT": "18765"}, lambda: _standby_main_refuses(), None, None),
 ]
 
 
@@ -173,14 +191,13 @@ def test_multi_process_names_raise_naming_mesh(module, name):
 
 
 def test_cli_spawn_raises_naming_mesh():
-    """``spawn`` raised [mesh] until the multi-process engine was ported: it
-    runs a group now; ``--supervise`` (the group supervisor) raises naming
-    [replication]."""
+    """``spawn`` raised [mesh] until the multi-process engine was ported, and
+    ``--supervise`` raised [replication] until the group supervisor was:
+    both run a group now."""
     from pathway_tpu_torch import cli
 
     assert cli.main(["spawn", "-n", "2", "--", "true"]) == 0
-    with pytest.raises(NotImplementedError, match=r"\[replication\]"):
-        cli.main(["spawn", "-n", "2", "--supervise", "--", "true"])
+    assert cli.main(["spawn", "-n", "2", "--supervise", "--", "true"]) == 0
 
 
 def test_compiled_tick_off_or_unset_runs_the_interpreter(monkeypatch):
@@ -250,8 +267,9 @@ def test_unported_kind_raises(make, item):
 @pytest.mark.parametrize("name", ["ReplicaServer", "FailoverRouter", "ResultCache"])
 def test_replica_plane_names_raise(name):
     """The read plane's names resolve (lazily, as in the reference) to the
-    ported classes with the reference's signatures; what still raises
-    [replication] is the standby writer and the group supervisor."""
+    ported classes with the reference's signatures; so do the standby
+    writer's and the group supervisor's, which raised [replication] until
+    they were ported."""
     import pathway_tpu.serving as jax_serving
     import pathway_tpu_torch.serving as serving
 
@@ -261,9 +279,11 @@ def test_replica_plane_names_raise(name):
     for module, names in (("standby", ("StandbyWriter", "grace_env", "main")),
                           ("supervisor", ("GroupSupervisor", "max_restarts_env", "main"))):
         mod = importlib.import_module(f"pathway_tpu_torch.parallel.{module}")
-        for missing in names:
-            with pytest.raises(NotImplementedError, match=r"\[replication\]"):
-                getattr(mod, missing)
+        ref = importlib.import_module(f"pathway_tpu.parallel.{module}")
+        for ported in names:
+            got = getattr(mod, ported)
+            assert got.__module__ == f"pathway_tpu_torch.parallel.{module}"
+            assert _params(got) == _params(getattr(ref, ported)), ported
 
 
 def test_generate_route_raises():
