@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from csrc/ (nvcc, sm_90a, one process per
-source, all started together), then runs twenty-one phases, printing one JSON
+source, all started together), then runs twenty-two phases, printing one JSON
 object per phase:
 
 1. device         — nvidia-smi name/power limit, toolchain versions, build seconds.
@@ -382,9 +382,11 @@ object per phase:
                     after step 150 leaving a manifest. A scheduler restores
                     the store (pages bit-equal to the ledger, every sequence
                     completes with the generation phase's tokens, pool back to
-                    empty, launches == steps x layers); split_kv_store splits
-                    it across two stores whose schedulers resume every
-                    sequence exactly once; then one run with the hooks and no
+                    empty, launches == steps x layers); split_kv_store sends
+                    it over the segment ferry's wire to two FerryReceivers
+                    on 127.0.0.1 whose stores are the new owners', whose
+                    schedulers resume every sequence exactly once (launches
+                    == their steps x layers); then one run with the hooks and no
                     snapshots (step p50, tokens/s, the exposition, spans,
                     memory ledger and roofline checked against the run's own
                     counts) and one with a snapshot every 8 steps and one from
@@ -408,7 +410,7 @@ object per phase:
                     /debug/threads, /debug/signals, /debug/profile (block_topk's
                     kernel in a torch.profiler trace of the B = 16 burst; 409
                     for a concurrent capture, 400 for seconds=0),
-                    /debug/autoscale (501, [mesh]); pw.debug.diagnose names the
+                    /debug/autoscale (404: no controller armed); pw.debug.diagnose names the
                     embedder UDF's chain boundary; a faulty graph under
                     diagnostics="error" is refused before its first tick;
                     prove_lowering() proves every launch case but the two
@@ -502,7 +504,39 @@ object per phase:
                     writer launched block_topk. Prints the detection,
                     restart, takeover-to-first-delta, stale-window and
                     restore seconds.
-21. kernels       — per kernel and per path shape: launches on its path, ms
+21. elastic       — live resizing by the autoscaler; (a) runs on a thread
+                    while (b) runs on the card. (a) an in-process
+                    GroupSupervisor of two ranks of this script's --dcn-rank
+                    elastic (dcn (d)'s persisted pipeline at its depth,
+                    each rank its own CSV files); after the first 8
+                    commits, an AutoscaleController armed with
+                    arm_controller (a SupervisorActuator whose reshard is
+                    reshard_stores(old, new, via_wire=True)) is stepped
+                    under a surge and grows the group to three ranks; the
+                    last 8 commits feed all three. Checked: the journal's
+                    autoscale-decision, reshard-commit, group-resize and
+                    autoscale-applied in order and no rollback; every rank
+                    of incarnation 1 restored with 0 replayed events; the
+                    incarnation-major fold equals the mesh phase's
+                    unsharded rows; fewer bytes ferried than the stores
+                    hold, the moved rows' share within 0.05 of 2/3;
+                    /debug/autoscale 404 before arming, then 200 with the
+                    controller's status(). (b) a DeltaStreamServer
+                    publishes the vector store's 80,630 chunk vectors; two
+                    ReplicaServers on the card serve them behind a
+                    FailoverRouter; an AutoscaleController with a
+                    ServingPlaneActuator resizes the plane 1 -> 2 shards
+                    under a surge while a prober reads through the router.
+                    Checked: both old-map members fenced (config_error)
+                    before adopting; only 200 / 503 inside the deadline;
+                    every 200 of the transition, every two-shard answer
+                    and 64 B = 1 reads after the swap equal the plain
+                    top-10 up to near ties; a read is one block_topk
+                    launch a shard. Prints decision ->
+                    applied, the reshard's transfer and the pause
+                    seconds, bytes moved against the stores' bytes,
+                    decision -> swap, reply p50 at one and two shards.
+22. kernels       — per kernel and per path shape: launches on its path, ms
                     (CUDA events) and device ms (torch.profiler), its plain
                     version's ms, the bound and what sets it, the bytes it must
                     move, and the ms of the library call(s) computing the same
@@ -527,12 +561,15 @@ object per phase:
                     the dcn phase on a rank's shard (N = 524,288) and on a
                     rank's replicated index (N = 262,144), B = 1 and 16 of
                     the supervise phase's respawned writer and B = 1 of its
-                    replica, each on its own corpus; at every shape the
+                    replica, each on its own corpus, B = 1 of the elastic
+                    phase on a resharded replica's shard (N = 40,960); at
+                    every shape the
                     launch ledger's shared memory (analysis/lowering.py) must
                     equal what the built kernel launched with;
                     paged_attention: the
-                    recorded decode step and a long context, each with its
-                    split count S (and the replica's /generate launches).
+                    recorded decode step, the replica's /generate step, the
+                    ferried owners' first step and a long context, each
+                    with its split count S and its launches on its path.
 
 Then, on lines of their own, the kernels table, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failed check raises: the script exits
@@ -6193,10 +6230,10 @@ def replication(dev, smi: str, vs_data: dict) -> tuple[dict, dict]:
 class StepRecorder:
     """Wraps decoder.decode_step for one scheduler run: passes every call
     through, and keeps the inputs (and copies of the pools as they were
-    before the call) of the RECORD_STEP-th step."""
+    before the call) of the ``at``-th step (RECORD_STEP by default)."""
 
-    def __init__(self, dec):
-        self.dec, self.orig, self.calls, self.step = dec, dec.decode_step, 0, None
+    def __init__(self, dec, at: int = RECORD_STEP):
+        self.dec, self.orig, self.calls, self.step, self.at = dec, dec.decode_step, 0, None, at
 
     def __enter__(self):
         self.dec.decode_step = self
@@ -6207,7 +6244,7 @@ class StepRecorder:
 
     def __call__(self, params, tokens, positions, k_pool, v_pool, pt, sl, **kw):
         self.calls += 1
-        if self.calls == RECORD_STEP:
+        if self.calls == self.at:
             self.step = {
                 "params": params, "tokens": tokens.clone(), "positions": positions.clone(),
                 "k_pool": k_pool.clone(), "v_pool": v_pool.clone(), "pt": pt.clone(),
@@ -6587,9 +6624,11 @@ def series(text: str, name: str, **labels) -> float:
     )
 
 
-def durability(dev, gen: dict) -> dict:
+def durability(dev, gen: dict) -> tuple[dict, dict]:
     from pathway_tpu_torch import _build
+    from pathway_tpu_torch.elastic.ferry import FerryReceiver
     from pathway_tpu_torch.elastic.kv import split_kv_store
+    from pathway_tpu_torch.xpacks.llm import decoder as dec
     from pathway_tpu_torch.generate import DecodeScheduler, GenerateConfig, KvLedger
     from pathway_tpu_torch.observability import (
         REGISTRY,
@@ -6646,22 +6685,54 @@ def durability(dev, gen: dict) -> dict:
         finally:
             restored.stop()
 
-        # 3. resharding: two new owners resume every sequence exactly once
+        # 3. resharding over the segment ferry's wire: two FerryReceivers on
+        # 127.0.0.1 whose dest_dir are the new owners' store roots; the two
+        # owners resume every sequence exactly once
         owners = [str(tmp / "owner0"), str(tmp / "owner1")]
-        split = split_kv_store(str(store), owners)
-        with HeldRestore():
-            scheds = [
-                DecodeScheduler(replace(cfg, store_root=o), replica_label=f"owner{i}")
-                for i, o in enumerate(owners)
-            ]
+        saved_secret = os.environ.get("PATHWAY_DCN_SECRET")
+        os.environ["PATHWAY_DCN_SECRET"] = os.urandom(16).hex()
+        receivers = [FerryReceiver(o) for o in owners]
         try:
-            wait_finished(scheds, len(metas))
-            parts = [resumed_tokens(s, metas, index, gen, dev, near_ties) for s in scheds]
-            check(not (parts[0] & parts[1]) and parts[0] | parts[1] == set(metas), "resharding lost or doubled a sequence")
-            owner_steps = sum(s.stats()["decode_steps"] for s in scheds)
+            t0 = time.perf_counter()
+            split = split_kv_store(str(store), [(r.host, r.port) for r in receivers], transfer_id="durability")
+            split_s = time.perf_counter() - t0
         finally:
-            for s in scheds:
-                s.stop()
+            for r in receivers:
+                r.close()
+            if saved_secret is None:
+                os.environ.pop("PATHWAY_DCN_SECRET", None)
+            else:
+                os.environ["PATHWAY_DCN_SECRET"] = saved_secret
+        ferries = [d["ferry"] for d in split["destinations"]]
+        check(all(f is not None and f["committed"] for f in ferries), f"the ferried split did not commit: {ferries}")
+        check(split["bytes_ferried"] == sum(f["bytes_sent"] for f in ferries) > 0,
+              f"the ferried split sent {split['bytes_ferried']} bytes")
+        check(all(r.committed == [f"durability-p{i}"] for i, r in enumerate(receivers)),
+              "a receiver committed another transfer")
+        check(not any(os.listdir(os.path.join(o, ".ferry-staging")) for o in owners), "a ferry left staged blobs")
+        launches_before = pa.paged_attention.launches
+        owner_rec = StepRecorder(dec, at=1)  # the owners' first decode step
+        with owner_rec:
+            with HeldRestore():
+                scheds = [
+                    DecodeScheduler(replace(cfg, store_root=o), replica_label=f"owner{i}")
+                    for i, o in enumerate(owners)
+                ]
+            try:
+                check(sum(s.restored_seqs for s in scheds) == len(metas),
+                      f"the owners restored {[s.restored_seqs for s in scheds]} of {len(metas)}")
+                wait_finished(scheds, len(metas))
+                parts = [resumed_tokens(s, metas, index, gen, dev, near_ties) for s in scheds]
+                check(not (parts[0] & parts[1]) and parts[0] | parts[1] == set(metas),
+                      "resharding lost or doubled a sequence")
+                owner_steps = sum(s.stats()["decode_steps"] for s in scheds)
+                owner_launches = pa.paged_attention.launches - launches_before
+                check(owner_launches == owner_steps * cfg.n_layers,
+                      f"{owner_launches} launches over the owners' {owner_steps} steps")
+                check(owner_rec.step is not None, "no owner decode step was recorded")
+            finally:
+                for s in scheds:
+                    s.stop()
 
         # 4. the hooks without periodic snapshots, one snapshot from this
         # thread mid-run, and what the hooks report
@@ -6770,9 +6841,13 @@ def durability(dev, gen: dict) -> dict:
                 "restore_s": held.seconds[0], "decode_steps": restored_steps,
             },
             "reshard": {
+                "via": "split_kv_store to two FerryReceivers on 127.0.0.1",
                 "seqs_per_owner": [d["seqs"] for d in split["destinations"]],
                 "bytes_per_owner": [d["snapshot"]["bytes_written"] for d in split["destinations"]],
-                "decode_steps": owner_steps,
+                "bytes_ferried": split["bytes_ferried"],
+                "segments_ferried": [f["segments_sent"] for f in ferries],
+                "split_s": split_s,
+                "decode_steps": owner_steps, "paged_attention_launches": owner_launches,
             },
             "hooks_no_snapshots": {
                 "decode_steps": steps, "step_p50_ms": float(np.percentile(hooks_ms, 50)),
@@ -6805,7 +6880,7 @@ def durability(dev, gen: dict) -> dict:
             "tol": GEN_LOGIT_TOL,
             "peak_allocated_bytes": stats.get("allocated_bytes.all.peak"),
             "peak_reserved_bytes": stats.get("reserved_bytes.all.peak"),
-        }
+        }, {"owner_step": owner_rec.step, "owner_launches": owner_launches}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -7191,7 +7266,8 @@ def observability(dev, smi: str, vs_data: dict, emb) -> tuple[dict, dict]:
     check(status == 200 and sig["enabled"] and sig["signals"]["tick_ms"]["n"] > 0
           and sig["signals"]["knn_p50_ms"]["n"] > 0, f"/debug/signals rings: {sig.get('signals')}")
     status, body, _ms = record["/debug/autoscale"]
-    check(status == 501 and b"[mesh]" in body, f"/debug/autoscale answered {status} {body[:120]!r}")
+    check(status == 404 and body == b"no autoscale controller armed",
+          f"/debug/autoscale answered {status} {body[:120]!r}")
     prof = record["profile"]
     status, body, _ms = prof["first"]
     check(status == 200, f"/debug/profile answered {status}: {body[:200]!r}")
@@ -7970,16 +8046,25 @@ def dcn_engine(pw, out: str, pid: int, n: int, mode: str) -> dict:
     own (pw.io.csv streaming; the next file is written once the last one
     was ticked). Each batch the sink receives is appended to an .npy file
     (so a killed rank's output survives it). ``mode``: "b" plain; "kill"
-    and "resume" with persistence, the fault plan in the env."""
+    and "resume" with persistence, the fault plan in the env; "elastic"
+    (the elastic phase's (a)) with a snapshot every tick: incarnation 0 ticks
+    the first EL_HALF commits and then idles until the resize stops it,
+    incarnation 1 (the grown group) ticks the rest, this rank's 1/n of each,
+    and its sink file is the incarnation's own."""
     from pathway_tpu_torch.engine import dcn as dcn_mod
     from pathway_tpu_torch.engine.nodes import OutputNode
     from pathway_tpu_torch.internals import parse_graph
     from pathway_tpu_torch.parallel import host_exchange as hx
 
-    persist = mode in ("kill", "resume")
-    tag = "d" if persist else "b"
+    persist = mode in ("kill", "resume", "elastic")
+    tag = {"kill": "d", "resume": "d", "elastic": "e"}.get(mode, "b")
+    inc = int(os.environ.get("PATHWAY_MESH_INCARNATION", "0") or 0)
     s = mesh_rows(SEED + 73, MESH_ROWS, MESH_TICKS, MESH_KEYS, MESH_REVISIT)
     per = MESH_ROWS // MESH_TICKS
+    first, last = 0, MESH_TICKS
+    if mode == "elastic":
+        first, last = (0, EL_HALF) if inc == 0 else (EL_HALF, MESH_TICKS)
+        mode = f"elastic{inc}"
     in_dir = os.path.join(out, f"{tag}in{pid}")
     os.makedirs(in_dir, exist_ok=True)
     sink_path = os.path.join(out, f"{tag}out{pid}_{mode}.npy")
@@ -8014,7 +8099,7 @@ def dcn_engine(pw, out: str, pid: int, n: int, mode: str) -> dict:
                 time.sleep(0.01)
             rt = parse_graph.G.runtime
             g, v = s["g"], s["v"]
-            for t in range(MESH_TICKS):
+            for t in range(first, last):
                 path = os.path.join(in_dir, f"f{t:02d}.csv")
                 if os.path.exists(path):  # written before a restart
                     continue
@@ -8031,6 +8116,8 @@ def dcn_engine(pw, out: str, pid: int, n: int, mode: str) -> dict:
                 ticks0 = rt.stats.ticks
                 wait_until(lambda: rt.stats.ticks > ticks0, f"rank {pid} finishing the tick of {path}")
             open(os.path.join(out, f"done_{mode}_{pid}"), "w").close()
+            if mode == "elastic0":
+                return  # idle ticks until the resize stops the group
             # the group stops once every rank's rows are ticked: a stop is
             # group-coordinated, so no rank leaves before the others' rows
             wait_until(lambda: all(os.path.exists(os.path.join(out, f"done_{mode}_{p}")) for p in range(n)),
@@ -8045,7 +8132,7 @@ def dcn_engine(pw, out: str, pid: int, n: int, mode: str) -> dict:
     if persist:
         cfg = pw.persistence.Config.simple_config(
             pw.persistence.Backend.filesystem(os.path.join(out, f"pstore{pid}")),
-            snapshot_every=DCN_SNAPSHOT_EVERY)
+            snapshot_every=1 if tag == "e" else DCN_SNAPSHOT_EVERY)
     mesh = hx.get_host_mesh()
     detected: list = []
     mesh.add_failure_listener(lambda peer, reason: detected.append((peer, reason, time.time())))
@@ -8255,7 +8342,10 @@ def dcn_rank(out: str, mode: str) -> int:
     """One rank of the dcn phase, launched by ``python -m
     pathway_tpu_torch.cli spawn -n 2`` (``--dcn-rank <dir> <mode>``): mode
     "abc" runs (a), (b) and (c); "kill" and "resume" run (d)'s engine with
-    persistence. Writes ``rank<pid>_<mode>.json`` in ``<dir>``."""
+    persistence; "elastic" runs it under the elastic phase's in-process
+    GroupSupervisor, stopping gracefully on SIGTERM. Writes
+    ``rank<pid>_<mode>.json`` in ``<dir>`` (``rank<pid>_elastic<inc>.json``
+    for the elastic mode)."""
     # a supervised spawn's journal file is the supervisor's own: the ranks
     # keep theirs in memory
     os.environ.pop("PATHWAY_JOURNAL_PATH", None)
@@ -8276,7 +8366,16 @@ def dcn_rank(out: str, mode: str) -> int:
         t.daemon = True
         t.start()
 
-    signal.signal(signal.SIGTERM, fail_stop_grace)
+    def graceful(signum, _frame) -> None:
+        # the elastic phase's resize: stop at a tick boundary, the final
+        # commit snapshots, so the handoff cut covers the durable log
+        write_json(Path(out) / f"rank{pid}_sigterm{inc}.json", {"t": time.time()})
+        from pathway_tpu_torch.internals import parse_graph
+
+        if parse_graph.G.runtime is not None:
+            parse_graph.G.runtime.stop()
+
+    signal.signal(signal.SIGTERM, graceful if mode == "elastic" else fail_stop_grace)
     if mode == "abc":  # (d) is host work: its ranks never open a context on the card
         dev = dist.rank_device(int(os.environ.get("LOCAL_RANK", pid)), "cuda")
         torch.cuda.set_device(dev)
@@ -8296,6 +8395,8 @@ def dcn_rank(out: str, mode: str) -> int:
         rec["index"] = dcn_index(pw, out, dev, pid, n)
     else:
         rec["engine"] = dcn_engine(pw, out, pid, n, mode)
+    if mode == "elastic":
+        mode = f"elastic{inc}"
     with open(os.path.join(out, f"rank{pid}_{mode}.json"), "w") as f:
         json.dump(rec, f)
     return 0
@@ -8795,24 +8896,30 @@ def standby_replica(dump: str) -> int:
 
 
 class _Probe:
-    """A client thread asking the replica one B = 1 read after another,
-    each with REPL_DEADLINE_MS, until stopped: (sent, done, status) each."""
+    """A client thread asking B = 1 reads (k = K) one after another, each
+    with REPL_DEADLINE_MS, until stopped, cycling over the rows of
+    ``vecs``: (sent, done, status, row, matches, shards header) each."""
 
-    def __init__(self, port: int, vec: np.ndarray):
-        self.port, self.body, self.got = port, {"vec": [float(x) for x in vec], "k": K}, []
+    def __init__(self, port: int, vecs: np.ndarray):
+        self.port, self.vecs, self.got = port, np.atleast_2d(vecs), []
         self.halt = threading.Event()
         self.thread = threading.Thread(target=self.run, daemon=True)
         self.thread.start()
 
     def run(self) -> None:
         hdr = {"x-pathway-deadline-ms": str(REPL_DEADLINE_MS)}
+        i = 0
         while not self.halt.is_set():
+            qi = i % len(self.vecs)
+            body = {"vec": [float(x) for x in self.vecs[qi]], "k": K}
             t0 = time.time()
             try:
-                status = http_json(self.port, "POST", "/query", self.body, hdr, timeout=REPL_DEADLINE_MS / 1e3)[0]
+                status, h, data = http_json(self.port, "POST", "/query", body, hdr, timeout=REPL_DEADLINE_MS / 1e3)
+                got = data.get("matches") if status == 200 and isinstance(data, dict) else None
+                self.got.append((t0, time.time(), status, qi, got, h.get("x-pathway-shards")))
             except OSError as e:
-                status = f"{type(e).__name__}"
-            self.got.append((t0, time.time(), status))
+                self.got.append((t0, time.time(), f"{type(e).__name__}", qi, None, None))
+            i += 1
             time.sleep(0.05)
 
     def stop(self) -> list:
@@ -8965,7 +9072,7 @@ def standby_takeover(dev, work: str, corpus: tuple, meanwhile=None) -> tuple[dic
                    "the replica holding every chunk", 120)
         takeover_window = probe.stop()
         probe = None
-        statuses = Counter(str(s) for _t0, _t1, s in takeover_window)
+        statuses = Counter(str(r[2]) for r in takeover_window)
         over = [r for r in takeover_window if (r[1] - r[0]) * 1e3 > REPL_DEADLINE_MS]
         check(set(statuses) <= {"200", "503"} and not over,
               f"during the takeover the replica answered {dict(statuses)}, {len(over)} past the deadline")
@@ -9126,7 +9233,391 @@ def supervise(dev, smi: str, plain_rows: dict, corpus: tuple) -> tuple[dict, dic
     return phase, data
 
 
-# --- phase 21: kernel times ---------------------------------------------------
+# --- phase 21: elastic resizing and the autoscaler -----------------------------
+
+EL_HALF = MESH_TICKS // 2  # (a): the 2-rank incarnation's commits; the grown group ticks the rest
+EL_RANKS = DCN_RANKS + 1  # (a): the group after the resize
+EL_SHARDS = 2  # (b): the serving plane after the resize
+EL_COMMITS = 8  # (b): the writer's ticks publishing the corpus
+EL_READS = 64  # (b): sequential B = 1 reads before and after the resize
+EL_SURGE = 3.0  # the burn the phase's sampler reports: a surge
+EL_TIMEOUT_S = 600  # each wait's bound
+
+
+class Surge:
+    """A burn source behind the signal sampler's ``burn_rates()`` contract:
+    the phase sets ``burn``, the autoscale controller reads it."""
+
+    def __init__(self, burn: float | None = None):
+        self.burn = burn
+
+    def burn_rates(self) -> dict:
+        if self.burn is None:
+            return {}
+        return {"shed_rate": {"target": 0.01, "direction": "max", "window_avg": self.burn * 0.01,
+                              "burn": self.burn}}
+
+
+def surge_until_applied(ctrl, sampler: Surge, want: int) -> list[str]:
+    """Drive ``ctrl.step(now)`` on virtual seconds under a surge until it
+    resized to ``want`` (the up window is 2 s); returns the actions."""
+    sampler.burn = EL_SURGE
+    t0, actions = time.monotonic(), []
+    for i in range(10):
+        actions.append(ctrl.step(t0 + i).action)
+        if ctrl.ranks == want:
+            return actions
+    from pathway_tpu_torch.observability.journal import journal
+
+    why = [e["detail"] for e in journal().events(kinds=["autoscale-rollback", "group-resize-rollback"])]
+    raise AssertionError(f"the controller never resized to {want}: {actions}; {why}")
+
+
+def autoscale_events(from_ranks: int, to_ranks: int) -> list[dict]:
+    """This process's journal: one resize's autoscale and reshard events,
+    the supervisor's group events, in order."""
+    from pathway_tpu_torch.observability.journal import journal
+
+    out = []
+    for e in journal().events():
+        d = e["data"]
+        if e["kind"].startswith("autoscale-") and (d.get("from_ranks"), d.get("to_ranks")) != (from_ranks, to_ranks):
+            continue
+        if e["kind"].startswith("reshard-") and (d.get("n_old"), d.get("n_new")) != (from_ranks, to_ranks):
+            continue
+        if e["kind"].startswith(("autoscale-", "reshard-", "group-resize")):
+            out.append(e)
+    return out
+
+
+def elastic_group(out: str, plain_rows: dict, mon_port: int) -> dict:
+    """(a) dcn (d)'s persisted pipeline (MESH_ROWS rows over MESH_KEYS keys)
+    under an in-process GroupSupervisor of DCN_RANKS ranks of this script's
+    ``--dcn-rank <dir> elastic``, each rank with its own input files. Once
+    the first EL_HALF commits are durably processed, an AutoscaleController
+    armed with arm_controller (a SupervisorActuator whose reshard_for is
+    reshard_stores(old_roots, new_roots, via_wire=True)) is stepped under a
+    surge: it resizes the group to EL_RANKS ranks; the rest of the commits
+    then feed all three."""
+    from pathway_tpu_torch.autoscale import AutoscaleConfig, SupervisorActuator, arm_controller, reset_controller
+    from pathway_tpu_torch.elastic.mesh import reshard_stores
+    from pathway_tpu_torch.elastic.planner import moved_fraction
+    from pathway_tpu_torch.parallel.supervisor import GroupSupervisor
+    from pathway_tpu_torch.testing.chaos import free_dcn_port, wait_snapshot_covered
+
+    os.makedirs(out)
+    check(not any(os.environ.get(k) for k in MESH_ENV + ("PATHWAY_FAULTS",)), "an engine-mesh or fault variable is set")
+    roots = [os.path.join(out, f"pstore{p}") for p in range(EL_RANKS)]
+    root = Path(__file__).resolve().parent
+    # the job's secret (the phase's): the group's host mesh and the ferry
+    # between the old and the new stores in this process
+    env = {"PATHWAY_DCN_PORT": str(free_dcn_port(EL_RANKS)), "PATHWAY_DCN_SECRET": os.environ["PATHWAY_DCN_SECRET"],
+           "PYTHONPATH": os.pathsep.join([str(root)] + [p for p in [os.environ.get("PYTHONPATH")] if p])}
+    sup = GroupSupervisor([sys.executable, str(Path(__file__).resolve()), "--dcn-rank", out, "elastic"], DCN_RANKS,
+                          env=env, max_restarts=0, grace_s=120.0, log_dir=os.path.join(out, "logs"))
+    box: dict = {}
+    runner = threading.Thread(target=lambda: box.update(rc=sup.run()), daemon=True)
+    t0 = time.perf_counter()
+    runner.start()
+
+    def ranks_done(inc: int, n: int) -> None:
+        wait_until(lambda: all(os.path.exists(os.path.join(out, f"done_elastic{inc}_{p}")) for p in range(n))
+                   or not runner.is_alive(), f"incarnation {inc}'s commits", EL_TIMEOUT_S)
+        if not runner.is_alive():
+            logs = sorted(Path(out, "logs").glob("*.log"))
+            print("\n".join(f.read_text()[-3000:] for f in logs), file=sys.stderr)
+        check(runner.is_alive(), f"the supervised group ended early: {sup.events}")
+
+    reshard: dict = {}
+    try:
+        ranks_done(0, DCN_RANKS)
+        first_half_s = time.perf_counter() - t0
+        check(wait_snapshot_covered(roots[:DCN_RANKS], 120.0), "the first half is not snapshot-covered")
+
+        def reshard_for(old: int, new: int):
+            def run() -> dict:
+                reshard.update(reshard_stores(roots[:old], roots[:new], via_wire=True))
+                return reshard
+
+            return run
+
+        sampler = Surge()
+        ctrl = arm_controller(SupervisorActuator(sup, reshard_for, timeout_s=EL_TIMEOUT_S), ranks=DCN_RANKS,
+                              config=AutoscaleConfig(min_ranks=DCN_RANKS, max_ranks=EL_RANKS, up_window_s=2.0),
+                              sampler=sampler)
+        status, _h, before = http_json(mon_port, "GET", "/debug/autoscale")
+        check(status == 200 and before["armed"] and before["ranks"] == DCN_RANKS and before["actuator"] == "supervisor",
+              f"/debug/autoscale before the surge: {status} {before}")
+        actions = surge_until_applied(ctrl, sampler, EL_RANKS)
+        status, _h, after = http_json(mon_port, "GET", "/debug/autoscale")
+        want = ctrl.status()
+        check(status == 200 and {k: v for k, v in after.items() if k != "cooldown_remaining_s"}
+              == {k: v for k, v in want.items() if k != "cooldown_remaining_s"},
+              f"/debug/autoscale answered {status} {after}, the controller's status() is {want}")
+        ranks_done(1, EL_RANKS)
+        runner.join(EL_TIMEOUT_S)
+        check(not runner.is_alive() and box.get("rc") == 0, f"the grown group ended with {box.get('rc')}: {sup.events}")
+    finally:
+        reset_controller()
+        if runner.is_alive():
+            sup.stop()
+            runner.join(60)
+    spawn_s = time.perf_counter() - t0
+    kinds = [e["kind"] for e in autoscale_events(DCN_RANKS, EL_RANKS)]
+    check("group-resize-rollback" not in kinds and "autoscale-rollback" not in kinds, f"a rollback: {kinds}")
+    check(kinds.count("autoscale-decision") == kinds.count("autoscale-applied") == 1
+          and kinds.index("autoscale-decision") < kinds.index("reshard-commit") < kinds.index("group-resize")
+          < kinds.index("autoscale-applied"), f"the journal's resize events were {kinds}")
+    events = {e["kind"]: e for e in autoscale_events(DCN_RANKS, EL_RANKS)}
+    check([k for _t, k, _d in sup.events if k.startswith(("group-resize", "resize"))] == ["group-resize"],
+          f"the supervisor's events: {sup.events}")
+    res = []
+    for p in range(EL_RANKS):
+        with open(os.path.join(out, f"rank{p}_elastic1.json")) as f:
+            res.append(json.load(f))
+    for p, x in enumerate(res):
+        r = x["engine"]["restored"]
+        check(x["incarnation"] == 1 and r is not None and r["restored_from_snapshot"] and r["replayed_events"] == 0,
+              f"rank {p} of the grown group restored {r} in incarnation {x['incarnation']}")
+    paths = [os.path.join(out, f"eout{p}_elastic{inc}.npy") for inc, n in ((0, DCN_RANKS), (1, EL_RANKS))
+             for p in range(n)]
+    folded = dcn_fold(paths)  # incarnation-major: every inc-0 row precedes inc 1's
+    check(folded == plain_rows, "the resized group's folded outputs differ from the uninterrupted run's")
+    share = reshard["moved_rows"] / reshard["total_rows"]
+    want_share = moved_fraction(DCN_RANKS, EL_RANKS)
+    check(0 < reshard["bytes_ferried"] < reshard["bytes_total_segments"],
+          f"{reshard['bytes_ferried']} bytes ferried of {reshard['bytes_total_segments']}")
+    check(abs(share - want_share) <= 0.05, f"moved {share:.4f} of the rows, the plan moves {want_share:.4f}")
+    sigterm = []
+    for p in range(DCN_RANKS):
+        with open(os.path.join(out, f"rank{p}_sigterm0.json")) as f:
+            sigterm.append(json.load(f)["t"])
+    return {
+        "supervisor": f"GroupSupervisor({DCN_RANKS} ranks of --dcn-rank elastic) in this process",
+        "rows": MESH_ROWS, "keys": MESH_KEYS, "commits_before": EL_HALF, "commits_after": MESH_TICKS - EL_HALF,
+        "controller_actions": actions, "journal": kinds,
+        "decision_to_applied_s": events["autoscale-applied"]["data"]["seconds"],
+        "reshard_transfer_s": reshard["transfer_seconds"],
+        # the resize's SIGTERM -> the first tick of the grown group
+        "pause_s": min(x["engine"]["first_tick_wall"] for x in res) - min(sigterm),
+        "bytes_ferried": reshard["bytes_ferried"], "bytes_total_segments": reshard["bytes_total_segments"],
+        "moved_rows": reshard["moved_rows"], "total_rows": reshard["total_rows"], "moved_share": share,
+        "planned_moved_share": want_share, "segments": {k: reshard[k] for k in (
+            "segments_shipped_intact", "segments_split", "segments_kept")},
+        "ferry": [{k: f[k] for k in ("segments_sent", "bytes_sent")} for f in reshard["ferry"]],
+        "monolithic_carried": reshard["monolithic_carried"],
+        "restored": [x["engine"]["restored"] for x in res], "replayed_events": 0,
+        "folded_equal_uninterrupted": True, "debug_autoscale": {"status": 200, "ranks_after": after["ranks"]},
+        "first_half_s": first_half_s, "group_s": spawn_s,
+    }
+
+
+def serving_resize(dev, vs_data: dict) -> tuple[dict, dict]:
+    """(b) A DeltaStreamServer writer publishes the vector store phase's chunk
+    vectors (the replication phase's corpus) in EL_COMMITS ticks; two
+    ReplicaServers in this process on the card serve them behind a
+    FailoverRouter. An AutoscaleController with a ServingPlaneActuator
+    (adopt: each replica's adopt_shard_map(i, 2); members_for(2): one
+    replica a shard) resizes the plane 1 -> 2 shards under a surge while a
+    prober reads through the router; then the router scatter-gathers and a
+    read is one block_topk launch a shard."""
+    from pathway_tpu_torch.autoscale import AutoscaleConfig, AutoscaleController, ServingPlaneActuator
+    from pathway_tpu_torch.engine.batch import DiffBatch
+    from pathway_tpu_torch.observability.registry import MetricsRegistry
+    from pathway_tpu_torch.ops import block_topk as bt
+    from pathway_tpu_torch.parallel.replicate import DeltaStreamServer
+    from pathway_tpu_torch.serving.replica import ReplicaServer
+    from pathway_tpu_torch.serving.router import FailoverRouter
+    from pathway_tpu_torch.stdlib.indexing._index_impls import TpuDenseKnnIndex
+
+    corpus = vs_data["prep"][vs_data["valid"]].float()
+    n = corpus.shape[0]
+    keys = np.arange(1, n + 1, dtype=np.uint64)
+    vecs = corpus.cpu().numpy()
+    queries = torch.cat([vs_data["queries"][1], vs_data["queries"][16]]).float()
+    qn = queries / queries.norm(dim=1, keepdim=True)
+    # the plain top-10 over the whole corpus (cosine, the index's -(1 - cos) scores)
+    ps, pi = torch.topk(qn @ (corpus / corpus.norm(dim=1, keepdim=True)).T, K, dim=1)
+    plain = [tuple((int(keys[j]), float(sc) - 1.0) for j, sc in zip(row_i.tolist(), row_s.tolist()))
+             for row_i, row_s in zip(pi.cpu(), ps.cpu())]
+    qhost = queries.cpu().numpy()
+
+    def agrees(qi: int, matches) -> bool:
+        return matches is not None and same_up_to_near_ties(tuple((int(k), float(s)) for k, s in matches),
+                                                            plain[qi], REPL_TOL)
+
+    srv = router = None
+    replicas: list = []
+    try:
+        srv = DeltaStreamServer(0, ring_ticks=64, n_shards=1)
+        per = -(-n // EL_COMMITS)
+        t0 = time.perf_counter()
+        for t in range(EL_COMMITS):
+            lo, hi = t * per, min(n, (t + 1) * per)
+            data = np.empty(hi - lo, dtype=object)
+            data[:] = list(vecs[lo:hi])
+            srv.publish(t, [DiffBatch(keys[lo:hi], np.ones(hi - lo, np.int64),
+                                      {"_data": data, "_meta": np.full(hi - lo, None, dtype=object)})])
+        for i in range(EL_SHARDS):
+            replicas.append(ReplicaServer(replica_id=i, index_factory=lambda: TpuDenseKnnIndex(dimensions=DIM, device=dev),
+                                          writer_port=srv.port, dim=DIM, device=str(dev)).start())
+        wait_until(lambda: all(r.ready and len(r.index) == n for r in replicas), "the replicas' corpus", EL_TIMEOUT_S)
+        hydrate_s = time.perf_counter() - t0
+        urls = [f"http://127.0.0.1:{r.http_port}" for r in replicas]
+        router = FailoverRouter(urls, health_interval_ms=100, cache=None).start()
+
+        def reads(want_shards: str) -> tuple[list, Counter, Counter]:
+            """EL_READS sequential B = 1 reads through the router, each held
+            against the plain top-10; (ms each, launches by (B, k), by N)."""
+            shapes0, rows0 = bt.block_topk.shapes.copy(), bt.block_topk.corpus_rows.copy()
+            ms = []
+            for i in range(EL_READS):
+                qi = i % len(qhost)
+                t = time.perf_counter()
+                status, h, data = http_json(router.port, "POST", "/query",
+                                            {"vec": [float(x) for x in qhost[qi]], "k": K})
+                ms.append((time.perf_counter() - t) * 1e3)
+                # an unsharded router proxies the member's reply (no shards header)
+                check(status == 200 and h.get("x-pathway-shards", "1") == want_shards,
+                      f"a read answered {status} over {h.get('x-pathway-shards')} shard(s)")
+                check(agrees(qi, data["matches"]), f"read {i} differs from the plain top-10")
+            return ms, bt.block_topk.shapes - shapes0, bt.block_topk.corpus_rows - rows0
+
+        wait_until(lambda: http_json(router.port, "POST", "/query", {"vec": [float(x) for x in qhost[0]], "k": K})[0]
+                   == 200, "the router's first answer", 60)
+        before_ms, before_shapes, before_rows = reads("1")
+        check(sum(before_shapes.values()) == EL_READS and set(before_shapes) == {(1, K)},
+              f"the one-shard plane launched {dict(before_shapes)} for {EL_READS} reads")
+        fenced: list = []
+
+        def adopt(m: int) -> None:
+            # the old-map members fence themselves on the resharded stream
+            # (config_error) until they adopt their slot of the new map
+            for i, r in enumerate(replicas):
+                wait_until(lambda: r._client is not None and r._client.config_error is not None,
+                           f"replica {i} fencing the old map", 60)
+                fenced.append(r._client.config_error)
+                r.adopt_shard_map(i, m)
+
+        sampler = Surge()
+        ctrl = AutoscaleController(
+            ServingPlaneActuator(srv, router=router, members_for=lambda m: [[urls[i]] for i in range(m)],
+                                 adopt=adopt),
+            ranks=1, config=AutoscaleConfig(min_ranks=1, max_ranks=EL_SHARDS, up_window_s=2.0), sampler=sampler,
+            registry=MetricsRegistry())
+        prober = _Probe(router.port, qhost)
+        time.sleep(0.5)
+        t_decision = time.time()
+        actions = surge_until_applied(ctrl, sampler, EL_SHARDS)
+        t_swapped = time.time()
+        wait_until(lambda: all(r.ready and r.n_shards == EL_SHARDS for r in replicas), "the adopted replicas", 120)
+        wait_until(lambda: any(g[5] == str(EL_SHARDS) and g[2] == 200 for g in prober.got if g[0] > t_swapped),
+                   "a two-shard answer through the router", 60)
+        time.sleep(0.5)
+        probes = prober.stop()
+        after_ms, after_shapes, after_rows = reads(str(EL_SHARDS))
+    finally:
+        if router is not None:
+            router.stop()
+        for r in replicas:
+            r.stop()
+        if srv is not None:
+            srv.close()
+    check(len(fenced) == EL_SHARDS and all(f and "2 shard(s)" in f for f in fenced),
+          f"the old-map members fenced with {fenced}")
+    statuses = Counter(str(g[2]) for g in probes)
+    check(set(statuses) <= {"200", "503"}, f"the prober got {dict(statuses)}")
+    error_served = sum(1 for g in probes if g[2] not in (200, 429, 503))
+    late = [g for g in probes if g[1] - g[0] > REPL_DEADLINE_MS / 1e3]
+    check(error_served == 0 and not late, f"{error_served} errors served, {len(late)} replies past their deadline")
+    two_shard = [g for g in probes if g[0] > t_swapped and g[2] == 200 and g[5] == str(EL_SHARDS)]
+    check(two_shard and all(agrees(g[3], g[4]) for g in two_shard),
+          "a two-shard answer after the swap differs from the plain top-10")
+    transition = [g for g in probes if t_decision <= g[0] <= t_swapped and g[2] == 200]
+    # a member that adopted the new split refuses a read routed under the
+    # old map (503), so every 200 of the transition is the whole top-10
+    check(all(agrees(g[3], g[4]) for g in transition), "a transition reply differs from the plain top-10")
+    check(sum(after_shapes.values()) == EL_SHARDS * EL_READS and set(after_shapes) == {(1, K)}
+          and sum(after_rows.values()) == EL_SHARDS * EL_READS and len(after_rows) <= EL_SHARDS,
+          f"the two-shard plane launched {dict(after_shapes)} at N {dict(after_rows)} for {EL_READS} reads")
+    applied = [e for e in autoscale_events(1, EL_SHARDS) if e["kind"] == "autoscale-applied"]
+    check(len(applied) == 1, f"{len(applied)} serving resizes applied")
+    shard_rows = [(r.index.corpus.prepared_arrays("cosine", bf16=False), len(r.index)) for r in replicas]
+    check(sum(nr for _p, nr in shard_rows) == n, f"the shards hold {[nr for _p, nr in shard_rows]} of {n} rows")
+    (prep, _c2, valid), _nr = shard_rows[0]
+    phase = {
+        "writer": f"DeltaStreamServer, {n} x {DIM} f32 in {EL_COMMITS} ticks",
+        "replicas": f"{EL_SHARDS} ReplicaServers in this process on {dev}, behind one FailoverRouter",
+        "hydrate_s": hydrate_s, "controller_actions": actions,
+        "decision_to_swap_s": applied[0]["data"]["seconds"],
+        "fenced": fenced, "probes": dict(statuses), "error_served": 0,
+        "transition_200s": len(transition), "transition_200s_equal_plain": True,
+        "after_swap_two_shard_probes": len(two_shard),
+        "reply_p50_ms": {"one_shard": float(np.percentile(before_ms, 50)),
+                         "two_shards": float(np.percentile(after_ms, 50))},
+        "launches_by_shape": {"one_shard": {f"B={b},k={k}": c for (b, k), c in before_shapes.items()},
+                              "two_shards": {f"B={b},k={k}": c for (b, k), c in after_shapes.items()}},
+        "launches_by_corpus_rows": {"one_shard": dict(before_rows), "two_shards": dict(after_rows)},
+        "rows_per_shard": [nr for _p, nr in shard_rows],
+    }
+    q1 = queries[:1].to(prep.device)
+    return phase, {"prep": prep, "valid": valid, "shapes": Counter({(1, K): after_shapes[(1, K)]}),
+                   "queries": {1: q1}}
+
+
+def elastic(dev, smi: str, plain_rows: dict, vs_data: dict) -> tuple[dict, dict]:
+    """Live resizing by the autoscaler on the card (``elastic/``,
+    ``autoscale/``): (a) elastic_group runs on a thread (host work) while
+    (b) serving_resize runs on the card; a monitoring server in this process
+    answers /debug/autoscale for (a)'s armed controller."""
+    from pathway_tpu_torch.internals.monitoring_server import start_http_server
+    from pathway_tpu_torch.observability.signals import reset_sampler
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="pw_elastic_")
+    # one job secret for both legs: the delta stream, the group and the ferry
+    saved = os.environ.get("PATHWAY_DCN_SECRET")
+    os.environ["PATHWAY_DCN_SECRET"] = os.urandom(16).hex()
+    mon = start_http_server(port=0)
+    box: dict = {}
+
+    def leg_a() -> None:
+        t0 = time.perf_counter()
+        try:
+            box["a"] = elastic_group(os.path.join(tmp, "a"), plain_rows, mon.server_address[1])
+            box["a"]["leg_s"] = time.perf_counter() - t0
+        except BaseException as e:  # noqa: BLE001 — re-raised on the phase's thread
+            box["error"] = e
+
+    runner = threading.Thread(target=leg_a, daemon=True)
+    try:
+        status, _h, body = http_json(mon.server_address[1], "GET", "/debug/autoscale")
+        check(status == 404, f"/debug/autoscale answered {status} {body!r} before a controller was armed")
+        runner.start()
+        t0 = time.perf_counter()
+        b, data = serving_resize(dev, vs_data)
+        b["leg_s"] = time.perf_counter() - t0
+        runner.join(EL_TIMEOUT_S * 3)
+        check(not runner.is_alive(), "the mesh plane's leg did not finish")
+        if "error" in box:
+            raise box["error"]
+    finally:
+        mon.shutdown()
+        reset_sampler()
+        shutil.rmtree(tmp, ignore_errors=True)
+        if saved is None:
+            os.environ.pop("PATHWAY_DCN_SECRET", None)
+        else:
+            os.environ["PATHWAY_DCN_SECRET"] = saved
+    phase = {"phase": "elastic", "nvidia_smi": smi, "mesh_plane": box["a"], "serving_plane": b,
+             "kernel_times": "block_topk at a resharded replica's shape: the kernels line's per_batch row whose "
+                             "path starts with 'elastic'; paged_attention at the ferried owners' first decode "
+                             "step: the per_shape row 'ferried owners'",
+             "phase_s": time.perf_counter() - t_phase}
+    return phase, data
+
+
+# --- phase 22: kernel times ---------------------------------------------------
 
 
 def block_topk_shape_times(bs: int, k: int, q, path_launches: int, path: str, prep, valid, rate: float) -> dict:
@@ -9191,7 +9682,7 @@ def block_topk_shape_times(bs: int, k: int, q, path_launches: int, path: str, pr
 
 def kernel_times(main: dict, eng: dict, vs: dict, rest: dict, persist: dict, ik: dict, cc: dict,
                  lc: dict, wi: dict, cdc: dict, ct: dict, rep: dict, gen: dict, ob: dict, msh: dict,
-                 dcn_data: dict, sup: dict, rate: float, rate_src: str) -> list[dict]:
+                 dcn_data: dict, sup: dict, el: dict, rate: float, rate_src: str) -> list[dict]:
 
     # (B, k, queries, launches of that shape on its path, path, its corpus)
     m_corpus, e_corpus = (main["prep"], main["valid"]), (eng["prep"], eng["valid"])
@@ -9273,6 +9764,13 @@ def kernel_times(main: dict, eng: dict, vs: dict, rest: dict, persist: dict, ik:
         for part, what in ((sup["writer"], "supervise (the respawned writer, incarnation 1, f32)"),
                            (sup["replica"], "supervise (the replica after the takeover, f32)"))
         for (b, k), n in sorted(part["shapes"].items())
+    ] + [
+        # the serving plane resized 1 -> 2 shards: a read is one launch on
+        # each replica's shard (shard 0's corpus here; the two are the same
+        # shape up to a block)
+        (b, k, el["queries"][b], n, f"elastic (one shard of {EL_SHARDS} after the resize, f32)",
+         (el["prep"], el["valid"]))
+        for (b, k), n in sorted(el["shapes"].items())
     ]
     per_batch = [block_topk_shape_times(bs, k, q, path_launches, path, prep, valid, rate)
                  for bs, k, q, path_launches, path, (prep, valid) in path_shapes]
@@ -9316,6 +9814,8 @@ def kernel_times(main: dict, eng: dict, vs: dict, rest: dict, persist: dict, ik:
         "supervise_launches": sup["writer"]["launches"] + sup["replica"]["launches"],
         "supervise_launches_by_shape": {f"{part} B={b},k={k}": n for part in ("writer", "replica")
                                         for (b, k), n in sorted(sup[part]["shapes"].items())},
+        "elastic_launches": sum(el["shapes"].values()),
+        "elastic_launches_by_shape": {f"B={b},k={k}": n for (b, k), n in sorted(el["shapes"].items())},
         "max_abs_err": max(p["max_abs_err"] for p in per_batch),
         "ms": head["ms"],
         "plain_ms": head["plain_ms"],
@@ -9384,12 +9884,18 @@ def paged_shape_times(label: str, q, k, v, pt, sl, sm_scale: float, rate: float)
     }
 
 
-def paged_kernel_times(gen: dict, rep: dict, rate: float, rate_src: str) -> dict:
+def paged_kernel_times(gen: dict, rep: dict, dur: dict, rate: float, rate_src: str) -> dict:
     q, k, v, pt, sl = layer_inputs(gen["step"])
     shapes = [paged_shape_times("main path (recorded step, layer 0)", q, k, v, pt, sl, 1.0, rate)]
+    shapes[-1]["launches"] = gen["launches"]
     # /generate on replica 1: the same asks' decode step, recorded in process
     shapes.append(paged_shape_times("/generate on a replica (recorded step, layer 0)",
                                     *layer_inputs(rep["generate_step"]), 1.0, rate))
+    shapes[-1]["launches"] = rep["paged_launches"]
+    # the durability phase's owners after the ferried split: their first step
+    shapes.append(paged_shape_times("ferried owners (first decode step, layer 0)",
+                                    *layer_inputs(dur["owner_step"]), 1.0, rate))
+    shapes[-1]["launches"] = dur["owner_launches"]
     # long context: 32 sequences of 2048 tokens over 4096 scattered pages
     dev = q.device
     g = torch.Generator(device=dev).manual_seed(SEED + 5)
@@ -9409,6 +9915,7 @@ def paged_kernel_times(gen: dict, rep: dict, rate: float, rate_src: str) -> dict
         "replaces": "pathway_tpu/ops/paged_attention.py:118",
         "launches": gen["launches"],
         "replication_launches": rep["paged_launches"],
+        "ferried_owners_launches": dur["owner_launches"],
         "max_abs_err": max(s["max_abs_err"] for s in shapes),
         "ms": head["ms"],
         "plain_ms": head["plain_ms"],
@@ -9503,7 +10010,8 @@ def main() -> int:
     emit(phase)
     phase, gen_data = generation(dev, main_data)
     emit(phase)
-    emit(durability(dev, gen_data))
+    phase, dur_data = durability(dev, gen_data)
+    emit(phase)
     emb = ct_data.pop("embedder")
     phase, ob_data = observability(dev, smi, vs_data, emb)
     emit(phase)
@@ -9515,11 +10023,14 @@ def main() -> int:
     emit(phase)
     phase, sup_data = supervise(dev, smi, plain_rows, corpus)
     emit(phase)
-    del corpus, plain_rows
+    del corpus
+    phase, el_data = elastic(dev, smi, plain_rows, vs_data)
+    emit(phase)
+    del plain_rows
     kernels = kernel_times(main_data, engine_data, vs_data, rest_data, persist_data, ik_data, cc_data,
                            lc_data, wi_data, cdc_data, ct_data, repl_data, gen_data, ob_data, mesh_data,
-                           dcn_data, sup_data, rate, rate_src) + [
-        paged_kernel_times(gen_data, repl_data, rate, rate_src)
+                           dcn_data, sup_data, el_data, rate, rate_src) + [
+        paged_kernel_times(gen_data, repl_data, dur_data, rate, rate_src)
     ]
     emit({"phase": "kernels", "kernels": kernels})
     detail = ("per_batch", "per_shape")

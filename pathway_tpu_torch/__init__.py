@@ -16,8 +16,9 @@ behaviors and interval/asof/window joins, ``.dt``, ``pw.ordered``,
 ``pw.stateful`` and ``pw.statistical``),
 live-RAG retrieval (embedder UDF → ``DataIndex`` → dense top-k, or the
 IVF, LSH, BM25 and hybrid indexes; ``pw.stdlib.ml.KNNIndex`` with the kNN
-classifiers, LSH clustering, the fuzzy join, ``hmm`` and ``datasets``), and
-generation serving.
+classifiers, LSH clustering, the fuzzy join, ``hmm`` and ``datasets``),
+generation serving, and the multi-process plane (the host mesh, the group
+supervisor, live resizing through ``elastic`` and ``pw.autoscale``).
 
 Modules keep the JAX package's paths and public names so each counterpart is
 easy to find. The package imports neither ``jax`` nor ``pandas`` nor
@@ -25,9 +26,7 @@ anything of ``pathway_tpu``: what it needs from the framework-neutral layers
 it keeps as its own copy. Importing it does not initialise CUDA.
 
 Entry points take ``device=`` and default to ``"cuda"``; without a card they
-raise unless the caller passes ``device="cpu"`` explicitly. A reference
-feature that is not ported raises ``NotImplementedError`` naming its
-``ROADMAP.md`` tag (``_unported.py``).
+raise unless the caller passes ``device="cpu"`` explicitly.
 """
 
 from __future__ import annotations
@@ -35,7 +34,6 @@ from __future__ import annotations
 import pathway_tpu_torch.reducers as reducers
 from pathway_tpu_torch import debug, demo, io, udfs
 from pathway_tpu_torch._device import resolve_device
-from pathway_tpu_torch._unported import ROOT_NAMES, unported
 from pathway_tpu_torch.internals import (
     UDF,
     ColumnExpression,
@@ -118,8 +116,7 @@ from pathway_tpu_torch.stdlib.utils.pandas_transformer import pandas_transformer
 
 def __getattr__(name: str):
     # stdlib subpackages load lazily, as in the reference; Duration builds
-    # (and imports pandas) only when asked for; a reference root name the
-    # port lacks raises naming its ROADMAP item
+    # (and imports pandas) only when asked for
     import importlib
 
     if name == "Duration":
@@ -128,10 +125,8 @@ def __getattr__(name: str):
         return datetime_types.Duration
     if name in importlib.import_module("pathway_tpu_torch.stdlib").__all__:
         module = importlib.import_module(f"pathway_tpu_torch.stdlib.{name}")
-    elif name in ("stdlib", "xpacks", "analysis"):
+    elif name in ("stdlib", "xpacks", "analysis", "autoscale"):
         module = importlib.import_module(f"pathway_tpu_torch.{name}")
-    elif name in ROOT_NAMES:
-        raise unported(f"pw.{name}", ROOT_NAMES[name])
     else:
         raise AttributeError(name)
     globals()[name] = module

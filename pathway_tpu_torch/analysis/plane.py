@@ -368,7 +368,7 @@ def tickscope_coverage(facts: GraphFacts) -> Iterable[Diagnostic]:
 
 # ---------------------------------------------------------------------------
 # autoscale coverage (Flux Pilot — planes that CAN resize but nothing is
-# watching)
+# watching, and controllers armed with nothing to watch)
 
 
 @plane_rule("autoscale-coverage")
@@ -378,28 +378,63 @@ def autoscale_coverage(facts: GraphFacts) -> Iterable[Diagnostic]:
     WARNING when the plane is resizable (a sharded serving fabric is
     declared, or the graph holds reshard-capable stateful execs) but no
     Flux Pilot controller is armed: every surge is a page, not an
-    actuation.  The port has no autoscaler ([mesh]), so no controller is
-    ever armed here: the reference's findings about an armed controller
-    (no SLO target, pinned rank band) cannot arise."""
+    actuation.  WARNING when a controller IS armed but not one
+    ``PATHWAY_SLO_*`` target is set — its burn input is permanently
+    None and the policy holds forever.  INFO when the controller is
+    pinned (min_ranks == max_ranks): valid for a canary, but the loop
+    can never act."""
     import os
 
+    from pathway_tpu_torch.autoscale import get_controller
     from pathway_tpu_torch.elastic.planner import reshard_capable
+    from pathway_tpu_torch.observability.signals import slo_targets
 
+    ctrl = get_controller()
     resizable = bool(os.environ.get("PATHWAY_SERVING_SHARD_MAP", "").strip())
     if not resizable:
         resizable = any(
             getattr(node, "is_stateful", False) and reshard_capable(node)
             for node in facts.order
         )
-    if resizable:
+    if resizable and ctrl is None:
         yield Diagnostic(
             "autoscale-coverage",
             Severity.WARNING,
             "the plane is resizable (reshard-capable state or a sharded "
             "serving fabric) but no Flux Pilot controller is armed: "
             "SLO burns page a human instead of actuating a resize",
-            fix_hint="accept manual resizes and suppress this finding; "
-            "the autoscaler (autoscale.arm_controller) is not ported "
-            "([mesh])",
+            fix_hint="arm one with pathway_tpu_torch.autoscale.arm_controller"
+            "(actuator, ranks=N, start=True) — or accept manual "
+            "resizes and suppress this finding",
             data={"controller": None},
         )
+    if ctrl is not None:
+        targets = slo_targets()
+        if not targets:
+            yield Diagnostic(
+                "autoscale-coverage",
+                Severity.WARNING,
+                "a Flux Pilot controller is armed but zero PATHWAY_SLO_* "
+                "targets are set: its burn input is permanently None, "
+                "so the policy holds forever and the loop is inert",
+                fix_hint="declare at least one SLO target (e.g. "
+                "PATHWAY_SLO_SHED_RATE=0.01) so the sampler produces "
+                "burn rates the policy can act on",
+                data={"slo_targets": 0},
+            )
+        cfg = ctrl.policy.config
+        if cfg.min_ranks == cfg.max_ranks:
+            yield Diagnostic(
+                "autoscale-coverage",
+                Severity.INFO,
+                f"the armed controller is pinned at "
+                f"{cfg.min_ranks} rank(s) (min_ranks == max_ranks): "
+                "decisions always hold — fine for a canary, inert as a "
+                "control loop",
+                fix_hint="widen PATHWAY_AUTOSCALE_MIN_RANKS / "
+                "PATHWAY_AUTOSCALE_MAX_RANKS to give the policy a band",
+                data={
+                    "min_ranks": cfg.min_ranks,
+                    "max_ranks": cfg.max_ranks,
+                },
+            )

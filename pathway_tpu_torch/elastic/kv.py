@@ -1,4 +1,4 @@
-"""Generation-plane resharding — counterpart of ``pathway_tpu/elastic/kv.py``.
+"""Generation-plane resharding — own copy of ``pathway_tpu/elastic/kv.py``.
 
 The decode scheduler's in-flight state — KV pages + resumable sequence
 metadata — lives in arrangement ledgers keyed by the sequence's jk hash
@@ -6,23 +6,21 @@ metadata — lives in arrangement ledgers keyed by the sequence's jk hash
 system reshards by. ``split_kv_store`` re-partitions a generation member's
 snapshot directory into per-new-owner snapshot directories: each new owner's
 ``DecodeScheduler(store_root=..., restore=True)`` then resumes the in-flight
-decodes it now owns, token streams continuing as they would have.
-
-Not ported: a destination given as a ``(host, port)`` ferry endpoint needs
-``elastic/ferry.py`` and the wire it rides (``parallel/wire.py``,
-``parallel/host_exchange.py``); it raises ``NotImplementedError`` naming
-[mesh] instead of writing anything. ``transfer_id=`` is accepted as in the
-reference; it names only ferry transfers, so local destinations ignore it.
+decodes it now owns, token streams continuing as they would have. A
+destination given as a ferry endpoint receives its snapshot over the
+authenticated SegmentFerry wire (per-segment MACs, resume) — the new owner
+can live on another host.
 """
 
 from __future__ import annotations
 
 import os
+import shutil
+import tempfile
 from typing import Any
 
 import numpy as np
 
-from pathway_tpu_torch._unported import MESH, unported
 from pathway_tpu_torch.elastic.handover import HandoverError
 from pathway_tpu_torch.engine.sharded import shard_of
 from pathway_tpu_torch.generate.kv_cache import KvLedger, seq_jk
@@ -50,23 +48,31 @@ def split_ledger(led: KvLedger, n_new: int) -> list[KvLedger]:
     return parts
 
 
+def _snapshot_files(root: str) -> list[tuple[str, bytes]]:
+    files = []
+    for base, _dirs, names in os.walk(root):
+        for f in names:
+            full = os.path.join(base, f)
+            rel = os.path.relpath(full, root)
+            with open(full, "rb") as fh:
+                files.append((rel, fh.read()))
+    return files
+
+
 def split_kv_store(
     src_root: str,
     destinations: list[Any],
     *,
     transfer_id: str | None = None,
 ) -> dict:
-    """Re-partition a generation snapshot directory into per-owner stores
-    (index = new shard). Each destination is a local directory path.
-    Raises ``HandoverError`` when ``src_root`` holds no snapshot, and
-    ``NotImplementedError`` for a ``(host, port)`` ferry endpoint, before
-    anything is written. The result has the reference's keys (``ferry``
-    None and ``bytes_ferried`` 0 for local destinations)."""
-    remote = [d for d in destinations if isinstance(d, (tuple, list))]
-    if remote:
-        raise unported(
-            f"split_kv_store to ferry destinations {remote} (elastic/ferry.py)", MESH
-        )
+    """Re-partition a generation snapshot directory into per-owner
+    stores (index = new shard).  Each destination is either a local
+    directory path (written directly — the same-filesystem O(copy)
+    path) or a ``(host, port)`` ferry endpoint whose
+    :class:`~pathway_tpu_torch.elastic.ferry.FerryReceiver` roots the remote
+    owner's store.  Raises when ``src_root`` holds no snapshot."""
+    from pathway_tpu_torch.elastic.ferry import ferry_files
+
     led = KvLedger.restore(src_root)
     if led is None:
         raise HandoverError(
@@ -74,17 +80,39 @@ def split_kv_store(
         )
     n_new = len(destinations)
     parts = split_ledger(led, n_new)
+    tid = transfer_id or f"kv-reshard-{n_new}"
     out: dict[str, Any] = {"n_new": n_new, "destinations": []}
-    for part, dest in zip(parts, destinations):
-        os.makedirs(dest, exist_ok=True)
+    moved_bytes = 0
+    for p, (part, dest) in enumerate(zip(parts, destinations)):
+        n_seqs = len(part.live_seqs())
+        ferry = None
+        if isinstance(dest, (tuple, list)):
+            host, port = dest
+            tmp = tempfile.mkdtemp(prefix="pw-kv-ferry-")
+            try:
+                stats = part.snapshot(tmp)
+                ferry = ferry_files(
+                    host,
+                    int(port),
+                    _snapshot_files(tmp),
+                    transfer_id=f"{tid}-p{p}",
+                )
+                moved_bytes += ferry["bytes_sent"]
+            finally:
+                shutil.rmtree(tmp, ignore_errors=True)
+            where = f"{host}:{port}"
+        else:
+            os.makedirs(dest, exist_ok=True)
+            stats = part.snapshot(dest)
+            where = str(dest)
         out["destinations"].append(
             {
-                "dest": str(dest),
-                "seqs": len(part.live_seqs()),
-                "snapshot": part.snapshot(dest),
-                "ferry": None,
+                "dest": where,
+                "seqs": n_seqs,
+                "snapshot": stats,
+                "ferry": ferry,
             }
         )
     out["total_seqs"] = len(led.live_seqs())
-    out["bytes_ferried"] = 0
+    out["bytes_ferried"] = moved_bytes
     return out

@@ -1,8 +1,8 @@
 """Own copy of ``pathway_tpu/elastic/planner.py`` (numpy over the port's
 ``Arrangement`` and ``shard_of``). The Graph Doctor reads its static
 predicates (``exec_class_for``, ``reshard_capable``,
-``monolithic_state_nodes``); the resizes that consume the plan (the ferry,
-``elastic/mesh.py``) are [mesh].
+``monolithic_state_nodes``); the resizes that consume the plan are the
+segment ferry (``ferry.py``) and ``reshard_stores`` (``mesh.py``).
 
 ReshardPlanner — the hash-ring delta of an N→M topology change.
 

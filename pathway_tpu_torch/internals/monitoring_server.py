@@ -18,9 +18,8 @@ includes trailing points), ``/debug/events`` the incident journal, and
 ``/debug/tick`` Tick Scope (per-operator tick anatomy, critical path,
 memory-ledger top owners, roofline; ``?ticks=N&deep=1&trace=1``).
 ``/fleet/{metrics,events,trace}`` federate the members of
-``PATHWAY_FLEET_MEMBERS``. ``/debug/autoscale`` answers 501 naming [mesh]:
-the autoscaler is not ported (the reference answers 404 until a
-controller is armed). Arming the server also arms the per-process signal
+``PATHWAY_FLEET_MEMBERS``. ``/debug/autoscale`` answers the armed Flux Pilot
+controller's status, 404 until one is armed. Arming the server also arms the per-process signal
 sampler (disable with ``PATHWAY_SIGNALS=0``) and installs the crash hooks
 that write the postmortem bundle.
 
@@ -305,16 +304,21 @@ def start_http_server(
                 elif route == "/debug/tick":
                     self._tick(runtime, parse_qs(parsed.query))
                 elif route == "/debug/autoscale":
-                    # the Flux Pilot controller's status: the autoscaler
-                    # is not ported, so the route names its item
-                    from pathway_tpu_torch._unported import MESH, unported
+                    # Flux Pilot: the armed controller's live status
+                    # (ranks, cooldown, last decision, actuation-cost
+                    # EWMA) — 404s when no controller is armed so
+                    # probes can distinguish "absent" from "idle"
+                    from pathway_tpu_torch.autoscale import get_controller
 
-                    self._reply(
-                        501,
-                        str(
-                            unported("/debug/autoscale (autoscale/)", MESH)
-                        ).encode(),
-                    )
+                    ctrl = get_controller()
+                    if ctrl is None:
+                        self._reply(404, b"no autoscale controller armed")
+                    else:
+                        self._reply(
+                            200,
+                            json.dumps(ctrl.status()).encode(),
+                            "application/json",
+                        )
                 elif route in (
                     "/fleet/metrics",
                     "/fleet/events",

@@ -1,9 +1,9 @@
 """Own copy of ``pathway_tpu/observability/signals.py`` (standard library
 over the port's registry): the same signal inventory, knobs, rings and burn
 rates. The sampler only reads metrics; in the port ``pathway_last_tick_seconds``
-comes from the monitoring server's runtime bridge and
-``pathway_autoscale_ranks`` does not exist ([mesh]), so ``ranks`` stays empty
-as in a reference process with no autoscaler armed.
+comes from the monitoring server's runtime bridge, and ``ranks`` reads
+``pathway_autoscale_ranks`` once an autoscale controller is armed
+(``autoscale/controller.py``), empty before, as in the reference.
 
 Fleet Lens SLO signals — bounded time-series rings sampled from the
 process's own :class:`MetricsRegistry`, with rolling burn rates against

@@ -39,8 +39,8 @@ The peak comes from ``PATHWAY_PEAK_FLOPS`` or, once CUDA is initialised,
 from the card's name (data-sheet dense bf16 peaks, as the reference's TPU
 entries are bf16 peaks); otherwise a crude per-core CPU estimate.
 
-The wire taps (:func:`wire_tap`) have no caller in the port yet: the mesh
-exchange that feeds them is ROADMAP [mesh].
+The wire taps (:func:`wire_tap`) are fed by the host mesh's frame codec
+(``parallel/wire.py``).
 
 Knobs::
 

@@ -35,6 +35,7 @@ uses come from ``PATHWAY_DIST_DEVICE`` (default ``cuda``) and
 
 from __future__ import annotations
 
+import atexit
 import os
 from datetime import timedelta
 from typing import Any
@@ -142,7 +143,23 @@ def maybe_initialize(device: str | torch.device | None = None, backend: str | No
             f"tcp://{coord}, rank {pid}) could not be joined: {e}"
         ) from e
     _initialized = True
+    atexit.register(_teardown)
     return True
+
+
+def _teardown() -> None:
+    """Destroy the group this process joined, at exit (a ``cli spawn`` rank
+    exits the same way). A gloo group still open while the interpreter
+    tears torch down can abort the process ("terminate called without an
+    active exception") after it has done its work. A group that is already
+    destroyed is left alone; an error the rank raised keeps its exit code,
+    as ``atexit`` runs after it was reported."""
+    global _initialized
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        dist.destroy_process_group()
+    _initialized = False
 
 
 def is_multiprocess() -> bool:

@@ -4,8 +4,9 @@ torch devices.
 A :class:`Mesh` names its axes and holds one ``torch.device`` per shard.
 Scaling out means adding mesh shards, not OS processes; the ``data`` axis
 carries the key-shard dimension (the analog of the reference's 16-bit key
-shards). The mesh holds the devices of this process only; meshes across
-processes are the host mesh, not ported ([mesh]).
+shards). The mesh holds the devices of this process only; processes join
+through the host mesh (``host_exchange.py``) and the device group
+(``distributed.py``).
 
 Where the reference widens a short accelerator mesh to the virtual CPU
 device pool, :func:`make_mesh` never changes the device type: ``n`` shards

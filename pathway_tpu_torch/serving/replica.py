@@ -912,6 +912,22 @@ class _ReplicaHttp:
                 },
                 {"Retry-After": "1.0", **headers},
             )
+        # the router names the shard count of the map it routed this read
+        # under; a member that splits the corpus another way (adopted a
+        # reshard the router has not swapped to yet) would answer from the
+        # wrong part of the corpus: refuse, and the router tries a sibling
+        routed = request.headers.get("x-pathway-shards")
+        if routed is not None and routed != str(srv.n_shards):
+            return (
+                503,
+                {
+                    "error": f"shard-map mismatch: routed over {routed} "
+                    f"shard(s), this replica splits the corpus "
+                    f"{srv.n_shards} way(s)",
+                    "replica": srv.replica_id,
+                },
+                {"Retry-After": "1.0", **headers},
+            )
         tenant = request.headers.get("x-pathway-tenant")
         tenant_class = request.headers.get("x-pathway-tenant-class")
         if srv.admission is not None:

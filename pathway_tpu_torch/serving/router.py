@@ -183,6 +183,11 @@ class ReplicaEndpoint:
         self.name = name
         self.url = url.rstrip("/")
         self.shard = shard  # the jk-hash key range this member owns
+        # the shard count of the map this member is routed under: sent with
+        # every attempt, so a member that already splits the corpus another
+        # way (a reshard between its adoption and the router's swap)
+        # refuses the read instead of answering from its part of the corpus
+        self.map_shards = 1
         self.inflight = 0  # router-side in-flight (attempts)
         self.reported_inflight = 0  # replica's admission occupancy
         self.ewma_ms = 0.0
@@ -294,6 +299,8 @@ class FailoverRouter:
                 for s, members in enumerate(shards)
                 for i, u in enumerate(members)
             ]
+            for ep in self.endpoints:
+                ep.map_shards = self.n_shards
         else:
             urls = replicas if replicas is not None else replicas_from_env()
             if not urls:
@@ -654,6 +661,7 @@ class FailoverRouter:
                     ep.shard = s
                 else:
                     ep = ReplicaEndpoint(f"s{s}.replica{i}", url, shard=s)
+                ep.map_shards = len(shards)
                 new_eps.append(ep)
         with self._lock:
             self.endpoints = new_eps
@@ -779,6 +787,7 @@ class FailoverRouter:
             k: request.headers[k] for k in _FWD_HEADERS if k in request.headers
         }
         headers["x-pathway-deadline-ms"] = f"{remaining * 1000.0:.1f}"
+        headers["x-pathway-shards"] = str(ep.map_shards)
         span = tracing.get_tracer().span(
             "router.attempt", replica=ep.name, shard=str(ep.shard)
         )

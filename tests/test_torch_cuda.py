@@ -9,9 +9,12 @@ SQLite table streamed into ``TpuKnn``, its replies against the plain
 top-k over the table's rows after every transaction); the launch ledger's
 shared memory and split counts against what the built kernels launch with,
 a ``/debug/profile`` capture of the card naming ``block_topk``'s kernel, a
-supervised two-rank gloo group restarted on the card, and a standby
+supervised two-rank gloo group restarted on the card, a standby
 writer's takeover followed by a replica that answers through
-``block_topk``.
+``block_topk``, and the live resizes: a KV split ferried to two owners
+that decode on the card, a serving plane resized 1 -> 2 shards by the
+autoscaler, and a gloo group resized 2 -> 3 ranks by a
+``SupervisorActuator``.
 
 These tests need an NVIDIA card (marker ``cuda``) and skip without one. On
 the card they run without the JAX package, so this file imports no JAX and
@@ -1643,3 +1646,253 @@ def test_standby_takeover_replica_answers_through_block_topk(dev, monkeypatch):
         primary.close()
         for srv in taken:
             srv.close()
+
+
+def test_ferried_kv_split_owners_decode_on_the_card(dev, tmp_path, monkeypatch):
+    """A scheduler on the card snapshots mid-decode and is frozen;
+    ``split_kv_store`` sends its store to two FerryReceivers on 127.0.0.1;
+    the owner of the sequence restores it on the card and finishes through
+    the paged-attention kernel with the uninterrupted run's tokens."""
+    import time
+
+    from pathway_tpu_torch.elastic.ferry import FerryReceiver
+    from pathway_tpu_torch.elastic.kv import split_kv_store
+    from pathway_tpu_torch.generate import DecodeScheduler, GenerateConfig, GenerationRequest
+    from pathway_tpu_torch.ops import paged_attention as pa
+    from pathway_tpu_torch.xpacks.llm import decoder as dec
+
+    monkeypatch.setenv("PATHWAY_DCN_SECRET", "card-ferry-test")
+    prompt = dec.encode_text("a ferried decode on the card")
+
+    def request(rid):
+        return GenerationRequest(rid, list(prompt), deadline=time.monotonic() + 60, max_new_tokens=24)
+
+    s0 = DecodeScheduler(GenerateConfig(max_batch=1))
+    try:
+        r0 = request("u")
+        s0.submit(r0)
+        res0 = r0.wait(60)
+    finally:
+        s0.stop()
+    root = str(tmp_path / "kv")
+    s1 = DecodeScheduler(GenerateConfig(max_batch=1, snapshot_every=4, store_root=root))
+    try:
+        _freeze_mid_decode(s1, request("k"), 12)
+    finally:
+        s1.stop()
+    owners = [str(tmp_path / "owner0"), str(tmp_path / "owner1")]
+    receivers = [FerryReceiver(o) for o in owners]
+    try:
+        split = split_kv_store(root, [(r.host, r.port) for r in receivers])
+    finally:
+        for r in receivers:
+            r.close()
+    assert split["total_seqs"] == 1 and split["bytes_ferried"] > 0
+    assert all(d["ferry"]["committed"] for d in split["destinations"])
+    before = pa.paged_attention.launches
+    scheds = [DecodeScheduler(GenerateConfig(max_batch=1, store_root=o)) for o in owners]
+    try:
+        assert sorted(s.restored_seqs for s in scheds) == [0, 1]
+        owner = next(s for s in scheds if s.restored_seqs)
+        deadline = time.monotonic() + 60
+        while not owner.finished and time.monotonic() < deadline:
+            time.sleep(0.01)
+        (res,) = owner.finished.values()
+        assert res["tokens"] == res0["tokens"]
+        steps = owner.stats()["decode_steps"]
+        assert steps > 0 and pa.paged_attention.launches - before == steps * GenerateConfig().n_layers
+    finally:
+        for s in scheds:
+            s.stop()
+
+
+def test_serving_plane_resized_on_the_card_answers_as_plain(dev, monkeypatch):
+    """A delta stream's corpus on two replicas on the card behind a router;
+    an AutoscaleController with a ServingPlaneActuator resizes the plane
+    1 -> 2 shards under a surge; every read after the swap is one
+    block_topk launch a shard and equals the plain top-10 over the whole
+    corpus (small integers: exact)."""
+    import http.client
+    import json
+    import time
+
+    from pathway_tpu_torch.autoscale import AutoscaleConfig, AutoscaleController, ServingPlaneActuator
+    from pathway_tpu_torch.engine.batch import DiffBatch
+    from pathway_tpu_torch.observability.registry import MetricsRegistry
+    from pathway_tpu_torch.ops import block_topk as bt
+    from pathway_tpu_torch.parallel.replicate import DeltaStreamServer
+    from pathway_tpu_torch.serving.replica import ReplicaServer
+    from pathway_tpu_torch.serving.router import FailoverRouter
+    from pathway_tpu_torch.stdlib.indexing._index_impls import TpuDenseKnnIndex
+
+    monkeypatch.setenv("PATHWAY_DCN_SECRET", "card-serving-resize")
+    g = np.random.default_rng(11)
+    n, d = 6000, 64
+    corpus = g.integers(-2, 3, size=(n, d)).astype(np.float32)
+    corpus[corpus.sum(1) == 0, 0] = 1.0
+    keys = np.arange(1, n + 1, dtype=np.uint64)
+    q = g.integers(-2, 3, size=(4, d)).astype(np.float32)
+
+    class Burn:
+        burn = 3.0
+
+        def burn_rates(self):
+            return {"shed_rate": {"target": 0.01, "direction": "max", "window_avg": 0.03, "burn": self.burn}}
+
+    def ask(port, vec):
+        c = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+        c.request("POST", "/query", body=json.dumps({"vec": vec.tolist(), "k": 10}),
+                  headers={"content-type": "application/json"})
+        r = c.getresponse()
+        out = (r.status, r.getheader("x-pathway-shards"), json.loads(r.read()))
+        c.close()
+        return out
+
+    srv = DeltaStreamServer(0, ring_ticks=16, n_shards=1)
+    data = np.empty(n, dtype=object)
+    data[:] = list(corpus)
+    srv.publish(0, [DiffBatch(keys, np.ones(n, np.int64), {"_data": data, "_meta": np.full(n, None, object)})])
+    reps = [ReplicaServer(replica_id=i, index_factory=lambda: TpuDenseKnnIndex(dimensions=d, device=dev),
+                          writer_port=srv.port, dim=d, device="cuda").start() for i in range(2)]
+    router = None
+    try:
+        deadline = time.monotonic() + 60
+        while not all(r.ready and len(r.index) == n for r in reps) and time.monotonic() < deadline:
+            time.sleep(0.05)
+        urls = [f"http://127.0.0.1:{r.http_port}" for r in reps]
+        router = FailoverRouter(urls, health_interval_ms=100, cache=None).start()
+
+        def adopt(m):
+            for i, r in enumerate(reps):
+                r.adopt_shard_map(i, m)
+
+        ctrl = AutoscaleController(
+            ServingPlaneActuator(srv, router=router, members_for=lambda m: [[urls[i]] for i in range(m)],
+                                 adopt=adopt),
+            ranks=1, config=AutoscaleConfig(min_ranks=1, max_ranks=2, up_window_s=1.0), sampler=Burn(),
+            registry=MetricsRegistry())
+        t0 = time.monotonic()
+        for s in range(5):
+            ctrl.step(t0 + s)
+        assert ctrl.ranks == 2 and ctrl.resizes == 1
+        deadline = time.monotonic() + 60
+        while not all(r.ready and r.n_shards == 2 for r in reps) and time.monotonic() < deadline:
+            time.sleep(0.05)
+        qn = q / np.linalg.norm(q, axis=1, keepdims=True)
+        cn = corpus / np.linalg.norm(corpus, axis=1, keepdims=True)
+        sims = qn @ cn.T
+        plain = np.argsort(-sims, axis=1, kind="stable")[:, :10] + 1
+        deadline = time.monotonic() + 30
+        while ask(router.port, q[0])[1] != "2" and time.monotonic() < deadline:
+            time.sleep(0.1)
+        before = bt.block_topk.launches
+        for i, vec in enumerate(q):
+            status, shards, body = ask(router.port, vec)
+            assert status == 200 and shards == "2"
+            got = [k for k, _s in body["matches"]]
+            # the index answers cosine as -(1 - cos); a key may differ from
+            # the plain order only where two cosines tie
+            np.testing.assert_allclose([sc + 1.0 for _k, sc in body["matches"]], sims[i, plain[i] - 1], atol=1e-5)
+            assert all(abs(sims[i, k - 1] - sims[i, p - 1]) <= 1e-5 for k, p in zip(got, plain[i])), (got, plain[i])
+        assert bt.block_topk.launches - before == 2 * len(q)
+        assert sorted(len(r.index) for r in reps) == sorted(
+            [int((keys % 2 == 0).sum()), int((keys % 2 == 1).sum())])
+    finally:
+        if router is not None:
+            router.stop()
+        for r in reps:
+            r.stop()
+        srv.close()
+
+
+_ACTUATED_RANK = """
+import json, os, signal, sys, time
+import numpy as np
+from pathway_tpu_torch.ops import block_topk as bt
+from pathway_tpu_torch.parallel import distributed as dist
+inc = int(os.environ["PATHWAY_MESH_INCARNATION"])
+assert dist.maybe_initialize(device="cuda", backend="gloo")
+import torch.distributed as td
+pid, n = td.get_rank(), td.get_world_size()
+g = np.random.default_rng(7)
+corpus = g.integers(-2, 3, size=(6 * 2048, 64)).astype(np.float32)
+q = g.integers(-2, 3, size=(3, 64)).astype(np.float32)
+per = len(corpus) // n
+lo, hi = pid * per, (pid + 1) * per
+sc, ix = dist.sharded_topk_global(q, corpus[lo:hi], np.ones(hi - lo, bool), 10, metric="dot", bf16=False)
+out = os.environ["PW_OUT"]
+with open(os.path.join(out, f"r{inc}_{pid}.json"), "w") as f:
+    json.dump({"pid": pid, "n": n, "inc": inc, "ids": ix.tolist(), "launches": bt.block_topk.launches}, f)
+if inc == 0:  # serve until the resize stops the group
+    signal.signal(signal.SIGTERM, lambda *_a: sys.exit(0))
+    while True:
+        time.sleep(0.1)
+"""
+
+
+def test_supervisor_actuator_resizes_a_gloo_group_on_the_card(dev, tmp_path):
+    """An in-process GroupSupervisor runs two gloo ranks on the card; an
+    AutoscaleController with a SupervisorActuator resizes the group to
+    three ranks under a surge; each incarnation's ranks search their shard
+    with sharded_topk_global (one block_topk launch each) and return the
+    plain dense top-10 over the whole corpus."""
+    import json
+    import socket
+    import sys
+    import threading
+    import time
+    from pathlib import Path
+
+    from pathway_tpu_torch.autoscale import AutoscaleConfig, AutoscaleController, SupervisorActuator
+    from pathway_tpu_torch.observability.registry import MetricsRegistry
+    from pathway_tpu_torch.ops.knn import dense_topk
+    from pathway_tpu_torch.parallel.supervisor import GroupSupervisor
+
+    script = tmp_path / "rank.py"
+    script.write_text(_ACTUATED_RANK)
+    root = Path(__file__).resolve().parent.parent
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    env = {"PYTHONPATH": str(root), "PW_OUT": str(tmp_path), "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port),
+           "PATHWAY_DCN_TIMEOUT": "60"}
+    sup = GroupSupervisor([sys.executable, str(script)], 2, env=env, max_restarts=0, grace_s=30.0)
+    rc: list = []
+    runner = threading.Thread(target=lambda: rc.append(sup.run()), daemon=True)
+    runner.start()
+
+    class Burn:
+        def burn_rates(self):
+            return {"shed_rate": {"target": 0.01, "direction": "max", "window_avg": 0.03, "burn": 3.0}}
+
+    try:
+        deadline = time.monotonic() + 120
+        while not all((tmp_path / f"r0_{p}.json").exists() for p in range(2)) and time.monotonic() < deadline:
+            time.sleep(0.1)
+        calls: list = []
+        ctrl = AutoscaleController(
+            SupervisorActuator(sup, lambda old, new: (lambda: calls.append((old, new))), timeout_s=120),
+            ranks=2, config=AutoscaleConfig(min_ranks=2, max_ranks=3, up_window_s=1.0), sampler=Burn(),
+            registry=MetricsRegistry())
+        t0 = time.monotonic()
+        for i in range(5):
+            ctrl.step(t0 + i)
+        assert ctrl.ranks == 3 and calls == [(2, 3)]
+        runner.join(180)
+        assert not runner.is_alive() and rc == [0], sup.events
+    finally:
+        if runner.is_alive():
+            sup.stop()
+            runner.join(30)
+    kinds = [k for _t, k, _d in sup.events]
+    assert "group-resize" in kinds and "resize-rollback" not in kinds, kinds
+    g = np.random.default_rng(7)
+    corpus = g.integers(-2, 3, size=(6 * 2048, 64)).astype(np.float32)
+    q = g.integers(-2, 3, size=(3, 64)).astype(np.float32)
+    _sr, ir = dense_topk(torch.from_numpy(q).to(dev), torch.from_numpy(corpus).to(dev),
+                         torch.ones(len(corpus), dtype=torch.bool, device=dev), 10, metric="dot", bf16=False)
+    for inc, n in ((0, 2), (1, 3)):
+        for p in range(n):
+            x = json.loads((tmp_path / f"r{inc}_{p}.json").read_text())
+            assert x["n"] == n and x["launches"] == 1 and x["ids"] == ir.cpu().tolist(), x

@@ -75,6 +75,34 @@ def test_two_process_sharded_knn(tmp_path):
     assert got[0]["ids"][2][:2] == [100, 3000]
 
 
+def test_sharded_knn_groups_side_by_side_exit_cleanly(tmp_path):
+    """Six two-rank gloo groups run ``sharded_topk_global`` at once: every
+    rank prints its result and exits 0, and no rank aborts at exit
+    ("terminate called ..."): ``maybe_initialize`` destroys the group it
+    joined before the interpreter tears torch down."""
+    import threading
+
+    script = tmp_path / "knn.py"
+    script.write_text(_KNN)
+    runs = [None] * 6
+
+    def one(i):
+        store = free_dcn_port(1)
+        runs[i] = spawn_group(script, 2, free_dcn_port(2), lambda pid: {"PATHWAY_FIRST_PORT": str(store)},
+                              timeout=240.0)
+
+    threads = [threading.Thread(target=one, args=(i,)) for i in range(len(runs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for procs, outs in runs:
+        got = results(procs, outs)
+        assert sorted(g["pid"] for g in got) == [0, 1]
+        for out in outs:
+            assert "terminate called" not in out, out[-2000:]
+
+
 def test_process_env_defaults(monkeypatch):
     """Both modules' ``process_env`` read the reference's env contract with
     its defaults; a single process stays single (no group joined)."""

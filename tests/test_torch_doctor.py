@@ -415,11 +415,14 @@ GRAPH_CASES = {
     "observability_signals_off": (map_only, {"PATHWAY_SIGNALS": "0"}),
     "mixed": (mixed, {}),
 }
+# a two-process group: the monolithic execs pin resizes to log replay
+# (elastic-resharding); one process per case elsewhere (test_torch_mesh_doctor)
+TWO_PROCESS_CASES = {"monoliths_two_processes": (monoliths, {"PATHWAY_PROCESSES": "2"})}
 
 
-@pytest.mark.parametrize("case", sorted(GRAPH_CASES))
+@pytest.mark.parametrize("case", sorted({**GRAPH_CASES, **TWO_PROCESS_CASES}))
 def test_graph_rules_equal_the_reference(case, monkeypatch):
-    build, env = GRAPH_CASES[case]
+    build, env = {**GRAPH_CASES, **TWO_PROCESS_CASES}[case]
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     got = _both(build)
@@ -428,18 +431,18 @@ def test_graph_rules_equal_the_reference(case, monkeypatch):
 
 
 def test_every_graph_rule_fires_somewhere(monkeypatch):
-    """The cases above reach every one of the 17 graph rules but
-    elastic-resharding, which needs a process group ([mesh]): both
-    packages stay silent on it in one process."""
+    """The cases above reach every one of the 17 graph rules;
+    elastic-resharding fires under a two-process topology, in both
+    packages."""
     fired: set[str] = set()
-    for build, env in GRAPH_CASES.values():
+    for build, env in {**GRAPH_CASES, **TWO_PROCESS_CASES}.values():
         with monkeypatch.context() as m:
             for k, v in env.items():
                 m.setenv(k, v)
             fired |= {r for r, *_ in _report(tpw, build, plane=False)}
     assert set(tpw.analysis.RULES) == set(jpw.analysis.RULES)
     assert len(tpw.analysis.RULES) == 17
-    assert set(tpw.analysis.RULES) - fired == {"elastic-resharding"}
+    assert set(tpw.analysis.RULES) - fired == set()
 
 
 PLANE_CASES = {

@@ -511,13 +511,39 @@ def test_kv_handoff_resumes_on_new_owner(tmp_path):
         s1.stop()
 
 
-def test_split_kv_store_refuses_ferry_and_empty_sources(tmp_path):
+def test_split_kv_store_refuses_ferry_and_empty_sources(tmp_path, monkeypatch):
+    """A ``(host, port)`` destination receives its part over the segment
+    ferry (it raised naming [mesh] until the ferry was ported): the same
+    snapshot files as a local destination, with the ferry's stats and the
+    bytes ferried, as the JAX package's ``split_kv_store`` reports them. An
+    empty source still raises ``HandoverError``."""
+    from pathway_tpu.elastic.kv import split_kv_store as jax_split
+    from pathway_tpu_torch.elastic.ferry import FerryReceiver
+
+    monkeypatch.setenv("PATHWAY_DCN_SECRET", "kv-ferry-secret")
     led = KvLedger()
-    led.put_seq(1, {"seq_id": 1})
+    for sid in range(1, 9):
+        led.put_seq(sid, {"seq_id": sid})
+        led.put_page(sid, 0, np.full((2, 4, 8), sid, np.float32), np.full((2, 4, 8), -sid, np.float32))
     led.snapshot(str(tmp_path / "src"))
-    with pytest.raises(NotImplementedError, match="ferry"):
-        split_kv_store(str(tmp_path / "src"), [str(tmp_path / "a"), ("127.0.0.1", 9)])
-    assert not (tmp_path / "a").exists()  # nothing written before refusing
+    got = {}
+    for name, split in (("port", split_kv_store), ("jax", jax_split)):
+        recv = FerryReceiver(str(tmp_path / name / "remote"))
+        try:
+            res = split(str(tmp_path / "src"), [str(tmp_path / name / "local"), (recv.host, recv.port)],
+                        transfer_id="kv")
+        finally:
+            recv.close()
+        ferry = res["destinations"][1]["ferry"]
+        assert ferry["committed"] and res["bytes_ferried"] == ferry["bytes_sent"] > 0
+        assert res["destinations"][0]["ferry"] is None
+        parts = [KvLedger.restore(str(tmp_path / name / d)) for d in ("local", "remote")]
+        got[name] = (res["total_seqs"], [d["seqs"] for d in res["destinations"]], res["bytes_ferried"],
+                     {k: v for k, v in ferry.items()},
+                     [sorted(p.live_seqs()) for p in parts])
+    assert got["port"] == got["jax"]
+    total, seqs, _bytes, _ferry, owned = got["port"]
+    assert total == 8 and sum(seqs) == 8 and sorted(owned[0] + owned[1]) == list(range(1, 9))
     with pytest.raises(HandoverError):
         split_kv_store(str(tmp_path / "none"), [str(tmp_path / "b")])
 

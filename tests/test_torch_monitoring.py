@@ -169,10 +169,24 @@ def test_every_route_answers_the_reference_status(monkeypatch):
         assert statuses["port"] == statuses["jax"], list(zip(ROUTES, *statuses.values()))
         assert statuses["port"].count(200) >= 18
         tport = servers["port"].server_address[1]
-        # the autoscaler is [mesh]: 501 naming it where the reference 404s
-        status, body = _get(tport, "/debug/autoscale")
-        assert status == 501 and b"[mesh]" in body
-        assert _get(servers["jax"].server_address[1], "/debug/autoscale")[0] == 404
+        # /debug/autoscale: 404 in both packages until a controller is
+        # armed, then each package's controller's status()
+        from pathway_tpu import autoscale as jauto
+        from pathway_tpu_torch import autoscale as tauto
+
+        jport = servers["jax"].server_address[1]
+        assert _get(tport, "/debug/autoscale") == _get(jport, "/debug/autoscale") == (
+            404, b"no autoscale controller armed")
+        try:
+            for auto in (tauto, jauto):
+                auto.arm_controller(auto.CallbackActuator(lambda m: None), ranks=2,
+                                    config=auto.AutoscaleConfig(min_ranks=1, max_ranks=3))
+            got = {name: _get(srv.server_address[1], "/debug/autoscale") for name, srv in servers.items()}
+            assert got["port"][0] == got["jax"][0] == 200
+            assert json.loads(got["port"][1]) == json.loads(got["jax"][1]) == tauto.get_controller().status()
+        finally:
+            tauto.reset_controller()
+            jauto.reset_controller()
         # the card's profile without a card: 501, never a CPU-only trace
         status, body = _get(tport, "/debug/profile?seconds=0.1")
         assert status == 501 and b"device='cpu'" in body

@@ -43,7 +43,10 @@ group, the DCN execs, ``spawn``, the chaos helpers, the group supervisor and
 the standby writer) imports with pandas and the clients blocked, and a
 two-process group spawned through the CLI runs a groupby and a join and
 searches ``sharded_topk_global`` on gloo with them blocked in every rank;
-so does a supervised group, in both of its incarnations. Without a card, an entry point left
+so does a supervised group, in both of its incarnations. The elastic
+resizing (the segment ferry, the handover, ``reshard_stores``) and the
+autoscaler import with them blocked, and a ferry sender and receiver in two
+processes commit a transfer with them blocked. Without a card, an entry point left
 on its default device (compiled ticks included) raises instead of falling
 back to the CPU."""
 
@@ -228,7 +231,6 @@ DURABLE_MODULES = [
 # imports with pandas blocked too
 ENGINE_MODULES = [
     "pathway_tpu_torch",
-    "pathway_tpu_torch._unported",
     "pathway_tpu_torch.debug",
     "pathway_tpu_torch.reducers",
     "pathway_tpu_torch.engine.expression_eval",
@@ -1163,6 +1165,14 @@ MULTI_PROCESS_MODULES = [
     "pathway_tpu_torch.persistence._runtime_glue",
     "pathway_tpu_torch.parallel.supervisor",
     "pathway_tpu_torch.parallel.standby",
+    "pathway_tpu_torch.elastic",
+    "pathway_tpu_torch.elastic.ferry",
+    "pathway_tpu_torch.elastic.handover",
+    "pathway_tpu_torch.elastic.mesh",
+    "pathway_tpu_torch.autoscale",
+    "pathway_tpu_torch.autoscale.controller",
+    "pathway_tpu_torch.autoscale.policy",
+    "pathway_tpu_torch.autoscale.predictor",
 ]
 
 
@@ -1227,3 +1237,50 @@ def test_spawned_group_runs_with_jax_pandas_and_clients_blocked(tmp_path):
     assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
     lines = [ln.split() for ln in r.stdout.splitlines() if ln.startswith("RANK-OK")]
     assert len(lines) == 2 and sum(int(x[1]) for x in lines) == 40
+
+
+_FERRY_PEER = """
+import json, os, sys
+for name in {blocked!r}:
+    sys.modules[name] = None
+from pathway_tpu_torch.elastic.ferry import FerryReceiver, ferry_files
+if sys.argv[1] == "receive":
+    recv = FerryReceiver(sys.argv[2])
+    print(recv.port, flush=True)
+    sys.stdin.readline()  # the sender has committed
+    recv.close()
+    print(json.dumps(recv.received), flush=True)
+else:
+    stats = ferry_files("127.0.0.1", int(sys.argv[2]), [("a/seg0", b"x" * 4096), ("manifest.json", b"{{}}")],
+                        transfer_id="no-jax")
+    print(json.dumps(stats), flush=True)
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in {blocked!r} and sys.modules[m])
+assert not leaked, leaked
+"""
+
+
+def test_spawned_ferry_sender_and_receiver_run_with_jax_pandas_and_clients_blocked(tmp_path):
+    """A segment ferry between two processes of the port, each with jax,
+    the JAX package, pandas and the clients blocked: the transfer commits
+    and places both files."""
+    import os
+
+    code = _FERRY_PEER.format(blocked=BLOCKED_WITH_CLIENTS)
+    env = {**os.environ, "PYTHONPATH": str(ROOT), "PATHWAY_DCN_SECRET": "no-jax-ferry"}
+    recv = subprocess.Popen([sys.executable, "-c", code, "receive", str(tmp_path / "dst")], cwd=ROOT, env=env,
+                            stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        port = recv.stdout.readline().strip()
+        assert port.isdigit(), recv.stderr.read()
+        send = subprocess.run([sys.executable, "-c", code, "send", port], cwd=ROOT, env=env,
+                              capture_output=True, text=True, timeout=120)
+        assert send.returncode == 0, send.stderr[-3000:]
+        assert json.loads(send.stdout.strip().splitlines()[-1])["committed"]
+        out, err = recv.communicate("done\n", timeout=60)
+        assert recv.returncode == 0, err[-3000:]
+        assert sorted(json.loads(out.strip().splitlines()[-1])["no-jax"]) == ["a/seg0", "manifest.json"]
+        assert (tmp_path / "dst" / "a" / "seg0").read_bytes() == b"x" * 4096
+    finally:
+        if recv.poll() is None:
+            recv.kill()
+            recv.wait()

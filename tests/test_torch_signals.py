@@ -131,9 +131,23 @@ def test_rings_and_snapshots_equal_the_reference(clock, seed, monkeypatch):
     (tsnaps, ts), (jsnaps, js) = out["port"], out["jax"]
     _close(tsnaps, jsnaps)
     last = tsnaps[-1]["signals"]
-    # every signal has a source here but the autoscaler's ranks ([mesh])
+    # every signal has a source here but ranks: no autoscale controller is
+    # armed, so pathway_autoscale_ranks does not exist yet
     assert {k for k, v in last.items() if v["n"]} == set(last) - {"ranks"}
     assert last["ranks"]["n"] == 0
+    # an armed controller's pathway_autoscale_ranks feeds the ranks signal
+    import importlib
+
+    ranks = {}
+    for name, (reg_mod, sig) in SIDES.items():
+        reg = reg_mod.MetricsRegistry()
+        auto = importlib.import_module(sig.__name__.split(".")[0] + ".autoscale")
+        auto.AutoscaleController(auto.CallbackActuator(lambda m: None), ranks=3, registry=reg)
+        sampler = sig.SignalSampler(interval_s=0.5, depth=16, registry=reg)
+        sampler.sample_once()
+        got = sampler.snapshot(series_points=5)["signals"]["ranks"]
+        ranks[name] = {k: got[k] for k in ("unit", "last", "n", "window_avg")}
+    assert ranks["port"] == ranks["jax"] == {"unit": "ranks", "last": 3.0, "n": 1, "window_avg": 3.0}
     assert [d.name for d in tsig.SIGNALS] == [d.name for d in jsig.SIGNALS]
     for name in ts.rings:
         _close(ts.rings[name].points(), js.rings[name].points())

@@ -7,7 +7,9 @@
 embedder
 takes extra keywords and ignores them, as the reference does.
 ``split_kv_store`` takes ``transfer_id=`` and splits a store as the
-reference does. Embeddings are compared exactly within the port; the split
+reference does. The multi-process engine, the elastic resizing (the ferry,
+the handover, ``reshard_stores``) and the autoscaler take the reference's
+parameters, and their classes' public methods do too. Embeddings are compared exactly within the port; the split
 counts across the packages exactly."""
 
 import inspect
@@ -154,9 +156,17 @@ PLANE = [
 ]
 
 
+def _default(value):
+    # an object of either package (the process registry) compares by its
+    # class's name, not its address
+    if type(value).__module__.startswith("pathway_tpu"):
+        return type(value).__qualname__
+    return repr(value)
+
+
 def _plane_params(obj):
     return [
-        (p.name, p.kind, repr(p.default))
+        (p.name, p.kind, _default(p.default))
         for p in inspect.signature(obj).parameters.values()
         if p.name != "device"
     ]
@@ -194,6 +204,21 @@ MESH_HOST = [
     ("testing.chaos", n) for n in ("wait_snapshot_covered", "free_dcn_port", "fold_diff_stream")
 ]
 _PORT_ONLY = {"device", "backend", "group"}
+
+
+# the elastic resizing and the autoscaler
+ELASTIC = [
+    ("elastic.ferry", n) for n in ("FerryReceiver", "FerryError", "ferry_files", "blob_digest")
+] + [
+    ("elastic.handover", n) for n in ("OwnershipMap", "TwoPhaseHandover", "HandoverError", "load_ownership")
+] + [("elastic.mesh", "reshard_stores"), ("elastic.kv", "split_kv_store")] + [
+    ("autoscale.policy", n) for n in ("AutoscaleConfig", "PlaneObservation", "Decision", "AutoscalePolicy")
+] + [("autoscale.predictor", "LoadForecaster")] + [
+    ("autoscale.controller", n)
+    for n in ("ActuationError", "CallbackActuator", "SupervisorActuator", "ServingPlaneActuator",
+              "AutoscaleController", "arm_controller", "get_controller", "reset_controller")
+]
+MESH_HOST += ELASTIC
 
 
 @pytest.mark.parametrize("module,name", MESH_HOST, ids=[f"{m}.{n}" for m, n in MESH_HOST])

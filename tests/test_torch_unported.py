@@ -1,7 +1,11 @@
-"""Every reference hook the port does not carry yet raises
-``NotImplementedError`` naming its ROADMAP tag, instead of running
-without it: the elastic resizing and ``/debug/autoscale`` (the
-autoscaler) name [mesh]. The standby writer, the process-group
+"""Every reference hook the port once lacked raised ``NotImplementedError``
+naming its ROADMAP tag instead of running without it; the port carries all
+of them now, and no tag is left (``_unported.py`` is gone). The elastic
+resizing (the segment ferry, the two-phase handover, ``reshard_stores``)
+and the autoscaler (``pw.autoscale``, ``/debug/autoscale``) raised [mesh]
+until they were ported: their names resolve to the port's with the
+reference's signatures, and ``/debug/autoscale`` answers 404 until a
+controller is armed, as the reference's does. The standby writer, the process-group
 supervisor and ``spawn --supervise`` run now (they raised [replication]
 until they were ported): the names resolve to the port's classes with the
 reference's signatures, and ``python -m
@@ -23,6 +27,7 @@ carries now (the root's, ``pw.temporal``'s, ``pw.debug``'s and
 signatures."""
 
 import importlib
+import importlib.util
 import inspect
 import types
 from pathlib import Path
@@ -168,26 +173,34 @@ MULTI_PROCESS_NAMES = [
 ]
 
 
-# the multi-process engine's names, ported now: each resolves to the port's
-# own object
-PORTED_MULTI_PROCESS = {"host_exchange", "distributed", "testing"}
-
-
 @pytest.mark.parametrize("module,name", MULTI_PROCESS_NAMES, ids=[f"{m.split('.')[-1]}.{n}" for m, n in
                                                                    MULTI_PROCESS_NAMES])
 def test_multi_process_names_raise_naming_mesh(module, name):
-    """What is left of [mesh] after the in-process mesh and the
-    multi-process engine were ported: the segment ferry and handover and
-    the autoscaler raise naming [mesh], whose text names the multi-process
-    elastic resizing. The host mesh, meshes across processes and the chaos
-    helpers raised it until they were ported: they resolve now."""
-    mod = importlib.import_module(module)
-    if module.split(".")[-1] in PORTED_MULTI_PROCESS:
-        got = getattr(mod, name)
-        assert getattr(got, "__module__", getattr(got, "__name__", "")).startswith("pathway_tpu_torch."), got
-        return
-    with pytest.raises(NotImplementedError, match=r"\[mesh\] \(multi-process"):
-        getattr(mod, name)
+    """Every name of [mesh] raised it until it was ported: the host mesh,
+    meshes across processes and the chaos helpers with the multi-process
+    engine; the segment ferry, the handover and the autoscaler with the
+    elastic resizing. Each resolves now to the port's own object, with the
+    reference's public names and signatures."""
+    got = getattr(importlib.import_module(module), name)
+    assert getattr(got, "__module__", getattr(got, "__name__", "")).startswith("pathway_tpu_torch."), got
+    ref_module = "pathway_tpu" + module[len("pathway_tpu_torch"):]
+    if isinstance(got, types.ModuleType):
+        ref = importlib.import_module(f"{ref_module}.{name}")
+        names = getattr(ref, "__all__", None) or [n for n, v in vars(ref).items()
+                                                  if not n.startswith("_") and inspect.isfunction(v)
+                                                  and v.__module__ == ref.__name__]
+        pairs = [(getattr(ref, n), getattr(got, n)) for n in names]
+    else:
+        pairs = [(getattr(importlib.import_module(ref_module), name), got)]
+    for ref, port in pairs:
+        if callable(ref):
+            # the reference's parameters, then only keyword-only ones of the
+            # port's own (``device=``, the card or the CPU; a process group)
+            theirs, ours = _params(ref), [p for p in _params(port) if p[0] != "device"]
+            assert ours[:len(theirs)] == theirs, (module, name, ref)
+            assert all(kind == inspect.Parameter.KEYWORD_ONLY for _n, kind, _d in ours[len(theirs):])
+        else:
+            assert port == ref, (module, name)
 
 
 def test_cli_spawn_raises_naming_mesh():
@@ -326,8 +339,9 @@ def test_repl_port_arms_the_writers_delta_stream(monkeypatch):
 def test_observability_routes_of_the_plane_answer_501_naming_the_tag():
     """The replica's ``/debug/signals`` and ``/debug/trace`` and the router's
     ``/fleet/*`` answered 501 naming [observability] until it was ported:
-    each answers 200 now, and ``/debug/autoscale`` of the monitoring server
-    is the route left answering 501, naming [mesh]."""
+    each answers 200 now. ``/debug/autoscale`` of the monitoring server
+    answered 501 naming [mesh] until the autoscaler was ported: it answers
+    404 now with no controller armed, as the reference's does."""
     import http.client
     import json
 
@@ -345,7 +359,7 @@ def test_observability_routes_of_the_plane_answer_501_naming_the_tag():
             (router.port, "/fleet/metrics", 200, None),
             (router.port, "/fleet/events", 200, None),
             (router.port, "/fleet/trace", 200, None),
-            (mon.server_address[1], "/debug/autoscale", 501, "[mesh]"),
+            (mon.server_address[1], "/debug/autoscale", 404, "no autoscale controller armed"),
         ):
             c = http.client.HTTPConnection("127.0.0.1", port, timeout=10)
             c.request("GET", path)
@@ -368,12 +382,6 @@ def test_observability_routes_of_the_plane_answer_501_naming_the_tag():
         reset_sampler()
 
 
-def _unported_root_names():
-    from pathway_tpu_torch._unported import ROOT_NAMES
-
-    return ROOT_NAMES
-
-
 def _missing(ref_names, port_module):
     return sorted(n for n in ref_names if n not in port_module.__all__ and n not in ("ml",))
 
@@ -382,18 +390,26 @@ ROOT_MISSING = _missing(__import__("pathway_tpu").__all__, pw)
 STDLIB_MISSING = _missing(__import__("pathway_tpu.stdlib").stdlib.__all__, pw.stdlib)
 
 
-@pytest.mark.parametrize("name", sorted(_unported_root_names()))
+@pytest.mark.parametrize("name", ["autoscale"])
 def test_reference_root_name_raises_with_its_tag(name):
     """Every reference root name is the port's own now (``ROOT_MISSING`` is
-    empty since ``pw.analysis`` was ported); the root subpackages of the
-    reference the port still lacks (``pw.autoscale``) raise naming their
-    tag."""
-    from pathway_tpu_torch._unported import ROOT_NAMES
+    empty since ``pw.analysis`` was ported). The root subpackage that raised
+    its tag longest, ``pw.autoscale`` ([mesh]), resolves now to the port's
+    own package with the reference's public names and signatures, and no
+    module of unported names is left."""
+    import pathway_tpu as jpw
 
     assert name not in ROOT_MISSING
-    with pytest.raises(NotImplementedError, match=r"\[[a-z-]+\]") as e:
-        getattr(pw, name)
-    assert ROOT_NAMES[name].split()[0] in str(e.value) and f"pw.{name}" in str(e.value)
+    assert importlib.util.find_spec("pathway_tpu_torch._unported") is None
+    port = getattr(pw, name)
+    assert port.__name__ == f"pathway_tpu_torch.{name}"
+    ref = importlib.import_module(f"{jpw.__name__}.{name}")
+    assert port.__all__ == ref.__all__
+    for n in ref.__all__:
+        if callable(getattr(ref, n)):
+            _same_api(getattr(ref, n), getattr(port, n), f"pw.{name}.{n}")
+        else:
+            assert getattr(port, n) == getattr(ref, n), n
 
 
 @pytest.mark.parametrize("name", __import__("pathway_tpu.stdlib").stdlib.__all__)
@@ -443,8 +459,13 @@ REFERENCE_COUNTERPART = {"TableSlice": ("pathway_tpu.internals.table_slice", "Ta
 
 
 def _default(value):
-    # a function default (a lambda) compares by its name, not its address
-    return value.__qualname__ if inspect.isfunction(value) else repr(value)
+    # a function default (a lambda) compares by its name, not its address;
+    # an object of either package (a registry) by its class's name
+    if inspect.isfunction(value):
+        return value.__qualname__
+    if type(value).__module__.startswith("pathway_tpu"):
+        return type(value).__qualname__
+    return repr(value)
 
 
 def _params(obj):
@@ -491,12 +512,6 @@ REF_PACKAGES = sorted(
 RENAMES = {"pallas_topk": "block_topk", "jax_metrics": "torch_metrics"}
 
 
-def _tags():
-    from pathway_tpu_torch import _unported
-
-    return [v.split()[0] for k, v in vars(_unported).items() if k.isupper() and isinstance(v, str)]
-
-
 def _public_names(module):
     """``__all__``, else the objects of the reference the package binds
     (its own classes and functions and their re-exports; no submodules,
@@ -511,34 +526,17 @@ def _public_names(module):
     ]
 
 
-def _assert_raises_with_tag(fn, what):
-    with pytest.raises(NotImplementedError) as e:
-        fn()
-    assert any(tag in str(e.value) for tag in _tags()), (what, str(e.value))
-
-
 @pytest.mark.parametrize("package", REF_PACKAGES)
 def test_reference_package_names_resolve_or_raise_with_a_tag(package):
+    """No tag is left to raise: the port has every package of the reference,
+    and every public name of each resolves."""
     ref = importlib.import_module(package)
-    parts = ("pathway_tpu_torch" + package[len("pathway_tpu"):]).split(".")
-    for depth in range(len(parts), 0, -1):
-        try:
-            port = importlib.import_module(".".join(parts[:depth]))
-            break
-        except ModuleNotFoundError:
-            continue
-    if depth < len(parts):
-        # the port lacks the package: its nearest parent raises for it
-        _assert_raises_with_tag(lambda: getattr(port, parts[depth]), package)
-        return
+    port = importlib.import_module("pathway_tpu_torch" + package[len("pathway_tpu"):])
     for name in _public_names(ref):
         ported = name
         for old, new in RENAMES.items():
             ported = ported.replace(old, new)
-        try:
-            getattr(port, ported)
-        except NotImplementedError as e:
-            assert any(tag in str(e) for tag in _tags()), (package, name, str(e))
+        getattr(port, ported)
 
 
 @pytest.mark.parametrize("name", ["classifiers", "smart_table_ops", "hmm", "datasets"])
@@ -547,9 +545,7 @@ def test_ml_rest_raises_with_its_tag(name):
     resolves to a module with the reference's public names and
     signatures, and the tag is gone."""
     import pathway_tpu as jpw
-    from pathway_tpu_torch import _unported
-
-    assert not hasattr(_unported, "ML_REST")
+    assert importlib.util.find_spec("pathway_tpu_torch._unported") is None
     _same_api(getattr(jpw.stdlib.ml, name), getattr(pw.stdlib.ml, name), f"pw.stdlib.ml.{name}")
 
 
@@ -566,9 +562,7 @@ CONNECTORS = [
 @pytest.mark.parametrize("name", CONNECTORS)
 def test_ported_connector_has_the_reference_signature(name):
     import pathway_tpu as jpw
-    from pathway_tpu_torch import _unported
-
-    assert not hasattr(_unported, "CONNECTORS") and name in pw.io.__all__
+    assert importlib.util.find_spec("pathway_tpu_torch._unported") is None and name in pw.io.__all__
     port = getattr(pw.io, name)
     assert port.__name__ == f"pathway_tpu_torch.io.{name}"
     _same_api(getattr(jpw.io, name), port, f"pw.io.{name}")
@@ -584,9 +578,7 @@ PORTED_DEBUG = [
 @pytest.mark.parametrize("name", PORTED_DEBUG)
 def test_ported_debug_name_has_the_reference_signature(name):
     import pathway_tpu as jpw
-    from pathway_tpu_torch import _unported
-
-    assert not hasattr(_unported, "CORE_API")
+    assert importlib.util.find_spec("pathway_tpu_torch._unported") is None
     ref, port = getattr(jpw.debug, name), getattr(pw.debug, name)
     _same_api(ref, port, f"pw.debug.{name}")
     if isinstance(ref, type):
@@ -599,11 +591,10 @@ def test_ported_debug_name_has_the_reference_signature(name):
 def test_debug_diagnose_keeps_its_tag():
     """``pw.debug.diagnose`` raised [observability] until the Graph Doctor
     was ported; it is the port's own now, with the reference's signature,
-    and no [observability] tag is left in ``_unported``."""
+    and no tag is left: ``_unported`` is gone."""
     import pathway_tpu as jpw
-    from pathway_tpu_torch import _unported
 
-    assert not hasattr(_unported, "OBSERVABILITY")
+    assert importlib.util.find_spec("pathway_tpu_torch._unported") is None
     _same_api(jpw.debug.diagnose, pw.debug.diagnose, "pw.debug.diagnose")
     report = pw.debug.diagnose(_table().select(c=pw.this.a * 2))
     assert report.by_rule("graph-stats")
